@@ -1,0 +1,64 @@
+"""dpilqr_tpu_torch: distributed potential iLQR in PyTorch and CUDA.
+
+The PyTorch/CUDA port of ``dpilqr_tpu`` (the JAX package beside it, which
+stays the reference).  Module names mirror that package.  The decomposed
+(DP-iLQR) solve inside the receding-horizon loop runs its two batched
+sweeps as hand-written CUDA kernels for Hopper (``csrc/``) on CUDA tensors,
+and as their plain PyTorch twins on CPU tensors.  Importing the package
+imports neither JAX nor the JAX package, and builds nothing: the kernels
+compile with ``nvcc`` on first use.
+"""
+
+from .config import DEFAULT_CONFIG, SolverConfig
+from .models import (
+    BIKE_5D,
+    CAR_3D,
+    DOUBLE_INT_4D,
+    DOUBLE_INT_6D,
+    GRAVITY,
+    HUMAN_6D,
+    HUMAN_LIN_6D,
+    MODEL_BY_NAME,
+    MODEL_REGISTRY,
+    QUAD_6D,
+    QUAD_12D,
+    UNICYCLE_4D,
+    Fleet,
+    ModelSpec,
+    get_model,
+    homogeneous_fleet,
+)
+from .parallel import (
+    DistributedResult,
+    RhcResult,
+    RhcStepInfo,
+    graph_to_dict,
+    interaction_graph,
+    selfish_warmstart,
+    solve_distributed,
+    solve_rhc,
+)
+from .utils import (
+    compute_energy,
+    distance_to_goal,
+    face_goal,
+    normalize_energy,
+    pairwise_distances,
+    perturb_state,
+    random_setup,
+    randomize_locs,
+)
+from .ops import (
+    GameCost,
+    SolveResult,
+    game_cost_from_numpy,
+    make_game_cost,
+    proximity_cost,
+    quadraticize_stage,
+    quadraticize_terminal,
+    rollout,
+    stage_cost,
+    terminal_cost,
+)
+
+__version__ = "0.1.0"

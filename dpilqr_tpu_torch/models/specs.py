@@ -1,0 +1,81 @@
+"""Dynamics model registry.
+
+Counterpart of ``dpilqr_tpu/models/specs.py``: the same nine models with the
+same ids, state/control sizes, RK4 substep counts and position sizes.  Each
+model's continuous-time right-hand side lives once, in the layout-agnostic
+table of ``models/vectorized.py``; ``ModelSpec.f`` evaluates it on native
+dimensions.  Jacobians are exact (forward-mode ``torch.func``), discretized
+with the reference's forward-Euler rule ``A_d = I + dt A_c``,
+``B_d = dt B_c`` (dpilqr/bbdynamics.cpp:95-106).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+# Acceleration due to gravity (reference: dpilqr/bbdynamics.cpp:11).
+GRAVITY = 9.80665
+
+# Quadrotor 12D physical constants (reference: dpilqr/bbdynamics.cpp:507-510,
+# 696-707): thrust/inertia ratios and gyroscopic coupling ratios.
+_Q12_KF = 2000.0 / 63.0
+_Q12_KTX = 625000000000000000.0 / 10982593196059.0
+_Q12_KTY = 5000000000000000000.0 / 92848985528431.0
+_Q12_KTZ = 10000000000000000000.0 / 271597947137541.0
+_Q12_CX = 85899976080679.0 / 175721491136944.0
+_Q12_CY = 95876456000597.0 / 185697971056862.0
+_Q12_CZ = 9976479919918.0 / 271597947137541.0
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    """Static description of one dynamics model."""
+
+    name: str
+    model_id: int
+    n_x: int
+    n_u: int
+    # RK4 sub-steps per control period: 5 as in the reference's C++ kernel
+    # (bbdynamics.cpp:49), 1 for the sympy-derived bicycle (dynamics.py:74).
+    rk4_substeps: int = 5
+    # Number of leading position coordinates (used by proximity coupling).
+    n_pos: int = 2
+
+    def f(self, x, u):
+        """Continuous dynamics on native dims: ``(..., n_x), (..., n_u)``."""
+        from .vectorized import padded_f
+
+        return padded_f(self.name, x, u)
+
+
+DOUBLE_INT_4D = ModelSpec("DoubleInt4D", 0, 4, 2, n_pos=2)
+DOUBLE_INT_6D = ModelSpec("DoubleInt6D", 1, 6, 3, n_pos=3)
+CAR_3D = ModelSpec("Car3D", 2, 3, 2, n_pos=2)
+UNICYCLE_4D = ModelSpec("Unicycle4D", 3, 4, 2, n_pos=2)
+HUMAN_6D = ModelSpec("Human6D", 4, 6, 3, n_pos=3)
+HUMAN_LIN_6D = ModelSpec("HumanLin6D", 5, 6, 3, n_pos=3)
+QUAD_6D = ModelSpec("Quad6D", 6, 6, 3, n_pos=3)
+QUAD_12D = ModelSpec("Quad12D", 7, 12, 4, n_pos=3)
+BIKE_5D = ModelSpec("Bike5D", 8, 5, 2, rk4_substeps=1, n_pos=2)
+
+MODEL_REGISTRY: tuple[ModelSpec, ...] = (
+    DOUBLE_INT_4D,
+    DOUBLE_INT_6D,
+    CAR_3D,
+    UNICYCLE_4D,
+    HUMAN_6D,
+    HUMAN_LIN_6D,
+    QUAD_6D,
+    QUAD_12D,
+    BIKE_5D,
+)
+
+MODEL_BY_NAME = {spec.name: spec for spec in MODEL_REGISTRY}
+
+
+def get_model(name_or_id) -> ModelSpec:
+    if isinstance(name_or_id, ModelSpec):
+        return name_or_id
+    if isinstance(name_or_id, str):
+        return MODEL_BY_NAME[name_or_id]
+    return MODEL_REGISTRY[int(name_or_id)]

@@ -1,0 +1,640 @@
+"""Batched iLQR over all subproblems: the two sweep kernels and their driver.
+
+Counterpart of ``dpilqr_tpu/ops/pallas_batched.py``.  The decomposed solve
+turns the n per-agent subproblems (reference dpilqr/distributed.py:25-103)
+into one batch of S subproblems with K slots each, and every iteration runs
+two batched sweeps over all of them:
+
+- ``backward_pass_batched``: the Riccati recursion (reference
+  control.py:116-148), kernel ``csrc/backward_batched.cu``;
+- ``forward_pass_batched``: the closed-loop line-search rollout over all
+  alphas (control.py:95-114,162), kernel ``csrc/forward_batched.cu``.
+
+Each kernel has a plain PyTorch twin beside it (``*_torch``): a Python loop
+over time with the same block algebra as batched einsums.  ``backend``
+"auto" takes the kernel for CUDA tensors and the twin for CPU tensors;
+"cuda" and "torch" force one.  The kernels raise rather than fall back.
+
+The quadraticization and linearization (``_quadraticize_batch``,
+``_linearize_batch``) run in torch outside the kernels, as in the JAX
+package.  The batch loop (``solve_subproblems_batched``) runs on the host:
+one sync per iteration for the loop condition and one for the two-stage
+line search, with finished subproblems retired by halving compaction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ..config import SolverConfig
+from ..models.fleet import Fleet
+from ..models.vectorized import blended_f
+from .costs import (
+    GameCost,
+    assemble_pair_hessian,
+    cast_cost,
+    diag_embed,
+    quadraticize_stage_compact,
+    quadraticize_terminal_compact,
+    stage_cost,
+    terminal_cost,
+)
+from .ilqr import SolveResult, line_search_alphas
+
+# Widest flat state (K * nx_p) the kernels take.  Wider subproblems
+# (Quad6D at K=8, Quad12D) need the blocked backward kernel, still to be
+# ported (ROADMAP B3, dpilqr_tpu/ops/pallas_batched_wide.py).
+MAX_NXF = 32
+MAX_NUF = 32
+
+# Compaction granularity of the retirement schedule (widths halve, rounded
+# up to a multiple of this).
+COMPACTION_UNIT = 16
+
+# Launches of each kernel since the last reset (the twins never count).
+launch_counts = {"backward_pass_batched": 0, "forward_pass_batched": 0}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def resolve_backend(backend: str, t: torch.Tensor) -> str:
+    """"auto" -> "cuda" for CUDA tensors, "torch" for CPU tensors."""
+    if backend == "auto":
+        return "cuda" if t.is_cuda else "torch"
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown sweep backend {backend!r}")
+    return backend
+
+
+# ---------------------------------------------------------------------------
+# Batched prep (torch, outside the kernels).
+# ---------------------------------------------------------------------------
+
+
+def _time_cost(cost_b: GameCost) -> GameCost:
+    """Per-subproblem cost ``(S, ...)`` -> broadcastable over time ``(S, 1, ...)``."""
+    return GameCost(*(a.unsqueeze(1) for a in cost_b))
+
+
+def _quadraticize_batch(cost_b: GameCost, X, U):
+    """Time-batched quadraticization of a batch of subproblems.
+
+    ``X (S, N+1, K, nx_p)``, ``U (S, N, K, nu_p)``; ``cost_b`` has a leading
+    S axis on every field.  Returns subproblem-major contiguous tensors
+    ``L_x (S, N, nxf)``, ``L_u (S, N, nuf)``, ``L_uu (S, N, nuf, nuf)``
+    (block-diagonal), ``L_xx (S, N, nxf, nxf)`` (with proximity coupling),
+    ``p0 (S, nxf)``, ``P0 (S, nxf, nxf)``.
+    """
+    S, Np1, K, nx_p = X.shape
+    N = Np1 - 1
+    nu_p = U.shape[-1]
+    nxf, nuf = K * nx_p, K * nu_p
+
+    L_x, L_u, L_xx_diag, L_uu, H = quadraticize_stage_compact(
+        _time_cost(cost_b), X[:, :-1], U
+    )
+    L_xx = diag_embed(L_xx_diag)
+    if K > 1:
+        L_xx = L_xx + assemble_pair_hessian(H, K, nx_p)
+    L_xT, L_xxT_diag, HT = quadraticize_terminal_compact(cost_b, X[:, -1])
+    L_xxT = diag_embed(L_xxT_diag)
+    if K > 1:
+        L_xxT = L_xxT + assemble_pair_hessian(HT, K, nx_p)
+    L_uu_bd = diag_embed(L_uu)
+    return dict(
+        L_x=L_x.reshape(S, N, nxf).contiguous(),
+        L_u=L_u.reshape(S, N, nuf).contiguous(),
+        L_uu=L_uu_bd.expand(S, N, K, nu_p, K, nu_p).reshape(S, N, nuf, nuf).contiguous(),
+        L_xx=L_xx.expand(S, N, K, nx_p, K, nx_p).reshape(S, N, nxf, nxf).contiguous(),
+        p0=L_xT.reshape(S, nxf).contiguous(),
+        P0=L_xxT.reshape(S, nxf, nxf).contiguous(),
+    )
+
+
+def _linearize_batch(fleet: Fleet, cost_b: GameCost, mids_s, X, U):
+    """Discretized Jacobians ``A (S, N, K, nx_p, nx_p)``,
+    ``B (S, N, K, nx_p, nu_p)``; padded slots get ``B = 0`` so the
+    recursion stays exactly decoupled from them."""
+    A, B = fleet.linearize_dyn(mids_s[:, None, :], X[:, :-1], U)
+    B = B * cost_b.agent_mask[:, None, :, None, None]
+    return A.contiguous(), B.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: batched backward pass.
+# ---------------------------------------------------------------------------
+
+
+def _gj_solve_torch(Quu, Qux, Qu):
+    """Gauss-Jordan ``Quu [X | x] = [Qux | Qu]`` without pivoting, batched
+    over the leading axis; the elimination order, reciprocal-multiply pivots
+    and pivot-row restore of the kernel."""
+    nuf = Quu.shape[-1]
+    for kp in range(nuf):
+        inv = 1.0 / Quu[:, kp, kp]
+        pivq = Quu[:, kp, :] * inv[:, None]
+        pivx = Qux[:, kp, :] * inv[:, None]
+        pivu = Qu[:, kp] * inv
+        col = Quu[:, :, kp]
+        Quu = Quu - col[:, :, None] * pivq[:, None, :]
+        Qux = Qux - col[:, :, None] * pivx[:, None, :]
+        Qu = Qu - col * pivu[:, None]
+        Quu[:, kp, :] = pivq
+        Qux[:, kp, :] = pivx
+        Qu[:, kp] = pivu
+    return Qux, Qu
+
+
+def backward_pass_batched_torch(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
+    """Plain PyTorch twin of the backward kernel (same inputs and outputs
+    as ``backward_pass_batched_cuda``)."""
+    S, N, K, nx_p, _ = A.shape
+    nu_p = B.shape[-1]
+    nxf, nuf = K * nx_p, K * nu_p
+    eye = torch.eye(nxf, dtype=A.dtype, device=A.device)
+    p, P = p0, P0
+    Kg = A.new_empty((N, S, nuf, nxf))
+    d = A.new_empty((N, S, nuf))
+    for t in range(N - 1, -1, -1):
+        A_t, B_t = A[:, t], B[:, t]
+        Preg = P + mu[:, None, None] * eye
+        p2 = p.view(S, K, nx_p)
+        Q_x = L_x[:, t] + torch.einsum("skba,skb->ska", A_t, p2).reshape(S, nxf)
+        Q_u = L_u[:, t] + torch.einsum("skba,skb->ska", B_t, p2).reshape(S, nuf)
+        AtP = torch.einsum(
+            "skba,skbc->skac", A_t, P.view(S, K, nx_p, nxf)
+        ).reshape(S, nxf, nxf)
+        Q_xx = L_xx[:, t] + torch.einsum(
+            "srkb,skba->srka", AtP.view(S, nxf, K, nx_p), A_t
+        ).reshape(S, nxf, nxf)
+        W1 = torch.einsum(
+            "skbj,skbc->skjc", B_t, Preg.view(S, K, nx_p, nxf)
+        ).reshape(S, nuf, nxf)
+        W1k = W1.view(S, nuf, K, nx_p)
+        Q_ux = torch.einsum("srkb,skba->srka", W1k, A_t).reshape(S, nuf, nxf)
+        Q_uu = torch.einsum("srkb,skbj->srkj", W1k, B_t).reshape(S, nuf, nuf)
+        Q_uu = Q_uu + L_uu[:, t]
+
+        sol_K, sol_d = _gj_solve_torch(Q_uu, Q_ux, Q_u)
+        K_t, d_t = -sol_K, -sol_d
+        Kg[t], d[t] = K_t, d_t
+
+        # Full-form value update with symmetrization (control.py:144-146).
+        w = torch.einsum("svj,sv->sj", Q_uu, d_t) + Q_u
+        p = (
+            Q_x
+            + torch.einsum("svc,sv->sc", K_t, w)
+            + torch.einsum("svc,sv->sc", Q_ux, d_t)
+        )
+        QuuK = torch.einsum("svi,svj->sij", Q_uu, K_t)
+        KtQux = torch.einsum("svi,svj->sij", K_t, Q_ux)
+        P_new = (
+            Q_xx
+            + torch.einsum("svi,svj->sij", K_t, QuuK)
+            + KtQux
+            + KtQux.transpose(1, 2)
+        )
+        P = 0.5 * (P_new + P_new.transpose(1, 2))
+    return Kg.permute(0, 2, 3, 1).contiguous(), d.permute(0, 2, 1).contiguous()
+
+
+def _check_cuda(name: str, tensors: dict, dtype, device):
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {key} has dtype {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _dtype_suffix(dtype) -> str:
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise ValueError(f"kernels take float32 or float64, got {dtype}")
+
+
+def _check_width(name: str, nxf: int, nuf: int):
+    if nxf > MAX_NXF or nuf > MAX_NUF:
+        raise NotImplementedError(
+            f"{name}: K*nx_p={nxf} (K*nu_p={nuf}) exceeds the kernel's "
+            f"{MAX_NXF}; wide subproblems need the blocked backward kernel "
+            "(ROADMAP B3, backward_pass_batched_wide), not yet ported"
+        )
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+
+
+def backward_pass_batched_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
+    """Launch ``csrc/backward_batched.cu``: the Riccati recursion for all
+    subproblems, one CTA each.  Inputs as ``_quadraticize_batch`` /
+    ``_linearize_batch`` produce them; returns ``Kg (N, nuf, nxf, S)``,
+    ``d (N, nuf, S)``."""
+    from .cuda_build import load_library
+
+    S, N, K, nx_p, _ = A.shape
+    nu_p = B.shape[-1]
+    nxf, nuf = K * nx_p, K * nu_p
+    _check_width("backward_pass_batched", nxf, nuf)
+    if not A.is_cuda:
+        raise ValueError("backward_pass_batched_cuda needs CUDA tensors")
+    shapes = {
+        "A": (S, N, K, nx_p, nx_p), "B": (S, N, K, nx_p, nu_p),
+        "L_uu": (S, N, nuf, nuf), "L_xx": (S, N, nxf, nxf),
+        "L_x": (S, N, nxf), "L_u": (S, N, nuf), "mu": (S,),
+        "p0": (S, nxf), "P0": (S, nxf, nxf),
+    }
+    ins = dict(A=A, B=B, L_uu=L_uu, L_xx=L_xx, L_x=L_x, L_u=L_u, mu=mu,
+               p0=p0, P0=P0)
+    for k, shp in shapes.items():
+        if tuple(ins[k].shape) != shp:
+            raise ValueError(f"backward_pass_batched: {k} has shape "
+                             f"{tuple(ins[k].shape)}, expected {shp}")
+    _check_cuda("backward_pass_batched", ins, A.dtype, A.device)
+    fn = getattr(load_library(), f"dpilqr_backward_batched_{_dtype_suffix(A.dtype)}")
+    Kg = torch.empty((N, nuf, nxf, S), dtype=A.dtype, device=A.device)
+    d = torch.empty((N, nuf, S), dtype=A.dtype, device=A.device)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    err = fn(*(_ptr(ins[k]) for k in shapes), _ptr(Kg), _ptr(d),
+             S, N, K, nx_p, nu_p, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"backward_batched kernel failed: cudaError {err}")
+    launch_counts["backward_pass_batched"] += 1
+    return Kg, d
+
+
+def backward_pass_batched(
+    fleet: Fleet, cost_b: GameCost, mids_s, X, U, mu, backend: str = "auto"
+):
+    """Batched Riccati sweep (reference control.py:116-148).
+
+    ``X (S, N+1, K, nx_p)``, ``U (S, N, K, nu_p)``, ``mu (S,)``,
+    ``mids_s (S, K)`` per-slot branch indices.  Returns ``Kg (N, nuf, nxf,
+    S)`` and ``d (N, nuf, S)``, the JAX package's layout.
+    """
+    q = _quadraticize_batch(cost_b, X, U)
+    A, B = _linearize_batch(fleet, cost_b, mids_s, X, U)
+    fn = (
+        backward_pass_batched_cuda
+        if resolve_backend(backend, X) == "cuda"
+        else backward_pass_batched_torch
+    )
+    return fn(A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"],
+              mu.to(X.dtype).contiguous(), q["p0"], q["P0"])
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: batched forward pass (line search over all alphas).
+# ---------------------------------------------------------------------------
+
+
+def _slot_tables(fleet: Fleet, mids_s, dtype):
+    """Per-slot ``(model id, RK4 substeps, step dh = dt / substeps)`` from
+    the branch indices ``mids_s (S, K)``."""
+    uniq = fleet.unique_specs
+    dev = mids_s.device
+    ids = torch.tensor([s.model_id for s in uniq], dtype=torch.int32, device=dev)
+    nsub = torch.tensor([s.rk4_substeps for s in uniq], dtype=torch.int32, device=dev)
+    dh = torch.tensor([fleet.dt / s.rk4_substeps for s in uniq], dtype=torch.float64,
+                      device=dev).to(dtype)
+    m = mids_s.long()
+    return ids[m].contiguous(), nsub[m].contiguous(), dh[m].contiguous()
+
+
+def forward_pass_batched_torch(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
+                               Kg, d, alphas):
+    """Plain PyTorch twin of the forward kernel (same arguments and outputs
+    as ``forward_pass_batched``)."""
+    S, Np1, K, nx_p = X.shape
+    N = Np1 - 1
+    nu_p = U.shape[-1]
+    n_alpha = alphas.shape[0]
+    _, nsub, dh_slot = _slot_tables(fleet, mids_s, X.dtype)
+    n_steps = int(max(s.rk4_substeps for s in fleet.unique_specs))
+    # dh_table[i] = dh for substep i < the slot's own count, else exactly 0
+    # (x + 0 * (...) == x, so each slot runs its own RK4 schedule).
+    dh_tab = [
+        torch.where(nsub > i, dh_slot, torch.zeros_like(dh_slot))[..., None]
+        for i in range(n_steps)
+    ]
+    f = blended_f(fleet.specs)
+    mids = mids_s.long()
+    cost_b = cast_cost(cost_b, X.dtype)
+
+    x = X[:, 0].expand(n_alpha, S, K, nx_p)
+    J = X.new_zeros((n_alpha, S))
+    a4 = alphas.to(X.dtype)[:, None, None, None]
+    Xs, Us = [], []
+    for t in range(N):
+        if Kg is not None:
+            dx = (x - X[:, t]).reshape(n_alpha, S, K * nx_p)
+            du = torch.einsum("rcs,asc->asr", Kg[t], dx)
+            u = (
+                U[:, t]
+                + du.reshape(n_alpha, S, K, nu_p)
+                + a4 * d[t].T.reshape(S, K, nu_p)
+            )
+        else:
+            u = U[:, t].expand(n_alpha, S, K, nu_p)
+        J = J + stage_cost(cost_b, x, u)
+        Us.append(u)
+        for dh in dh_tab:
+            k0 = f(x, u, mids)
+            k1 = f(x + 0.5 * dh * k0, u, mids)
+            k2 = f(x + 0.5 * dh * k1, u, mids)
+            k3 = f(x + dh * k2, u, mids)
+            x = x + dh * (k0 + 2.0 * k1 + 2.0 * k2 + k3) / 6.0
+        Xs.append(x)
+    J = J + terminal_cost(cost_b, x)
+    X5 = torch.stack(Xs).permute(0, 4, 3, 1, 2)  # (N, nx_p, K, n_alpha, S)
+    U5 = torch.stack(Us).permute(0, 4, 3, 1, 2)
+    return X5.contiguous(), U5.contiguous(), J
+
+
+def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
+                              Kg, d, alphas):
+    """Launch ``csrc/forward_batched.cu``: one thread per (alpha,
+    subproblem) column.  Same arguments and outputs as
+    ``forward_pass_batched``."""
+    from .cuda_build import load_library
+
+    S, Np1, K, nx_p = X.shape
+    N = Np1 - 1
+    nu_p = U.shape[-1]
+    nxf, nuf = K * nx_p, K * nu_p
+    n_alpha = alphas.shape[0]
+    _check_width("forward_pass_batched", nxf, nuf)
+    if not X.is_cuda:
+        raise ValueError("forward_pass_batched_cuda needs CUDA tensors")
+    if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
+        raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
+    dtype, dev = X.dtype, X.device
+    model, nsub, dh = _slot_tables(fleet, mids_s, dtype)
+    ins = dict(X=X, U=U, alphas=alphas, slot_model=model, slot_nsub=nsub,
+               slot_dh=dh, xf=cost_b.xf, Q=cost_b.Q, R=cost_b.R, Qf=cost_b.Qf,
+               mask=cost_b.agent_mask, refw=cost_b.ref_weight,
+               radius=cost_b.radius, proxw=cost_b.prox_weight,
+               npos_eval=cost_b.n_pos_eval)
+    shapes = dict(X=(S, N + 1, K, nx_p), U=(S, N, K, nu_p), alphas=(n_alpha,),
+                  slot_model=(S, K), slot_nsub=(S, K), slot_dh=(S, K),
+                  xf=(S, K, nx_p), Q=(S, K, nx_p, nx_p), R=(S, K, nu_p, nu_p),
+                  Qf=(S, K, nx_p, nx_p), mask=(S, K), refw=(S,), radius=(S,),
+                  proxw=(S,), npos_eval=(S, K))
+    if Kg is not None:
+        ins.update(Kg=Kg, d=d)
+        shapes.update(Kg=(N, nuf, nxf, S), d=(N, nuf, S))
+    for k, shp in shapes.items():
+        if tuple(ins[k].shape) != shp:
+            raise ValueError(f"forward_pass_batched: {k} has shape "
+                             f"{tuple(ins[k].shape)}, expected {shp}")
+    ints = {"slot_model", "slot_nsub", "npos_eval"}
+    _check_cuda("forward_pass_batched",
+                {k: v for k, v in ins.items() if k not in ints}, dtype, dev)
+    _check_cuda("forward_pass_batched",
+                {k: v for k, v in ins.items() if k in ints}, torch.int32, dev)
+    fn = getattr(load_library(), f"dpilqr_forward_batched_{_dtype_suffix(dtype)}")
+    X5 = torch.empty((N, nx_p, K, n_alpha, S), dtype=dtype, device=dev)
+    U5 = torch.empty((N, nu_p, K, n_alpha, S), dtype=dtype, device=dev)
+    J = torch.empty((n_alpha, S), dtype=dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(
+        _ptr(X), _ptr(U), _ptr(Kg), _ptr(d), _ptr(alphas), _ptr(model),
+        _ptr(nsub), _ptr(dh), _ptr(cost_b.xf), _ptr(cost_b.Q), _ptr(cost_b.R),
+        _ptr(cost_b.Qf), _ptr(cost_b.agent_mask), _ptr(cost_b.ref_weight),
+        _ptr(cost_b.radius), _ptr(cost_b.prox_weight), _ptr(cost_b.n_pos_eval),
+        _ptr(X5), _ptr(U5), _ptr(J), S, N, K, nx_p, nu_p, n_alpha,
+        ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"forward_batched kernel failed: cudaError {err}")
+    launch_counts["forward_pass_batched"] += 1
+    return X5, U5, J
+
+
+def forward_pass_batched(
+    fleet: Fleet, cost_b: GameCost, mids_s, X, U, Kg, d, alphas,
+    backend: str = "auto",
+):
+    """Batched closed-loop forward sweep (control.py:95-114).
+
+    ``X (S, N+1, K, nx_p)``, ``U (S, N, K, nu_p)`` nominal trajectory;
+    ``Kg (N, nuf, nxf, S)``, ``d (N, nuf, S)`` from
+    ``backward_pass_batched`` (None for a plain rollout of U); ``alphas
+    (n_alpha,)``; ``mids_s (S, K)`` per-slot branch indices; ``cost_b``
+    fields in X's dtype.
+
+    Returns ``X5 (N, nx_p, K, n_alpha, S)`` (states 1..N), ``U5 (N, nu_p,
+    K, n_alpha, S)`` and ``J (n_alpha, S)``.
+    """
+    fn = (
+        forward_pass_batched_cuda
+        if resolve_backend(backend, X) == "cuda"
+        else forward_pass_batched_torch
+    )
+    return fn(fleet, cost_b, mids_s, X, U, Kg, d, alphas)
+
+
+def select_alpha(X5, U5, x0_s, a_idx):
+    """Each subproblem's accepted line-search candidate.
+
+    ``X5 (N, nx_p, K, n_alpha, S)``, ``a_idx (S,)`` -> ``X (S, N+1, K,
+    nx_p)`` with ``x0_s (S, K, nx_p)`` prepended, ``U (S, N, K, nu_p)``.
+    """
+    N, nx_p, K, _, S = X5.shape
+    nu_p = U5.shape[1]
+    ix = a_idx.long().view(1, 1, 1, 1, S)
+    Xsel = X5.gather(3, ix.expand(N, nx_p, K, 1, S))[:, :, :, 0]
+    Usel = U5.gather(3, ix.expand(N, nu_p, K, 1, S))[:, :, :, 0]
+    X = torch.cat([x0_s[:, None], Xsel.permute(3, 0, 2, 1)], dim=1)
+    return X, Usel.permute(3, 0, 2, 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Batched iLQR solve driver.
+# ---------------------------------------------------------------------------
+
+
+class BatchCarry(NamedTuple):
+    X: torch.Tensor  # (S, N+1, K, nx_p)
+    U: torch.Tensor  # (S, N, K, nu_p)
+    J: torch.Tensor  # (S,)
+    mu: torch.Tensor  # (S,)
+    delta: torch.Tensor  # (S,)
+    i: torch.Tensor  # (S,) int32
+    converged: torch.Tensor  # (S,) bool
+    failed: torch.Tensor  # (S,) bool
+    active: torch.Tensor  # (S,) bool
+
+
+def init_batch_carry(
+    fleet: Fleet, cfg: SolverConfig, sub_cost: GameCost, x0_s, U0_s, mids_s,
+    enabled, backend: str = "auto",
+) -> BatchCarry:
+    """Initial rollout of the warm start (control.py:80-93) + carry setup;
+    the rollout is the forward kernel with no gains and one alpha."""
+    dtype, dev = x0_s.dtype, x0_s.device
+    S, K, nx_p = x0_s.shape
+    N = U0_s.shape[1]
+    X0full = x0_s[:, None].expand(S, N + 1, K, nx_p).contiguous()
+    X5, U5, J1 = forward_pass_batched(
+        fleet, sub_cost, mids_s, X0full, U0_s, None, None,
+        torch.zeros((1,), dtype=dtype, device=dev), backend,
+    )
+    zeros_i = torch.zeros((S,), dtype=torch.int32, device=dev)
+    Xr, Ur = select_alpha(X5, U5, x0_s, zeros_i)
+    no = torch.zeros((S,), dtype=torch.bool, device=dev)
+    return BatchCarry(
+        X=Xr, U=Ur, J=J1[0],
+        mu=torch.full((S,), cfg.mu_init, dtype=dtype, device=dev),
+        delta=torch.full((S,), cfg.delta_0, dtype=dtype, device=dev),
+        i=zeros_i, converged=no, failed=no.clone(),
+        active=enabled.to(torch.bool) & (cfg.n_lqr_iter > 0),
+    )
+
+
+def batched_iteration(
+    fleet: Fleet, cfg: SolverConfig, sub_cost: GameCost, mids_s, x0_s,
+    c: BatchCarry, backend: str = "auto",
+) -> BatchCarry:
+    """One iLQR iteration over the batch: backward sweep, (two-stage) line
+    search, per-subproblem accept / regularization / convergence
+    (reference control.py:150-226), inactive subproblems frozen."""
+    dtype = x0_s.dtype
+    n_alpha = cfg.n_ls_iter
+    alphas = line_search_alphas(n_alpha, dtype, x0_s.device)
+    Kg, dv = backward_pass_batched(
+        fleet, sub_cost, mids_s, c.X, c.U, c.mu, backend
+    )
+
+    def fwd(a):
+        return forward_pass_batched(
+            fleet, sub_cost, mids_s, c.X, c.U, Kg, dv, a, backend
+        )
+
+    # Two-stage line search: the first p alphas, then the rest only when
+    # some active subproblem improved at none of them.  The accept rule is
+    # the FIRST improving alpha, so the decision equals the one-shot sweep.
+    p = cfg.ls_probe
+    if 0 < p < n_alpha:
+        X5, U5, J_c = fwd(alphas[:p])
+        need_tail = bool(torch.any(c.active & ~torch.any(J_c < c.J, dim=0)))
+        if need_tail:
+            X5b, U5b, J_b = fwd(alphas[p:])
+            X5 = torch.cat([X5, X5b], dim=3)
+            U5 = torch.cat([U5, U5b], dim=3)
+            J_c = torch.cat([J_c, J_b], dim=0)
+    else:
+        X5, U5, J_c = fwd(alphas)
+
+    improved = J_c < c.J[None, :]  # (n_alpha, S)
+    accept = torch.any(improved, dim=0)
+    a_idx = torch.argmax(improved.to(torch.int32), dim=0)  # first improving
+    Xn, Un = select_alpha(X5, U5, x0_s, a_idx)
+    Jn = J_c.gather(0, a_idx[None])[0]
+
+    upd = c.active & accept
+    X = torch.where(upd[:, None, None, None], Xn, c.X)
+    U = torch.where(upd[:, None, None, None], Un, c.U)
+    J = torch.where(upd, Jn, c.J)
+
+    tiny = torch.finfo(dtype).tiny
+    rel = torch.abs((c.J - Jn) / torch.clamp(torch.abs(c.J), min=tiny))
+    converged_now = upd & (rel < cfg.tol)
+    failed_now = c.active & ~accept
+
+    # Regularization decrease on acceptance (control.py:232-237).
+    delta_dec = torch.clamp(c.delta, max=1.0) / cfg.delta_0
+    mu_dec = c.mu * delta_dec
+    mu_lo = cfg.mu_min if cfg.mu_floor else 0.0
+    mu_dec = torch.where(mu_dec <= cfg.mu_min, torch.full_like(mu_dec, mu_lo), mu_dec)
+    if cfg.on_failed_ls == "increase":
+        # The reference's (dead) mu-increase path (control.py:198-208).
+        delta_inc = torch.clamp(c.delta, min=1.0) * cfg.delta_0
+        mu_inc = torch.clamp(c.mu * delta_inc, min=cfg.mu_min)
+        mu = torch.where(upd, mu_dec, torch.where(c.active, mu_inc, c.mu))
+        delta = torch.where(upd, delta_dec, torch.where(c.active, delta_inc, c.delta))
+        failed_now = failed_now & (mu_inc >= cfg.mu_max)
+    else:
+        mu = torch.where(upd, mu_dec, c.mu)
+        delta = torch.where(upd, delta_dec, c.delta)
+
+    i = c.i + c.active.to(torch.int32)
+    converged = c.converged | converged_now
+    failed = c.failed | failed_now
+    active = c.active & ~converged_now & ~failed_now & (i < cfg.n_lqr_iter)
+    return BatchCarry(X, U, J, mu, delta, i, converged, failed, active)
+
+
+def next_width(w: int, unit: int = COMPACTION_UNIT) -> int:
+    """Next (smaller) compaction width: about half, rounded up to ``unit``;
+    ``w`` itself when no smaller width exists."""
+    nw = -(-(w // 2) // unit) * unit
+    return nw if 0 < nw < w else w
+
+
+def compaction_widths(S: int, unit: int = COMPACTION_UNIT) -> list[int]:
+    """The halving width schedule ``[S, ~S/2, ..., final]``."""
+    widths = [S]
+    while (nw := next_width(widths[-1], unit)) != widths[-1]:
+        widths.append(nw)
+    return widths
+
+
+def solve_subproblems_batched(
+    fleet: Fleet, cfg: SolverConfig, sub_cost: GameCost, x0_s, U0_s, mids_s,
+    enabled, backend: str | None = None,
+) -> SolveResult:
+    """Batched iLQR over the subproblem axis.
+
+    Same per-subproblem accept / regularization / convergence semantics as
+    the reference's per-problem solve (control.py:150-226), applied
+    elementwise with masked freezing.  Finished subproblems RETIRE: once the
+    active count fits the next width of ``compaction_widths``, the actives
+    are compacted (stable gather) and iteration continues at that width.  A
+    subproblem's iteration sequence does not depend on its lane, so results
+    equal the lockstep loop's.
+
+    ``x0_s (S, K, nx_p)``, ``U0_s (S, N, K, nu_p)``, ``mids_s (S, K)`` branch
+    indices, ``enabled (S,)`` bool; ``backend`` defaults to
+    ``cfg.sweep_backend``.
+    """
+    dtype = x0_s.dtype
+    backend = resolve_backend(backend or cfg.sweep_backend, x0_s)
+    sub_cost = cast_cost(sub_cost, dtype)
+    S = x0_s.shape[0]
+    c = init_batch_carry(fleet, cfg, sub_cost, x0_s, U0_s, mids_s, enabled, backend)
+    out = BatchCarry(*(a.clone() for a in c))
+    data = (sub_cost, mids_s, x0_s)
+    idx_map = torch.arange(S, device=x0_s.device)
+    w = S
+    while True:
+        nw = next_width(w)
+        while True:
+            n_active = int(c.active.sum())
+            if n_active == 0 or (nw < w and n_active <= nw):
+                break
+            c = batched_iteration(fleet, cfg, *data, c, backend)
+        for o, a in zip(out, c):
+            o[idx_map] = a
+        if n_active == 0 or nw == w:
+            break
+        # Stable active-first permutation; keep the first nw lanes.
+        perm = torch.argsort((~c.active).to(torch.uint8), stable=True)[:nw]
+        c = BatchCarry(*(a[perm] for a in c))
+        data = (GameCost(*(a[perm] for a in data[0])), data[1][perm], data[2][perm])
+        idx_map = idx_map[perm]
+        w = nw
+    return SolveResult(
+        X=out.X, U=out.U, J=out.J, iters=out.i, converged=out.converged,
+        failed_line_search=out.failed,
+    )

@@ -1,0 +1,274 @@
+"""Receding-horizon control driver (decomposed mode).
+
+Counterpart of ``dpilqr_tpu/parallel/rhc.py`` (reference ``solve_rhc``,
+distributed.py:106-221): a host loop that solves, advances ``step_size``
+steps and shift-and-pads the warm start.  Trajectories stay on the solve's
+device; each step fetches only its loop-control scalars (J, goal distances,
+the largest neighborhood, the truncation flag).
+
+The subproblem width follows the JAX package's schedule exactly: under
+auto-K a step is solved with the width chosen from the steps resolved
+before its predecessor (the JAX loop dispatches step k+1 before it
+resolves step k), widths grow at once and shrink with hysteresis, and a
+truncated step is redone from the same warm state with a wider K.
+
+Not ported yet: the centralized solve, ``t_kill`` (parallel/deadline.py),
+``log_fn`` and checkpointing; they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass, field
+from time import perf_counter
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_CONFIG, SolverConfig
+from ..models.fleet import Fleet
+from ..ops.costs import GameCost, cast_cost
+from ..ops.ilqr import rollout
+from ..utils.geometry import distance_to_goal
+from .distributed import solve_distributed
+from .graph import graph_to_dict
+
+
+@dataclass
+class RhcStepInfo:
+    """Per-MPC-step record (the reference's solve_info + CSV row,
+    distributed.py:187-194); ``graph`` renders from ``membership`` on
+    access."""
+
+    t: float
+    J: float
+    solve_time: float
+    membership: np.ndarray | None = None
+    iters: list = field(default_factory=list)
+    distance_left: list = field(default_factory=list)
+    K: int | None = None  # subproblem width the step was solved at
+    k_max: int | None = None  # largest neighborhood of the step's graph
+    converged: list = field(default_factory=list)  # per-subproblem flags
+
+    @property
+    def graph(self) -> dict | None:
+        return None if self.membership is None else graph_to_dict(self.membership)
+
+
+@dataclass
+class RhcResult:
+    X: np.ndarray  # (T, n, nx_p) executed trajectory
+    U: np.ndarray  # (T, n, nu_p) executed controls
+    J: float  # joint cost of the executed plan
+    converged: bool
+    steps: list = field(default_factory=list)  # list[RhcStepInfo]
+
+
+def _advance_shift(X, U, xf, step_size: int, n_d: int):
+    """Advance the simulated system and shift-and-pad the warm start
+    (reference distributed.py:178-185).  Returns ``(xi, X_exec, U_exec,
+    X_warm, U_warm, dists)``."""
+    xi = X[step_size]
+    X_warm = torch.cat([X[step_size:], X[-1:].expand(step_size, *X.shape[1:])])
+    U_warm = torch.cat([U[step_size:], U.new_zeros((step_size, *U.shape[1:]))])
+    dists = distance_to_goal(xi, xf, n_d)
+    return xi, X[:step_size], U[:step_size], X_warm, U_warm, dists
+
+
+def _pow2(k: int) -> int:
+    return 1 << (k - 1).bit_length() if k > 1 else 1
+
+
+def solve_rhc(
+    fleet: Fleet,
+    cost: GameCost,
+    x0,
+    N: int,
+    radius: float | None = None,
+    centralized: bool = True,
+    step_size: int = 1,
+    J_converge: float | None = None,
+    dist_converge: float | None = None,
+    n_d: int = 2,
+    t_diverge: float | None = None,
+    t_kill: float | None = None,
+    ignore_mask=None,
+    K: int | None = None,
+    config: SolverConfig = DEFAULT_CONFIG,
+    rng: np.random.Generator | None = None,
+    U0=None,
+    verbose: bool = False,
+    log_fn=None,
+    checkpoint_path=None,
+    resume_state=None,
+    device=None,
+) -> RhcResult:
+    """Receding-horizon solve with the decomposed solver.
+
+    Exactly one of ``J_converge`` (stop when J drops below) or
+    ``dist_converge`` (stop when every agent is within this distance of its
+    goal) must be given (reference distributed.py:125-143); ``t_diverge``
+    aborts after that much simulated time.  The first warm start is ``U0
+    (N, n, nu_p)`` or else small random controls drawn from ``rng``.  The
+    solve runs on ``device`` (default: CPU) in ``x0``'s dtype.
+    """
+    if (J_converge is None) == (dist_converge is None):
+        raise ValueError("Specify exactly one of J_converge or dist_converge")
+    if centralized:
+        raise NotImplementedError("the centralized solve is not ported yet")
+    if radius is None:
+        raise ValueError("Decomposed mode needs the proximity radius")
+    if t_kill is not None:
+        raise NotImplementedError("t_kill (parallel/deadline.py) is not ported yet")
+    if log_fn is not None or checkpoint_path is not None or resume_state is not None:
+        raise NotImplementedError("log_fn and checkpointing are not ported yet")
+
+    n, nx_p, nu_p = fleet.n_agents, fleet.nx_p, fleet.nu_p
+    dt = fleet.dt
+    x0 = np.asarray(x0)
+    if not np.issubdtype(x0.dtype, np.floating):
+        x0 = x0.astype(float)
+    x0 = x0.reshape(n, nx_p)
+    dtype = torch.float32 if x0.dtype == np.float32 else torch.float64
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    cost = cast_cost(GameCost(*(a.to(dev) for a in cost)), dtype)
+    xf = cost.xf
+
+    if U0 is not None:
+        U_np = np.asarray(U0, dtype=x0.dtype)
+        if U_np.shape != (N, n, nu_p):
+            raise ValueError(
+                f"U0 must be (N, n, nu_p) = {(N, n, nu_p)}, got {U_np.shape}"
+            )
+    elif rng is None:
+        raise ValueError("pass U0 or an rng for the random warm start")
+    else:
+        # Small random warm start (reference distributed.py:152).
+        U_np = (rng.uniform(size=(N, n, nu_p)) * 0.01).astype(x0.dtype)
+    U_np = U_np * np.asarray(fleet.control_mask, x0.dtype)[None]
+    U = torch.as_tensor(U_np, device=dev)
+    xi = torch.as_tensor(x0, device=dev)
+    X = xi[None]  # (1, n, nx) until the first solve
+    t = 0.0
+
+    def stop(J, dists):
+        if J_converge is not None:
+            return J < J_converge
+        return bool(np.all(dists <= dist_converge))
+
+    dists = (
+        distance_to_goal(xi, xf, n_d).cpu().numpy()
+        if dist_converge is not None else None
+    )
+    converged = True
+    steps: list[RhcStepInfo] = []
+    X_exec_parts: list[torch.Tensor] = []
+    U_exec_parts: list[torch.Tensor] = []
+    K_cur = K
+
+    def dispatch(t_step, xi_cur, X_w, U_w, K_use):
+        t0 = perf_counter()
+        dres = solve_distributed(
+            fleet, cost, X_w, U_w, radius, ignore_mask=ignore_mask,
+            K=K_use, config=config,
+        )
+        xi_n, X_exec, U_exec, X_n, U_n, dists_dev = _advance_shift(
+            dres.X, dres.U, xf, step_size, n_d
+        )
+        return {
+            "t": t_step, "t0": t0, "res": dres, "K_used": K_use,
+            "X_exec": X_exec, "U_exec": U_exec, "xi": xi_n, "X": X_n,
+            "U": U_n, "dists": dists_dev,
+            "xi_in": xi_cur, "X_in": X_w, "U_in": U_w,
+        }
+
+    def resolve(rec):
+        """Commit a step.  Returns (stop, diverged, redo); with ``redo``
+        nothing was committed and the step must be solved again with the
+        widened ``K_cur``."""
+        nonlocal K_cur, converged
+        dres = rec["res"]
+        J_h = float(dres.J)
+        dists_h = rec["dists"].cpu().numpy()
+        kmax = int(dres.sizes.max())
+        trunc = bool(dres.truncated)
+        solve_time = perf_counter() - rec["t0"]
+
+        if trunc:
+            # A neighborhood outgrew the slot count.  Under auto-K redo the
+            # step wider than the width it used; with a pinned K, warn.
+            K_used = rec["K_used"]
+            if K is None and K_used is not None and K_used < n:
+                K_cur = min(max(_pow2(kmax), K_used * 2), n)
+                return False, False, True
+            warnings.warn(
+                f"neighborhood exceeded the subproblem width K={K_used}: "
+                "coupling partners were dropped from some subproblem(s)",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        if K is None:
+            # Grow at once; shrink with hysteresis.
+            k_need = min(_pow2(kmax), n)
+            if K_cur is None or k_need > K_cur or k_need <= K_cur // 2:
+                K_cur = k_need
+
+        X_exec_parts.append(rec["X_exec"])
+        U_exec_parts.append(rec["U_exec"])
+        steps.append(RhcStepInfo(
+            t=rec["t"], J=J_h, solve_time=solve_time,
+            membership=dres.membership.cpu().numpy(),
+            iters=dres.iters.cpu().tolist(), distance_left=dists_h.tolist(),
+            K=rec["K_used"] or min(_pow2(kmax), n), k_max=kmax,
+            converged=dres.converged.cpu().tolist(),
+        ))
+        if verbose:
+            print(f"t: {rec['t']:.3g}\tJ: {J_h:g}\tsolve: {solve_time:.3g}s")
+        diverged = t_diverge is not None and rec["t"] >= t_diverge
+        if diverged:
+            converged = False
+        return stop(J_h, dists_h), diverged, False
+
+    if not stop(np.inf, dists):
+        rec = dispatch(t, xi, X, U, K_cur)
+        while True:
+            # The JAX loop dispatches the next step before resolving this
+            # one, so the next step uses the width from before this resolve.
+            K_next = K_cur
+            stopped, diverged, redo = resolve(rec)
+            if redo:
+                rec = dispatch(rec["t"], rec["xi_in"], rec["X_in"], rec["U_in"], K_cur)
+                continue
+            if stopped or diverged:
+                break
+            rec = dispatch(rec["t"] + step_size * dt, rec["xi"], rec["X"],
+                           rec["U"], K_next)
+
+    # Executed trajectory and its joint cost (distributed.py:206-211).
+    x0_t = torch.as_tensor(x0, device=dev)
+    if X_exec_parts:
+        Xc = torch.cat(X_exec_parts)
+        Uc = torch.cat(U_exec_parts)
+        _, J_full = rollout(fleet, cast_cost(cost, dtype), x0_t, Uc)
+        X_full, U_full = Xc.cpu().numpy(), Uc.cpu().numpy()
+    else:
+        # Immediate convergence without optimization (distributed.py:206-208).
+        X_full = x0[None].copy()
+        U_full = np.zeros((1, n, nu_p), x0.dtype)
+        _, J_full = rollout(fleet, cast_cost(cost, dtype), x0_t,
+                            torch.as_tensor(U_full, device=dev))
+    return RhcResult(X=X_full, U=U_full, J=float(J_full), converged=converged,
+                     steps=steps)
+
+
+def selfish_warmstart(fleet: Fleet, cost: GameCost, x0, N: int,
+                      config: SolverConfig = DEFAULT_CONFIG):
+    """Per-agent solo warm start (reference problem.py:66-91): every agent's
+    tracking problem ignoring all others, as one decomposed solve on the
+    empty graph (``K=1``, so no width sync).  Returns ``U (N, n, nu_p)``."""
+    x0 = torch.as_tensor(x0)
+    U0 = x0.new_zeros((N, fleet.n_agents, fleet.nu_p))
+    # radius <= 0: no pair is ever within 2 * radius, a singleton graph.
+    res = solve_distributed(fleet, cost, x0[None], U0, radius=-1.0, K=1,
+                            config=config)
+    return res.U

@@ -1,0 +1,62 @@
+"""The PyTorch port stands alone: it never imports JAX or the JAX package,
+and importing it (kernel wrappers included) builds nothing and needs no
+CUDA toolchain -- the kernels compile on first use."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "dpilqr_tpu_torch"
+
+_PROBE = """
+import sys
+import dpilqr_tpu_torch
+import dpilqr_tpu_torch.ops.batched
+import dpilqr_tpu_torch.ops.cuda_build as cb
+import dpilqr_tpu_torch.parallel.rhc
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "dpilqr_tpu"
+                or m.startswith("dpilqr_tpu."))
+assert not leaked, leaked
+assert cb.load_library.cache_info().currsize == 0
+print("ok")
+"""
+
+
+def test_import_leaves_jax_out_and_needs_no_nvcc(tmp_path):
+    env = dict(os.environ)
+    # No CUDA toolchain reachable: the import must not look for one.
+    env["PATH"] = str(Path(sys.executable).parent)
+    env["CUDA_HOME"] = str(tmp_path / "no_cuda")
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_sources_import_no_jax():
+    pat = re.compile(r"^\s*(import|from) (jax|dpilqr_tpu)\b")
+    offenders = [
+        f"{p.relative_to(REPO)}:{i}"
+        for p in sorted(PKG.rglob("*.py"))
+        for i, line in enumerate(p.read_text().splitlines(), 1)
+        if pat.match(line)
+    ]
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize("name", ["backward_batched.cu", "forward_batched.cu"])
+def test_kernel_sources_name_the_tpu_kernel_they_replace(name):
+    text = (PKG / "csrc" / name).read_text()
+    head = text[:3000]
+    assert "dpilqr_tpu/ops/pallas_batched.py" in head
+    assert "What bounds it on the H100" in head
+    assert "__global__" in text and 'extern "C"' in text
