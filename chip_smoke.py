@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's solve paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -10,20 +10,37 @@ Phases (any failure exits non-zero and prints no result line):
 1. Device: a CUDA device must be present; prints its name and
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 2. Build: compiles the hand-written kernels in ``dpilqr_tpu_torch/csrc``
-   with nvcc (timed).
-3. Kernel vs plain PyTorch twin at the main path's shape (S=100
-   subproblems, K=8 slots, nx_p=4, nu_p=2, N=50), float64 and float32,
-   forward with 2 and 10 alphas, with and without gains; plus a mixed
-   DoubleInt4D+Car3D+Bike5D batch in float64.  Times each kernel against
-   its twin with CUDA events.
-4. Main path: ``solve_rhc(centralized=False)`` for 100 Unicycle4D agents,
-   float32, 5 MPC steps, on the kernels (launch counts reset just before)
-   and again on the twins; prints ms per step, J, K, iterations and the
-   converged fraction of both.
-5. Float64 solve parity of the two backends at n=16, N=20.
+   with nvcc, one process per source (timed).
+3. Kernel vs plain PyTorch twin, each timed with CUDA events:
+   a. K1 and K2 at the 100-agent main path's shape (S=100 subproblems,
+      K=8 slots, nx_p=4, nu_p=2, N=50), float64 and float32, forward with 2
+      and 10 alphas, with and without gains; a mixed DoubleInt4D+Car3D+
+      Bike5D batch in float64;
+   b. K3 and the widened K2 on wide subproblems: Quad6D at K=8 (nxf 48)
+      and at K=16 (nxf 96, nuf 48: the shape of phase 4b's loop) and
+      Quad12D at K=8 (nxf 96) from the 64-agent quadrotor swarm (S=64),
+      float64 and float32, 2 and 10 alphas; K3 against K1 on the same
+      nxf-32 batch (the narrow/wide routing datum);
+   c. K5 and K4 (with gains over 10 alphas, and as a rollout) at the
+      10-agent centralized shape (N=50).
+4. Solve paths, each driven with the launch counts set to 0 just before
+   and read just after:
+   a. main path: ``solve_rhc(centralized=False)`` for 100 Unicycle4D
+      agents, float32, 5 MPC steps, on the kernels and again on the twins;
+   b. the 64-agent Quad6D swarm closed loop at K=16 (nxf 96, the widest
+      the kernels take; auto K would reach 32), 5 MPC steps on the kernels
+      and 2 on the twins;
+   c. one cold ``solve_distributed`` of 64 Quad12D agents at K=8, float32,
+      on the kernels; fails if it is not a solve (mean iterations <= 1);
+   d. ``ilqr_solve`` for 10 agents on the kernels and on the twins, then
+      ``solve_rhc(centralized=True)`` for 5 MPC steps on the kernels.
+5. Float64 solve parity of kernels and twins (equal iterations and
+   converged flags, J and X close): a narrow and a wide decomposed solve,
+   and ``ilqr_solve``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels with their launch counts, errors and times.
+lists the five kernels with their launch counts, errors and times, and the
+line before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -42,6 +59,15 @@ MPC_STEPS = 5
 TOL = {
     torch.float64: {"Kg": 1e-9, "d": 1e-9, "X5": 1e-9, "U5": 1e-9, "J": 1e-9},
     torch.float32: {"Kg": 2e-3, "d": 2e-3, "X5": 1e-4, "U5": 1e-4, "J": 1e-4},
+}
+# The kernels (launch-count keys of dpilqr_tpu_torch.ops.cuda_build).
+KERNELS = {
+    "backward_batched": ("backward_pass_batched", "dpilqr_tpu/ops/pallas_batched.py:396"),
+    "forward_batched": ("forward_pass_batched", "dpilqr_tpu/ops/pallas_batched.py:540"),
+    "backward_batched_wide": ("backward_pass_batched_wide",
+                              "dpilqr_tpu/ops/pallas_batched_wide.py:115"),
+    "forward_sweep": ("forward_pass_pallas", "dpilqr_tpu/ops/pallas_sweeps.py:178"),
+    "backward_sweep": ("backward_pass_pallas", "dpilqr_tpu/ops/pallas_sweeps.py:399"),
 }
 
 
@@ -73,16 +99,65 @@ def swap_scenario(n, spacing, seed=0):
     return x0, xf
 
 
+def grid3d_scenario(n, spacing, nx, seed=0):
+    """The quadrotor swarm scenario (``bench.py`` ``_grid3d_scenario``):
+    agents on a jittered 3D grid swap with their lateral neighbour."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(n ** (1.0 / 3.0)))
+    ii, jj, kk = np.meshgrid(np.arange(side), np.arange(side), np.arange(side),
+                             indexing="ij")
+    pts = np.stack([ii, jj, kk], -1).reshape(-1, 3)[:n] * spacing
+    pts = pts + rng.uniform(-0.05, 0.05, pts.shape)
+    col = np.arange(n) % side
+    partner = np.where(
+        (col % 2 == 0) & (col + 1 < side),
+        np.arange(n) + 1,
+        np.where(col % 2 == 1, np.arange(n) - 1, np.arange(n)),
+    )
+    partner = np.where(partner < n, partner, np.arange(n))
+    goals = pts[partner] + rng.uniform(-0.05, 0.05, pts.shape)
+    x0 = np.zeros((n, nx))
+    x0[:, :3] = pts
+    xf = np.zeros((n, nx))
+    xf[:, :3] = goals
+    return x0, xf
+
+
+def problem(fleet, x0_pos, xf_pos, dtype, dev, n_pos=2, pos=2):
+    """Padded start and goal states and the game cost (Q = I, R = I,
+    Qf = 1e3 I, radius 0.5) for ``fleet``."""
+    import dpilqr_tpu_torch as dtt
+
+    n, nx_p, nu_p = fleet.n_agents, fleet.nx_p, fleet.nu_p
+    x0 = np.zeros((n, nx_p))
+    x0[:, :pos] = x0_pos[:, :pos]
+    xf = np.zeros((n, nx_p))
+    xf[:, :pos] = xf_pos[:, :pos]
+    cost = dtt.make_game_cost(
+        xf, np.tile(np.eye(nx_p), (n, 1, 1)), np.tile(np.eye(nu_p), (n, 1, 1)),
+        np.tile(1e3 * np.eye(nx_p), (n, 1, 1)), radius=RADIUS,
+        n_pos=np.full((n,), n_pos, np.int32), dtype=dtype, device=dev,
+    )
+    return cost, x0
+
+
 def unicycle_problem(n, spacing, dtype, dev):
     import dpilqr_tpu_torch as dtt
 
     x0, xf = swap_scenario(n, spacing)
     fleet = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, n, DT)
-    cost = dtt.make_game_cost(
-        xf, np.tile(np.eye(4), (n, 1, 1)), np.tile(np.eye(2), (n, 1, 1)),
-        np.tile(1e3 * np.eye(4), (n, 1, 1)), radius=RADIUS, dtype=dtype,
-        device=dev,
-    )
+    cost, x0 = problem(fleet, x0, xf, dtype, dev)
+    return fleet, cost, x0
+
+
+def quad_problem(model, n, spacing, dtype, dev):
+    """The quadrotor swarm of ``bench.py`` (``quad6d_64``,
+    ``quad12d_64_k8``): 3D positions, n_pos 3."""
+    import dpilqr_tpu_torch as dtt
+
+    fleet = dtt.homogeneous_fleet(model, n, DT)
+    x0, xf = grid3d_scenario(n, spacing, fleet.nx_p)
+    cost, x0 = problem(fleet, x0, xf, dtype, dev, n_pos=3, pos=3)
     return fleet, cost, x0
 
 
@@ -104,6 +179,24 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+class Checks:
+    """Kernel-vs-twin comparisons: prints each, fails beyond tolerance, and
+    keeps each kernel's worst float32 absolute error."""
+
+    def __init__(self):
+        self.worst = {}
+
+    def compare(self, kernel, label, names, got, want, tol):
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, got, want):
+            rel, ab = rel_err(a, b)
+            print(f"{label} {name}: rel err {rel:.3e} (abs {ab:.3e}, tol {tol[name]:g})")
+            if not rel <= tol[name]:
+                fail(f"{kernel} disagrees with its twin on {name} ({label})")
+            if a.dtype == torch.float32:
+                self.worst[kernel] = max(self.worst.get(kernel, 0.0), ab)
+
+
 def batch_inputs(fleet, cost, x0, U0, K, radius, dev):
     """Gathered subproblem batch of one decomposed solve step."""
     from dpilqr_tpu_torch.parallel.graph import interaction_graph
@@ -121,164 +214,406 @@ def batch_inputs(fleet, cost, x0, U0, K, radius, dev):
     return sub_cost, gather_states(X[0], batch), gather_controls(U, batch), branch[batch.member_idx]
 
 
-def kernel_checks(dev, results):
-    """Phase 3: each kernel against its twin at the main path's shape."""
+def sweep_inputs(fleet, cost, x0, K, dev, seed=0, u_scale=0.01, u_trim=0.0):
+    """A batch's backward-kernel arguments and nominal trajectory: the
+    rollout of a small random warm start (``u_trim`` plus uniform in [0,
+    u_scale)), mu spread over [0.5, 1.5]."""
     import dpilqr_tpu_torch as dtt
     from dpilqr_tpu_torch.ops import batched as bt
 
-    worst = {}
+    dtype = cost.xf.dtype
+    rng = np.random.default_rng(seed)
+    U0 = (u_trim + rng.uniform(size=(HORIZON, fleet.n_agents, fleet.nu_p))
+          * u_scale) * fleet.control_mask
+    sub_cost, x0_s, U_s, mids = batch_inputs(fleet, cost, x0, U0, K, RADIUS, dev)
+    S = x0_s.shape[0]
+    carry = bt.init_batch_carry(fleet, dtt.SolverConfig(), sub_cost, x0_s, U_s, mids,
+                                torch.ones(S, dtype=torch.bool, device=dev), "torch")
+    mu = torch.linspace(0.5, 1.5, S, dtype=dtype, device=dev)
+    q = bt._quadraticize_batch(sub_cost, carry.X, carry.U)
+    A, B = bt._linearize_batch(fleet, sub_cost, mids, carry.X, carry.U)
+    args = (A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"], mu, q["p0"], q["P0"])
+    return args, sub_cost, mids, carry
+
+
+def forward_checks(checks, results, tag, fleet, sub_cost, mids, carry, Kg, d,
+                   dtype, dev, gains_off=True):
+    """K2 against its twin at 2 and 10 alphas; times float32 with gains."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    for n_alpha in (2, 10):
+        alphas = dtt.ops.line_search_alphas(n_alpha, dtype, dev)
+        for gains in (True, False) if gains_off else (True,):
+            fa = (fleet, sub_cost, mids, carry.X, carry.U,
+                  Kg if gains else None, d if gains else None, alphas)
+            checks.compare("forward_batched",
+                           f"K2 {tag} {str(dtype)[6:]} alphas={n_alpha} gains={gains}",
+                           ("X5", "U5", "J"), bt.forward_pass_batched_cuda(*fa),
+                           bt.forward_pass_batched_torch(*fa), TOL[dtype])
+            if dtype == torch.float32 and gains:
+                results[f"K2 {tag} {n_alpha} alphas"] = (
+                    timed(lambda: bt.forward_pass_batched_cuda(*fa), 10),
+                    timed(lambda: bt.forward_pass_batched_torch(*fa), 2))
+
+
+def narrow_checks(checks, results, dev):
+    """Phase 3a: K1 and K2 at the main path's shape."""
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    import dpilqr_tpu_torch as dtt
+
     for dtype in (torch.float64, torch.float32):
         # Spacing 0.55 packs the 100-agent scenario so that subproblems
         # fill most of their 8 slots (some stay padded) and proximity pairs
         # are active, while the closed loop stays well conditioned (denser
         # packings amplify a 1e-15 gain perturbation past 1e-9).
         fleet, cost, x0 = unicycle_problem(N_AGENTS, 0.55, dtype, dev)
-        rng = np.random.default_rng(0)
-        U0 = rng.uniform(size=(HORIZON, N_AGENTS, 2)) * 0.01
-        sub_cost, x0_s, U_s, mids = batch_inputs(fleet, cost, x0, U0, 8, RADIUS, dev)
-        S = x0_s.shape[0]
-        cfg = dtt.SolverConfig()
-        carry = bt.init_batch_carry(fleet, cfg, sub_cost, x0_s, U_s, mids,
-                                    torch.ones(S, dtype=torch.bool, device=dev), "torch")
-        mu = torch.linspace(0.5, 1.5, S, dtype=dtype, device=dev)
-        q = bt._quadraticize_batch(sub_cost, carry.X, carry.U)
-        A, B = bt._linearize_batch(fleet, sub_cost, mids, carry.X, carry.U)
-        args = (A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"], mu, q["p0"], q["P0"])
+        args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, 8, dev)
         Kg_t, d_t = bt.backward_pass_batched_torch(*args)
-        Kg_c, d_c = bt.backward_pass_batched_cuda(*args)
-        torch.cuda.synchronize()
-        tol = TOL[dtype]
-        for name, a, b in (("Kg", Kg_c, Kg_t), ("d", d_c, d_t)):
-            rel, ab = rel_err(a, b)
-            print(f"K1 {str(dtype)[6:]} {name}: rel err {rel:.3e} (abs {ab:.3e}, tol {tol[name]:g})")
-            if not rel <= tol[name]:
-                fail(f"backward kernel disagrees with its twin on {name}")
-            worst[("backward", dtype)] = max(worst.get(("backward", dtype), 0.0), ab)
+        checks.compare("backward_batched", f"K1 {str(dtype)[6:]}", ("Kg", "d"),
+                       bt.backward_pass_batched_cuda(*args), (Kg_t, d_t), TOL[dtype])
+        checks.compare("backward_batched_wide", f"K3 at nxf 32 {str(dtype)[6:]}",
+                       ("Kg", "d"), bt.backward_pass_batched_wide_cuda(*args),
+                       (Kg_t, d_t), TOL[dtype])
         if dtype == torch.float32:
-            results["backward_ms"] = timed(lambda: bt.backward_pass_batched_cuda(*args), 20)
-            results["backward_plain_ms"] = timed(lambda: bt.backward_pass_batched_torch(*args), 3)
-        for n_alpha in (2, 10):
-            alphas = dtt.ops.line_search_alphas(n_alpha, dtype, dev)
-            for gains in (True, False):
-                Kg, d = (Kg_t, d_t) if gains else (None, None)
-                fa = (fleet, sub_cost, mids, carry.X, carry.U, Kg, d, alphas)
-                out_t = bt.forward_pass_batched_torch(*fa)
-                out_c = bt.forward_pass_batched_cuda(*fa)
-                torch.cuda.synchronize()
-                for name, a, b in zip(("X5", "U5", "J"), out_c, out_t):
-                    rel, ab = rel_err(a, b)
-                    print(f"K2 {str(dtype)[6:]} alphas={n_alpha} gains={gains} {name}: "
-                          f"rel err {rel:.3e} (abs {ab:.3e}, tol {tol[name]:g})")
-                    if not rel <= tol[name]:
-                        fail(f"forward kernel disagrees with its twin on {name}")
-                    if gains:
-                        key = ("forward", dtype)
-                        worst[key] = max(worst.get(key, 0.0), ab)
-                if dtype == torch.float32 and gains:
-                    results[f"forward_ms_{n_alpha}"] = timed(
-                        lambda: bt.forward_pass_batched_cuda(*fa), 20)
-                    results[f"forward_plain_ms_{n_alpha}"] = timed(
-                        lambda: bt.forward_pass_batched_torch(*fa), 3)
-    results["backward_err"] = worst[("backward", torch.float32)]
-    results["forward_err"] = worst[("forward", torch.float32)]
+            results["K1"] = (timed(lambda: bt.backward_pass_batched_cuda(*args), 20),
+                             timed(lambda: bt.backward_pass_batched_torch(*args), 3))
+            results["K3 at nxf 32"] = (
+                timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 20), None)
+        forward_checks(checks, results, "nxf 32", fleet, sub_cost, mids, carry,
+                       Kg_t, d_t, dtype, dev)
 
     # Mixed RK4 substeps (Bike5D takes 1, the others 5), float64.
-    names = ["DoubleInt4D", "Car3D", "Bike5D"] * 4
-    fleet = dtt.Fleet.from_names(names, DT)
-    n, nx_p, nu_p = fleet.n_agents, fleet.nx_p, fleet.nu_p
-    x4, xf4 = swap_scenario(n, 0.55)
-    x0 = np.zeros((n, nx_p))
-    x0[:, :2] = x4[:, :2]
-    xf = np.zeros((n, nx_p))
-    xf[:, :2] = xf4[:, :2]
-    cost = dtt.make_game_cost(
-        xf, np.tile(np.eye(nx_p), (n, 1, 1)), np.tile(np.eye(nu_p), (n, 1, 1)),
-        np.tile(1e3 * np.eye(nx_p), (n, 1, 1)), radius=RADIUS,
-        dtype=torch.float64, device=dev,
-    )
-    rng = np.random.default_rng(1)
-    U0 = rng.uniform(size=(HORIZON, n, nu_p)) * 0.01 * fleet.control_mask
-    sub_cost, x0_s, U_s, mids = batch_inputs(fleet, cost, x0, U0, 4, RADIUS, dev)
-    S = x0_s.shape[0]
-    carry = bt.init_batch_carry(fleet, dtt.SolverConfig(), sub_cost, x0_s, U_s, mids,
-                                torch.ones(S, dtype=torch.bool, device=dev), "torch")
-    X = carry.X
-    Kg, d = bt.backward_pass_batched(fleet, sub_cost, mids, X, carry.U,
-                                     torch.ones(S, dtype=torch.float64, device=dev), "torch")
+    fleet = dtt.Fleet.from_names(["DoubleInt4D", "Car3D", "Bike5D"] * 4, DT)
+    x4, xf4 = swap_scenario(fleet.n_agents, 0.55)
+    cost, x0 = problem(fleet, x4, xf4, torch.float64, dev)
+    args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, 4, dev, seed=1)
+    Kg, d = bt.backward_pass_batched_torch(*args)
     alphas = dtt.ops.line_search_alphas(10, torch.float64, dev)
-    fa = (fleet, sub_cost, mids, X, carry.U, Kg, d, alphas)
-    for name, a, b in zip(("X5", "U5", "J"), bt.forward_pass_batched_cuda(*fa),
-                          bt.forward_pass_batched_torch(*fa)):
-        rel, ab = rel_err(a, b)
-        print(f"K2 float64 mixed-substeps {name}: rel err {rel:.3e} (abs {ab:.3e})")
-        if not rel <= 1e-9:
-            fail(f"forward kernel disagrees with its twin on the mixed batch ({name})")
+    fa = (fleet, sub_cost, mids, carry.X, carry.U, Kg, d, alphas)
+    checks.compare("forward_batched", "K2 float64 mixed-substeps", ("X5", "U5", "J"),
+                   bt.forward_pass_batched_cuda(*fa), bt.forward_pass_batched_torch(*fa),
+                   TOL[torch.float64])
 
 
-def main_path(dev, backend):
-    """Phase 4: the closed-loop decomposed MPC run; returns a summary."""
+def wide_checks(checks, results, dev):
+    """Phase 3b: K3 and the widened K2 on the quadrotor swarms."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    # The swarm grid packed at spacing 0.7 instead of 0.85, so that
+    # proximity pairs are active and the coupling blocks are exercised (at
+    # 0.85 no pair is inside the radius at the start); denser packings are
+    # ill conditioned (at 0.6 a 1e-15 perturbation of A moves Quad6D's X by
+    # 1e-9).  The nominal hovers (a free fall of 120 m over the horizon asks
+    # for feedforward controls of ~1e5, whose closed loop diverges).
+    # Quad12D's torque gains are ~6e4, so a random torque of 1e-6 already
+    # spins it over within the horizon; its random part is 1e-7.
+    # Quad6D at K=16 is the quad6d_64 loop's own shape (nxf 96, nuf 48); in
+    # float64 its gain blocks exceed shared memory and K3 keeps them in
+    # device memory too.
+    g = 9.80665
+    for model, K, u_scale, trim in (
+            (dtt.QUAD_6D, 8, 0.01, [g, 0, 0]),
+            (dtt.QUAD_6D, 16, 0.01, [g, 0, 0]),
+            (dtt.QUAD_12D, 8, 1e-7, [0, 0, 0, g * 63 / 2000])):
+        for dtype in (torch.float64, torch.float32):
+            fleet, cost, x0 = quad_problem(model, 64, 0.7, dtype, dev)
+            args, sub_cost, mids, carry = sweep_inputs(
+                fleet, cost, x0, K, dev, u_scale=u_scale, u_trim=np.array(trim))
+            tag = f"{model.name} K={K} nxf {K * fleet.nx_p}"
+            Kg_t, d_t = bt.backward_pass_batched_torch(*args)
+            checks.compare("backward_batched_wide", f"K3 {tag} {str(dtype)[6:]}",
+                           ("Kg", "d"), bt.backward_pass_batched_wide_cuda(*args),
+                           (Kg_t, d_t), TOL[dtype])
+            if dtype == torch.float32:
+                results[f"K3 {tag}"] = (
+                    timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 10),
+                    timed(lambda: bt.backward_pass_batched_torch(*args), 2))
+            elif K == 16:  # the gain blocks in device memory
+                results[f"K3 {tag} float64"] = (
+                    timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 10), None)
+            forward_checks(checks, results, tag, fleet, sub_cost, mids, carry,
+                           Kg_t, d_t, dtype, dev, gains_off=False)
+            print(f"{tag}: S={args[0].shape[0]}, nuf={K * fleet.nu_p}", flush=True)
+
+
+def centralized_inputs(dtype, dev):
+    """The 10-agent centralized problem of ``bench.py`` (random_setup,
+    energy 10, seed 12345)."""
     import dpilqr_tpu_torch as dtt
 
-    fleet, cost, x0 = unicycle_problem(N_AGENTS, 1.25, torch.float32, dev)
+    rng = np.random.default_rng(12345)
+    x0, xf = dtt.random_setup(10, 4, rng=rng, energy=10.0, n_d=2)
+    fleet = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 10, DT)
+    cost, x0 = problem(fleet, x0, xf, dtype, dev)
+    return fleet, cost, x0
+
+
+def centralized_checks(checks, results, dev):
+    """Phase 3c: K5 and K4 at the 10-agent centralized shape."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import ilqr, sweeps
+
+    for dtype in (torch.float64, torch.float32):
+        fleet, cost, x0 = centralized_inputs(dtype, dev)
+        x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
+        rng = np.random.default_rng(2)
+        U0 = torch.as_tensor(rng.uniform(size=(HORIZON, 10, 2)) * 0.1, dtype=dtype,
+                             device=dev)
+        roll_t = ilqr._rollout_fn(fleet.step, cost, x0, U0)
+        checks.compare("forward_sweep", f"K4 rollout {str(dtype)[6:]}", ("X5", "J"),
+                       sweeps.rollout_cuda(fleet, cost, x0, U0), roll_t, TOL[dtype])
+        X = roll_t[0]
+        mu = torch.tensor(1.0, dtype=dtype, device=dev)
+        bw = (fleet, cost, X, U0, mu)
+        K_t, d_t = ilqr._backward_pass(fleet.linearize, cost, X, U0, mu)
+        checks.compare("backward_sweep", f"K5 {str(dtype)[6:]}", ("Kg", "d"),
+                       sweeps.backward_pass_cuda(*bw), (K_t, d_t), TOL[dtype])
+        alphas = dtt.ops.line_search_alphas(10, dtype, dev)
+        fw = (cost, X, U0, K_t, d_t, alphas)
+        checks.compare("forward_sweep", f"K4 10 alphas {str(dtype)[6:]}",
+                       ("X5", "U5", "J"), sweeps.forward_pass_cuda(fleet, *fw),
+                       ilqr._forward_pass(fleet.step, *fw), TOL[dtype])
+        if dtype == torch.float32:
+            # The kernel alone (its torch prep done once), as for K1; the
+            # twin's time includes its own prep.
+            ins = sweeps.backward_sweep_inputs(*bw)
+            results["K5"] = (
+                timed(lambda: sweeps.launch_backward_sweep(**ins), 20),
+                timed(lambda: ilqr._backward_pass(fleet.linearize, cost, X, U0, mu), 3))
+            results["K5 with its torch prep"] = (
+                timed(lambda: sweeps.backward_pass_cuda(*bw), 20), None)
+            results["K4 10 alphas"] = (
+                timed(lambda: sweeps.forward_pass_cuda(fleet, *fw), 20),
+                timed(lambda: ilqr._forward_pass(fleet.step, *fw), 3))
+
+
+def run_counted(fn):
+    """``fn()`` with the launch counts set to 0 just before; returns its
+    result and the counts read just after."""
+    from dpilqr_tpu_torch.ops import cuda_build
+
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(cuda_build.launch_counts)
+
+
+def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None):
+    """A closed-loop MPC run of ``steps`` steps; returns a summary.  Under
+    auto K (``K`` None) a truncated step fails the run; with ``K`` pinned
+    the summary counts them."""
+    import warnings
+
+    import dpilqr_tpu_torch as dtt
+
     cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, sweep_backend=backend)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = dtt.solve_rhc(
-        fleet, cost, x0.astype(np.float32), HORIZON, radius=RADIUS,
-        centralized=False, step_size=1, J_converge=1e-3,
-        t_diverge=(MPC_STEPS - 1) * DT, config=cfg,
-        rng=np.random.default_rng(0), device=dev,
-    )
+    with warnings.catch_warnings():
+        if K:  # pinned K: truncation warnings, counted below
+            warnings.simplefilter("ignore", RuntimeWarning)
+        res = dtt.solve_rhc(
+            fleet, cost, x0.astype(np.float32), HORIZON,
+            radius=None if centralized else RADIUS, centralized=centralized,
+            step_size=1, J_converge=1e-3, t_diverge=(steps - 1) * DT, K=K,
+            config=cfg, rng=np.random.default_rng(0), device=cost.xf.device,
+        )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    steps = res.steps
-    if len(steps) < MPC_STEPS:
-        fail(f"{backend}: only {len(steps)} MPC steps ran")
-    if not all(np.isfinite(s.J) for s in steps) or not np.isfinite(res.J):
+    if len(res.steps) < steps:
+        fail(f"{backend}: only {len(res.steps)} MPC steps ran")
+    if not all(np.isfinite(s.J) for s in res.steps) or not np.isfinite(res.J):
         fail(f"{backend}: non-finite J")
-    if any(s.k_max > s.K for s in steps):
+    truncated = sum(s.k_max > s.K for s in res.steps) if not centralized else 0
+    if truncated and K is None:
         fail(f"{backend}: a step was truncated")
     if not np.isfinite(res.X).all():
         fail(f"{backend}: non-finite trajectory")
-    iters = np.concatenate([np.asarray(s.iters) for s in steps])
-    conv = np.concatenate([np.asarray(s.converged) for s in steps])
+    iters = np.concatenate([np.asarray(s.iters) for s in res.steps])
+    conv = np.concatenate([np.asarray(s.converged) for s in res.steps])
     return {
-        "ms_per_step": wall / len(steps) * 1e3,
-        "steps": len(steps),
-        "J_final_step": steps[-1].J,
+        "ms_per_step": wall / len(res.steps) * 1e3,
+        "steps": len(res.steps),
+        "J_final_step": res.steps[-1].J,
         "J_executed": res.J,
-        "K": [s.K for s in steps],
+        "K": [s.K for s in res.steps],
+        "k_max": [s.k_max for s in res.steps],
+        "truncated_steps": truncated,
         "mean_iters": float(iters.mean()),
         "converged_frac": float(conv.mean()),
     }
 
 
-def solve_parity(dev):
-    """Phase 5: float64 decomposed solve, kernels vs twins."""
+def require(counts, kernels, path):
+    missing = [k for k in kernels if counts[k] <= 0]
+    if missing:
+        fail(f"{path} did not launch {missing}: {counts}")
+
+
+def main_path(dev, launches):
+    """Phase 4a: the 100-agent decomposed MPC loop."""
+    fleet, cost, x0 = unicycle_problem(N_AGENTS, 1.25, torch.float32, dev)
+    rhc_run(fleet, cost, x0, "cuda", MPC_STEPS)  # warm-up (allocator, cuBLAS)
+    kern, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS))
+    require(counts, ("backward_batched", "forward_batched"), "the main path")
+    launches.update(backward_batched=counts["backward_batched"],
+                    forward_batched=counts["forward_batched"])
+    print("main path (kernels): " + json.dumps(kern), flush=True)
+    twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", MPC_STEPS))
+    if any(counts.values()):
+        fail("the torch backend launched a kernel")
+    print("main path (torch twins): " + json.dumps(twin), flush=True)
+
+
+def quad6d_loop(dev, launches):
+    """Phase 4b: the quad6d_64 closed loop (bench.py:716).  Its auto K
+    reaches 32 from the second step (the neighbourhoods of the planned
+    trajectories), nxf 192, wider than any kernel (the JAX package ran
+    those steps on its XLA scans); so K is pinned at 16, nxf 96, the widest
+    the kernels take, and the truncated steps are counted.  Kernels past
+    nxf 96 are an open item (ROADMAP queue B, item 7)."""
     import dpilqr_tpu_torch as dtt
+
+    fleet, cost, x0 = quad_problem(dtt.QUAD_6D, 64, 0.85, torch.float32, dev)
+    kern, counts = run_counted(
+        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, K=16))
+    require(counts, ("backward_batched_wide", "forward_batched"), "the quad6d_64 loop")
+    launches["backward_batched_wide"] = counts["backward_batched_wide"]
+    print(f"quad6d_64 loop (kernels, K=16, launches {counts}): " + json.dumps(kern),
+          flush=True)
+    twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", 2, K=16))
+    if any(counts.values()):
+        fail("the torch backend launched a kernel")
+    print("quad6d_64 loop (torch twins, 2 steps): " + json.dumps(twin), flush=True)
+
+
+def quad12d_solve(dev):
+    """Phase 4c: one cold quad12d_64_k8 decomposed solve (bench.py:335-347)."""
+    import dpilqr_tpu_torch as dtt
+
+    fleet, cost, x0 = quad_problem(dtt.QUAD_12D, 64, 0.85, torch.float32, dev)
+    X0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)[None]
+    U0 = torch.zeros((HORIZON, 64, 4), dtype=torch.float32, device=dev)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, sweep_backend="cuda")
+
+    def solve():
+        t0 = time.perf_counter()
+        r = dtt.solve_distributed(fleet, cost, X0.expand(HORIZON + 1, -1, -1), U0,
+                                  RADIUS, K=8, config=cfg)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    (res, ms), counts = run_counted(solve)
+    require(counts, ("backward_batched_wide", "forward_batched"), "the quad12d_64_k8 solve")
+    iters = res.iters.float().mean().item()
+    conv = res.converged.float().mean().item()
+    summary = {"ms": ms, "mean_iters": iters, "converged_frac": conv,
+               "J": float(res.J), "truncated": bool(res.truncated)}
+    print("quad12d_64_k8 cold solve (kernels, f32): " + json.dumps(summary), flush=True)
+    if not np.isfinite(summary["J"]) or bool(res.truncated):
+        fail("quad12d_64_k8: non-finite J or truncated")
+    if iters <= 1.0:
+        fail(f"quad12d_64_k8: mean iterations {iters} <= 1, not a solve")
+
+
+def centralized_paths(dev, launches):
+    """Phase 4d: ilqr_solve (kernels vs twins) and the centralized loop."""
+    import dpilqr_tpu_torch as dtt
+
+    fleet, cost, x0 = centralized_inputs(torch.float32, dev)
+    x0_t = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    out = {}
+    for backend in ("cuda", "torch"):
+        cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-9, sweep_backend=backend)
+        solve = dtt.make_solver(fleet, HORIZON, cfg)
+        U0 = torch.zeros((HORIZON, 10, 2), dtype=torch.float32, device=dev)
+        solve(cost, x0_t, U0)  # warm-up
+
+        def run(solve=solve, U0=U0):
+            t0 = time.perf_counter()
+            r = solve(cost, x0_t, U0)
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t0) * 1e3
+
+        (res, ms), counts = run_counted(run)
+        out[backend] = {"ms": ms, "iters": int(res.iters), "converged": bool(res.converged),
+                        "failed_line_search": bool(res.failed_line_search),
+                        "J": float(res.J)}
+        if not np.isfinite(out[backend]["J"]):
+            fail(f"ilqr_solve ({backend}): non-finite J")
+        if backend == "cuda":
+            require(counts, ("backward_sweep", "forward_sweep"), "ilqr_solve")
+            launches.update(backward_sweep=counts["backward_sweep"],
+                            forward_sweep=counts["forward_sweep"])
+        elif any(counts.values()):
+            fail("the torch backend launched a kernel")
+        print(f"ilqr_solve 10 agents ({backend}): " + json.dumps(out[backend]), flush=True)
+    kern, counts = run_counted(
+        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, centralized=True))
+    require(counts, ("backward_sweep", "forward_sweep"), "solve_rhc(centralized=True)")
+    for k in ("backward_sweep", "forward_sweep"):
+        launches[k] += counts[k]
+    print(f"centralized loop (kernels, launches {counts}): " + json.dumps(kern), flush=True)
+
+
+def same_solve(tag, a, b, fields=("X",)):
+    """Fail unless two float64 solves took the same iterations and
+    converged flags and agree on J (rtol 1e-9) and the trajectory."""
+    print(f"f64 parity {tag}: iters cuda {a.iters.tolist()} torch {b.iters.tolist()}")
+    if not torch.equal(a.iters, b.iters) or not torch.equal(a.converged, b.converged):
+        fail(f"float64 {tag}: iteration counts or converged flags differ")
+    dJ = abs(float(a.J) - float(b.J)) / abs(float(b.J))
+    dX = float((a.X - b.X).abs().max())
+    print(f"f64 parity {tag}: J {float(a.J)!r} vs {float(b.J)!r} (rel {dJ:.3e}), "
+          f"max|dX| {dX:.3e}", flush=True)
+    if not (dJ <= 1e-9 and dX <= 1e-8):
+        fail(f"float64 {tag}: J or X differ beyond rtol 1e-9 / atol 1e-8")
+
+
+def solve_parity(dev):
+    """Phase 5: float64 solves, kernels vs twins."""
+    import dpilqr_tpu_torch as dtt
+
+    def distributed(fleet, cost, x0, N, seed, u_trim=0.0):
+        rng = np.random.default_rng(seed)
+        X = torch.as_tensor(x0, device=dev)[None]
+        U = torch.as_tensor((u_trim + rng.uniform(size=(N, fleet.n_agents, fleet.nu_p))
+                             * 0.01) * fleet.control_mask, device=dev)
+        return {b: dtt.solve_distributed(
+            fleet, cost, X, U, RADIUS,
+            config=dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, sweep_backend=b))
+            for b in ("cuda", "torch")}
 
     # Spacing 1.0 keeps the solve well conditioned (at 0.75 a 1e-14
     # warm-start perturbation already moves X by 2e-8), while neighborhoods
     # of up to 4 agents still couple.
     fleet, cost, x0 = unicycle_problem(16, 1.0, torch.float64, dev)
-    rng = np.random.default_rng(3)
-    N = 20
-    X = torch.as_tensor(x0, device=dev)[None]
-    U = torch.as_tensor(rng.uniform(size=(N, 16, 2)) * 0.01, device=dev)
-    out = {}
-    for backend in ("cuda", "torch"):
-        cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, sweep_backend=backend)
-        out[backend] = dtt.solve_distributed(fleet, cost, X, U, RADIUS, config=cfg)
-    a, b = out["cuda"], out["torch"]
-    print(f"f64 parity: iters cuda {a.iters.tolist()} torch {b.iters.tolist()}")
-    if not torch.equal(a.iters, b.iters) or not torch.equal(a.converged, b.converged):
-        fail("float64 solve: iteration counts or converged flags differ")
-    dJ = abs(float(a.J) - float(b.J)) / abs(float(b.J))
-    dX = float((a.X - b.X).abs().max())
-    print(f"f64 parity: J {float(a.J)!r} vs {float(b.J)!r} (rel {dJ:.3e}), "
-          f"max|dX| {dX:.3e}")
-    if not (dJ <= 1e-9 and dX <= 1e-8):
-        fail("float64 solve: J or X differ beyond rtol 1e-9 / atol 1e-8")
+    r = distributed(fleet, cost, x0, 20, 3)
+    same_solve("narrow decomposed (n=16, K=4)", r["cuda"], r["torch"])
+    # A Quad6D swarm whose axis neighbours couple: neighbourhoods of up to
+    # 7 agents, auto K = 8, nxf 48 (the wide kernel).  The warm start
+    # hovers: from a free fall a 1e-14 perturbation of U moves the twin's
+    # own X by 4e-5, from hover by 2e-11.
+    fleet, cost, x0 = quad_problem(dtt.QUAD_6D, 27, 0.85, torch.float64, dev)
+    r = distributed(fleet, cost, x0, 20, 4, u_trim=np.array([9.80665, 0, 0]))
+    if int(r["cuda"].sizes.max()) <= 4:
+        fail("the wide parity scenario does not reach K=8")
+    same_solve("wide decomposed (Quad6D n=27, K=8)", r["cuda"], r["torch"])
+    # The centralized problem of phase 4d is ill conditioned in float64 (a
+    # 1e-14 perturbation of x0 moves its X by 2e-6); 10 unicycles on the
+    # swap grid at spacing 1.0 couple through proximity and move by 5e-14.
+    fleet, cost, x0 = unicycle_problem(10, 1.0, torch.float64, dev)
+    U0 = torch.as_tensor(np.random.default_rng(3).uniform(size=(HORIZON, 10, 2)) * 0.01,
+                         device=dev)
+    res = {b: dtt.ilqr_solve(fleet, cost, torch.as_tensor(x0, device=dev), U0=U0,
+                             config=dtt.SolverConfig(n_lqr_iter=15, tol=1e-3,
+                                                     sweep_backend=b))
+           for b in ("cuda", "torch")}
+    same_solve("ilqr_solve (n=10)", res["cuda"], res["torch"])
 
 
 def main():
@@ -296,49 +631,37 @@ def main():
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi_line}", flush=True)
 
-    from dpilqr_tpu_torch.ops import batched as bt
     from dpilqr_tpu_torch.ops import cuda_build
 
     _, build_s = cuda_build.build(verbose=True)
     cuda_build.load_library()
     print(f"build: {build_s:.1f} s", flush=True)
 
-    results = {}
-    kernel_checks(dev, results)
-    print(f"K1 ms/launch: kernel {results['backward_ms']:.3f}, "
-          f"twin {results['backward_plain_ms']:.3f}")
-    for na in (2, 10):
-        print(f"K2 ms/launch ({na} alphas): kernel {results[f'forward_ms_{na}']:.3f}, "
-              f"twin {results[f'forward_plain_ms_{na}']:.3f}", flush=True)
+    checks, results = Checks(), {}
+    narrow_checks(checks, results, dev)
+    wide_checks(checks, results, dev)
+    centralized_checks(checks, results, dev)
+    for label, (ms, plain) in results.items():
+        plain_s = "not timed" if plain is None else f"{plain:.3f}"
+        print(f"{label} ms/launch: kernel {ms:.3f}, twin {plain_s}", flush=True)
 
-    main_path(dev, "cuda")  # warm-up (library load, allocator, cuBLAS)
-    bt.reset_launch_counts()
-    kern = main_path(dev, "cuda")
-    launches = dict(bt.launch_counts)
-    if min(launches.values()) <= 0:
-        fail(f"main path did not launch every kernel: {launches}")
-    print("main path (kernels): " + json.dumps(kern), flush=True)
-    bt.reset_launch_counts()
-    twin = main_path(dev, "torch")
-    if any(bt.launch_counts.values()):
-        fail("the torch backend launched a kernel")
-    print("main path (torch twins): " + json.dumps(twin), flush=True)
-
+    launches = {}
+    main_path(dev, launches)
+    quad6d_loop(dev, launches)
+    quad12d_solve(dev)
+    centralized_paths(dev, launches)
     solve_parity(dev)
 
+    timing = {"backward_batched": "K1", "forward_batched": "K2 nxf 32 2 alphas",
+              "backward_batched_wide": "K3 Quad6D K=16 nxf 96",
+              "forward_sweep": "K4 10 alphas",
+              "backward_sweep": "K5"}
     kernels = [
-        {"name": "backward_pass_batched", "route": "cuda",
-         "source": "dpilqr_tpu_torch/csrc/backward_batched.cu",
-         "replaces": "dpilqr_tpu/ops/pallas_batched.py:396",
-         "launches": launches["backward_pass_batched"],
-         "max_abs_err": results["backward_err"],
-         "ms": results["backward_ms"], "plain_ms": results["backward_plain_ms"]},
-        {"name": "forward_pass_batched", "route": "cuda",
-         "source": "dpilqr_tpu_torch/csrc/forward_batched.cu",
-         "replaces": "dpilqr_tpu/ops/pallas_batched.py:540",
-         "launches": launches["forward_pass_batched"],
-         "max_abs_err": results["forward_err"],
-         "ms": results["forward_ms_2"], "plain_ms": results["forward_plain_ms_2"]},
+        {"name": fn, "route": "cuda", "source": f"dpilqr_tpu_torch/csrc/{key}.cu",
+         "replaces": replaces, "launches": launches[key],
+         "max_abs_err": checks.worst[key], "ms": results[timing[key]][0],
+         "plain_ms": results[timing[key]][1]}
+        for key, (fn, replaces) in KERNELS.items()
     ]
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

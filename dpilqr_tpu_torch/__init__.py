@@ -1,10 +1,12 @@
 """dpilqr_tpu_torch: distributed potential iLQR in PyTorch and CUDA.
 
 The PyTorch/CUDA port of ``dpilqr_tpu`` (the JAX package beside it, which
-stays the reference).  Module names mirror that package.  The decomposed
-(DP-iLQR) solve inside the receding-horizon loop runs its two batched
-sweeps as hand-written CUDA kernels for Hopper (``csrc/``) on CUDA tensors,
-and as their plain PyTorch twins on CPU tensors.  Importing the package
+stays the reference).  Module names mirror that package.  Both solves run
+their sweeps as hand-written CUDA kernels for Hopper (``csrc/``) on CUDA
+tensors, and as their plain PyTorch twins on CPU tensors: the decomposed
+(DP-iLQR) solve inside the receding-horizon loop (``solve_distributed``,
+``solve_rhc(centralized=False)``) and the centralized solve (``ilqr_solve``,
+``make_solver``, ``solve_rhc(centralized=True)``).  Importing the package
 imports neither JAX nor the JAX package, and builds nothing: the kernels
 compile with ``nvcc`` on first use.
 """
@@ -52,7 +54,9 @@ from .ops import (
     GameCost,
     SolveResult,
     game_cost_from_numpy,
+    ilqr_solve,
     make_game_cost,
+    make_solver,
     proximity_cost,
     quadraticize_stage,
     quadraticize_terminal,

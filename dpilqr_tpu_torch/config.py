@@ -66,3 +66,13 @@ class SolverConfig:
 
 
 DEFAULT_CONFIG = SolverConfig()
+
+
+def resolve_backend(backend: str, t) -> str:
+    """A sweep backend for tensors like ``t``: "auto" -> "cuda" for CUDA
+    tensors, "torch" for CPU tensors; "cuda" and "torch" as given."""
+    if backend == "auto":
+        return "cuda" if t.is_cuda else "torch"
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown sweep backend {backend!r}")
+    return backend

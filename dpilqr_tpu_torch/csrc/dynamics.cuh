@@ -1,0 +1,150 @@
+// Device-side dynamics shared by the forward kernels (forward_batched.cu,
+// forward_sweep.cu): the nine models' continuous right-hand sides, one
+// slot's RK4 substep schedule and the per-agent quadratic form of the cost.
+//
+// Model RHS: transcribed from dpilqr_tpu_torch/models/vectorized.py (same
+// formulas and association order as dpilqr_tpu/models/vectorized.py:42-117);
+// the switch index is ModelSpec.model_id.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// Widest per-agent state among the nine models (Quad12D).
+constexpr int MAX_NX = 12;
+
+constexpr double GRAVITY = 9.80665;
+constexpr double Q12_KF = 2000.0 / 63.0;
+constexpr double Q12_KTX = 625000000000000000.0 / 10982593196059.0;
+constexpr double Q12_KTY = 5000000000000000000.0 / 92848985528431.0;
+constexpr double Q12_KTZ = 10000000000000000000.0 / 271597947137541.0;
+constexpr double Q12_CX = 85899976080679.0 / 175721491136944.0;
+constexpr double Q12_CY = 95876456000597.0 / 185697971056862.0;
+constexpr double Q12_CZ = 9976479919918.0 / 271597947137541.0;
+
+__device__ __forceinline__ float d_sin(float v) { return sinf(v); }
+__device__ __forceinline__ double d_sin(double v) { return sin(v); }
+__device__ __forceinline__ float d_cos(float v) { return cosf(v); }
+__device__ __forceinline__ double d_cos(double v) { return cos(v); }
+__device__ __forceinline__ float d_tan(float v) { return tanf(v); }
+__device__ __forceinline__ double d_tan(double v) { return tan(v); }
+__device__ __forceinline__ float d_sqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double d_sqrt(double v) { return sqrt(v); }
+
+// Continuous dynamics of one slot; components a model does not set are 0.
+template <typename T>
+__device__ void rhs(int model, const T* x, const T* u, T* xd, int nx) {
+  for (int i = 0; i < nx; ++i) xd[i] = T(0);
+  const T g = T(GRAVITY);
+  switch (model) {
+    case 0:  // DoubleInt4D
+      xd[0] = x[2]; xd[1] = x[3]; xd[2] = u[0]; xd[3] = u[1];
+      break;
+    case 1:  // DoubleInt6D
+      xd[0] = x[3]; xd[1] = x[4]; xd[2] = x[5];
+      xd[3] = u[0]; xd[4] = u[1]; xd[5] = u[2];
+      break;
+    case 2:  // Car3D
+      xd[0] = u[0] * d_cos(x[2]); xd[1] = u[0] * d_sin(x[2]); xd[2] = u[1];
+      break;
+    case 3:  // Unicycle4D
+      xd[0] = x[2] * d_cos(x[3]); xd[1] = x[2] * d_sin(x[3]);
+      xd[2] = u[0]; xd[3] = u[1];
+      break;
+    case 4:  // Human6D
+      xd[0] = x[3] * d_cos(u[0]); xd[1] = x[3] * d_sin(u[0]); xd[3] = u[1];
+      break;
+    case 5:  // HumanLin6D
+      xd[0] = x[3]; xd[1] = x[4]; xd[3] = u[0]; xd[4] = u[1];
+      break;
+    case 6:  // Quad6D
+      xd[0] = x[3]; xd[1] = x[4]; xd[2] = x[5];
+      xd[3] = g * d_tan(u[2]);
+      xd[4] = T(-GRAVITY) * d_tan(u[1]);
+      xd[5] = u[0] - g;
+      break;
+    case 7: {  // Quad12D
+      const T psi = x[3], th = x[4], ph = x[5];
+      const T vx = x[6], vy = x[7], vz = x[8];
+      const T wx = x[9], wy = x[10], wz = x[11];
+      const T sps = d_sin(psi), cps = d_cos(psi);
+      const T sth = d_sin(th), cth = d_cos(th);
+      const T sph = d_sin(ph), cph = d_cos(ph);
+      const T tth = d_tan(th);
+      xd[0] = vx * cps * cth + vy * (sph * sth * cps - sps * cph) +
+              vz * (sph * sps + sth * cph * cps);
+      xd[1] = vx * sps * cth + vy * (sph * sps * sth + cph * cps) +
+              vz * (-sph * cps + sps * sth * cph);
+      xd[2] = -vx * sth + vy * sph * cth + vz * cph * cth;
+      xd[3] = wy * sph / cth + wz * cph / cth;
+      xd[4] = wy * cph - wz * sph;
+      xd[5] = wx + wy * sph * tth + wz * cph * tth;
+      xd[6] = vy * wz - vz * wy + g * sth;
+      xd[7] = -vx * wz + vz * wx - g * sph * cth;
+      xd[8] = T(Q12_KF) * u[3] + vx * wy - vy * wx - g * cph * cth;
+      xd[9] = T(Q12_KTX) * u[0] - T(Q12_CX) * wy * wz;
+      xd[10] = T(Q12_KTY) * u[1] + T(Q12_CY) * wx * wz;
+      xd[11] = T(Q12_KTZ) * u[2] - T(Q12_CZ) * wx * wy;
+      break;
+    }
+    case 8:  // Bike5D
+      xd[0] = x[2] * d_cos(x[3]); xd[1] = x[2] * d_sin(x[3]);
+      xd[2] = u[0]; xd[3] = x[2] * d_tan(x[4]); xd[4] = u[1];
+      break;
+    default:
+      break;
+  }
+}
+
+// One control period of one slot, in place: ``nsub`` classic RK4 steps of
+// size ``dh`` under zero-order hold (models/integrate.py rk4_step).
+template <typename T>
+__device__ void rk4_slot(int model, int nsub, T dh, T* xs, const T* us,
+                         int nx) {
+  T k0[MAX_NX], k1[MAX_NX], k2[MAX_NX], k3[MAX_NX], xt[MAX_NX];
+  const T hh = T(0.5) * dh;
+  for (int i_sub = 0; i_sub < nsub; ++i_sub) {
+    rhs(model, xs, us, k0, nx);
+    for (int i = 0; i < nx; ++i) xt[i] = xs[i] + hh * k0[i];
+    rhs(model, xt, us, k1, nx);
+    for (int i = 0; i < nx; ++i) xt[i] = xs[i] + hh * k1[i];
+    rhs(model, xt, us, k2, nx);
+    for (int i = 0; i < nx; ++i) xt[i] = xs[i] + dh * k2[i];
+    rhs(model, xt, us, k3, nx);
+    for (int i = 0; i < nx; ++i)
+      xs[i] = xs[i] + dh * (k0[i] + T(2) * k1[i] + T(2) * k2[i] + k3[i]) / T(6);
+  }
+}
+
+// v^T M v accumulated as sum_b v_b (sum_a M_ba v_a).
+template <typename T>
+__device__ T quadform(const T* M, const T* v, int n) {
+  T acc = T(0);
+  for (int b = 0; b < n; ++b) {
+    T mv = M[b * n] * v[0];
+    for (int a = 1; a < n; ++a) mv += M[b * n + a] * v[a];
+    acc += v[b] * mv;
+  }
+  return acc;
+}
+
+// One pair's unweighted penalty m1 m2 [d < r] min(0, d - r)^2, the distance
+// over the first min(nx, 3, nd) position components.
+template <typename T>
+__device__ T pair_penalty(const T* x1, const T* x2, T m1, T m2, int nd, T rad,
+                          int nx) {
+  const int kpos = nx < 3 ? nx : 3;
+  T dd2 = T(0);
+  for (int c = 0; c < kpos; ++c) {
+    const T dc = (x1[c] - x2[c]) * T(c < nd ? 1 : 0);
+    dd2 += dc * dc;
+  }
+  const T dist = d_sqrt(dd2);
+  const T active = dist < rad ? T(1) : T(0);
+  const T m = dist - rad < T(0) ? dist - rad : T(0);
+  return m1 * m2 * active * (m * m);
+}
+
+}  // namespace

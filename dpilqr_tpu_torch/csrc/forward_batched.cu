@@ -20,11 +20,11 @@
 // simple one: one thread per column, the slot states in registers/local
 // memory, the whole time loop in one launch so nothing round-trips through
 // device memory but the per-step outputs.  Splitting a column's slots over
-// threads is later work.
+// threads is later work.  Wide subproblems (nxf up to 96) run through the
+// same code; their per-thread arrays spill to local memory.
 //
-// Model RHS: one __device__ function per model, transcribed from
-// dpilqr_tpu_torch/models/vectorized.py (same formulas and association
-// order as dpilqr_tpu/models/vectorized.py:42-117).
+// Model RHS, RK4 and the cost's quadratic forms: dynamics.cuh, shared with
+// the centralized forward kernel (forward_sweep.cu).
 //
 // Layouts (contiguous):
 //   X (S, N+1, K, nx), U (S, N, K, nu), Kg (N, nuf, nxf, S), d (N, nuf, S),
@@ -34,129 +34,29 @@
 //   -> X5 (N, nx, K, n_alpha, S) states 1..N, U5 (N, nu, K, n_alpha, S),
 //      J (n_alpha, S); column c = alpha * S + s.
 
-#include <cuda_runtime.h>
+#include "dynamics.cuh"
 
 namespace {
 
-constexpr int MAX_NXF = 32;
-constexpr int MAX_NUF = 32;
-constexpr int MAX_NX = 12;
-
-constexpr double GRAVITY = 9.80665;
-constexpr double Q12_KF = 2000.0 / 63.0;
-constexpr double Q12_KTX = 625000000000000000.0 / 10982593196059.0;
-constexpr double Q12_KTY = 5000000000000000000.0 / 92848985528431.0;
-constexpr double Q12_KTZ = 10000000000000000000.0 / 271597947137541.0;
-constexpr double Q12_CX = 85899976080679.0 / 175721491136944.0;
-constexpr double Q12_CY = 95876456000597.0 / 185697971056862.0;
-constexpr double Q12_CZ = 9976479919918.0 / 271597947137541.0;
-
-__device__ __forceinline__ float d_sin(float v) { return sinf(v); }
-__device__ __forceinline__ double d_sin(double v) { return sin(v); }
-__device__ __forceinline__ float d_cos(float v) { return cosf(v); }
-__device__ __forceinline__ double d_cos(double v) { return cos(v); }
-__device__ __forceinline__ float d_tan(float v) { return tanf(v); }
-__device__ __forceinline__ double d_tan(double v) { return tan(v); }
-__device__ __forceinline__ float d_sqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double d_sqrt(double v) { return sqrt(v); }
-
-// Continuous dynamics of one slot; components a model does not set are 0.
-template <typename T>
-__device__ void rhs(int model, const T* x, const T* u, T* xd, int nx) {
-  for (int i = 0; i < nx; ++i) xd[i] = T(0);
-  const T g = T(GRAVITY);
-  switch (model) {
-    case 0:  // DoubleInt4D
-      xd[0] = x[2]; xd[1] = x[3]; xd[2] = u[0]; xd[3] = u[1];
-      break;
-    case 1:  // DoubleInt6D
-      xd[0] = x[3]; xd[1] = x[4]; xd[2] = x[5];
-      xd[3] = u[0]; xd[4] = u[1]; xd[5] = u[2];
-      break;
-    case 2:  // Car3D
-      xd[0] = u[0] * d_cos(x[2]); xd[1] = u[0] * d_sin(x[2]); xd[2] = u[1];
-      break;
-    case 3:  // Unicycle4D
-      xd[0] = x[2] * d_cos(x[3]); xd[1] = x[2] * d_sin(x[3]);
-      xd[2] = u[0]; xd[3] = u[1];
-      break;
-    case 4:  // Human6D
-      xd[0] = x[3] * d_cos(u[0]); xd[1] = x[3] * d_sin(u[0]); xd[3] = u[1];
-      break;
-    case 5:  // HumanLin6D
-      xd[0] = x[3]; xd[1] = x[4]; xd[3] = u[0]; xd[4] = u[1];
-      break;
-    case 6:  // Quad6D
-      xd[0] = x[3]; xd[1] = x[4]; xd[2] = x[5];
-      xd[3] = g * d_tan(u[2]);
-      xd[4] = T(-GRAVITY) * d_tan(u[1]);
-      xd[5] = u[0] - g;
-      break;
-    case 7: {  // Quad12D
-      const T psi = x[3], th = x[4], ph = x[5];
-      const T vx = x[6], vy = x[7], vz = x[8];
-      const T wx = x[9], wy = x[10], wz = x[11];
-      const T sps = d_sin(psi), cps = d_cos(psi);
-      const T sth = d_sin(th), cth = d_cos(th);
-      const T sph = d_sin(ph), cph = d_cos(ph);
-      const T tth = d_tan(th);
-      xd[0] = vx * cps * cth + vy * (sph * sth * cps - sps * cph) +
-              vz * (sph * sps + sth * cph * cps);
-      xd[1] = vx * sps * cth + vy * (sph * sps * sth + cph * cps) +
-              vz * (-sph * cps + sps * sth * cph);
-      xd[2] = -vx * sth + vy * sph * cth + vz * cph * cth;
-      xd[3] = wy * sph / cth + wz * cph / cth;
-      xd[4] = wy * cph - wz * sph;
-      xd[5] = wx + wy * sph * tth + wz * cph * tth;
-      xd[6] = vy * wz - vz * wy + g * sth;
-      xd[7] = -vx * wz + vz * wx - g * sph * cth;
-      xd[8] = T(Q12_KF) * u[3] + vx * wy - vy * wx - g * cph * cth;
-      xd[9] = T(Q12_KTX) * u[0] - T(Q12_CX) * wy * wz;
-      xd[10] = T(Q12_KTY) * u[1] + T(Q12_CY) * wx * wz;
-      xd[11] = T(Q12_KTZ) * u[2] - T(Q12_CZ) * wx * wy;
-      break;
-    }
-    case 8:  // Bike5D
-      xd[0] = x[2] * d_cos(x[3]); xd[1] = x[2] * d_sin(x[3]);
-      xd[2] = u[0]; xd[3] = x[2] * d_tan(x[4]); xd[4] = u[1];
-      break;
-    default:
-      break;
-  }
-}
-
-// v^T M v accumulated as sum_b v_b (sum_a M_ba v_a).
-template <typename T>
-__device__ T quadform(const T* M, const T* v, int n) {
-  T acc = T(0);
-  for (int b = 0; b < n; ++b) {
-    T mv = M[b * n] * v[0];
-    for (int a = 1; a < n; ++a) mv += M[b * n + a] * v[a];
-    acc += v[b] * mv;
-  }
-  return acc;
-}
+// Widest flat state / control of a subproblem (K * nx, K * nu) the kernel
+// takes: the wide subproblems (nxf 96: Quad12D at K=8, Quad6D at K=16;
+// nuf up to 64 for Car3D at K=32).  A column's x, dx and u live in
+// per-thread arrays of these sizes; past a few dozen values they spill to
+// local memory (cached in L1/L2).
+constexpr int MAX_NXF = 96;
+constexpr int MAX_NUF = 64;
 
 // Unweighted pair penalty sum_{k1<k2} m1 m2 [d < r] min(0, d - r)^2.
 template <typename T>
 __device__ T prox(const T* x, const T* mask, const int* npos, T rad, int K,
                   int nx) {
-  const int kpos = nx < 3 ? nx : 3;
   T acc = T(0);
-  for (int k1 = 0; k1 < K; ++k1) {
+  for (int k1 = 0; k1 < K; ++k1)
     for (int k2 = k1 + 1; k2 < K; ++k2) {
       const int nd = npos[k1] < npos[k2] ? npos[k1] : npos[k2];
-      T dd2 = T(0);
-      for (int c = 0; c < kpos; ++c) {
-        const T dc = (x[k1 * nx + c] - x[k2 * nx + c]) * T(c < nd ? 1 : 0);
-        dd2 += dc * dc;
-      }
-      const T dist = d_sqrt(dd2);
-      const T active = dist < rad ? T(1) : T(0);
-      const T m = dist - rad < T(0) ? dist - rad : T(0);
-      acc += mask[k1] * mask[k2] * active * (m * m);
+      acc += pair_penalty(x + k1 * nx, x + k2 * nx, mask[k1], mask[k2], nd,
+                          rad, nx);
     }
-  }
   return acc;
 }
 
@@ -181,7 +81,6 @@ __global__ void forward_batched_kernel(
   const bool gains = Kg != nullptr;
 
   T x[MAX_NXF], u[MAX_NUF], dx[MAX_NXF];
-  T k0[MAX_NX], k1[MAX_NX], k2[MAX_NX], k3[MAX_NX], xt[MAX_NX];
   const T* Xs = X + (size_t)s * (N + 1) * nxf;
   const T* Us = U + (size_t)s * N * nuf;
   for (int i = 0; i < nxf; ++i) x[i] = Xs[i];
@@ -228,21 +127,8 @@ __global__ void forward_batched_kernel(
     // RK4 with the slot's own substep schedule.
     for (int k = 0; k < K; ++k) {
       const size_t sk = (size_t)s * K + k;
-      const int model = slot_model[sk], nsub = slot_nsub[sk];
-      const T dh = slot_dh[sk], hh = T(0.5) * dh;
-      T* xs = x + k * nx;
-      const T* us = u + k * nu;
-      for (int i_sub = 0; i_sub < nsub; ++i_sub) {
-        rhs(model, xs, us, k0, nx);
-        for (int i = 0; i < nx; ++i) xt[i] = xs[i] + hh * k0[i];
-        rhs(model, xt, us, k1, nx);
-        for (int i = 0; i < nx; ++i) xt[i] = xs[i] + hh * k1[i];
-        rhs(model, xt, us, k2, nx);
-        for (int i = 0; i < nx; ++i) xt[i] = xs[i] + dh * k2[i];
-        rhs(model, xt, us, k3, nx);
-        for (int i = 0; i < nx; ++i)
-          xs[i] = xs[i] + dh * (k0[i] + T(2) * k1[i] + T(2) * k2[i] + k3[i]) / T(6);
-      }
+      rk4_slot(slot_model[sk], slot_nsub[sk], slot_dh[sk], x + k * nx,
+               u + k * nu, nx);
     }
     for (int k = 0; k < K; ++k)
       for (int i = 0; i < nx; ++i)

@@ -135,6 +135,9 @@ def padded_jacobians(name: str, x, u):
     uf = u.reshape(-1, u.shape[-1])
     jac = torch.func.jacfwd(lambda a, b: padded_f(name, a, b), argnums=(0, 1))
     A, B = torch.func.vmap(jac)(xf, uf)
+    # Forward mode promotes the tangents of terms with a Python-float
+    # constant (the quadrotors' gravity) to float64: cast back.
+    A, B = A.to(x.dtype), B.to(x.dtype)
     return A.reshape(*lead, *A.shape[-2:]), B.reshape(*lead, *B.shape[-2:])
 
 

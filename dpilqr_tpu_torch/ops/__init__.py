@@ -9,4 +9,4 @@ from .costs import (
     stage_cost,
     terminal_cost,
 )
-from .ilqr import SolveResult, line_search_alphas, rollout
+from .ilqr import SolveResult, ilqr_solve, line_search_alphas, make_solver, rollout

@@ -6,7 +6,8 @@ into one batch of S subproblems with K slots each, and every iteration runs
 two batched sweeps over all of them:
 
 - ``backward_pass_batched``: the Riccati recursion (reference
-  control.py:116-148), kernel ``csrc/backward_batched.cu``;
+  control.py:116-148), kernel ``csrc/backward_batched.cu`` for flat states
+  up to 32 wide and ``csrc/backward_batched_wide.cu`` up to 96;
 - ``forward_pass_batched``: the closed-loop line-search rollout over all
   alphas (control.py:95-114,162), kernel ``csrc/forward_batched.cu``.
 
@@ -24,12 +25,11 @@ line search, with finished subproblems retired by halving compaction.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from ..config import SolverConfig
+from ..config import SolverConfig, resolve_backend
 from ..models.fleet import Fleet
 from ..models.vectorized import blended_f
 from .costs import (
@@ -42,34 +42,21 @@ from .costs import (
     stage_cost,
     terminal_cost,
 )
+from .cuda_build import check_tensors, launch, require_cuda, riccati_work_size
 from .ilqr import SolveResult, line_search_alphas
 
-# Widest flat state (K * nx_p) the kernels take.  Wider subproblems
-# (Quad6D at K=8, Quad12D) need the blocked backward kernel, still to be
-# ported (ROADMAP B3, dpilqr_tpu/ops/pallas_batched_wide.py).
+# Widest flat state (K * nx_p) of the narrow backward kernel; wider
+# subproblems, up to WIDE_MAX_NXF, take the wide one, and the forward kernel
+# takes them all.  The JAX package has no kernel past 96 either
+# (pallas_batched.WIDE_NXF_LIMIT).  No model has more controls than states
+# (at most 2 per 3: Car3D), so flat controls stay within MAX_NUF.
 MAX_NXF = 32
-MAX_NUF = 32
+WIDE_MAX_NXF = 96
+MAX_NUF = 64
 
 # Compaction granularity of the retirement schedule (widths halve, rounded
 # up to a multiple of this).
 COMPACTION_UNIT = 16
-
-# Launches of each kernel since the last reset (the twins never count).
-launch_counts = {"backward_pass_batched": 0, "forward_pass_batched": 0}
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
-def resolve_backend(backend: str, t: torch.Tensor) -> str:
-    """"auto" -> "cuda" for CUDA tensors, "torch" for CPU tensors."""
-    if backend == "auto":
-        return "cuda" if t.is_cuda else "torch"
-    if backend not in ("cuda", "torch"):
-        raise ValueError(f"unknown sweep backend {backend!r}")
-    return backend
 
 
 # ---------------------------------------------------------------------------
@@ -204,73 +191,65 @@ def backward_pass_batched_torch(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
     return Kg.permute(0, 2, 3, 1).contiguous(), d.permute(0, 2, 1).contiguous()
 
 
-def _check_cuda(name: str, tensors: dict, dtype, device):
-    for key, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: {key} has dtype {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-
-
-def _dtype_suffix(dtype) -> str:
-    if dtype == torch.float32:
-        return "f32"
-    if dtype == torch.float64:
-        return "f64"
-    raise ValueError(f"kernels take float32 or float64, got {dtype}")
-
-
-def _check_width(name: str, nxf: int, nuf: int):
-    if nxf > MAX_NXF or nuf > MAX_NUF:
+def _check_width(name: str, nxf: int, nuf: int, max_nxf: int):
+    if nxf > WIDE_MAX_NXF or nuf > MAX_NUF:
         raise NotImplementedError(
-            f"{name}: K*nx_p={nxf} (K*nu_p={nuf}) exceeds the kernel's "
-            f"{MAX_NXF}; wide subproblems need the blocked backward kernel "
-            "(ROADMAP B3, backward_pass_batched_wide), not yet ported"
+            f"{name}: K*nx_p={nxf}, K*nu_p={nuf}: no kernel takes flat states "
+            f"wider than {WIDE_MAX_NXF} or controls wider than {MAX_NUF}; "
+            'sweep_backend="torch" runs the plain PyTorch twin'
+        )
+    if nxf > max_nxf:
+        raise ValueError(
+            f"{name} takes K*nx_p <= {max_nxf}, got {nxf}: wider subproblems "
+            "take backward_pass_batched_wide_cuda"
         )
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
-
-
-def backward_pass_batched_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
-    """Launch ``csrc/backward_batched.cu``: the Riccati recursion for all
-    subproblems, one CTA each.  Inputs as ``_quadraticize_batch`` /
-    ``_linearize_batch`` produce them; returns ``Kg (N, nuf, nxf, S)``,
+def _launch_backward(kernel, max_nxf, A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0,
+                     workspace=False):
+    """Check the backward inputs and launch ``kernel`` (with a per-subproblem
+    device-memory ``workspace`` if asked); returns ``Kg (N, nuf, nxf, S)``,
     ``d (N, nuf, S)``."""
-    from .cuda_build import load_library
-
     S, N, K, nx_p, _ = A.shape
     nu_p = B.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
-    _check_width("backward_pass_batched", nxf, nuf)
-    if not A.is_cuda:
-        raise ValueError("backward_pass_batched_cuda needs CUDA tensors")
-    shapes = {
+    _check_width(kernel, nxf, nuf, max_nxf)
+    require_cuda(kernel, A)
+    ins = dict(A=A, B=B, L_uu=L_uu, L_xx=L_xx, L_x=L_x, L_u=L_u, mu=mu, p0=p0,
+               P0=P0)
+    check_tensors(kernel, ins, {
         "A": (S, N, K, nx_p, nx_p), "B": (S, N, K, nx_p, nu_p),
         "L_uu": (S, N, nuf, nuf), "L_xx": (S, N, nxf, nxf),
         "L_x": (S, N, nxf), "L_u": (S, N, nuf), "mu": (S,),
         "p0": (S, nxf), "P0": (S, nxf, nxf),
-    }
-    ins = dict(A=A, B=B, L_uu=L_uu, L_xx=L_xx, L_x=L_x, L_u=L_u, mu=mu,
-               p0=p0, P0=P0)
-    for k, shp in shapes.items():
-        if tuple(ins[k].shape) != shp:
-            raise ValueError(f"backward_pass_batched: {k} has shape "
-                             f"{tuple(ins[k].shape)}, expected {shp}")
-    _check_cuda("backward_pass_batched", ins, A.dtype, A.device)
-    fn = getattr(load_library(), f"dpilqr_backward_batched_{_dtype_suffix(A.dtype)}")
-    Kg = torch.empty((N, nuf, nxf, S), dtype=A.dtype, device=A.device)
-    d = torch.empty((N, nuf, S), dtype=A.dtype, device=A.device)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = fn(*(_ptr(ins[k]) for k in shapes), _ptr(Kg), _ptr(d),
-             S, N, K, nx_p, nu_p, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"backward_batched kernel failed: cudaError {err}")
-    launch_counts["backward_pass_batched"] += 1
+    }, A.dtype, A.device)
+    Kg = A.new_empty((N, nuf, nxf, S))
+    d = A.new_empty((N, nuf, S))
+    work = ()
+    if workspace:
+        w = A.new_empty((S, riccati_work_size(K, nx_p, nu_p)))
+        work = (w, w.numel())
+    launch(kernel, A.dtype, A.device, *ins.values(), Kg, d, *work,
+           S, N, K, nx_p, nu_p)
     return Kg, d
+
+
+def backward_pass_batched_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
+    """Launch ``csrc/backward_batched.cu`` (K * nx_p <= 32): the Riccati
+    recursion for all subproblems, one CTA each.  Inputs as
+    ``_quadraticize_batch`` / ``_linearize_batch`` produce them; returns
+    ``Kg (N, nuf, nxf, S)``, ``d (N, nuf, S)``."""
+    return _launch_backward("backward_batched", MAX_NXF, A, B, L_uu, L_xx,
+                            L_x, L_u, mu, p0, P0)
+
+
+def backward_pass_batched_wide_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
+    """Launch ``csrc/backward_batched_wide.cu`` (K * nx_p <= 96): the same
+    contract as ``backward_pass_batched_cuda``, with the three nxf^2
+    matrices of each subproblem (and, where shared memory is too small, its
+    gain blocks) in a device-memory workspace."""
+    return _launch_backward("backward_batched_wide", WIDE_MAX_NXF, A, B, L_uu,
+                            L_xx, L_x, L_u, mu, p0, P0, workspace=True)
 
 
 def backward_pass_batched(
@@ -280,15 +259,18 @@ def backward_pass_batched(
 
     ``X (S, N+1, K, nx_p)``, ``U (S, N, K, nu_p)``, ``mu (S,)``,
     ``mids_s (S, K)`` per-slot branch indices.  Returns ``Kg (N, nuf, nxf,
-    S)`` and ``d (N, nuf, S)``, the JAX package's layout.
+    S)`` and ``d (N, nuf, S)``, the JAX package's layout.  On the kernels
+    flat states up to 32 wide take the narrow kernel and up to 96 the wide
+    one (the JAX package's routing, pallas_batched.py:989-1001).
     """
     q = _quadraticize_batch(cost_b, X, U)
     A, B = _linearize_batch(fleet, cost_b, mids_s, X, U)
-    fn = (
-        backward_pass_batched_cuda
-        if resolve_backend(backend, X) == "cuda"
-        else backward_pass_batched_torch
-    )
+    if resolve_backend(backend, X) == "torch":
+        fn = backward_pass_batched_torch
+    elif X.shape[2] * X.shape[3] <= MAX_NXF:
+        fn = backward_pass_batched_cuda
+    else:
+        fn = backward_pass_batched_wide_cuda
     return fn(A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"],
               mu.to(X.dtype).contiguous(), q["p0"], q["P0"])
 
@@ -366,58 +348,36 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     """Launch ``csrc/forward_batched.cu``: one thread per (alpha,
     subproblem) column.  Same arguments and outputs as
     ``forward_pass_batched``."""
-    from .cuda_build import load_library
-
     S, Np1, K, nx_p = X.shape
     N = Np1 - 1
     nu_p = U.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
     n_alpha = alphas.shape[0]
-    _check_width("forward_pass_batched", nxf, nuf)
-    if not X.is_cuda:
-        raise ValueError("forward_pass_batched_cuda needs CUDA tensors")
+    _check_width("forward_batched", nxf, nuf, WIDE_MAX_NXF)
+    require_cuda("forward_batched", X)
     if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
         raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
     dtype, dev = X.dtype, X.device
     model, nsub, dh = _slot_tables(fleet, mids_s, dtype)
-    ins = dict(X=X, U=U, alphas=alphas, slot_model=model, slot_nsub=nsub,
-               slot_dh=dh, xf=cost_b.xf, Q=cost_b.Q, R=cost_b.R, Qf=cost_b.Qf,
+    ins = dict(X=X, U=U, Kg=Kg, d=d, alphas=alphas, model=model, nsub=nsub,
+               dh=dh, xf=cost_b.xf, Q=cost_b.Q, R=cost_b.R, Qf=cost_b.Qf,
                mask=cost_b.agent_mask, refw=cost_b.ref_weight,
                radius=cost_b.radius, proxw=cost_b.prox_weight,
                npos_eval=cost_b.n_pos_eval)
-    shapes = dict(X=(S, N + 1, K, nx_p), U=(S, N, K, nu_p), alphas=(n_alpha,),
-                  slot_model=(S, K), slot_nsub=(S, K), slot_dh=(S, K),
-                  xf=(S, K, nx_p), Q=(S, K, nx_p, nx_p), R=(S, K, nu_p, nu_p),
+    shapes = dict(X=(S, N + 1, K, nx_p), U=(S, N, K, nu_p),
+                  Kg=(N, nuf, nxf, S), d=(N, nuf, S), alphas=(n_alpha,),
+                  model=(S, K), nsub=(S, K), dh=(S, K), xf=(S, K, nx_p),
+                  Q=(S, K, nx_p, nx_p), R=(S, K, nu_p, nu_p),
                   Qf=(S, K, nx_p, nx_p), mask=(S, K), refw=(S,), radius=(S,),
                   proxw=(S,), npos_eval=(S, K))
-    if Kg is not None:
-        ins.update(Kg=Kg, d=d)
-        shapes.update(Kg=(N, nuf, nxf, S), d=(N, nuf, S))
-    for k, shp in shapes.items():
-        if tuple(ins[k].shape) != shp:
-            raise ValueError(f"forward_pass_batched: {k} has shape "
-                             f"{tuple(ins[k].shape)}, expected {shp}")
-    ints = {"slot_model", "slot_nsub", "npos_eval"}
-    _check_cuda("forward_pass_batched",
-                {k: v for k, v in ins.items() if k not in ints}, dtype, dev)
-    _check_cuda("forward_pass_batched",
-                {k: v for k, v in ins.items() if k in ints}, torch.int32, dev)
-    fn = getattr(load_library(), f"dpilqr_forward_batched_{_dtype_suffix(dtype)}")
-    X5 = torch.empty((N, nx_p, K, n_alpha, S), dtype=dtype, device=dev)
-    U5 = torch.empty((N, nu_p, K, n_alpha, S), dtype=dtype, device=dev)
-    J = torch.empty((n_alpha, S), dtype=dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
-        _ptr(X), _ptr(U), _ptr(Kg), _ptr(d), _ptr(alphas), _ptr(model),
-        _ptr(nsub), _ptr(dh), _ptr(cost_b.xf), _ptr(cost_b.Q), _ptr(cost_b.R),
-        _ptr(cost_b.Qf), _ptr(cost_b.agent_mask), _ptr(cost_b.ref_weight),
-        _ptr(cost_b.radius), _ptr(cost_b.prox_weight), _ptr(cost_b.n_pos_eval),
-        _ptr(X5), _ptr(U5), _ptr(J), S, N, K, nx_p, nu_p, n_alpha,
-        ctypes.c_void_p(stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"forward_batched kernel failed: cudaError {err}")
-    launch_counts["forward_pass_batched"] += 1
+    check_tensors("forward_batched",
+                  {k: v for k, v in ins.items() if v is not None}, shapes,
+                  dtype, dev, ints=("model", "nsub", "npos_eval"))
+    X5 = X.new_empty((N, nx_p, K, n_alpha, S))
+    U5 = X.new_empty((N, nu_p, K, n_alpha, S))
+    J = X.new_empty((n_alpha, S))
+    launch("forward_batched", dtype, dev, *ins.values(), X5, U5, J,
+           S, N, K, nx_p, nu_p, n_alpha)
     return X5, U5, J
 
 

@@ -1,10 +1,15 @@
-"""Build and load the hand-written CUDA kernels in ``dpilqr_tpu_torch/csrc``.
+"""Build, load and launch the hand-written CUDA kernels in ``dpilqr_tpu_torch/csrc``.
 
-The ``.cu`` sources compile with ``nvcc`` for ``sm_90a`` (Hopper) into one
-shared library with a plain C interface, loaded through ``ctypes``.  The
-build runs on first use, never at import, into
-``dpilqr_tpu_torch/_build/<hash>/`` keyed by a hash of the sources and the
-compiler flags, so an edited kernel rebuilds and an unchanged one loads.
+The ``.cu`` sources compile with ``nvcc`` for ``sm_90a`` (Hopper), one
+``nvcc`` per source started together, and link into one shared library with
+a plain C interface, loaded through ``ctypes``.  The build runs on first
+use, never at import, into ``dpilqr_tpu_torch/_build/<hash>/`` keyed by a
+hash of the sources and the compiler flags, so an edited kernel rebuilds
+and an unchanged one loads.
+
+``launch`` is the one way a wrapper calls a kernel: it raises on a failed
+launch and counts the launch in ``launch_counts`` (the plain-torch twins
+never count).
 """
 
 from __future__ import annotations
@@ -19,22 +24,33 @@ import time
 from functools import cache
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libdpilqr_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Argument lists of the C entry points (pointers, then ints, then stream).
+# Argument lists of the C entry points (pointers, then sizes, then stream).
 _SIGNATURES = {
-    "dpilqr_backward_batched": [_P] * 11 + [_I] * 5 + [_P],
-    "dpilqr_forward_batched": [_P] * 20 + [_I] * 6 + [_P],
+    "backward_batched": [_P] * 11 + [_I] * 5 + [_P],
+    "backward_batched_wide": [_P] * 12 + [ctypes.c_longlong] + [_I] * 5 + [_P],
+    "backward_sweep": [_P] * 12 + [ctypes.c_longlong] + [_I] * 4 + [_P],
+    "forward_batched": [_P] * 20 + [_I] * 6 + [_P],
+    "forward_sweep": [_P] * 20 + [_I] * 5 + [_P],
 }
+
+# Launches of each kernel since the last reset.
+launch_counts = dict.fromkeys(_SIGNATURES, 0)
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def sources() -> list[Path]:
@@ -53,11 +69,16 @@ def find_nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _check(returncode: int, what: str, out: str, err: str):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} ({returncode}):\n{out}\n{err}")
 
 
 def build(verbose: bool = False) -> tuple[Path, float]:
@@ -67,22 +88,30 @@ def build(verbose: bool = False) -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    nvcc = find_nvcc()
+    extra = ["-Xptxas=-v"] if verbose else []
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *COMPILE_FLAGS, *extra, "-I", str(CSRC_DIR), "-c",
+                   "-o", str(obj), str(src)]
+            procs.append((src.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for name, _, proc in procs:
+            out, err = proc.communicate()
+            _check(proc.returncode, name, out, err)
+            if verbose and err:
+                print(err)
+        so = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(so),
+             *(str(obj) for _, obj, _ in procs)],
+            capture_output=True, text=True,
         )
-    if verbose and proc.stderr:
-        print(proc.stderr)
-    os.replace(tmp, lib)
+        _check(link.returncode, "link", link.stdout, link.stderr)
+        os.replace(so, lib)
     return lib, time.perf_counter() - t0
 
 
@@ -93,7 +122,65 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     for base, argtypes in _SIGNATURES.items():
         for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"{base}_{suffix}")
+            fn = getattr(lib, f"dpilqr_{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    lib.dpilqr_riccati_work_size.argtypes = [_I] * 3
+    lib.dpilqr_riccati_work_size.restype = ctypes.c_longlong
     return lib
+
+
+def dtype_suffix(dtype) -> str:
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise ValueError(f"kernels take float32 or float64, got {dtype}")
+
+
+def require_cuda(name: str, t):
+    """Raise unless ``t`` lies on a CUDA device: a wrapper never runs a
+    kernel's twin in its place."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors")
+
+
+def check_tensors(name: str, tensors: dict, shapes: dict, dtype, device,
+                  ints=()):
+    """Raise unless every tensor has its shape, lies on ``device``, is
+    contiguous, and has ``dtype`` (int32 for the keys in ``ints``)."""
+    for key, t in tensors.items():
+        want = torch.int32 if key in ints else dtype
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[key]}")
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
+        if t.dtype != want:
+            raise ValueError(f"{name}: {key} has dtype {t.dtype}, expected {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def riccati_work_size(K: int, nx: int, nu: int) -> int:
+    """Values of the value and gain groups of one problem's Riccati sweep,
+    as the library computes them (``riccati_sizes`` in csrc/riccati.cuh,
+    exported by csrc/backward_batched_wide.cu): the device-memory workspace
+    a backward kernel takes where they do not fit in shared memory."""
+    return load_library().dpilqr_riccati_work_size(K, nx, nu)
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+
+
+def launch(kernel: str, dtype, device, *args):
+    """Call ``dpilqr_<kernel>_<f32|f64>(*args, stream)`` on the current
+    stream of ``device``; tensors among ``args`` pass as pointers."""
+    fn = getattr(load_library(), f"dpilqr_{kernel}_{dtype_suffix(dtype)}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*(ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
+             ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel failed: cudaError {err}")
+    launch_counts[kernel] += 1

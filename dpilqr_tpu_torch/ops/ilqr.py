@@ -1,9 +1,24 @@
-"""iLQR building blocks shared by the solvers.
+"""iLQR solver core: the centralized solve and the pieces the solvers share.
 
-Counterpart of part of ``dpilqr_tpu/ops/ilqr.py``: the result record, the
-line-search alphas, the unpivoted Gauss-Jordan solve and the nonlinear
-rollouts (reference dpilqr/control.py:80-93,162).  The centralized
-``ilqr_solve`` is not ported yet.
+Counterpart of ``dpilqr_tpu/ops/ilqr.py``, with the reference algorithm
+(dpilqr/control.py:15-242):
+
+- initial rollout of the warm-start controls (control.py:80-93),
+- backward Riccati recursion with Tassa-style regularization
+  ``B^T (P + mu I) B`` (control.py:116-148),
+- line search over ``alpha = 1.1 ** (-i^2)`` accepting the first cost
+  decrease, all alphas evaluated in one batched forward pass
+  (control.py:162,179-193),
+- convergence on a relative decrease below ``tol``; bail-out when the line
+  search fails (control.py:184,195-198); the regularization schedule
+  (control.py:227-237).
+
+The sweeps run as the hand-written kernels of ``ops/sweeps.py`` on CUDA
+tensors ("cuda") or as the plain PyTorch versions here ("torch":
+``_backward_pass``, ``_forward_pass``, ``_rollout_fn``); "auto" picks by the
+device of ``x0``.  The iteration loop runs on the host with one sync per
+iteration (the loop condition).  Not ported: the host-stepped deadline
+solve (``ilqr_solve_steppable``, ``t_kill``).
 """
 
 from __future__ import annotations
@@ -13,7 +28,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .costs import GameCost, stage_cost, terminal_cost
+from ..config import DEFAULT_CONFIG, SolverConfig, resolve_backend
+from ..models.fleet import Fleet
+from .costs import (
+    GameCost,
+    assemble_pair_hessian,
+    cast_cost,
+    diag_embed,
+    quadraticize_stage_compact,
+    quadraticize_terminal,
+    stage_cost,
+    terminal_cost,
+)
 
 
 class SolveResult(NamedTuple):
@@ -84,3 +110,261 @@ def _rollout_batched_cost(step_fn, cost: GameCost, x0, U):
     X = torch.stack(X)
     J = torch.sum(stage_cost(cost, X[:-1], U)) + terminal_cost(cost, X[-1])
     return X, J
+
+
+def _forward_pass(step_fn, cost: GameCost, X, U, K, d, alphas):
+    """Closed-loop rollouts ``du = K dx + alpha d`` for all ``alphas
+    (n_alpha,)`` at once (reference control.py:95-114; the JAX package vmaps
+    its ``_forward_pass`` over the alphas).  Returns ``X_c (n_alpha, N+1, n,
+    nx_p)``, ``U_c (n_alpha, N, n, nu_p)``, ``J_c (n_alpha,)``."""
+    N, n, nu_p = U.shape
+    n_alpha = alphas.shape[0]
+    x = X[0].expand(n_alpha, *X.shape[1:])
+    J = X.new_zeros((n_alpha,))
+    a = alphas[:, None]
+    Xs, Us = [x], []
+    for t in range(N):
+        dx = (x - X[t]).reshape(n_alpha, -1)
+        du = dx @ K[t].T + a * d[t]
+        u = U[t] + du.reshape(n_alpha, n, nu_p)
+        J = J + stage_cost(cost, x, u)
+        x = step_fn(x, u)
+        Xs.append(x)
+        Us.append(u)
+    J = J + terminal_cost(cost, x)
+    return torch.stack(Xs, 1), torch.stack(Us, 1), J
+
+
+def _backward_pass(lin_fn, cost: GameCost, X, U, mu):
+    """Block Riccati recursion (reference control.py:116-148).
+
+    Returns flat gains ``K (N, n nu_p, n nx_p)`` and ``d (N, n nu_p)``.  The
+    quadraticization and linearization depend only on (X, U), so they run
+    time-batched before the sequential sweep; the block sandwiches use the
+    per-agent A and B, the gain solve and value update the flat space."""
+    n, nx_p = X.shape[1], X.shape[2]
+    N, _, nu_p = U.shape
+    nxf, nuf = n * nx_p, n * nu_p
+    L_xT, L_xxT = quadraticize_terminal(cost, X[-1])
+    p = L_xT.reshape(nxf)
+    P = L_xxT.reshape(nxf, nxf)
+    eye_f = torch.eye(nxf, dtype=X.dtype, device=X.device)
+
+    L_x, L_u, L_xx_diag, L_uu, H = quadraticize_stage_compact(cost, X[:-1], U)
+    # The Hessian blocks do not depend on (X, U): give them the time axis.
+    L_xx_diag = L_xx_diag.expand(N, n, nx_p, nx_p)
+    L_uu = L_uu.expand(N, n, nu_p, nu_p)
+    A, B = lin_fn(X[:-1], U)  # (N, n, nx, nx), (N, n, nx, nu)
+    # Padded agents' input maps are zero: the recursion stays exactly
+    # decoupled from them (ops/costs.py docstring).
+    B = B * cost.agent_mask[None, :, None, None]
+    L_uu_f = diag_embed(L_uu).reshape(N, nuf, nuf)
+
+    K = X.new_empty((N, nuf, nxf))
+    d = X.new_empty((N, nuf))
+    for t in range(N - 1, -1, -1):
+        A_t, B_t = A[t], B[t]
+        L_xx = diag_embed(L_xx_diag[t])
+        if n > 1:
+            L_xx = L_xx + assemble_pair_hessian(H[t], n, nx_p)
+        P4 = P.reshape(n, nx_p, n, nx_p)
+        Preg4 = (P + mu * eye_f).reshape(n, nx_p, n, nx_p)
+        p2 = p.reshape(n, nx_p)
+
+        Q_x = L_x[t] + torch.einsum("iba,ib->ia", A_t, p2)
+        Q_u = L_u[t] + torch.einsum("iba,ib->ia", B_t, p2)
+        # Block sandwiches: only the (i, j) block pairs couple, through P.
+        Q_xx = L_xx + torch.einsum("iba,ibjc,jcd->iajd", A_t, P4, A_t)
+        Q_uu4 = torch.einsum("iba,ibjc,jcd->iajd", B_t, Preg4, B_t)
+        Q_ux4 = torch.einsum("iba,ibjc,jcd->iajd", B_t, Preg4, A_t)
+
+        Quu = Q_uu4.reshape(nuf, nuf) + L_uu_f[t]
+        Qux = Q_ux4.reshape(nuf, nxf)
+        Qu = Q_u.reshape(nuf)
+        Qx = Q_x.reshape(nxf)
+        Qxx = Q_xx.reshape(nxf, nxf)
+
+        sol = gauss_jordan_solve(Quu, torch.cat([Qux, Qu[:, None]], dim=1))
+        K_t = -sol[:, :nxf]
+        d_t = -sol[:, nxf]
+        K[t], d[t] = K_t, d_t
+
+        KtQuu = K_t.T @ Quu
+        p = Qx + KtQuu @ d_t + K_t.T @ Qu + Qux.T @ d_t
+        P_new = Qxx + KtQuu @ K_t + K_t.T @ Qux + Qux.T @ K_t
+        P = 0.5 * (P_new + P_new.T)
+    return K, d
+
+
+class IlqrCarry(NamedTuple):
+    X: torch.Tensor
+    U: torch.Tensor
+    J_star: torch.Tensor
+    mu: torch.Tensor
+    delta: torch.Tensor
+    i: torch.Tensor
+    converged: torch.Tensor
+    failed: torch.Tensor
+
+
+def resolve_sweep_backend(cfg: SolverConfig, x) -> str:
+    """``cfg.sweep_backend`` for a solve on ``x``'s device: "auto" is the
+    kernels for CUDA tensors and the plain PyTorch sweeps for CPU tensors."""
+    return resolve_backend(cfg.sweep_backend, x)
+
+
+def _sweeps(fleet: Fleet, backend: str):
+    """``(rollout, backward, forward)`` sweep functions of ``backend``."""
+    if backend == "cuda":
+        from . import sweeps
+
+        return (
+            lambda cost, x0, U: sweeps.rollout_cuda(fleet, cost, x0, U),
+            lambda cost, X, U, mu: sweeps.backward_pass_cuda(fleet, cost, X, U, mu),
+            lambda cost, X, U, K, d, a: sweeps.forward_pass_cuda(
+                fleet, cost, X, U, K, d, a),
+        )
+    return (
+        lambda cost, x0, U: _rollout_fn(fleet.step, cost, x0, U),
+        lambda cost, X, U, mu: _backward_pass(fleet.linearize, cost, X, U, mu),
+        lambda cost, X, U, K, d, a: _forward_pass(fleet.step, cost, X, U, K, d, a),
+    )
+
+
+def make_iteration_fn(fleet: Fleet, cfg: SolverConfig, backend: str):
+    """One iLQR iteration ``iterate(cost, carry) -> carry``: backward pass,
+    line search over all alphas in one forward pass, accept, regularization
+    and convergence, all on the device (no host sync)."""
+    _, backward, forward = _sweeps(fleet, backend)
+    alphas_on = {}  # (dtype, device) -> alphas, made once (a host copy)
+
+    def iterate(cost: GameCost, c: IlqrCarry) -> IlqrCarry:
+        dtype = c.X.dtype
+        key = (dtype, c.X.device)
+        if key not in alphas_on:
+            alphas_on[key] = line_search_alphas(cfg.n_ls_iter, dtype, c.X.device)
+        alphas = alphas_on[key]
+        K, d = backward(cost, c.X, c.U, c.mu)
+        X_c, U_c, J_c = forward(cost, c.X, c.U, K, d, alphas)
+
+        improved = J_c < c.J_star  # (n_ls,)
+        accept = torch.any(improved)
+        a_idx = torch.argmax(improved.to(torch.int32)).reshape(1)  # first improving
+        X_new = torch.where(accept, X_c.index_select(0, a_idx)[0], c.X)
+        U_new = torch.where(accept, U_c.index_select(0, a_idx)[0], c.U)
+        J_new = torch.where(accept, J_c.index_select(0, a_idx)[0], c.J_star)
+
+        tiny = torch.finfo(dtype).tiny
+        rel = torch.abs((c.J_star - J_new) / torch.clamp(torch.abs(c.J_star), min=tiny))
+        converged = accept & (rel < cfg.tol)
+
+        # Decrease regularization on acceptance (reference control.py:232-237);
+        # with cfg.mu_floor mu bottoms out at mu_min instead of snapping to 0.
+        delta_dec = torch.clamp(c.delta, max=1.0) / cfg.delta_0
+        mu_dec = c.mu * delta_dec
+        mu_lo = cfg.mu_min if cfg.mu_floor else 0.0
+        mu_dec = torch.where(mu_dec <= cfg.mu_min, torch.full_like(mu_dec, mu_lo), mu_dec)
+        if cfg.on_failed_ls == "increase":
+            # The reference's (dead) regularization-increase path
+            # (control.py:198-208): raise mu, keep iterating, abort at mu_max.
+            delta_inc = torch.clamp(c.delta, min=1.0) * cfg.delta_0
+            mu_inc = torch.clamp(c.mu * delta_inc, min=cfg.mu_min)
+            mu_new = torch.where(accept, mu_dec, mu_inc)
+            delta_new = torch.where(accept, delta_dec, delta_inc)
+            failed = ~accept & (mu_inc >= cfg.mu_max)
+        else:
+            mu_new = torch.where(accept, mu_dec, c.mu)
+            delta_new = torch.where(accept, delta_dec, c.delta)
+            failed = ~accept
+
+        return IlqrCarry(X_new, U_new, J_new, mu_new, delta_new, c.i + 1,
+                         converged, failed)
+
+    return iterate
+
+
+def init_carry(fleet: Fleet, cfg: SolverConfig, cost: GameCost, x0, U0,
+               backend: str) -> IlqrCarry:
+    """Rollout of the warm start (control.py:80-93) and the initial carry."""
+    rollout_fn, _, _ = _sweeps(fleet, backend)
+    X0, J0 = rollout_fn(cost, x0, U0)
+    dev = x0.device
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    return IlqrCarry(
+        X=X0, U=U0, J_star=J0,
+        mu=torch.tensor(cfg.mu_init, dtype=x0.dtype, device=dev),
+        delta=torch.tensor(cfg.delta_0, dtype=x0.dtype, device=dev),
+        i=torch.zeros((), dtype=torch.int32, device=dev),
+        converged=no, failed=no.clone(),
+    )
+
+
+def solve_core(fleet: Fleet, cfg: SolverConfig, cost: GameCost, x0, U0,
+               backend: str) -> SolveResult:
+    """Full iLQR solve: iterate until convergence, a failed line search or
+    ``cfg.n_lqr_iter`` iterations (the JAX package's while_loop), with one
+    host sync per iteration for the loop condition."""
+    iterate = make_iteration_fn(fleet, cfg, backend)
+    c = init_carry(fleet, cfg, cost, x0, U0, backend)
+    for _ in range(cfg.n_lqr_iter):
+        c = iterate(cost, c)
+        if bool(c.converged | c.failed):
+            break
+    return SolveResult(X=c.X, U=c.U, J=c.J_star, iters=c.i,
+                       converged=c.converged, failed_line_search=c.failed)
+
+
+def _solve(fleet: Fleet, cfg: SolverConfig, cost: GameCost, x0, U0) -> SolveResult:
+    """The solve in ``x0``'s dtype and on its device (the cost follows)."""
+    cost = cast_cost(GameCost(*(a.to(x0.device) for a in cost)), x0.dtype)
+    U0 = U0.to(dtype=x0.dtype, device=x0.device).contiguous()
+    return solve_core(fleet, cfg, cost, x0.contiguous(), U0,
+                      resolve_sweep_backend(cfg, x0))
+
+
+def make_solver(fleet: Fleet, N: int, config: SolverConfig = DEFAULT_CONFIG):
+    """The solve function for a fleet and horizon: ``solve(cost, x0 (n,
+    nx_p), U0 (N, n, nu_p)) -> SolveResult``, on ``x0``'s device."""
+
+    def solve(cost: GameCost, x0, U0):
+        if U0.shape[0] != N:
+            raise ValueError(f"U0 has horizon {U0.shape[0]}, the solver {N}")
+        return _solve(fleet, config, cost, x0, U0)
+
+    return solve
+
+
+def ilqr_solve(
+    fleet: Fleet,
+    cost: GameCost,
+    x0,
+    U0=None,
+    N: int | None = None,
+    config: SolverConfig = DEFAULT_CONFIG,
+) -> SolveResult:
+    """Convenience single-problem entry point (reference ilqrSolver.solve).
+
+    ``x0 (n, nx_p)``; ``U0 (N, n, nu_p)`` or None (zero controls over ``N``
+    steps, like the reference control.py:152-153).  Runs in ``x0``'s dtype
+    on its device.
+    """
+    x0 = torch.as_tensor(x0)
+    n = fleet.n_agents
+    if tuple(x0.shape) != (n, fleet.nx_p):
+        raise ValueError(
+            f"x0 must have shape (n_agents, nx_p) = ({n}, {fleet.nx_p}), "
+            f"got {tuple(x0.shape)}"
+        )
+    if U0 is None:
+        if N is None:
+            raise ValueError("Provide U0 or N")
+        U0 = x0.new_zeros((N, n, fleet.nu_p))
+    U0 = torch.as_tensor(U0, dtype=x0.dtype, device=x0.device)
+    if U0.ndim != 3 or tuple(U0.shape[1:]) != (n, fleet.nu_p):
+        raise ValueError(
+            f"U0 must have shape (N, n_agents, nu_p) = (N, {n}, {fleet.nu_p}), "
+            f"got {tuple(U0.shape)}"
+        )
+    if cost.xf.shape[0] != n:
+        raise ValueError(f"cost has {cost.xf.shape[0]} agents but fleet has {n}")
+    return _solve(fleet, config, cost, x0, U0)

@@ -1,0 +1,121 @@
+"""The centralized solve's two sweep kernels.
+
+Counterpart of ``dpilqr_tpu/ops/pallas_sweeps.py``: one iLQR problem over
+the whole fleet (``X (N+1, n, nx_p)``, ``U (N, n, nu_p)``), flat gains
+``K (N, nuf, nxf)``, ``d (N, nuf)`` with ``nxf = n nx_p``, ``nuf = n nu_p``.
+
+- ``backward_pass_cuda``: the Riccati sweep, kernel ``csrc/backward_sweep.cu``
+  (twin: ``ops.ilqr._backward_pass``);
+- ``forward_pass_cuda``: the closed-loop line search over all alphas,
+  kernel ``csrc/forward_sweep.cu`` (twin: ``ops.ilqr._forward_pass``), and
+  ``rollout_cuda``, the same kernel with no gains (twin:
+  ``ops.ilqr._rollout_fn``).
+
+The quadraticization and linearization run in torch before the backward
+kernel, as in the JAX package (``pallas_sweeps.py:430-454``), through the
+batched prep at one problem with n slots; A and B stay block-diagonal per
+agent.  The wrappers take CUDA tensors only and raise otherwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.fleet import Fleet
+from .batched import _linearize_batch, _quadraticize_batch, _slot_tables
+from .costs import GameCost, cast_cost
+from .cuda_build import check_tensors, launch, require_cuda, riccati_work_size
+
+
+def backward_sweep_inputs(fleet: Fleet, cost: GameCost, X, U, mu) -> dict:
+    """The backward kernel's inputs: the problem linearized and
+    quadraticized about ``(X, U)`` (torch), and the regularization ``mu
+    ()``."""
+    dtype, dev = X.dtype, X.device
+    cost_b = GameCost(*(a[None] for a in cast_cost(cost, dtype)))
+    mids = torch.as_tensor(fleet.branch_index_array, device=dev)[None]
+    q = _quadraticize_batch(cost_b, X[None], U[None])
+    A, B = _linearize_batch(fleet, cost_b, mids, X[None], U[None])
+    return dict(A=A[0], B=B[0], L_uu=q["L_uu"][0], L_xx=q["L_xx"][0],
+                L_x=q["L_x"][0], L_u=q["L_u"][0],
+                mu=torch.as_tensor(mu, dtype=dtype, device=dev).reshape(1),
+                p0=q["p0"][0], P0=q["P0"][0])
+
+
+def launch_backward_sweep(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
+    """Launch ``csrc/backward_sweep.cu`` on ``backward_sweep_inputs``;
+    returns ``K (N, nuf, nxf)``, ``d (N, nuf)``."""
+    require_cuda("backward_sweep", A)
+    N, n, nx_p, nu_p = B.shape
+    nxf, nuf = n * nx_p, n * nu_p
+    dtype, dev = A.dtype, A.device
+    ins = dict(A=A, B=B, L_uu=L_uu, L_xx=L_xx, L_x=L_x, L_u=L_u, mu=mu, p0=p0,
+               P0=P0)
+    check_tensors("backward_sweep", ins, {
+        "A": (N, n, nx_p, nx_p), "B": (N, n, nx_p, nu_p),
+        "L_uu": (N, nuf, nuf), "L_xx": (N, nxf, nxf), "L_x": (N, nxf),
+        "L_u": (N, nuf), "mu": (1,), "p0": (nxf,), "P0": (nxf, nxf),
+    }, dtype, dev)
+    n_work = riccati_work_size(n, nx_p, nu_p)
+    work = A.new_empty((n_work,))
+    K = A.new_empty((N, nuf, nxf))
+    d = A.new_empty((N, nuf))
+    launch("backward_sweep", dtype, dev, *ins.values(), K, d, work, n_work,
+           N, n, nx_p, nu_p)
+    return K, d
+
+
+def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
+    """The centralized Riccati sweep about ``(X, U)`` with regularization
+    ``mu ()`` on ``csrc/backward_sweep.cu``; returns ``K (N, nuf, nxf)``,
+    ``d (N, nuf)``."""
+    require_cuda("backward_sweep", X)
+    return launch_backward_sweep(**backward_sweep_inputs(fleet, cost, X, U, mu))
+
+
+def forward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
+    """Launch ``csrc/forward_sweep.cu``: the closed-loop rollouts ``u = U +
+    K (x - X) + alpha d`` for all ``alphas (n_alpha,)`` in one launch (plain
+    rollouts of U when ``K`` and ``d`` are None).  Returns ``X_c (n_alpha,
+    N+1, n, nx_p)``, ``U_c (n_alpha, N, n, nu_p)``, ``J_c (n_alpha,)``."""
+    require_cuda("forward_sweep", X)
+    N, n, nu_p = U.shape
+    nx_p = X.shape[2]
+    nxf, nuf = n * nx_p, n * nu_p
+    n_alpha = alphas.shape[0]
+    if fleet.n_agents != n or fleet.nx_p != nx_p or fleet.nu_p != nu_p:
+        raise ValueError("X/U shapes do not match the fleet")
+    dtype, dev = X.dtype, X.device
+    cost = cast_cost(cost, dtype)
+    mids = torch.as_tensor(fleet.branch_index_array, device=dev)
+    model, nsub, dh = _slot_tables(fleet, mids, dtype)
+    ins = dict(X=X, U=U, K=K, d=d, alphas=alphas, model=model, nsub=nsub,
+               dh=dh, xf=cost.xf, Q=cost.Q, R=cost.R, Qf=cost.Qf,
+               mask=cost.agent_mask, refw=cost.ref_weight.reshape(1),
+               radius=cost.radius.reshape(1),
+               proxw=cost.prox_weight.reshape(1), npos_eval=cost.n_pos_eval)
+    shapes = dict(X=(N + 1, n, nx_p), U=(N, n, nu_p), K=(N, nuf, nxf),
+                  d=(N, nuf), alphas=(n_alpha,), model=(n,), nsub=(n,),
+                  dh=(n,), xf=(n, nx_p), Q=(n, nx_p, nx_p), R=(n, nu_p, nu_p),
+                  Qf=(n, nx_p, nx_p), mask=(n,), refw=(1,), radius=(1,),
+                  proxw=(1,), npos_eval=(n,))
+    check_tensors("forward_sweep",
+                  {k: v for k, v in ins.items() if v is not None}, shapes,
+                  dtype, dev, ints=("model", "nsub", "npos_eval"))
+    X_c = X.new_empty((n_alpha, N + 1, n, nx_p))
+    U_c = X.new_empty((n_alpha, N, n, nu_p))
+    J_c = X.new_empty((n_alpha,))
+    launch("forward_sweep", dtype, dev, *ins.values(), X_c, U_c, J_c,
+           n, N, nx_p, nu_p, n_alpha)
+    return X_c, U_c, J_c
+
+
+def rollout_cuda(fleet: Fleet, cost: GameCost, x0, U):
+    """The plain rollout of ``U (N, n, nu_p)`` from ``x0 (n, nx_p)`` on
+    ``csrc/forward_sweep.cu`` (no gains, one alpha): ``X (N+1, n, nx_p)``,
+    ``J ()``."""
+    N = U.shape[0]
+    X_ref = x0[None].expand(N + 1, *x0.shape).contiguous()
+    X_c, _, J_c = forward_pass_cuda(fleet, cost, X_ref, U, None, None,
+                                    x0.new_zeros((1,)))
+    return X_c[0], J_c[0]

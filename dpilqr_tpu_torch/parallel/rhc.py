@@ -1,10 +1,11 @@
-"""Receding-horizon control driver (decomposed mode).
+"""Receding-horizon control driver, centralized or decomposed.
 
 Counterpart of ``dpilqr_tpu/parallel/rhc.py`` (reference ``solve_rhc``,
-distributed.py:106-221): a host loop that solves, advances ``step_size``
-steps and shift-and-pads the warm start.  Trajectories stay on the solve's
-device; each step fetches only its loop-control scalars (J, goal distances,
-the largest neighborhood, the truncation flag).
+distributed.py:106-221): a host loop that solves (``ilqr_solve`` on the
+whole fleet, or ``solve_distributed``), advances ``step_size`` steps and
+shift-and-pads the warm start.  Trajectories stay on the solve's device;
+each step fetches only its loop-control scalars (J, goal distances and, when
+decomposed, the largest neighborhood and the truncation flag).
 
 The subproblem width follows the JAX package's schedule exactly: under
 auto-K a step is solved with the width chosen from the steps resolved
@@ -12,8 +13,8 @@ before its predecessor (the JAX loop dispatches step k+1 before it
 resolves step k), widths grow at once and shrink with hysteresis, and a
 truncated step is redone from the same warm state with a wider K.
 
-Not ported yet: the centralized solve, ``t_kill`` (parallel/deadline.py),
-``log_fn`` and checkpointing; they raise ``NotImplementedError``.
+Not ported yet: ``t_kill`` (parallel/deadline.py), ``log_fn`` and
+checkpointing; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from ..config import DEFAULT_CONFIG, SolverConfig
 from ..models.fleet import Fleet
 from ..ops.costs import GameCost, cast_cost
-from ..ops.ilqr import rollout
+from ..ops.ilqr import ilqr_solve, rollout
 from ..utils.geometry import distance_to_goal
 from .distributed import solve_distributed
 from .graph import graph_to_dict
@@ -43,12 +44,12 @@ class RhcStepInfo:
     t: float
     J: float
     solve_time: float
-    membership: np.ndarray | None = None
+    membership: np.ndarray | None = None  # None when centralized
     iters: list = field(default_factory=list)
     distance_left: list = field(default_factory=list)
     K: int | None = None  # subproblem width the step was solved at
     k_max: int | None = None  # largest neighborhood of the step's graph
-    converged: list = field(default_factory=list)  # per-subproblem flags
+    converged: list = field(default_factory=list)  # per-(sub)problem flags
 
     @property
     def graph(self) -> dict | None:
@@ -103,7 +104,8 @@ def solve_rhc(
     resume_state=None,
     device=None,
 ) -> RhcResult:
-    """Receding-horizon solve with the decomposed solver.
+    """Receding-horizon solve, centralized (one ``ilqr_solve`` over the
+    fleet per step) or decomposed (``solve_distributed``).
 
     Exactly one of ``J_converge`` (stop when J drops below) or
     ``dist_converge`` (stop when every agent is within this distance of its
@@ -114,9 +116,7 @@ def solve_rhc(
     """
     if (J_converge is None) == (dist_converge is None):
         raise ValueError("Specify exactly one of J_converge or dist_converge")
-    if centralized:
-        raise NotImplementedError("the centralized solve is not ported yet")
-    if radius is None:
+    if not centralized and radius is None:
         raise ValueError("Decomposed mode needs the proximity radius")
     if t_kill is not None:
         raise NotImplementedError("t_kill (parallel/deadline.py) is not ported yet")
@@ -168,15 +168,18 @@ def solve_rhc(
 
     def dispatch(t_step, xi_cur, X_w, U_w, K_use):
         t0 = perf_counter()
-        dres = solve_distributed(
-            fleet, cost, X_w, U_w, radius, ignore_mask=ignore_mask,
-            K=K_use, config=config,
-        )
+        if centralized:
+            res = ilqr_solve(fleet, cost, xi_cur, U0=U_w, config=config)
+        else:
+            res = solve_distributed(
+                fleet, cost, X_w, U_w, radius, ignore_mask=ignore_mask,
+                K=K_use, config=config,
+            )
         xi_n, X_exec, U_exec, X_n, U_n, dists_dev = _advance_shift(
-            dres.X, dres.U, xf, step_size, n_d
+            res.X, res.U, xf, step_size, n_d
         )
         return {
-            "t": t_step, "t0": t0, "res": dres, "K_used": K_use,
+            "t": t_step, "t0": t0, "res": res, "K_used": K_use,
             "X_exec": X_exec, "U_exec": U_exec, "xi": xi_n, "X": X_n,
             "U": U_n, "dists": dists_dev,
             "xi_in": xi_cur, "X_in": X_w, "U_in": U_w,
@@ -186,15 +189,20 @@ def solve_rhc(
         """Commit a step.  Returns (stop, diverged, redo); with ``redo``
         nothing was committed and the step must be solved again with the
         widened ``K_cur``."""
-        nonlocal K_cur, converged
-        dres = rec["res"]
-        J_h = float(dres.J)
+        nonlocal K_cur
+        res = rec["res"]
+        J_h = float(res.J)
         dists_h = rec["dists"].cpu().numpy()
-        kmax = int(dres.sizes.max())
-        trunc = bool(dres.truncated)
         solve_time = perf_counter() - rec["t0"]
-
-        if trunc:
+        if centralized:
+            info = RhcStepInfo(
+                t=rec["t"], J=J_h, solve_time=solve_time,
+                iters=[int(res.iters)], distance_left=dists_h.tolist(),
+                converged=[bool(res.converged)],
+            )
+            return commit(rec, info)
+        kmax = int(res.sizes.max())
+        if bool(res.truncated):
             # A neighborhood outgrew the slot count.  Under auto-K redo the
             # step wider than the width it used; with a pinned K, warn.
             K_used = rec["K_used"]
@@ -213,21 +221,25 @@ def solve_rhc(
             if K_cur is None or k_need > K_cur or k_need <= K_cur // 2:
                 K_cur = k_need
 
+        return commit(rec, RhcStepInfo(
+            t=rec["t"], J=J_h, solve_time=solve_time,
+            membership=res.membership.cpu().numpy(),
+            iters=res.iters.cpu().tolist(), distance_left=dists_h.tolist(),
+            K=rec["K_used"] or min(_pow2(kmax), n), k_max=kmax,
+            converged=res.converged.cpu().tolist(),
+        ))
+
+    def commit(rec, info):
+        nonlocal converged
         X_exec_parts.append(rec["X_exec"])
         U_exec_parts.append(rec["U_exec"])
-        steps.append(RhcStepInfo(
-            t=rec["t"], J=J_h, solve_time=solve_time,
-            membership=dres.membership.cpu().numpy(),
-            iters=dres.iters.cpu().tolist(), distance_left=dists_h.tolist(),
-            K=rec["K_used"] or min(_pow2(kmax), n), k_max=kmax,
-            converged=dres.converged.cpu().tolist(),
-        ))
+        steps.append(info)
         if verbose:
-            print(f"t: {rec['t']:.3g}\tJ: {J_h:g}\tsolve: {solve_time:.3g}s")
-        diverged = t_diverge is not None and rec["t"] >= t_diverge
+            print(f"t: {info.t:.3g}\tJ: {info.J:g}\tsolve: {info.solve_time:.3g}s")
+        diverged = t_diverge is not None and info.t >= t_diverge
         if diverged:
             converged = False
-        return stop(J_h, dists_h), diverged, False
+        return stop(info.J, np.asarray(info.distance_left)), diverged, False
 
     if not stop(np.inf, dists):
         rec = dispatch(t, xi, X, U, K_cur)

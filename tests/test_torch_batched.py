@@ -218,10 +218,23 @@ def test_cuda_wrappers_reject_what_they_cannot_take():
     with pytest.raises(ValueError, match="CUDA"):
         bt.forward_pass_batched_cuda(fleet_t, cost_t, mids_t, Xt, Ut, None,
                                      None, alphas)
-    # Wide subproblems (K * nx_p > 32) wait for the blocked kernel.
-    wide = torch.zeros((1, 2, 9, 4, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="B3"):
+    # Flat states past 32 take the wide kernel, whose wrapper reaches its
+    # CUDA check at nxf 48; past 96 no kernel exists and the wrappers raise
+    # NotImplementedError naming the limit.
+    wide = torch.zeros((S, N, 12, 4, 4), dtype=torch.float64)
+    with pytest.raises(ValueError, match="wide"):
         bt.backward_pass_batched_cuda(wide, *args[1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        bt.backward_pass_batched_wide_cuda(wide, *args[1:])
+    too_wide = torch.zeros((S, N, 25, 4, 4), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="96"):
+        bt.backward_pass_batched_wide_cuda(too_wide, *args[1:])
+    fleet_q = dtt.homogeneous_fleet(dtt.QUAD_12D, 9, 0.1)
+    Xq = torch.zeros((S, N + 1, 9, 12), dtype=torch.float64)
+    Uq = torch.zeros((S, N, 9, 4), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="96"):
+        bt.forward_pass_batched_cuda(fleet_q, cost_t, mids_t, Xq, Uq, None,
+                                     None, alphas)
     # "auto" resolves by device; unknown names are refused.
     assert bt.resolve_backend("auto", Xt) == "torch"
     with pytest.raises(ValueError):

@@ -18,6 +18,8 @@ import sys
 import dpilqr_tpu_torch
 import dpilqr_tpu_torch.ops.batched
 import dpilqr_tpu_torch.ops.cuda_build as cb
+import dpilqr_tpu_torch.ops.ilqr
+import dpilqr_tpu_torch.ops.sweeps
 import dpilqr_tpu_torch.parallel.rhc
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "dpilqr_tpu"
@@ -53,10 +55,30 @@ def test_sources_import_no_jax():
     assert not offenders, offenders
 
 
-@pytest.mark.parametrize("name", ["backward_batched.cu", "forward_batched.cu"])
+KERNEL_SOURCES = {
+    "backward_batched.cu": "dpilqr_tpu/ops/pallas_batched.py :: backward_pass_batched",
+    "forward_batched.cu": "dpilqr_tpu/ops/pallas_batched.py :: forward_pass_batched",
+    "backward_batched_wide.cu":
+        "dpilqr_tpu/ops/pallas_batched_wide.py :: backward_pass_batched_wide",
+    "backward_sweep.cu": "dpilqr_tpu/ops/pallas_sweeps.py :: backward_pass_pallas",
+    "forward_sweep.cu": "dpilqr_tpu/ops/pallas_sweeps.py :: forward_pass_pallas",
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_SOURCES))
 def test_kernel_sources_name_the_tpu_kernel_they_replace(name):
     text = (PKG / "csrc" / name).read_text()
-    head = text[:3000]
-    assert "dpilqr_tpu/ops/pallas_batched.py" in head
+    # The header comment as one line of words.
+    head = " ".join(line.lstrip("/").strip() for line in text[:3000].splitlines())
+    assert KERNEL_SOURCES[name] in head
     assert "What bounds it on the H100" in head
     assert "__global__" in text and 'extern "C"' in text
+
+
+def test_every_kernel_source_is_built_and_bound():
+    """Each .cu source has a C entry point pair in the build's signature
+    table, so the library loads every kernel."""
+    import dpilqr_tpu_torch.ops.cuda_build as cb
+
+    names = {p.name for p in (PKG / "csrc").glob("*.cu")}
+    assert names == set(KERNEL_SOURCES) == {f"{k}.cu" for k in cb._SIGNATURES}

@@ -94,9 +94,14 @@ def test_rhc_rejects_bad_arguments():
     with pytest.raises(NotImplementedError):
         dtt.solve_rhc(fleet, cost_t, x0, HORIZON, t_kill=0.1,
                       rng=np.random.default_rng(0), **kw)
+    # Centralized mode (the default) runs; its deadline is not ported.
+    cent = dtt.solve_rhc(fleet, cost_t, x0, HORIZON, J_converge=1e-3,
+                         t_diverge=0.0, rng=np.random.default_rng(0))
+    assert len(cent.steps) == 1 and cent.steps[0].K is None
+    assert np.isfinite(cent.J)
     with pytest.raises(NotImplementedError):
-        dtt.solve_rhc(fleet, cost_t, x0, HORIZON, radius=RADIUS,
-                      J_converge=1e-3, rng=np.random.default_rng(0))
+        dtt.solve_rhc(fleet, cost_t, x0, HORIZON, J_converge=1e-3,
+                      t_kill=0.1, rng=np.random.default_rng(0))
     # A correctly shaped warm start runs.
     res = dtt.solve_rhc(fleet, cost_t, x0, HORIZON,
                         U0=np.zeros((HORIZON, N_AGENTS, 2)), **kw)

@@ -1,0 +1,100 @@
+"""The centralized solve's kernel wrappers (dpilqr_tpu_torch.ops.sweeps).
+
+On the CPU: the wrappers refuse CPU tensors (no quiet twin), and
+``ilqr_solve`` with ``sweep_backend="cuda"`` raises on them too.  The
+``cuda`` cases hold ``csrc/backward_sweep.cu`` (K5) and
+``csrc/forward_sweep.cu`` (K4, with gains over 10 alphas and as a rollout)
+against their plain PyTorch twins (``ops.ilqr._backward_pass``,
+``_forward_pass``, ``_rollout_fn``) on a card, for a homogeneous, a mixed
+and a single-agent fleet, and skip without one.  This file imports no JAX,
+so on a machine without it the ``cuda`` cases run alone with
+``python -m pytest tests/test_torch_sweeps.py -m cuda --noconftest``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import dpilqr_tpu_torch as dtt
+from dpilqr_tpu_torch.ops import ilqr as It
+from dpilqr_tpu_torch.ops import sweeps
+from dpilqr_tpu_torch.ops.costs import cast_cost
+
+torch.set_num_threads(1)
+
+FLEETS = {
+    "homogeneous": ["Unicycle4D"] * 4,
+    "mixed": ["Unicycle4D", "DoubleInt4D", "Bike5D", "Car3D"],
+    "single": ["Unicycle4D"],
+}
+
+
+def _problem(case, dtype, device, N=12):
+    """Seeded start, goal and warm start; agents packed so proximity pairs
+    are active: fleet, cost, X (rollout of U), U."""
+    fleet = dtt.Fleet.from_names(FLEETS[case], 0.1)
+    n, nx_p, nu_p = fleet.n_agents, fleet.nx_p, fleet.nu_p
+    rng = np.random.default_rng(1)
+    x0 = np.zeros((n, nx_p))
+    x0[:, :2] = rng.uniform(-0.4, 0.4, (n, 2))
+    xf = np.zeros((n, nx_p))
+    xf[:, :2] = -x0[:, :2]
+    cost = dtt.make_game_cost(
+        xf, np.tile(np.eye(nx_p), (n, 1, 1)), np.tile(np.eye(nu_p), (n, 1, 1)),
+        np.tile(1e3 * np.eye(nx_p), (n, 1, 1)), radius=0.5, dtype=dtype,
+        device=device,
+    )
+    U = torch.as_tensor(0.1 * rng.normal(size=(N, n, nu_p)) * fleet.control_mask,
+                        dtype=dtype, device=device)
+    X, _ = It._rollout_fn(fleet.step, cost,
+                          torch.as_tensor(x0, dtype=dtype, device=device), U)
+    return fleet, cost, X, U
+
+
+def test_sweep_wrappers_refuse_cpu_tensors():
+    fleet, cost, X, U = _problem("homogeneous", torch.float64, "cpu")
+    mu = torch.tensor(1.0, dtype=torch.float64)
+    K, d = It._backward_pass(fleet.linearize, cost, X, U, mu)
+    alphas = dtt.ops.line_search_alphas(3, torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        sweeps.backward_pass_cuda(fleet, cost, X, U, mu)
+    with pytest.raises(ValueError, match="CUDA"):
+        sweeps.launch_backward_sweep(**{
+            k: v for k, v in zip(("A", "B", "L_uu", "L_xx", "L_x", "L_u", "mu",
+                                  "p0", "P0"), [X] * 9)})
+    with pytest.raises(ValueError, match="CUDA"):
+        sweeps.forward_pass_cuda(fleet, cost, X, U, K, d, alphas)
+    with pytest.raises(ValueError, match="CUDA"):
+        sweeps.rollout_cuda(fleet, cost, X[0], U)
+    with pytest.raises(ValueError, match="CUDA"):
+        dtt.ilqr_solve(fleet, cost, X[0], U0=U,
+                       config=dtt.SolverConfig(sweep_backend="cuda"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLEETS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_cuda_sweeps_match_twins(cuda_device, case, dtype):
+    tol = {torch.float64: (1e-9, 1e-9), torch.float32: (2e-3, 1e-4)}[dtype]
+    fleet, cost, X, U = _problem(case, dtype, cuda_device)
+    cost = cast_cost(cost, dtype)
+    mu = torch.tensor(1.0, dtype=dtype, device=cuda_device)
+
+    def close(got, want, t):
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= t * float(b.abs().max())
+
+    K, d = It._backward_pass(fleet.linearize, cost, X, U, mu)
+    close(sweeps.backward_pass_cuda(fleet, cost, X, U, mu), (K, d), tol[0])
+    alphas = dtt.ops.line_search_alphas(10, dtype, cuda_device)
+    close(sweeps.forward_pass_cuda(fleet, cost, X, U, K, d, alphas),
+          It._forward_pass(fleet.step, cost, X, U, K, d, alphas), tol[1])
+    close(sweeps.rollout_cuda(fleet, cost, X[0], U),
+          It._rollout_fn(fleet.step, cost, X[0], U), tol[1])
