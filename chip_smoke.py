@@ -37,10 +37,31 @@ Phases (any failure exits non-zero and prints no result line):
 5. Float64 solve parity of kernels and twins (equal iterations and
    converged flags, J and X close): a narrow and a wide decomposed solve,
    and ``ilqr_solve``.
+6. Speed-of-light accounting and the deadline solve:
+   a. the three ceiling probes K6-K8 (``utils/sol.py``) against their plain
+      PyTorch versions at the shapes ``sol_report`` launches them at: K7 on
+      a seeded (256, 512, 512) buffer (and at 37 slabs), K8 at 256
+      iterations (and at 3), K6 at 8 iterations (fused and unfused
+      multiply-adds drift apart over the timed 2048);
+   b. ``sol_report``: the probes timed at full size: float32 FMA GFLOP/s,
+      HBM GB/s (beside ``x.sum(0)`` on the same buffer) and ``sinf``/s;
+      fails on a rate over 105% of the H100's published peak (67 TFLOP/s,
+      3.35 TB/s) or a sine rate above the FMA instruction rate; K1-K5 timed
+      at its shapes (events around the launch alone), each with FLOPs,
+      bytes, the bound from the measured ceilings and from the published
+      peaks, its share and the binding limit; the
+      associative scan beside the sequential sweep and K5; then each
+      kernel's launches per MPC step and per centralized solve from phase 4;
+   c. the 100-agent main path for 5 steps under ``t_kill = dt = 0.1`` s, the
+      host-sync cost per iteration, ``ilqr_solve_steppable`` on the 10-agent
+      problem under the same deadline, and in float64
+      ``solve_distributed_steppable(t_kill=None)`` against
+      ``solve_distributed``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the five kernels with their launch counts, errors and times, and the
-line before that the card's name and power limit.
+lists the eight kernels with their launch counts, errors, times and bounds
+(the least time by the published peaks, computed from the timed shapes),
+and the line before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -68,7 +89,13 @@ KERNELS = {
                               "dpilqr_tpu/ops/pallas_batched_wide.py:115"),
     "forward_sweep": ("forward_pass_pallas", "dpilqr_tpu/ops/pallas_sweeps.py:178"),
     "backward_sweep": ("backward_pass_pallas", "dpilqr_tpu/ops/pallas_sweeps.py:399"),
+    "probe_fma": ("measure_vpu_peak_gflops", "dpilqr_tpu/utils/sol.py:186"),
+    "probe_hbm": ("measure_hbm_stream_gbps", "dpilqr_tpu/utils/sol.py:245"),
+    "probe_sin": ("measure_vpu_transcendental_ops", "dpilqr_tpu/utils/sol.py:301"),
 }
+SWEEP_KERNELS = ("backward_batched", "forward_batched", "backward_batched_wide",
+                 "forward_sweep", "backward_sweep")
+PEAK_OVERSHOOT = 1.05  # a rate above this share of a published peak is a miscount
 
 
 def fail(msg: str):
@@ -181,10 +208,15 @@ def timed(fn, reps):
 
 class Checks:
     """Kernel-vs-twin comparisons: prints each, fails beyond tolerance, and
-    keeps each kernel's worst float32 absolute error."""
+    keeps each kernel's worst float32 absolute error, by the label of a
+    timed launch its work (a ``work_shape``, or ``(FLOPs, sines, bytes)``
+    for a probe), and by kernel the time of the one PyTorch call that
+    computes the same function, where there is one."""
 
     def __init__(self):
         self.worst = {}
+        self.shapes = {}
+        self.library_ms = {}
 
     def compare(self, kernel, label, names, got, want, tol):
         torch.cuda.synchronize()
@@ -236,6 +268,12 @@ def sweep_inputs(fleet, cost, x0, K, dev, seed=0, u_scale=0.01, u_trim=0.0):
     return args, sub_cost, mids, carry
 
 
+def work_shape(family, fleet, K, S, n_alpha=0):
+    """The arguments ``utils.sol.sweep_work`` takes for a timed launch."""
+    return dict(family=family, N=HORIZON, K=K, nx_p=fleet.nx_p, nu_p=fleet.nu_p,
+                S=S, n_alpha=n_alpha, model=fleet.specs[0].name)
+
+
 def forward_checks(checks, results, tag, fleet, sub_cost, mids, carry, Kg, d,
                    dtype, dev, gains_off=True):
     """K2 against its twin at 2 and 10 alphas; times float32 with gains."""
@@ -255,6 +293,8 @@ def forward_checks(checks, results, tag, fleet, sub_cost, mids, carry, Kg, d,
                 results[f"K2 {tag} {n_alpha} alphas"] = (
                     timed(lambda: bt.forward_pass_batched_cuda(*fa), 10),
                     timed(lambda: bt.forward_pass_batched_torch(*fa), 2))
+                checks.shapes[f"K2 {tag} {n_alpha} alphas"] = work_shape(
+                    "forward", fleet, carry.X.shape[2], carry.X.shape[0], n_alpha)
 
 
 def narrow_checks(checks, results, dev):
@@ -279,6 +319,7 @@ def narrow_checks(checks, results, dev):
         if dtype == torch.float32:
             results["K1"] = (timed(lambda: bt.backward_pass_batched_cuda(*args), 20),
                              timed(lambda: bt.backward_pass_batched_torch(*args), 3))
+            checks.shapes["K1"] = work_shape("backward", fleet, 8, args[0].shape[0])
             results["K3 at nxf 32"] = (
                 timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 20), None)
         forward_checks(checks, results, "nxf 32", fleet, sub_cost, mids, carry,
@@ -331,6 +372,8 @@ def wide_checks(checks, results, dev):
                 results[f"K3 {tag}"] = (
                     timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 10),
                     timed(lambda: bt.backward_pass_batched_torch(*args), 2))
+                checks.shapes[f"K3 {tag}"] = work_shape("backward_wide", fleet, K,
+                                                 args[0].shape[0])
             elif K == 16:  # the gain blocks in device memory
                 results[f"K3 {tag} float64"] = (
                     timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 10), None)
@@ -388,6 +431,8 @@ def centralized_checks(checks, results, dev):
             results["K4 10 alphas"] = (
                 timed(lambda: sweeps.forward_pass_cuda(fleet, *fw), 20),
                 timed(lambda: ilqr._forward_pass(fleet.step, *fw), 3))
+            checks.shapes["K5"] = work_shape("backward_sweep", fleet, 10, 1)
+            checks.shapes["K4 10 alphas"] = work_shape("forward_sweep", fleet, 10, 1, 10)
 
 
 def run_counted(fn):
@@ -402,10 +447,12 @@ def run_counted(fn):
     return out, dict(cuda_build.launch_counts)
 
 
-def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None):
+def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None,
+            t_kill=None):
     """A closed-loop MPC run of ``steps`` steps; returns a summary.  Under
     auto K (``K`` None) a truncated step fails the run; with ``K`` pinned
-    the summary counts them."""
+    the summary counts them.  With ``t_kill`` every step's solve runs under
+    that deadline, and the summary says how many steps reached it."""
     import warnings
 
     import dpilqr_tpu_torch as dtt
@@ -420,7 +467,8 @@ def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None):
             fleet, cost, x0.astype(np.float32), HORIZON,
             radius=None if centralized else RADIUS, centralized=centralized,
             step_size=1, J_converge=1e-3, t_diverge=(steps - 1) * DT, K=K,
-            config=cfg, rng=np.random.default_rng(0), device=cost.xf.device,
+            t_kill=t_kill, config=cfg, rng=np.random.default_rng(0),
+            device=cost.xf.device,
         )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -435,7 +483,14 @@ def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None):
         fail(f"{backend}: non-finite trajectory")
     iters = np.concatenate([np.asarray(s.iters) for s in res.steps])
     conv = np.concatenate([np.asarray(s.converged) for s in res.steps])
+    deadline = {} if t_kill is None else {
+        "t_kill": t_kill,
+        "steps_at_deadline_frac": float(np.mean(
+            [s.solve_time >= t_kill for s in res.steps])),
+        "max_solve_ms": max(s.solve_time for s in res.steps) * 1e3,
+    }
     return {
+        **deadline,
         "ms_per_step": wall / len(res.steps) * 1e3,
         "steps": len(res.steps),
         "J_final_step": res.steps[-1].J,
@@ -462,6 +517,8 @@ def main_path(dev, launches):
     require(counts, ("backward_batched", "forward_batched"), "the main path")
     launches.update(backward_batched=counts["backward_batched"],
                     forward_batched=counts["forward_batched"])
+    launches["per MPC step (100 unicycles)"] = {
+        k: counts[k] / kern["steps"] for k in ("backward_batched", "forward_batched")}
     print("main path (kernels): " + json.dumps(kern), flush=True)
     twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", MPC_STEPS))
     if any(counts.values()):
@@ -483,6 +540,9 @@ def quad6d_loop(dev, launches):
         lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, K=16))
     require(counts, ("backward_batched_wide", "forward_batched"), "the quad6d_64 loop")
     launches["backward_batched_wide"] = counts["backward_batched_wide"]
+    launches["per MPC step (64 Quad6D, K=16)"] = {
+        k: counts[k] / kern["steps"]
+        for k in ("backward_batched_wide", "forward_batched")}
     print(f"quad6d_64 loop (kernels, K=16, launches {counts}): " + json.dumps(kern),
           flush=True)
     twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", 2, K=16))
@@ -549,6 +609,9 @@ def centralized_paths(dev, launches):
             require(counts, ("backward_sweep", "forward_sweep"), "ilqr_solve")
             launches.update(backward_sweep=counts["backward_sweep"],
                             forward_sweep=counts["forward_sweep"])
+            launches[f"per centralized solve (10 unicycles, {int(res.iters)} "
+                     "iterations)"] = {
+                k: counts[k] for k in ("backward_sweep", "forward_sweep")}
         elif any(counts.values()):
             fail("the torch backend launched a kernel")
         print(f"ilqr_solve 10 agents ({backend}): " + json.dumps(out[backend]), flush=True)
@@ -557,13 +620,16 @@ def centralized_paths(dev, launches):
     require(counts, ("backward_sweep", "forward_sweep"), "solve_rhc(centralized=True)")
     for k in ("backward_sweep", "forward_sweep"):
         launches[k] += counts[k]
+    launches["per MPC step (10 unicycles, centralized)"] = {
+        k: counts[k] / kern["steps"] for k in ("backward_sweep", "forward_sweep")}
     print(f"centralized loop (kernels, launches {counts}): " + json.dumps(kern), flush=True)
 
 
-def same_solve(tag, a, b, fields=("X",)):
+def same_solve(tag, a, b, names=("cuda", "torch")):
     """Fail unless two float64 solves took the same iterations and
     converged flags and agree on J (rtol 1e-9) and the trajectory."""
-    print(f"f64 parity {tag}: iters cuda {a.iters.tolist()} torch {b.iters.tolist()}")
+    print(f"f64 parity {tag}: iters {names[0]} {a.iters.tolist()} "
+          f"{names[1]} {b.iters.tolist()}")
     if not torch.equal(a.iters, b.iters) or not torch.equal(a.converged, b.converged):
         fail(f"float64 {tag}: iteration counts or converged flags differ")
     dJ = abs(float(a.J) - float(b.J)) / abs(float(b.J))
@@ -616,6 +682,178 @@ def solve_parity(dev):
     same_solve("ilqr_solve (n=10)", res["cuda"], res["torch"])
 
 
+def probe_checks(checks, dev):
+    """Phase 6a: K6-K8 against their plain versions, at the shapes
+    ``sol_report`` launches them at; returns the plain versions' times."""
+    from dpilqr_tpu_torch.utils import sol
+    from dpilqr_tpu_torch.utils.profiling import cuda_min_ms
+
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.uniform(0.5, 1.5, sol.PROBE_SHAPE).astype(np.float32),
+                        device=dev)
+    # A fused multiply-add rounds once, the plain version's mul and add
+    # twice; at 8 iterations (32 steps a chain) they stay within 1e-5, at the
+    # timed 2048 they drift apart.  sinf against torch.sin differs by at most
+    # a few ulp a step and the chains contract, so K8 is also held at the
+    # timed iteration count.
+    tol = {"out": 1e-5}
+    checks.compare("probe_fma", "K6 iters=8", ("out",), (sol.probe_fma_cuda(x, 8),),
+                   (sol.probe_fma_torch(x, 8),), tol)
+    for iters in (3, sol.SIN_ITERS):
+        checks.compare("probe_sin", f"K8 iters={iters}", ("out",),
+                       (sol.probe_sin_cuda(x, iters),), (sol.probe_sin_torch(x, iters),),
+                       tol)
+    # 37 slabs: the unrolled part and the remainder of the slab loop; then
+    # the timed buffer's shape (sums of 256 normals in another order).
+    T = sol.HBM_MB * 1024 * 1024 // (512 * 512 * 4)
+    for slabs in (37, T):
+        x3 = torch.as_tensor(rng.standard_normal((slabs, 512, 512), dtype=np.float32),
+                             device=dev)
+        checks.compare("probe_hbm", f"K7 T={slabs}", ("out",), (sol.probe_hbm_cuda(x3),),
+                       (sol.probe_hbm_torch(x3),), tol)
+        del x3
+
+    # The plain versions are tens of thousands of small launches: one run.
+    ones = torch.ones(sol.PROBE_SHAPE, dtype=torch.float32, device=dev)
+    sin_in = torch.full(sol.PROBE_SHAPE, 0.7, dtype=torch.float32, device=dev)
+    return {"probe_fma": cuda_min_ms(lambda: sol.probe_fma_torch(ones, sol.FMA_ITERS), k=1),
+            "probe_sin": cuda_min_ms(lambda: sol.probe_sin_torch(sin_in, sol.SIN_ITERS), k=1)}
+
+
+def sol_phase(checks, results, probe_plain_ms, dev, launches):
+    """Phase 6b: the accounting's main path, ``sol_report``; the probes'
+    rates and times are the report's own."""
+    from dpilqr_tpu_torch.utils import sol
+
+    rep, counts = run_counted(lambda: sol.sol_report(dev))
+    require(counts, KERNELS, "sol_report")
+    launches.update({k: counts[k] for k in ("probe_fma", "probe_hbm", "probe_sin")})
+    print(f"sol_report: allow_tf32={rep['allow_tf32']}, ceilings "
+          + json.dumps(rep["ceilings"]))
+    ceil, probes = rep["ceilings"], rep["probes"]
+    # The plain version of K7 is the library call itself.
+    plain_ms = dict(probe_plain_ms, probe_hbm=probes["hbm_library_ms"])
+    checks.library_ms["probe_hbm"] = probes["hbm_library_ms"]
+    for label, key in (("K6", "probe_fma"), ("K7", "probe_hbm"), ("K8", "probe_sin")):
+        results[label] = (probes[key].ms, plain_ms[key])
+        checks.shapes[label] = probes[key].work
+    fma_share = ceil["fma_gflop_s"] * 1e9 / sol.PUBLISHED_FP32_FLOPS
+    hbm_share = ceil["hbm_gb_s"] * 1e9 / sol.PUBLISHED_HBM_BYTES_S
+    sin_share = ceil["sin_gops_s"] / (ceil["fma_gflop_s"] / 2)
+    print(f"K6 probe_fma: {probes['probe_fma'].ms:.4f} ms, {ceil['fma_gflop_s']:.1f} "
+          f"GFLOP/s float32 = {fma_share:.3f} of the published 67 TFLOP/s; plain "
+          f"version {plain_ms['probe_fma']:.3f} ms")
+    print(f"K7 probe_hbm: {probes['probe_hbm'].ms:.4f} ms, {ceil['hbm_gb_s']:.1f} GB/s = "
+          f"{hbm_share:.3f} of the published 3.35 TB/s; x.sum(0): "
+          f"{probes['hbm_library_ms']:.4f} ms, {ceil['hbm_library_gb_s']:.1f} GB/s")
+    print(f"K8 probe_sin: {probes['probe_sin'].ms:.4f} ms, {ceil['sin_gops_s']:.2f} "
+          f"G sinf/s = {sin_share:.4f} of the measured FMA instruction rate; plain "
+          f"version {plain_ms['probe_sin']:.3f} ms", flush=True)
+    if fma_share > PEAK_OVERSHOOT:
+        fail("K6 reads over 105% of the published float32 peak: a miscount or a folded loop")
+    if hbm_share > PEAK_OVERSHOOT:
+        fail("K7 reads over 105% of the published HBM bandwidth: reads served from cache?")
+    if sin_share > 1:
+        fail("K8: more sines than FMA instructions per second: a folded loop")
+    for tag, r in rep["kernels"].items():
+        shape = " ".join(f"{k}={v}" for k, v in r["shape"].items())
+        print(f"sol {tag} {r['kernel']} {r['model']} {shape}: {r['launch_ms']:.4f} ms "
+              f"a launch (torch prep {r['prep_ms']:.4f} ms apart), "
+              f"{r['gflops']:.6f} GFLOP, {r['gbytes'] * 1e3:.4f} MB"
+              + (f", {r['trig_gops'] * 1e3:.4f} M sin/cos/tan" if "trig_gops" in r else "")
+              + f"; bound by measured ceilings {r['sol_s'] * 1e3:.5f} ms ({r['binding_limit']}"
+              f", share {r['sol_frac']:.5f}); by published peaks "
+              f"{r['bound_published_s'] * 1e3:.5f} ms ({r['bound_published_by']}, share "
+              f"{r['published_frac']:.5f})")
+        if not r["outputs_finite"]:
+            fail(f"sol_report: {tag} gave non-finite outputs")
+        if not (0 < r["sol_frac"] <= PEAK_OVERSHOOT
+                and 0 < r["published_frac"] <= PEAK_OVERSHOOT):
+            fail(f"sol_report: {tag}'s share of its bound is outside (0, 1.05]")
+    ps = rep["pscan"]
+    print("sol pscan " + json.dumps(ps))
+    # Float32 over N = 200: the scan's 400 combines and the sequential
+    # sweep's 200 steps round differently (3e-3 on the CPU at this problem).
+    if not ps["max_rel_err_vs_sequential"] <= 5e-2:
+        fail("the associative scan disagrees with the sequential sweep (float32, rel 5e-2)")
+    if not 0 < ps["pscan_sol_frac_fair"] <= PEAK_OVERSHOOT:
+        fail("pscan's share of the batched-matmul ceiling is outside (0, 1.05]")
+    for path, per in launches.items():
+        if isinstance(per, dict):
+            print(f"launches {path}: " + json.dumps(per))
+    print(f"launches per sol_report: {json.dumps(counts)}", flush=True)
+
+
+def host_sync_us(dev, n=200):
+    """Microseconds of the per-iteration host sync of the batched solve on
+    an idle device: the fetch of an active count, ``int(active.sum())``."""
+    active = torch.ones(128, dtype=torch.bool, device=dev)
+    int(active.sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        int(active.sum())
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def deadline_phase(dev):
+    """Phase 6c: the solves under ``t_kill = dt``."""
+    import dpilqr_tpu_torch as dtt
+
+    fleet, cost, x0 = unicycle_problem(N_AGENTS, 1.25, torch.float32, dev)
+    kern, counts = run_counted(
+        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, t_kill=DT))
+    require(counts, ("backward_batched", "forward_batched"), "the deadline main path")
+    sync = host_sync_us(dev)
+    # One sync an iteration (the active count) and one a step (the loop's
+    # scalars): the share of a step spent waiting on those fetches.
+    kern["host_sync_us"] = sync
+    kern["host_sync_share_of_step"] = (
+        (kern["mean_iters"] + 1) * sync * 1e-3 / kern["ms_per_step"])
+    print(f"deadline main path (kernels, t_kill={DT}, launches {counts}): "
+          + json.dumps(kern), flush=True)
+
+    fleet, cost, x0 = centralized_inputs(torch.float32, dev)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-9, sweep_backend="cuda")
+
+    def solve(t_kill=DT):
+        t0 = time.perf_counter()
+        r = dtt.ilqr_solve_steppable(fleet, cost, x0.astype(np.float32), N=HORIZON,
+                                     config=cfg, t_kill=t_kill)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    solve(t_kill=None)  # warm-up: the first solve of a shape pays torch's set-up
+    (res, ms), counts = run_counted(solve)
+    require(counts, ("backward_sweep", "forward_sweep"), "ilqr_solve_steppable")
+    if not res.X.is_cuda:
+        fail("ilqr_solve_steppable on numpy input did not run on the card")
+    out = {"ms": ms, "iters": int(res.iters), "converged": bool(res.converged),
+           "J": float(res.J)}
+    print(f"ilqr_solve_steppable 10 agents (kernels, t_kill={DT}, launches {counts}): "
+          + json.dumps(out), flush=True)
+    if not np.isfinite(out["J"]) or out["iters"] < 1:
+        fail("ilqr_solve_steppable: non-finite J or no iteration")
+
+    # Float64: without a deadline the deadline solve is solve_distributed.
+    fleet, cost, x0 = unicycle_problem(16, 1.0, torch.float64, dev)
+    rng = np.random.default_rng(3)
+    X = torch.as_tensor(x0, device=dev)[None]
+    U = torch.as_tensor(rng.uniform(size=(20, 16, 2)) * 0.01, device=dev)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, sweep_backend="cuda")
+    plain = dtt.solve_distributed(fleet, cost, X, U, RADIUS, config=cfg)
+    stepped = dtt.solve_distributed_steppable(fleet, cost, X, U, RADIUS, config=cfg,
+                                              t_kill=None)
+    same_solve("solve_distributed_steppable(t_kill=None) vs solve_distributed",
+               stepped, plain, names=("steppable", "plain"))
+    if not (torch.equal(stepped.X, plain.X) and torch.equal(stepped.U, plain.U)):
+        fail("float64: the deadline solve without a deadline is not solve_distributed")
+    cold = dtt.solve_distributed_steppable(fleet, cost, X, U, RADIUS, config=cfg,
+                                           t_kill=0.0)
+    if int(cold.iters.sum()) != 0 or not torch.equal(cold.U, U):
+        fail("t_kill=0 did not return the warm start after zero iterations")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the GPU path only")
@@ -641,6 +879,7 @@ def main():
     narrow_checks(checks, results, dev)
     wide_checks(checks, results, dev)
     centralized_checks(checks, results, dev)
+    probe_plain_ms = probe_checks(checks, dev)
     for label, (ms, plain) in results.items():
         plain_s = "not timed" if plain is None else f"{plain:.3f}"
         print(f"{label} ms/launch: kernel {ms:.3f}, twin {plain_s}", flush=True)
@@ -651,18 +890,33 @@ def main():
     quad12d_solve(dev)
     centralized_paths(dev, launches)
     solve_parity(dev)
+    sol_phase(checks, results, probe_plain_ms, dev, launches)
+    deadline_phase(dev)
+
+    from dpilqr_tpu_torch.utils import sol
 
     timing = {"backward_batched": "K1", "forward_batched": "K2 nxf 32 2 alphas",
               "backward_batched_wide": "K3 Quad6D K=16 nxf 96",
               "forward_sweep": "K4 10 alphas",
-              "backward_sweep": "K5"}
-    kernels = [
-        {"name": fn, "route": "cuda", "source": f"dpilqr_tpu_torch/csrc/{key}.cu",
-         "replaces": replaces, "launches": launches[key],
-         "max_abs_err": checks.worst[key], "ms": results[timing[key]][0],
-         "plain_ms": results[timing[key]][1]}
-        for key, (fn, replaces) in KERNELS.items()
-    ]
+              "backward_sweep": "K5", "probe_fma": "K6", "probe_hbm": "K7",
+              "probe_sin": "K8"}
+    kernels = []
+    for key, (fn, replaces) in KERNELS.items():
+        ms, plain_ms = results[timing[key]]
+        # The least time by the H100's published peaks for the timed launch's
+        # work: its shapes for a sweep, (FLOPs, sines, bytes) for a probe.
+        work = checks.shapes[timing[key]]
+        flops, trig, nbytes = sol.sweep_work(**work) if key in SWEEP_KERNELS else work
+        bound_s, bound_by = sol.published_bound(flops, nbytes, trig)
+        kernels.append({
+            "name": fn, "route": "cuda", "source": f"dpilqr_tpu_torch/csrc/{key}.cu",
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": checks.worst[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": checks.library_ms.get(key)})
+        print(f"{key} ({timing[key]}): {ms:.4f} ms, bound {bound_s * 1e3:.5f} ms by "
+              f"{bound_by} (share {bound_s * 1e3 / ms:.5f}), launches {launches[key]}, "
+              f"launches x (ms - bound) {launches[key] * (ms - bound_s * 1e3):.2f} ms")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

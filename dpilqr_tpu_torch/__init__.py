@@ -9,9 +9,17 @@ tensors, and as their plain PyTorch twins on CPU tensors: the decomposed
 ``make_solver``, ``solve_rhc(centralized=True)``).  Importing the package
 imports neither JAX nor the JAX package, and builds nothing: the kernels
 compile with ``nvcc`` on first use.
+
+Entry points given numpy input and no ``device`` run on the card
+(``default_device()`` raises where there is none); tensors keep their
+device, and ``device="cpu"`` or CPU tensors ask for the CPU.  With
+``t_kill`` the solves stop at a wall-clock deadline (``ilqr_solve_steppable``,
+``solve_distributed_steppable``, ``solve_rhc(t_kill=)``); ``utils.sol`` holds
+the speed-of-light accounting (work counts, the three ceiling probes,
+``sol_report``).
 """
 
-from .config import DEFAULT_CONFIG, SolverConfig
+from .config import DEFAULT_CONFIG, SolverConfig, default_device
 from .models import (
     BIKE_5D,
     CAR_3D,
@@ -38,6 +46,7 @@ from .parallel import (
     interaction_graph,
     selfish_warmstart,
     solve_distributed,
+    solve_distributed_steppable,
     solve_rhc,
 )
 from .utils import (
@@ -55,6 +64,7 @@ from .ops import (
     SolveResult,
     game_cost_from_numpy,
     ilqr_solve,
+    ilqr_solve_steppable,
     make_game_cost,
     make_solver,
     proximity_cost,

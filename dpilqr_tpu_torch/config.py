@@ -1,16 +1,19 @@
 """Solver configuration for dpilqr_tpu_torch.
 
 Counterpart of ``dpilqr_tpu/config.py``: the same ``SolverConfig`` fields
-and defaults.  Everything here follows the dtype and device of the tensors
+and defaults.  Everything follows the dtype and device of the tensors
 it is given (float64 for parity runs on the CPU, float32 on the card), so
-there is no global precision switch and no compile cache.
+there is no global precision switch and no compile cache.  Entry points
+given numpy input and no device run on ``default_device()``, the card.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-SWEEP_BACKENDS = ("auto", "cuda", "torch")
+import torch
+
+SWEEP_BACKENDS = ("auto", "cuda", "torch", "pscan")
 
 
 @dataclass(frozen=True)
@@ -39,9 +42,12 @@ class SolverConfig:
     # iterating until mu exceeds ``mu_max``.
     on_failed_ls: str = "bail"
 
-    # Batched sweep implementation: "cuda" (the hand-written kernels in
-    # csrc/), "torch" (their plain PyTorch twins), or "auto": the kernels
-    # for CUDA tensors, the twins for CPU tensors.
+    # Sweep implementation: "cuda" (the hand-written kernels in csrc/),
+    # "torch" (their plain PyTorch twins), or "auto": the kernels for CUDA
+    # tensors, the twins for CPU tensors.  "pscan" runs the centralized
+    # solve's backward sweep as the log-depth associative scan of
+    # ops/pscan.py (forward sweep as under "auto"); the decomposed solve has
+    # no scan and reads it as "auto".
     sweep_backend: str = "auto"
 
     # Two-stage batched line search: evaluate the first ``ls_probe`` alphas
@@ -68,10 +74,36 @@ class SolverConfig:
 DEFAULT_CONFIG = SolverConfig()
 
 
+def default_device() -> torch.device:
+    """The device an entry point runs on when its caller names none and
+    passes no tensor: the current CUDA device.  Raises without one; it
+    never returns the CPU (ask for that with ``device="cpu"`` or by passing
+    CPU tensors)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "dpilqr_tpu_torch runs on an NVIDIA GPU and torch.cuda finds no CUDA "
+            'device; pass device="cpu" (or CPU tensors) to run on the CPU'
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device, *args) -> torch.device:
+    """The device of an entry point's work: ``device`` when given, else the
+    device of the first tensor among ``args`` (a tensor argument keeps its
+    device), else ``default_device()``."""
+    if device is not None:
+        return torch.device(device)
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return default_device()
+
+
 def resolve_backend(backend: str, t) -> str:
-    """A sweep backend for tensors like ``t``: "auto" -> "cuda" for CUDA
-    tensors, "torch" for CPU tensors; "cuda" and "torch" as given."""
-    if backend == "auto":
+    """A batched sweep backend for tensors like ``t``: "auto" (and "pscan",
+    which only the centralized solve has) -> "cuda" for CUDA tensors,
+    "torch" for CPU tensors; "cuda" and "torch" as given."""
+    if backend in ("auto", "pscan"):
         return "cuda" if t.is_cuda else "torch"
     if backend not in ("cuda", "torch"):
         raise ValueError(f"unknown sweep backend {backend!r}")

@@ -9,4 +9,11 @@ from .costs import (
     stage_cost,
     terminal_cost,
 )
-from .ilqr import SolveResult, ilqr_solve, line_search_alphas, make_solver, rollout
+from .ilqr import (
+    SolveResult,
+    ilqr_solve,
+    ilqr_solve_steppable,
+    line_search_alphas,
+    make_solver,
+    rollout,
+)

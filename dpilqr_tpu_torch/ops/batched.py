@@ -25,6 +25,7 @@ line search, with finished subproblems retired by halving compaction.
 
 from __future__ import annotations
 
+from time import perf_counter
 from typing import NamedTuple
 
 import torch
@@ -552,7 +553,8 @@ def compaction_widths(S: int, unit: int = COMPACTION_UNIT) -> list[int]:
 
 def solve_subproblems_batched(
     fleet: Fleet, cfg: SolverConfig, sub_cost: GameCost, x0_s, U0_s, mids_s,
-    enabled, backend: str | None = None,
+    enabled, backend: str | None = None, t_kill: float | None = None,
+    t0: float | None = None, verbose: bool = False,
 ) -> SolveResult:
     """Batched iLQR over the subproblem axis.
 
@@ -567,7 +569,17 @@ def solve_subproblems_batched(
     ``x0_s (S, K, nx_p)``, ``U0_s (S, N, K, nu_p)``, ``mids_s (S, K)`` branch
     indices, ``enabled (S,)`` bool; ``backend`` defaults to
     ``cfg.sweep_backend``.
+
+    ``t_kill`` (seconds) is the wall-clock deadline of the whole batch,
+    counted from ``t0`` (a ``perf_counter`` reading; default: entry).  The
+    host checks it after each iteration's active-count fetch, the sync that
+    paces the loop, and once it has passed starts no further iteration: the
+    best plan so far returns, with the unfinished subproblems neither
+    converged nor failed.  Compaction keeps its schedule under a deadline
+    (no width needs compiling here).
     """
+    if t0 is None:
+        t0 = perf_counter()
     dtype = x0_s.dtype
     backend = resolve_backend(backend or cfg.sweep_backend, x0_s)
     sub_cost = cast_cost(sub_cost, dtype)
@@ -577,16 +589,24 @@ def solve_subproblems_batched(
     data = (sub_cost, mids_s, x0_s)
     idx_map = torch.arange(S, device=x0_s.device)
     w = S
+    expired = False
     while True:
         nw = next_width(w)
         while True:
-            n_active = int(c.active.sum())
-            if n_active == 0 or (nw < w and n_active <= nw):
+            n_active = int(c.active.sum())  # host sync: paces the deadline
+            if n_active == 0:
+                break
+            if t_kill is not None and perf_counter() - t0 > t_kill:
+                expired = True
+                if verbose:
+                    print(f"t_kill reached after {int(c.i.max())} iterations")
+                break
+            if nw < w and n_active <= nw:
                 break
             c = batched_iteration(fleet, cfg, *data, c, backend)
         for o, a in zip(out, c):
             o[idx_map] = a
-        if n_active == 0 or nw == w:
+        if n_active == 0 or expired or nw == w:
             break
         # Stable active-first permutation; keep the first nw lanes.
         perm = torch.argsort((~c.active).to(torch.uint8), stable=True)[:nw]

@@ -29,6 +29,8 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 _EPS = 1e-12
 
 
@@ -69,9 +71,11 @@ def make_game_cost(
     ``xf: (n, nx_p)``; ``Q/Qf: (n, nx_p, nx_p)``; ``R: (n, nu_p, nu_p)``.
     ``prox_eval_n_d``: if set (e.g. 2), the proximity *penalty* is evaluated
     with that many position dimensions while its derivatives keep ``n_pos``
-    (the reference's behavior for uniform-dimension fleets).
+    (the reference's behavior for uniform-dimension fleets).  A tensor
+    ``xf`` keeps its device; numpy input goes to ``device`` (default: the
+    card, ``config.default_device``).
     """
-    xf = torch.as_tensor(xf, dtype=dtype, device=device)
+    xf = torch.as_tensor(xf, dtype=dtype, device=resolve_device(device, xf))
     n = xf.shape[0]
     dtype, device = xf.dtype, xf.device
     if n_pos is None:
@@ -97,14 +101,16 @@ def make_game_cost(
 
 
 def game_cost_from_numpy(
-    fields: Mapping[str, np.ndarray], device, dtype
+    fields: Mapping[str, np.ndarray], device=None, dtype=None
 ) -> GameCost:
     """GameCost from its 10 fields by name (e.g. another package's cost
-    converted with ``np.asarray``); floating fields take ``dtype``, the
-    position-size fields stay int32."""
+    converted with ``np.asarray``); floating fields take ``dtype`` (default:
+    their own), the position-size fields stay int32.  The cost lands on
+    ``device`` (default: the card, ``config.default_device``)."""
     missing = set(GameCost._fields) - set(fields)
     if missing:
         raise ValueError(f"missing GameCost fields: {sorted(missing)}")
+    device = resolve_device(device)
     return GameCost(
         **{
             k: torch.as_tensor(

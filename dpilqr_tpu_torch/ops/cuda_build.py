@@ -9,11 +9,14 @@ and an unchanged one loads.
 
 ``launch`` is the one way a wrapper calls a kernel: it raises on a failed
 launch and counts the launch in ``launch_counts`` (the plain-torch twins
-never count).
+never count).  Inside a ``timed_launches()`` block it also brackets each
+kernel with CUDA events, so a caller can read the kernel's own time apart
+from its wrapper's torch preparation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,13 +38,30 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Argument lists of the C entry points (pointers, then sizes, then stream).
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# Argument lists of the C entry points (pointers, then sizes and scalars,
+# then stream).
 _SIGNATURES = {
     "backward_batched": [_P] * 11 + [_I] * 5 + [_P],
-    "backward_batched_wide": [_P] * 12 + [ctypes.c_longlong] + [_I] * 5 + [_P],
-    "backward_sweep": [_P] * 12 + [ctypes.c_longlong] + [_I] * 4 + [_P],
+    "backward_batched_wide": [_P] * 12 + [_L] + [_I] * 5 + [_P],
+    "backward_sweep": [_P] * 12 + [_L] + [_I] * 4 + [_P],
     "forward_batched": [_P] * 20 + [_I] * 6 + [_P],
     "forward_sweep": [_P] * 20 + [_I] * 5 + [_P],
+    "probe_fma": [_P] * 2 + [_L, _I] + [_F] * 8 + [_P],
+    "probe_hbm": [_P] * 2 + [_I, _L] + [_P],
+    "probe_sin": [_P] * 2 + [_L, _I] + [_P],
+}
+# Entry-point suffixes of each kernel: the dtypes it is compiled for.
+_DTYPES = {
+    "backward_batched": ("f32", "f64"),
+    "backward_batched_wide": ("f32", "f64"),
+    "backward_sweep": ("f32", "f64"),
+    "forward_batched": ("f32", "f64"),
+    "forward_sweep": ("f32", "f64"),
+    "probe_fma": ("f32",),
+    "probe_hbm": ("f32",),
+    "probe_sin": ("f32",),
 }
 
 # Launches of each kernel since the last reset.
@@ -51,6 +71,35 @@ launch_counts = dict.fromkeys(_SIGNATURES, 0)
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+# While a ``timed_launches()`` block is open: its list of
+# ``(kernel, start event, end event)``; None otherwise.
+_timed = None
+
+
+@contextlib.contextmanager
+def timed_launches():
+    """Bracket every kernel launched inside the block with CUDA events.
+
+    Yields the list the launches append ``(kernel, start, end)`` to; after
+    a ``torch.cuda.synchronize()`` ``launch_ms`` turns it into times.  The
+    events surround the C entry point alone, not the wrapper's checks,
+    allocations or torch preparation."""
+    global _timed
+    record, previous = [], _timed
+    _timed = record
+    try:
+        yield record
+    finally:
+        _timed = previous
+
+
+def launch_ms(record, kernel: str) -> list[float]:
+    """Milliseconds of each launch of ``kernel`` in a ``timed_launches()``
+    record (synchronizes first)."""
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for k, s, e in record if k == kernel]
 
 
 def sources() -> list[Path]:
@@ -121,7 +170,7 @@ def load_library() -> ctypes.CDLL:
     lib_path, _ = build()
     lib = ctypes.CDLL(str(lib_path))
     for base, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "f64"):
+        for suffix in _DTYPES[base]:
             fn = getattr(lib, f"dpilqr_{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -177,10 +226,20 @@ def ptr(t):
 def launch(kernel: str, dtype, device, *args):
     """Call ``dpilqr_<kernel>_<f32|f64>(*args, stream)`` on the current
     stream of ``device``; tensors among ``args`` pass as pointers."""
-    fn = getattr(load_library(), f"dpilqr_{kernel}_{dtype_suffix(dtype)}")
-    stream = torch.cuda.current_stream(device).cuda_stream
+    suffix = dtype_suffix(dtype)
+    if suffix not in _DTYPES[kernel]:
+        raise ValueError(f"{kernel} takes {_DTYPES[kernel]}, got {dtype}")
+    fn = getattr(load_library(), f"dpilqr_{kernel}_{suffix}")
+    stream = torch.cuda.current_stream(device)
+    if _timed is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
     err = fn(*(ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
-             ctypes.c_void_p(stream))
+             ctypes.c_void_p(stream.cuda_stream))
+    if _timed is not None:
+        end.record(stream)
+        _timed.append((kernel, start, end))
     if err != 0:
         raise RuntimeError(f"{kernel} kernel failed: cudaError {err}")
     launch_counts[kernel] += 1

@@ -16,19 +16,24 @@ Counterpart of ``dpilqr_tpu/ops/ilqr.py``, with the reference algorithm
 The sweeps run as the hand-written kernels of ``ops/sweeps.py`` on CUDA
 tensors ("cuda") or as the plain PyTorch versions here ("torch":
 ``_backward_pass``, ``_forward_pass``, ``_rollout_fn``); "auto" picks by the
-device of ``x0``.  The iteration loop runs on the host with one sync per
-iteration (the loop condition).  Not ported: the host-stepped deadline
-solve (``ilqr_solve_steppable``, ``t_kill``).
+device of ``x0``, and "pscan" swaps the backward sweep for the associative
+scan of ``ops/pscan.py``.  The iteration loop runs on the host with one sync
+per iteration (the loop condition), so the deadline solve
+(``ilqr_solve_steppable``, ``t_kill``) is the same loop with a clock.
+
+Entry points given numpy input and no ``device`` run on the card
+(``config.default_device``); a tensor argument keeps its device.
 """
 
 from __future__ import annotations
 
+from time import perf_counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, SolverConfig, resolve_backend
+from ..config import DEFAULT_CONFIG, SolverConfig, resolve_backend, resolve_device
 from ..models.fleet import Fleet
 from .costs import (
     GameCost,
@@ -209,26 +214,46 @@ class IlqrCarry(NamedTuple):
 
 def resolve_sweep_backend(cfg: SolverConfig, x) -> str:
     """``cfg.sweep_backend`` for a solve on ``x``'s device: "auto" is the
-    kernels for CUDA tensors and the plain PyTorch sweeps for CPU tensors."""
+    kernels for CUDA tensors and the plain PyTorch sweeps for CPU tensors;
+    "pscan" stays "pscan" (its rollouts pick by device in ``_sweeps``)."""
+    if cfg.sweep_backend == "pscan":
+        return "pscan"
     return resolve_backend(cfg.sweep_backend, x)
 
 
 def _sweeps(fleet: Fleet, backend: str):
-    """``(rollout, backward, forward)`` sweep functions of ``backend``."""
-    if backend == "cuda":
-        from . import sweeps
+    """``(rollout, backward, forward)`` sweep functions of ``backend``.
+    Under "pscan" the backward sweep is the associative scan, and the
+    rollouts are the card's kernel for CUDA tensors and the plain PyTorch
+    versions for CPU tensors."""
+    from . import sweeps
 
-        return (
-            lambda cost, x0, U: sweeps.rollout_cuda(fleet, cost, x0, U),
-            lambda cost, X, U, mu: sweeps.backward_pass_cuda(fleet, cost, X, U, mu),
-            lambda cost, X, U, K, d, a: sweeps.forward_pass_cuda(
-                fleet, cost, X, U, K, d, a),
-        )
-    return (
+    torch_sweeps = (
         lambda cost, x0, U: _rollout_fn(fleet.step, cost, x0, U),
         lambda cost, X, U, mu: _backward_pass(fleet.linearize, cost, X, U, mu),
         lambda cost, X, U, K, d, a: _forward_pass(fleet.step, cost, X, U, K, d, a),
     )
+    cuda_sweeps = (
+        lambda cost, x0, U: sweeps.rollout_cuda(fleet, cost, x0, U),
+        lambda cost, X, U, mu: sweeps.backward_pass_cuda(fleet, cost, X, U, mu),
+        lambda cost, X, U, K, d, a: sweeps.forward_pass_cuda(
+            fleet, cost, X, U, K, d, a),
+    )
+    if backend == "cuda":
+        return cuda_sweeps
+    if backend == "pscan":
+        from .pscan import backward_pass_pscan
+
+        def by_device(i):
+            return lambda cost, x, *rest: (
+                cuda_sweeps if x.is_cuda else torch_sweeps)[i](cost, x, *rest)
+
+        return (
+            by_device(0),
+            lambda cost, X, U, mu: backward_pass_pscan(fleet.linearize, cost, X, U, mu),
+            by_device(2),
+        )
+    return torch_sweeps
 
 
 def make_iteration_fn(fleet: Fleet, cfg: SolverConfig, backend: str):
@@ -300,33 +325,47 @@ def init_carry(fleet: Fleet, cfg: SolverConfig, cost: GameCost, x0, U0,
 
 
 def solve_core(fleet: Fleet, cfg: SolverConfig, cost: GameCost, x0, U0,
-               backend: str) -> SolveResult:
+               backend: str, t_kill: float | None = None,
+               verbose: bool = False) -> SolveResult:
     """Full iLQR solve: iterate until convergence, a failed line search or
     ``cfg.n_lqr_iter`` iterations (the JAX package's while_loop), with one
-    host sync per iteration for the loop condition."""
+    host sync per iteration for the loop condition.  With ``t_kill``
+    (seconds) no iteration starts once that much wall time has passed since
+    the loop began; the check follows each iteration's sync (reference
+    control.py:213-218), so at least one iteration runs."""
     iterate = make_iteration_fn(fleet, cfg, backend)
     c = init_carry(fleet, cfg, cost, x0, U0, backend)
-    for _ in range(cfg.n_lqr_iter):
+    t0 = perf_counter()
+    for i in range(cfg.n_lqr_iter):
         c = iterate(cost, c)
-        if bool(c.converged | c.failed):
+        done = bool(c.converged | c.failed)  # the iteration's host sync
+        if verbose:
+            print(f"{i + 1}/{cfg.n_lqr_iter}\tJ: {float(c.J_star):g}")
+        if done:
+            break
+        if t_kill is not None and perf_counter() - t0 > t_kill:
             break
     return SolveResult(X=c.X, U=c.U, J=c.J_star, iters=c.i,
                        converged=c.converged, failed_line_search=c.failed)
 
 
-def _solve(fleet: Fleet, cfg: SolverConfig, cost: GameCost, x0, U0) -> SolveResult:
+def _solve(fleet: Fleet, cfg: SolverConfig, cost: GameCost, x0, U0,
+           **deadline) -> SolveResult:
     """The solve in ``x0``'s dtype and on its device (the cost follows)."""
     cost = cast_cost(GameCost(*(a.to(x0.device) for a in cost)), x0.dtype)
     U0 = U0.to(dtype=x0.dtype, device=x0.device).contiguous()
     return solve_core(fleet, cfg, cost, x0.contiguous(), U0,
-                      resolve_sweep_backend(cfg, x0))
+                      resolve_sweep_backend(cfg, x0), **deadline)
 
 
 def make_solver(fleet: Fleet, N: int, config: SolverConfig = DEFAULT_CONFIG):
     """The solve function for a fleet and horizon: ``solve(cost, x0 (n,
-    nx_p), U0 (N, n, nu_p)) -> SolveResult``, on ``x0``'s device."""
+    nx_p), U0 (N, n, nu_p), device=None) -> SolveResult``, on ``x0``'s
+    device when it is a tensor, else on ``device`` (default: the card)."""
 
-    def solve(cost: GameCost, x0, U0):
+    def solve(cost: GameCost, x0, U0, device=None):
+        x0 = torch.as_tensor(x0, device=resolve_device(device, x0))
+        U0 = torch.as_tensor(U0, dtype=x0.dtype, device=x0.device)
         if U0.shape[0] != N:
             raise ValueError(f"U0 has horizon {U0.shape[0]}, the solver {N}")
         return _solve(fleet, config, cost, x0, U0)
@@ -341,14 +380,43 @@ def ilqr_solve(
     U0=None,
     N: int | None = None,
     config: SolverConfig = DEFAULT_CONFIG,
+    device=None,
 ) -> SolveResult:
     """Convenience single-problem entry point (reference ilqrSolver.solve).
 
     ``x0 (n, nx_p)``; ``U0 (N, n, nu_p)`` or None (zero controls over ``N``
-    steps, like the reference control.py:152-153).  Runs in ``x0``'s dtype
-    on its device.
+    steps, like the reference control.py:152-153).  Runs in ``x0``'s dtype;
+    a tensor ``x0`` keeps its device, numpy input goes to ``device``
+    (default: the card, ``config.default_device``).
     """
-    x0 = torch.as_tensor(x0)
+    x0, U0 = _check_problem(fleet, cost, x0, U0, N, device)
+    return _solve(fleet, config, cost, x0, U0)
+
+
+def ilqr_solve_steppable(
+    fleet: Fleet,
+    cost: GameCost,
+    x0,
+    U0=None,
+    N: int | None = None,
+    config: SolverConfig = DEFAULT_CONFIG,
+    t_kill: float | None = None,
+    verbose: bool = False,
+    device=None,
+) -> SolveResult:
+    """``ilqr_solve`` honoring a wall-clock deadline (reference control.py:
+    213-218): between iterations the host checks the clock and, once
+    ``t_kill`` seconds have passed since the first iteration began, starts
+    no further one and returns the best plan so far.  ``ilqr_solve`` already
+    steps from the host with one sync per iteration, so with ``t_kill=None``
+    this is the same solve."""
+    x0, U0 = _check_problem(fleet, cost, x0, U0, N, device)
+    return _solve(fleet, config, cost, x0, U0, t_kill=t_kill, verbose=verbose)
+
+
+def _check_problem(fleet: Fleet, cost: GameCost, x0, U0, N, device):
+    """``x0`` and ``U0`` as tensors on the solve's device, shapes checked."""
+    x0 = torch.as_tensor(x0, device=resolve_device(device, x0))
     n = fleet.n_agents
     if tuple(x0.shape) != (n, fleet.nx_p):
         raise ValueError(
@@ -367,4 +435,4 @@ def ilqr_solve(
         )
     if cost.xf.shape[0] != n:
         raise ValueError(f"cost has {cost.xf.shape[0]} agents but fleet has {n}")
-    return _solve(fleet, config, cost, x0, U0)
+    return x0, U0

@@ -7,5 +7,6 @@ from .subproblems import (
     gather_states,
     gather_subproblems,
 )
+from .deadline import solve_distributed_steppable
 from .distributed import DistributedResult, auto_subproblem_width, solve_distributed
 from .rhc import RhcResult, RhcStepInfo, selfish_warmstart, solve_rhc

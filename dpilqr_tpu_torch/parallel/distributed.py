@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import DEFAULT_CONFIG, SolverConfig
+from ..config import DEFAULT_CONFIG, SolverConfig, resolve_device
 from ..models.fleet import Fleet
 from ..ops.batched import solve_subproblems_batched
 from ..ops.costs import GameCost, cast_cost
@@ -68,6 +68,7 @@ def solve_distributed(
     graph_n_d: int | None = None,
     config: SolverConfig = DEFAULT_CONFIG,
     t_kill: float | None = None,
+    device=None,
 ) -> DistributedResult:
     """Solve by proximity decomposition.
 
@@ -77,13 +78,28 @@ def solve_distributed(
     marks agents whose subproblems are skipped (their stitched rows stay
     zero, like the reference's ``ignore_ids``).  ``K`` is the slot count;
     by default the maximum neighborhood size rounded up to a power of two.
-    The solve runs on X's device in X's dtype.
+    The solve runs in X's dtype; a tensor ``X`` keeps its device, numpy
+    input goes to ``device`` (default: the card, ``config.default_device``).
+    ``t_kill`` (seconds of wall clock, counted from entry) forwards to the
+    deadline solve, ``parallel.deadline.solve_distributed_steppable``.
     """
     if t_kill is not None:
-        raise NotImplementedError(
-            "t_kill (the deadline solve, parallel/deadline.py) is not ported yet"
+        from .deadline import solve_distributed_steppable
+
+        return solve_distributed_steppable(
+            fleet, cost, X, U, radius, ignore_mask=ignore_mask, K=K,
+            graph_n_d=graph_n_d, config=config, t_kill=t_kill, device=device,
         )
-    X = torch.as_tensor(X)
+    return _solve_decomposed(fleet, cost, X, U, radius, ignore_mask, K,
+                             graph_n_d, config, device)
+
+
+def _solve_decomposed(fleet, cost, X, U, radius, ignore_mask, K, graph_n_d,
+                      config, device, t_kill=None, t0=None, verbose=False):
+    """The decomposed solve behind ``solve_distributed`` and
+    ``solve_distributed_steppable``: the same five steps, with the batched
+    solve's deadline ``(t_kill, t0)`` when there is one."""
+    X = torch.as_tensor(X, device=resolve_device(device, X))
     if X.ndim == 2:
         X = X[None]
     dtype, dev = X.dtype, X.device
@@ -97,7 +113,7 @@ def solve_distributed(
         ignore_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
     ignore_mask = torch.as_tensor(ignore_mask, dtype=torch.bool, device=dev)
     radius = torch.as_tensor(radius, dtype=dtype, device=dev)
-    cost = cast_cost(cost, dtype)
+    cost = cast_cost(GameCost(*(a.to(dev) for a in cost)), dtype)
 
     # 1. Interaction graph from the previous trajectory (distributed.py:42).
     membership = interaction_graph(X, radius, n_pos=cost.n_pos, n_d=graph_n_d)
@@ -114,7 +130,8 @@ def solve_distributed(
 
     # 3. One batched solve for all subproblems.
     res = solve_subproblems_batched(
-        fleet, config, sub_cost, x0_s, U_s, mids_s, ~ignore_mask
+        fleet, config, sub_cost, x0_s, U_s, mids_s, ~ignore_mask,
+        t_kill=t_kill, t0=t0, verbose=verbose,
     )
 
     # 4. Owner extraction + scatter (ignored agents stay zero, matching the

@@ -13,8 +13,12 @@ before its predecessor (the JAX loop dispatches step k+1 before it
 resolves step k), widths grow at once and shrink with hysteresis, and a
 truncated step is redone from the same warm state with a wider K.
 
-Not ported yet: ``t_kill`` (parallel/deadline.py), ``log_fn`` and
-checkpointing; they raise ``NotImplementedError``.
+With ``t_kill`` every step's solve is capped at that much wall time
+(``ilqr_solve_steppable`` / ``solve_distributed_steppable``), and, as in the
+JAX loop, which does not pipeline under a deadline, a step then uses the
+width resolved from its predecessor.  ``log_fn`` sees each committed step's
+record; ``checkpoint_path`` saves the loop state after every step
+(``utils/checkpoint.py``) and ``resume_state`` continues from one.
 """
 
 from __future__ import annotations
@@ -26,10 +30,11 @@ from time import perf_counter
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, SolverConfig
+from ..config import DEFAULT_CONFIG, SolverConfig, resolve_device
 from ..models.fleet import Fleet
 from ..ops.costs import GameCost, cast_cost
-from ..ops.ilqr import ilqr_solve, rollout
+from ..ops.ilqr import ilqr_solve_steppable, rollout
+from ..utils.checkpoint import RhcState, save_rhc_state
 from ..utils.geometry import distance_to_goal
 from .distributed import solve_distributed
 from .graph import graph_to_dict
@@ -110,46 +115,66 @@ def solve_rhc(
     Exactly one of ``J_converge`` (stop when J drops below) or
     ``dist_converge`` (stop when every agent is within this distance of its
     goal) must be given (reference distributed.py:125-143); ``t_diverge``
-    aborts after that much simulated time.  The first warm start is ``U0
-    (N, n, nu_p)`` or else small random controls drawn from ``rng``.  The
-    solve runs on ``device`` (default: CPU) in ``x0``'s dtype.
+    aborts after that much simulated time; ``t_kill`` caps the wall clock
+    of each step's solve (reference control.py:213-218).  The first warm
+    start is ``U0 (N, n, nu_p)`` or else small random controls drawn from
+    ``rng``.  ``log_fn(info)`` is called with each committed step's
+    ``RhcStepInfo``; ``checkpoint_path`` gets the loop state after every
+    step and ``resume_state`` (a ``utils.checkpoint.RhcState``) continues a
+    run from one.  The solve runs in ``x0``'s dtype; a tensor ``x0`` keeps
+    its device, numpy input goes to ``device`` (default: the card,
+    ``config.default_device``).
     """
     if (J_converge is None) == (dist_converge is None):
         raise ValueError("Specify exactly one of J_converge or dist_converge")
     if not centralized and radius is None:
         raise ValueError("Decomposed mode needs the proximity radius")
-    if t_kill is not None:
-        raise NotImplementedError("t_kill (parallel/deadline.py) is not ported yet")
-    if log_fn is not None or checkpoint_path is not None or resume_state is not None:
-        raise NotImplementedError("log_fn and checkpointing are not ported yet")
 
     n, nx_p, nu_p = fleet.n_agents, fleet.nx_p, fleet.nu_p
     dt = fleet.dt
-    x0 = np.asarray(x0)
+    dev = resolve_device(device, x0)
+    x0 = x0.cpu().numpy() if isinstance(x0, torch.Tensor) else np.asarray(x0)
     if not np.issubdtype(x0.dtype, np.floating):
         x0 = x0.astype(float)
     x0 = x0.reshape(n, nx_p)
     dtype = torch.float32 if x0.dtype == np.float32 else torch.float64
-    dev = torch.device("cpu") if device is None else torch.device(device)
     cost = cast_cost(GameCost(*(a.to(dev) for a in cost)), dtype)
     xf = cost.xf
 
-    if U0 is not None:
-        U_np = np.asarray(U0, dtype=x0.dtype)
-        if U_np.shape != (N, n, nu_p):
-            raise ValueError(
-                f"U0 must be (N, n, nu_p) = {(N, n, nu_p)}, got {U_np.shape}"
-            )
-    elif rng is None:
-        raise ValueError("pass U0 or an rng for the random warm start")
+    X_exec_parts: list[torch.Tensor] = []
+    U_exec_parts: list[torch.Tensor] = []
+    step_count = 0
+    if resume_state is not None:
+        # Resume a checkpointed run (utils/checkpoint.py).
+        def on_dev(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        xi = on_dev(resume_state.xi)
+        X = on_dev(resume_state.X_warm)
+        U = on_dev(resume_state.U_warm)
+        t = resume_state.t
+        X_exec_parts.append(on_dev(resume_state.X_full))
+        U_exec_parts.append(on_dev(resume_state.U_full))
+        step_count = resume_state.step
     else:
-        # Small random warm start (reference distributed.py:152).
-        U_np = (rng.uniform(size=(N, n, nu_p)) * 0.01).astype(x0.dtype)
-    U_np = U_np * np.asarray(fleet.control_mask, x0.dtype)[None]
-    U = torch.as_tensor(U_np, device=dev)
-    xi = torch.as_tensor(x0, device=dev)
-    X = xi[None]  # (1, n, nx) until the first solve
-    t = 0.0
+        if U0 is not None:
+            if isinstance(U0, torch.Tensor):
+                U0 = U0.cpu().numpy()
+            U_np = np.asarray(U0, dtype=x0.dtype)
+            if U_np.shape != (N, n, nu_p):
+                raise ValueError(
+                    f"U0 must be (N, n, nu_p) = {(N, n, nu_p)}, got {U_np.shape}"
+                )
+        elif rng is None:
+            raise ValueError("pass U0 or an rng for the random warm start")
+        else:
+            # Small random warm start (reference distributed.py:152).
+            U_np = (rng.uniform(size=(N, n, nu_p)) * 0.01).astype(x0.dtype)
+        U_np = U_np * np.asarray(fleet.control_mask, x0.dtype)[None]
+        U = torch.as_tensor(U_np, device=dev)
+        xi = torch.as_tensor(x0, device=dev)
+        X = xi[None]  # (1, n, nx) until the first solve
+        t = 0.0
 
     def stop(J, dists):
         if J_converge is not None:
@@ -162,18 +187,18 @@ def solve_rhc(
     )
     converged = True
     steps: list[RhcStepInfo] = []
-    X_exec_parts: list[torch.Tensor] = []
-    U_exec_parts: list[torch.Tensor] = []
     K_cur = K
 
     def dispatch(t_step, xi_cur, X_w, U_w, K_use):
         t0 = perf_counter()
         if centralized:
-            res = ilqr_solve(fleet, cost, xi_cur, U0=U_w, config=config)
+            # With t_kill None this is ilqr_solve.
+            res = ilqr_solve_steppable(fleet, cost, xi_cur, U0=U_w,
+                                       config=config, t_kill=t_kill)
         else:
             res = solve_distributed(
                 fleet, cost, X_w, U_w, radius, ignore_mask=ignore_mask,
-                K=K_use, config=config,
+                K=K_use, config=config, t_kill=t_kill,
             )
         xi_n, X_exec, U_exec, X_n, U_n, dists_dev = _advance_shift(
             res.X, res.U, xf, step_size, n_d
@@ -230,10 +255,22 @@ def solve_rhc(
         ))
 
     def commit(rec, info):
-        nonlocal converged
+        nonlocal converged, step_count
         X_exec_parts.append(rec["X_exec"])
         U_exec_parts.append(rec["U_exec"])
         steps.append(info)
+        step_count += 1
+        if checkpoint_path is not None:
+            # The NEXT step's simulated time, so that a resumed run goes on
+            # exactly where this one stopped.
+            save_rhc_state(checkpoint_path, RhcState(
+                xi=rec["xi"].cpu().numpy(), X_warm=rec["X"].cpu().numpy(),
+                U_warm=rec["U"].cpu().numpy(), t=rec["t"] + step_size * dt,
+                X_full=torch.cat(X_exec_parts).cpu().numpy(),
+                U_full=torch.cat(U_exec_parts).cpu().numpy(), step=step_count,
+            ))
+        if log_fn is not None:
+            log_fn(info)
         if verbose:
             print(f"t: {info.t:.3g}\tJ: {info.J:g}\tsolve: {info.solve_time:.3g}s")
         diverged = t_diverge is not None and info.t >= t_diverge
@@ -245,9 +282,12 @@ def solve_rhc(
         rec = dispatch(t, xi, X, U, K_cur)
         while True:
             # The JAX loop dispatches the next step before resolving this
-            # one, so the next step uses the width from before this resolve.
-            K_next = K_cur
+            # one, so the next step uses the width from before this resolve;
+            # under a deadline it does not pipeline, and the next step uses
+            # the width this resolve settles.
+            K_before = K_cur
             stopped, diverged, redo = resolve(rec)
+            K_next = K_before if t_kill is None else K_cur
             if redo:
                 rec = dispatch(rec["t"], rec["xi_in"], rec["X_in"], rec["U_in"], K_cur)
                 continue
@@ -274,11 +314,13 @@ def solve_rhc(
 
 
 def selfish_warmstart(fleet: Fleet, cost: GameCost, x0, N: int,
-                      config: SolverConfig = DEFAULT_CONFIG):
+                      config: SolverConfig = DEFAULT_CONFIG, device=None):
     """Per-agent solo warm start (reference problem.py:66-91): every agent's
     tracking problem ignoring all others, as one decomposed solve on the
-    empty graph (``K=1``, so no width sync).  Returns ``U (N, n, nu_p)``."""
-    x0 = torch.as_tensor(x0)
+    empty graph (``K=1``, so no width sync).  Returns ``U (N, n, nu_p)`` on
+    ``x0``'s device when it is a tensor, else on ``device`` (default: the
+    card)."""
+    x0 = torch.as_tensor(x0, device=resolve_device(device, x0))
     U0 = x0.new_zeros((N, fleet.n_agents, fleet.nu_p))
     # radius <= 0: no pair is ever within 2 * radius, a singleton graph.
     res = solve_distributed(fleet, cost, x0[None], U0, radius=-1.0, K=1,

@@ -110,6 +110,7 @@ def test_make_game_cost_defaults_match():
     Q = np.tile(np.eye(4), (3, 1, 1))
     R = np.tile(np.eye(2), (3, 1, 1))
     a = cj.make_game_cost(xf, Q, R, 10 * Q, radius=0.5, prox_eval_n_d=2)
-    b = ct.make_game_cost(xf, Q, R, 10 * Q, radius=0.5, prox_eval_n_d=2)
+    b = ct.make_game_cost(xf, Q, R, 10 * Q, radius=0.5, prox_eval_n_d=2,
+                          device="cpu")
     for k in cj.GameCost._fields:
         np.testing.assert_array_equal(getattr(b, k).numpy(), np.asarray(getattr(a, k)))

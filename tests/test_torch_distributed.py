@@ -153,9 +153,12 @@ def test_auto_width_and_ignore_mask():
 
     assert [_width_from_kmax(k, 100) for k in (1, 2, 3, 5, 8, 9)] == [1, 2, 4, 8, 8, 16]
     assert _width_from_kmax(9, 6) == 6
-    with pytest.raises(NotImplementedError):
-        dtt.solve_distributed(fleet_t, cost_t, torch.as_tensor(X0),
-                              torch.as_tensor(U0), radius, t_kill=0.1)
+    # A deadline forwards to the deadline solve; a generous one changes nothing.
+    rk = dtt.solve_distributed(
+        fleet_t, cost_t, torch.as_tensor(X0), torch.as_tensor(U0), radius,
+        ignore_mask=ignore, config=dtt.SolverConfig(n_lqr_iter=3), t_kill=1e9,
+    )
+    assert torch.equal(rk.X, r.X) and torch.equal(rk.iters, r.iters)
     with pytest.raises(ValueError):
         dtt.solve_distributed(fleet_t, cost_t, torch.as_tensor(X0[:, :, :3]),
                               torch.as_tensor(U0), radius)

@@ -210,7 +210,7 @@ def test_ilqr_solve_matches_jax(name):
 def test_ilqr_solve_matches_oracle():
     model, n, dt, N, x0, xf, Q, R, Qf, radius, _, _ = _scenario("multi_agent")
     cost = dtt.make_game_cost(xf, np.tile(Q, (n, 1, 1)), np.tile(R, (n, 1, 1)),
-                              np.tile(Qf, (n, 1, 1)), radius=radius)
+                              np.tile(Qf, (n, 1, 1)), radius=radius, device="cpu")
     res = dtt.ilqr_solve(dtt.homogeneous_fleet(dtt.DOUBLE_INT_4D, n, dt), cost,
                          torch.as_tensor(x0), N=N)
     cost_o = OracleGameCost(xf.flatten(), [Q] * n, [R] * n, [Qf] * n, radius, 4, 2, n)
@@ -281,7 +281,7 @@ def test_solve_rhc_centralized_matches_jax():
                        rng=np.random.default_rng(0), **kw)
     rt = dtt.solve_rhc(dtt.homogeneous_fleet(dtt.UNICYCLE_4D, n, dt), _port_cost(cost),
                        x0, N, config=dtt.SolverConfig(n_lqr_iter=8),
-                       rng=np.random.default_rng(0), **kw)
+                       rng=np.random.default_rng(0), device="cpu", **kw)
     assert len(rt.steps) == len(rj.steps) == 3
     assert rt.converged == rj.converged
     for st, sj in zip(rt.steps, rj.steps):
@@ -291,6 +291,9 @@ def test_solve_rhc_centralized_matches_jax():
     np.testing.assert_allclose(rt.X, rj.X, atol=1e-9)
     np.testing.assert_allclose(rt.U, rj.U, atol=1e-8)
     np.testing.assert_allclose(rt.J, rj.J, rtol=1e-9)
-    with pytest.raises(NotImplementedError):
-        dtt.solve_rhc(dtt.homogeneous_fleet(dtt.UNICYCLE_4D, n, dt), _port_cost(cost),
-                      x0, N, t_kill=0.1, rng=np.random.default_rng(0), **kw)
+    # A generous deadline changes nothing (the deadline solve is the same loop).
+    rk = dtt.solve_rhc(dtt.homogeneous_fleet(dtt.UNICYCLE_4D, n, dt), _port_cost(cost),
+                       x0, N, config=dtt.SolverConfig(n_lqr_iter=8), t_kill=1e9,
+                       rng=np.random.default_rng(0), device="cpu", **kw)
+    assert [s.iters for s in rk.steps] == [s.iters for s in rt.steps]
+    np.testing.assert_array_equal(rk.X, rt.X)

@@ -19,8 +19,13 @@ import dpilqr_tpu_torch
 import dpilqr_tpu_torch.ops.batched
 import dpilqr_tpu_torch.ops.cuda_build as cb
 import dpilqr_tpu_torch.ops.ilqr
+import dpilqr_tpu_torch.ops.pscan
 import dpilqr_tpu_torch.ops.sweeps
+import dpilqr_tpu_torch.parallel.deadline
 import dpilqr_tpu_torch.parallel.rhc
+import dpilqr_tpu_torch.utils.checkpoint
+import dpilqr_tpu_torch.utils.profiling
+import dpilqr_tpu_torch.utils.sol
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "dpilqr_tpu"
                 or m.startswith("dpilqr_tpu."))
@@ -62,6 +67,9 @@ KERNEL_SOURCES = {
         "dpilqr_tpu/ops/pallas_batched_wide.py :: backward_pass_batched_wide",
     "backward_sweep.cu": "dpilqr_tpu/ops/pallas_sweeps.py :: backward_pass_pallas",
     "forward_sweep.cu": "dpilqr_tpu/ops/pallas_sweeps.py :: forward_pass_pallas",
+    "probe_fma.cu": "dpilqr_tpu/utils/sol.py :: measure_vpu_peak_gflops",
+    "probe_hbm.cu": "dpilqr_tpu/utils/sol.py :: measure_hbm_stream_gbps",
+    "probe_sin.cu": "dpilqr_tpu/utils/sol.py :: measure_vpu_transcendental_ops",
 }
 
 
@@ -76,9 +84,15 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace(name):
 
 
 def test_every_kernel_source_is_built_and_bound():
-    """Each .cu source has a C entry point pair in the build's signature
-    table, so the library loads every kernel."""
+    """Each .cu source has its C entry points (one per dtype the kernel
+    names) in the build's signature table, so the library loads every
+    kernel; every entry point the table names is defined in its source."""
     import dpilqr_tpu_torch.ops.cuda_build as cb
 
     names = {p.name for p in (PKG / "csrc").glob("*.cu")}
     assert names == set(KERNEL_SOURCES) == {f"{k}.cu" for k in cb._SIGNATURES}
+    assert set(cb.launch_counts) == set(cb._SIGNATURES) == set(cb._DTYPES)
+    for base, suffixes in cb._DTYPES.items():
+        text = (PKG / "csrc" / f"{base}.cu").read_text()
+        defined = set(re.findall(rf"dpilqr_{base}_(f\d\d)\b", text))
+        assert defined == set(suffixes), (base, defined)
