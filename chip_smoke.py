@@ -15,21 +15,25 @@ Phases (any failure exits non-zero and prints no result line):
    a. K1 and K2 at the 100-agent main path's shape (S=100 subproblems,
       K=8 slots, nx_p=4, nu_p=2, N=50), float64 and float32, forward with 2
       and 10 alphas, with and without gains; a mixed DoubleInt4D+Car3D+
-      Bike5D batch in float64;
+      Bike5D batch in float64; K1 against K3 on the same float32 batches at
+      nxf 8, 16, 24 and 32 (K = 2, 4, 6, 8: the narrow/wide routing datum);
    b. K3 and the widened K2 on wide subproblems: Quad6D at K=8 (nxf 48)
       and at K=16 (nxf 96, nuf 48: the shape of phase 4b's loop) and
       Quad12D at K=8 (nxf 96) from the 64-agent quadrotor swarm (S=64),
-      float64 and float32, 2 and 10 alphas; K3 against K1 on the same
-      nxf-32 batch (the narrow/wide routing datum);
+      float64 and float32, 2 and 10 alphas; every timed shape is printed
+      beside its bound by the published peaks;
    c. K5 and K4 (with gains over 10 alphas, and as a rollout) at the
       10-agent centralized shape (N=50).
 4. Solve paths, each driven with the launch counts set to 0 just before
    and read just after:
    a. main path: ``solve_rhc(centralized=False)`` for 100 Unicycle4D
-      agents, float32, 5 MPC steps, on the kernels and again on the twins;
+      agents, float32, 5 MPC steps, on the kernels and again on the twins,
+      and once more with every launch timed: K1's and K2's launches and
+      milliseconds per step by batch width S (the widths the retirement
+      schedule really runs);
    b. the 64-agent Quad6D swarm closed loop at K=16 (nxf 96, the widest
       the kernels take; auto K would reach 32), 5 MPC steps on the kernels
-      and 2 on the twins;
+      and 2 on the twins, and K3's and K2's launches by batch width;
    c. one cold ``solve_distributed`` of 64 Quad12D agents at K=8, float32,
       on the kernels; fails if it is not a solve (mean iterations <= 1);
    d. ``ilqr_solve`` for 10 agents on the kernels and on the twins, then
@@ -60,7 +64,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the eight kernels with their launch counts, errors, times and bounds
-(the least time by the published peaks, computed from the timed shapes),
+(the least time by the published peaks, computed from the timed shapes; K2
+and K3 also list every other shape they were timed at under ``shapes``),
 and the line before that the card's name and power limit.
 """
 
@@ -93,8 +98,6 @@ KERNELS = {
     "probe_hbm": ("measure_hbm_stream_gbps", "dpilqr_tpu/utils/sol.py:245"),
     "probe_sin": ("measure_vpu_transcendental_ops", "dpilqr_tpu/utils/sol.py:301"),
 }
-SWEEP_KERNELS = ("backward_batched", "forward_batched", "backward_batched_wide",
-                 "forward_sweep", "backward_sweep")
 PEAK_OVERSHOOT = 1.05  # a rate above this share of a published peak is a miscount
 
 
@@ -274,6 +277,17 @@ def work_shape(family, fleet, K, S, n_alpha=0):
                 S=S, n_alpha=n_alpha, model=fleet.specs[0].name)
 
 
+def bound_ms(work):
+    """``(ms, "bytes" | "operations")``: the least time by the H100's
+    published peaks for a timed launch's work, a ``work_shape`` of a sweep or
+    a probe's ``(FLOPs, sines, bytes)``."""
+    from dpilqr_tpu_torch.utils import sol
+
+    flops, trig, nbytes = sol.sweep_work(**work) if isinstance(work, dict) else work
+    bound_s, bound_by = sol.published_bound(flops, nbytes, trig)
+    return bound_s * 1e3, bound_by
+
+
 def forward_checks(checks, results, tag, fleet, sub_cost, mids, carry, Kg, d,
                    dtype, dev, gains_off=True):
     """K2 against its twin at 2 and 10 alphas; times float32 with gains."""
@@ -322,8 +336,29 @@ def narrow_checks(checks, results, dev):
             checks.shapes["K1"] = work_shape("backward", fleet, 8, args[0].shape[0])
             results["K3 at nxf 32"] = (
                 timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 20), None)
+            checks.shapes["K3 at nxf 32"] = work_shape("backward_wide", fleet, 8,
+                                                       args[0].shape[0])
         forward_checks(checks, results, "nxf 32", fleet, sub_cost, mids, carry,
                        Kg_t, d_t, dtype, dev)
+
+    # The routing datum below nxf 32: K1 and K3 on the same float32 batches
+    # (in turns: K1, K3, K3, K1; the smaller of each pair).
+    fleet, cost, x0 = unicycle_problem(N_AGENTS, 0.55, torch.float32, dev)
+    for K in (2, 4, 6, 8):
+        args = sweep_inputs(fleet, cost, x0, K, dev)[0]
+        twin = bt.backward_pass_batched_torch(*args)
+        fns = {"K1": bt.backward_pass_batched_cuda, "K3": bt.backward_pass_batched_wide_cuda}
+        for name, fn in fns.items():
+            checks.compare("backward_batched" if name == "K1" else "backward_batched_wide",
+                           f"{name} routing nxf {4 * K}", ("Kg", "d"), fn(*args), twin,
+                           TOL[torch.float32])
+        ms = {name: [] for name in fns}
+        for name in ("K1", "K3", "K3", "K1"):
+            ms[name].append(timed(lambda fn=fns[name]: fn(*args), 20))
+        for name in fns:
+            results[f"{name} routing nxf {4 * K}"] = (min(ms[name]), None)
+            checks.shapes[f"{name} routing nxf {4 * K}"] = work_shape(
+                "backward", fleet, K, args[0].shape[0])
 
     # Mixed RK4 substeps (Bike5D takes 1, the others 5), float64.
     fleet = dtt.Fleet.from_names(["DoubleInt4D", "Car3D", "Bike5D"] * 4, DT)
@@ -447,6 +482,42 @@ def run_counted(fn):
     return out, dict(cuda_build.launch_counts)
 
 
+SIZE_OF_S = {"backward_batched": 0, "forward_batched": 0, "backward_batched_wide": 1}
+
+
+def launches_by_width(fn, steps, kernels):
+    """``fn()`` (a run of ``steps`` MPC steps) with every kernel launch
+    bracketed by CUDA events; for each of ``kernels`` the launches and the
+    milliseconds per step at each batch width S (K2 also by its alphas)."""
+    from dpilqr_tpu_torch.ops import cuda_build
+
+    with cuda_build.timed_launches() as record:
+        fn()
+    torch.cuda.synchronize()
+    out = {k: {} for k in kernels}
+    for kernel, start, end, sizes in record:
+        if kernel not in out:
+            continue
+        key = f"S={sizes[SIZE_OF_S[kernel]]}"
+        if kernel == "forward_batched":
+            key += f" alphas={sizes[5]}"
+        cell = out[kernel].setdefault(key, {"launches_per_step": 0.0, "ms_per_step": 0.0})
+        cell["launches_per_step"] += 1 / steps
+        cell["ms_per_step"] += start.elapsed_time(end) / steps
+    for cells in out.values():
+        for cell in cells.values():
+            cell["ms_per_launch"] = cell["ms_per_step"] / cell["launches_per_step"]
+    return out
+
+
+def print_by_width(path, by_width):
+    for kernel, cells in by_width.items():
+        total = sum(c["ms_per_step"] for c in cells.values())
+        n = sum(c["launches_per_step"] for c in cells.values())
+        print(f"{path} {kernel} by width: {n:.1f} launches, {total:.3f} ms a step: "
+              + json.dumps(cells), flush=True)
+
+
 def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None,
             t_kill=None):
     """A closed-loop MPC run of ``steps`` steps; returns a summary.  Under
@@ -500,6 +571,8 @@ def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None,
         "truncated_steps": truncated,
         "mean_iters": float(iters.mean()),
         "converged_frac": float(conv.mean()),
+        "converged_frac_by_step": [float(np.mean(np.asarray(s.converged)))
+                                   for s in res.steps],
     }
 
 
@@ -520,6 +593,9 @@ def main_path(dev, launches):
     launches["per MPC step (100 unicycles)"] = {
         k: counts[k] / kern["steps"] for k in ("backward_batched", "forward_batched")}
     print("main path (kernels): " + json.dumps(kern), flush=True)
+    print_by_width("main path", launches_by_width(
+        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS), MPC_STEPS,
+        ("backward_batched", "forward_batched")))
     twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", MPC_STEPS))
     if any(counts.values()):
         fail("the torch backend launched a kernel")
@@ -545,6 +621,9 @@ def quad6d_loop(dev, launches):
         for k in ("backward_batched_wide", "forward_batched")}
     print(f"quad6d_64 loop (kernels, K=16, launches {counts}): " + json.dumps(kern),
           flush=True)
+    print_by_width("quad6d_64 loop", launches_by_width(
+        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, K=16), MPC_STEPS,
+        ("backward_batched_wide", "forward_batched")))
     twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", 2, K=16))
     if any(counts.values()):
         fail("the torch backend launched a kernel")
@@ -882,7 +961,11 @@ def main():
     probe_plain_ms = probe_checks(checks, dev)
     for label, (ms, plain) in results.items():
         plain_s = "not timed" if plain is None else f"{plain:.3f}"
-        print(f"{label} ms/launch: kernel {ms:.3f}, twin {plain_s}", flush=True)
+        bound_s = ""
+        if label in checks.shapes:
+            b_ms, by = bound_ms(checks.shapes[label])
+            bound_s = f", bound {b_ms:.5f} by {by} (share {b_ms / ms:.5f})"
+        print(f"{label} ms/launch: kernel {ms:.4f}, twin {plain_s}{bound_s}", flush=True)
 
     launches = {}
     main_path(dev, launches)
@@ -893,30 +976,36 @@ def main():
     sol_phase(checks, results, probe_plain_ms, dev, launches)
     deadline_phase(dev)
 
-    from dpilqr_tpu_torch.utils import sol
-
     timing = {"backward_batched": "K1", "forward_batched": "K2 nxf 32 2 alphas",
               "backward_batched_wide": "K3 Quad6D K=16 nxf 96",
               "forward_sweep": "K4 10 alphas",
               "backward_sweep": "K5", "probe_fma": "K6", "probe_hbm": "K7",
               "probe_sin": "K8"}
+    # The other shapes the two redesigned kernels were timed at.
+    others = {"forward_batched": "K2 ", "backward_batched_wide": "K3 "}
     kernels = []
     for key, (fn, replaces) in KERNELS.items():
         ms, plain_ms = results[timing[key]]
         # The least time by the H100's published peaks for the timed launch's
         # work: its shapes for a sweep, (FLOPs, sines, bytes) for a probe.
-        work = checks.shapes[timing[key]]
-        flops, trig, nbytes = sol.sweep_work(**work) if key in SWEEP_KERNELS else work
-        bound_s, bound_by = sol.published_bound(flops, nbytes, trig)
-        kernels.append({
+        b_ms, bound_by = bound_ms(checks.shapes[timing[key]])
+        entry = {
             "name": fn, "route": "cuda", "source": f"dpilqr_tpu_torch/csrc/{key}.cu",
             "replaces": replaces, "launches": launches[key],
             "max_abs_err": checks.worst[key], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-            "library_ms": checks.library_ms.get(key)})
-        print(f"{key} ({timing[key]}): {ms:.4f} ms, bound {bound_s * 1e3:.5f} ms by "
-              f"{bound_by} (share {bound_s * 1e3 / ms:.5f}), launches {launches[key]}, "
-              f"launches x (ms - bound) {launches[key] * (ms - bound_s * 1e3):.2f} ms")
+            "bound_ms": b_ms, "bound_by": bound_by,
+            "library_ms": checks.library_ms.get(key)}
+        if key in others:
+            entry["shapes"] = [
+                dict(zip(("shape", "ms", "plain_ms", "bound_ms", "bound_by"),
+                         (label, *results[label], *bound_ms(checks.shapes[label]))))
+                for label in results
+                if label.startswith(others[key]) and label != timing[key]
+                and label in checks.shapes]
+        kernels.append(entry)
+        print(f"{key} ({timing[key]}): {ms:.4f} ms, bound {b_ms:.5f} ms by "
+              f"{bound_by} (share {b_ms / ms:.5f}), launches {launches[key]}, "
+              f"launches x (ms - bound) {launches[key] * (ms - b_ms):.2f} ms")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

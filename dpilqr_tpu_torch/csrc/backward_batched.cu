@@ -9,21 +9,24 @@
 // What bounds it on the H100: not bytes (per step a subproblem streams
 // ~nxf^2 + K nx^2 values, a few KB) nor FLOPs (~10 nxf^3 per step), but the
 // latency of a long chain of dependent small matrix phases: N steps x
-// (8 phases + 2 barriers per pivot).  The design keeps that chain on chip:
-// one CTA per subproblem runs the whole time loop, with P, p, the Q blocks
-// and the Gauss-Jordan tableau all in shared memory (52 KB in float64 at
-// nxf = 32), threads spanning matrix entries.  Nothing round-trips through
-// device memory between steps; S subproblems fill the SMs in parallel.
-// Wider subproblems take backward_batched_wide.cu.
+// (8 phases + a barrier per pivot); the Gauss-Jordan's 16 pivots are a
+// third of a step at nxf 32 (scripts/riccati_phase_clocks.py).  The design
+// keeps that chain on chip: one CTA per subproblem runs the whole time
+// loop, with P, p, the Q blocks and the Gauss-Jordan tableau all in shared
+// memory (54 KB in float64 at nxf = 32), 2 x 2 register tiles in the
+// products, the tableau in registers during the elimination.  Nothing
+// round-trips through device memory between steps; S subproblems fill the
+// SMs in parallel.  Wider subproblems take backward_batched_wide.cu.
 //
-// Layouts (all contiguous, subproblem-major inputs, JAX-layout outputs):
+// Layouts (all contiguous, subproblem-major):
 //   A   (S, N, K, nx, nx)   A_k[b][a] = d f_b / d x_a of slot k
 //   B   (S, N, K, nx, nu)   zero for padded slots
 //   Luu (S, N, nuf, nuf)    block-diagonal control Hessian
 //   Lxx (S, N, nxf, nxf)    state Hessian incl. proximity coupling
 //   Lx  (S, N, nxf), Lu (S, N, nuf), mu (S), p0 (S, nxf), P0 (S, nxf, nxf)
-//   Kg  (N, nuf, nxf, S), d (N, nuf, S)   outputs
-// with nxf = K nx, nuf = K nu.
+//   Kg  (S, N, nuf, nxf), d (S, N, nuf)   outputs
+// with nxf = K nx, nuf = K nu.  The Python wrapper hands the outputs out as
+// permuted views in the JAX package's shapes (N, nuf, nxf, S), (N, nuf, S).
 
 #include "riccati.cuh"
 
@@ -38,17 +41,16 @@ __global__ void __launch_bounds__(THREADS) backward_batched_kernel(
     const T* __restrict__ Lx, const T* __restrict__ Lu,
     const T* __restrict__ mu_s, const T* __restrict__ p0,
     const T* __restrict__ P0, T* __restrict__ Kg, T* __restrict__ dg,
-    int S, int N, int K, int nx, int nu) {
+    int N, int K, int nx, int nu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const RiccatiSizes z = riccati_sizes(K, nx, nu);
-  const RiccatiWork<T> ws =
-      riccati_carve(sm, sm + z.value, sm + z.value + z.gain, K, nx, nu);
+  const RiccatiWork<T> ws = riccati_place<0>(sm, (T*)nullptr, K, nx, nu);
   const int s = blockIdx.x;
   const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu, sN = (size_t)s * N;
-  riccati_sweep(A + sN * K * nx * nx, B + sN * K * nx * nu, Luu + sN * nuf * nuf,
-                Lxx + sN * nxf * nxf, Lx + sN * nxf, Lu + sN * nuf, mu_s[s],
-                p0 + s * nxf, P0 + s * nxf * nxf, Kg, dg, S, s, N, K, nx, nu, ws);
+  riccati_sweep<2, 0>(A + sN * K * nx * nx, B + sN * K * nx * nu, Luu + sN * nuf * nuf,
+                   Lxx + sN * nxf * nxf, Lx + sN * nxf, Lu + sN * nuf, mu_s[s],
+                   p0 + s * nxf, P0 + s * nxf * nxf, Kg + sN * nuf * nxf,
+                   dg + sN * nuf, N, K, nx, nu, ws);
 }
 
 template <typename T>
@@ -57,10 +59,11 @@ int launch(const T* A, const T* B, const T* Luu, const T* Lxx, const T* Lx,
            int S, int N, int K, int nx, int nu, void* stream) {
   if (K * nx > 32 || K * nu > 32) return (int)cudaErrorInvalidValue;
   if (S == 0 || N == 0) return 0;
-  const RiccatiSizes z = riccati_sizes(K, nx, nu);
+  const RiccatiPlan plan = riccati_plan(K, nx, nu, sizeof(T), max_shared_optin());
+  if (plan.tier != 0) return (int)cudaErrorInvalidValue;
   return launch_with_smem(backward_batched_kernel<T>, S, THREADS,
-                          (z.value + z.gain + z.vec) * sizeof(T), stream, A, B,
-                          Luu, Lxx, Lx, Lu, mu, p0, P0, Kg, d, S, N, K, nx, nu);
+                          plan.smem * sizeof(T), stream, A, B, Luu, Lxx, Lx, Lu,
+                          mu, p0, P0, Kg, d, N, K, nx, nu);
 }
 
 }  // namespace

@@ -13,19 +13,19 @@
 // gauss_jordan_solve, with the pivot row restored after elimination.
 //
 // What bounds it on the H100: a single problem is one dependent chain of N
-// steps x (8 phases + 2 barriers per pivot), so it is latency-bound and
+// steps x (8 phases + a barrier per pivot), so it is latency-bound and
 // runs on one SM; the 10-agent problem (nxf 40, nuf 20) streams a few KB a
-// step.  Design: one CTA of 512 threads runs the whole sweep.  When the
+// step.  Design: one CTA of 512 threads runs the whole sweep with the
+// register tiles and the one-barrier Gauss-Jordan of riccati.cuh.  When the
 // working set (~96 n^2 values for unicycles) fits the 227 KB of shared
 // memory (up to 17 unicycles in float64, 24 in float32) all of it lives
-// there; past that the matrices move to a
-// workspace in device memory (L2-resident for any fleet a single problem is
-// solved for) and only the vectors stay in shared memory.
+// there; past that riccati_plan moves the matrices to a workspace in device
+// memory (L2-resident for any fleet a single problem is solved for).
 //
 // Layouts (contiguous): A (N, n, nx, nx), B (N, n, nx, nu) (zero for
 // masked agents), Luu (N, nuf, nuf), Lxx (N, nxf, nxf), Lx (N, nxf),
 // Lu (N, nuf), mu (1), p0 (nxf), P0 (nxf, nxf) -> K (N, nuf, nxf),
-// d (N, nuf); work holds at least value + gain values (riccati_sizes).
+// d (N, nuf); work holds the values dpilqr_riccati_plan asks for.
 
 #include "riccati.cuh"
 
@@ -33,22 +33,19 @@ namespace {
 
 constexpr int THREADS = 512;
 
-template <typename T>
+template <typename T, int TIER, int TILE>
 __global__ void __launch_bounds__(THREADS) backward_sweep_kernel(
     const T* __restrict__ A, const T* __restrict__ B,
     const T* __restrict__ Luu, const T* __restrict__ Lxx,
     const T* __restrict__ Lx, const T* __restrict__ Lu,
     const T* __restrict__ mu, const T* __restrict__ p0,
     const T* __restrict__ P0, T* __restrict__ Kg, T* __restrict__ dg,
-    T* __restrict__ work, int all_shared, int N, int n, int nx, int nu) {
+    T* __restrict__ work, int N, int n, int nx, int nu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const RiccatiSizes z = riccati_sizes(n, nx, nu);
-  const RiccatiWork<T> ws =
-      all_shared ? riccati_carve(sm, sm + z.value, sm + z.value + z.gain, n, nx, nu)
-                 : riccati_carve(work, work + z.value, sm, n, nx, nu);
-  riccati_sweep(A, B, Luu, Lxx, Lx, Lu, mu[0], p0, P0, Kg, dg, 1, 0, N, n, nx,
-                nu, ws);
+  const RiccatiWork<T> ws = riccati_place<TIER>(sm, work, n, nx, nu);
+  riccati_sweep<TILE, TIER>(A, B, Luu, Lxx, Lx, Lu, mu[0], p0, P0, Kg, dg, N, n, nx,
+                      nu, ws);
 }
 
 template <typename T>
@@ -56,17 +53,19 @@ int launch(const T* A, const T* B, const T* Luu, const T* Lxx, const T* Lx,
            const T* Lu, const T* mu, const T* p0, const T* P0, T* Kg, T* d,
            T* work, long long work_size, int N, int n, int nx, int nu,
            void* stream) {
-  const RiccatiSizes z = riccati_sizes(n, nx, nu);
-  if ((size_t)work_size < z.value + z.gain) return (int)cudaErrorInvalidValue;
+  if (n < 1 || nx < 1 || nu < 1) return (int)cudaErrorInvalidValue;
+  const RiccatiPlan plan = riccati_plan(n, nx, nu, sizeof(T), max_shared_optin());
+  if (plan.tier < 0 || (size_t)work_size < plan.work)
+    return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  const long long optin = max_shared_optin();
-  if (optin < 0) return (int)cudaErrorInvalidDevice;
-  const size_t all = (z.value + z.gain + z.vec) * sizeof(T);
-  const int all_shared = all <= (size_t)optin;
-  return launch_with_smem(backward_sweep_kernel<T>, 1, THREADS,
-                          all_shared ? all : z.vec * sizeof(T), stream, A, B,
-                          Luu, Lxx, Lx, Lu, mu, p0, P0, Kg, d, work, all_shared,
-                          N, n, nx, nu);
+  const auto kernel = plan.tier == 2   ? backward_sweep_kernel<T, 2, 4>
+                      : plan.tier == 1 ? backward_sweep_kernel<T, 1, 4>
+                      : riccati_tile(n * nx, 0) == 4
+                          ? backward_sweep_kernel<T, 0, 4>
+                          : backward_sweep_kernel<T, 0, 2>;
+  return launch_with_smem(kernel, 1, THREADS, plan.smem * sizeof(T), stream, A,
+                          B, Luu, Lxx, Lx, Lu, mu, p0, P0, Kg, d, work, N, n,
+                          nx, nu);
 }
 
 }  // namespace

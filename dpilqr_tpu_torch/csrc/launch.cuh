@@ -1,0 +1,58 @@
+// Helpers shared by the kernels that size their dynamic shared memory at
+// launch (the three backward kernels and forward_batched.cu): the launch
+// itself, buffer padding, and the CTA-wide asynchronous copy into shared
+// memory.
+
+#pragma once
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+// The shared memory a block may opt into on the current device, or -1.
+inline long long max_shared_optin() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  return optin;
+}
+
+// Opt the kernel into `bytes` of dynamic shared memory and launch it.
+template <typename Kernel, typename... Args>
+int launch_with_smem(Kernel kernel, dim3 blocks, int threads, size_t bytes,
+                     void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, bytes, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// n rounded up to a multiple of 4 values: every buffer carved from a
+// 16-byte aligned base then starts 16-byte aligned in float32 (32 in
+// float64), which the vector loads and the 16-byte async copies need.
+__host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
+
+// Asynchronous copy of n values by the whole CTA: 16 bytes a request where
+// both ends are 16-byte aligned and n fills whole requests, else one value.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int n) {
+  constexpr int PER = 16 / sizeof(T);
+  const bool wide =
+      ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0 &&
+      n % PER == 0;
+  if (wide) {
+    for (int i = threadIdx.x * PER; i < n; i += blockDim.x * PER)
+      __pipeline_memcpy_async(dst + i, src + i, 16);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      __pipeline_memcpy_async(dst + i, src + i, sizeof(T));
+  }
+}
+
+}  // namespace

@@ -7,30 +7,65 @@
 // regularization P + mu I on the B sandwiches only), solves
 // Q_uu [K | d] = [Q_ux | Q_u] by Gauss-Jordan WITHOUT pivoting, and applies
 // the full-form value update with symmetrization (reference
-// dpilqr/control.py:116-148).  Threads span matrix entries, with
-// __syncthreads() between phases and between pivots.  The arithmetic order
-// follows the Pallas kernel dpilqr_tpu/ops/pallas_batched.py ::
-// backward_pass_batched (pivot order, pivot-row restore, reciprocal-multiply
-// pivots, full-form update, Q_ux^T K taken as the transpose of K^T Q_ux).
+// dpilqr/control.py:116-148).  The arithmetic order follows the Pallas kernel
+// dpilqr_tpu/ops/pallas_batched.py :: backward_pass_batched: every dot
+// product accumulates over the same index in the same order, pivots multiply
+// by a reciprocal, the update is the full form, Q_ux^T K is the transpose of
+// K^T Q_ux.  Float32 convergence depends on that order, so the design below
+// changes which thread computes an entry and never how it is computed.
+//
+// What the design does about the latency chain (N steps x phases x pivots):
+//
+// - register tiles: in the three nuf-deep products (Q_uu K, K^T Q_ux,
+//   K^T Q_uu K) a thread owns a TILE x TILE block of the output, so each
+//   operand row segment, read with one vector load, feeds TILE FMAs; the
+//   block-diagonal products of phases 1 and 2 run in strips of four.  TILE
+//   is 4 for wide problems and 2 for narrow ones, where 4 x 4 tiles would
+//   leave most of the CTA without a tile;
+// - the Gauss-Jordan takes one barrier per pivot: every tableau entry has
+//   one owning thread for the whole elimination, the owners publish the
+//   pivot row (already scaled by the pivot's reciprocal) into one of two
+//   small buffers, and after the barrier each thread updates the entries it
+//   owns.  Where the tableau fits (up to 160 columns) it lives in registers
+//   for the whole elimination, four rows by five columns a thread, on as
+//   many warps as that takes, with the pivot loops unrolled so that every
+//   register index is a constant; larger tableaus are eliminated in place
+//   in shared memory.  Columns left of the pivot (and the pivot's own) never
+//   feed the solution columns again, so what they hold does not matter, and
+//   the solution is the same to the bit (gauss_jordan below);
+// - the transposed reads of the value update (K^T Q_ux's transpose, the
+//   symmetrization) go tile by tile, a row segment per load, instead of one
+//   column-strided value per thread (a 32-way bank conflict at nxf 32, 96);
+// - the gains leave coalesced: a step's block is contiguous in memory;
+// - no phase waits for device memory: a step's L_xx and L_uu are copied
+//   asynchronously (cp.async) into the buffers that will hold Q_xx and Q_uu
+//   while phase 1 runs, and the next step's A, B, L_x and L_u while the
+//   Gauss-Jordan runs (a group that lives in the workspace is copied with
+//   plain loads instead).
 //
 // Working memory comes in three groups, each carved from its own base
 // pointer, so a kernel can place each group in shared or in device memory
-// (the pointers are generic):
+// (riccati_place, by a template argument); every buffer starts at a multiple
+// of four values, so that row segments can be read as vectors:
 //   value: P, A^T P (later K^T Q_ux), Q_xx (later the unsymmetrized P),
 //          3 nxf^2 values;
 //   gain:  B^T (P + mu I), Q_ux, K, Q_uu K, Q_uu, the Gauss-Jordan tableau
 //          [Q_uu | Q_ux | Q_u], A_t, B_t;
-//   vec:   p, Q_x, Q_u, d, w, the pivot row and column.
+//   vec:   p, Q_x, Q_u, d, w, the staged L_x and L_u rows, two pivot rows
+//          and two pivot columns.
+// riccati_plan places them: all in shared memory where that fits, else the
+// value group in a device-memory workspace, else the gain group too.
 //
 // Per-problem layouts (contiguous, time-major):
 //   A (N, K, nx, nx), B (N, K, nx, nu), Luu (N, nuf, nuf), Lxx (N, nxf, nxf),
-//   Lx (N, nxf), Lu (N, nuf), p0 (nxf), P0 (nxf, nxf);
-// gains are written to Kg[((t nuf + r) nxf + c) S + s], d[(t nuf + r) S + s]
-// (the batched layout (N, nuf, nxf, S); S = 1 for a single problem).
+//   Lx (N, nxf), Lu (N, nuf), p0 (nxf), P0 (nxf, nxf)
+//   -> Kg (N, nuf, nxf), d (N, nuf) of this problem.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -38,53 +73,453 @@ struct RiccatiSizes {
   size_t value, gain, vec;  // values per group
 };
 
+// The two pivot rows and two pivot columns of the Gauss-Jordan solve are
+// padded to whole warps, so that the register path reads its row unguarded.
+__host__ __device__ inline size_t pad32(size_t n) { return (n + 31) / 32 * 32; }
+
 __host__ __device__ inline RiccatiSizes riccati_sizes(int K, int nx, int nu) {
   const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu, ncol = nuf + nxf + 1;
-  return {3 * nxf * nxf,
-          4 * nuf * nxf + nuf * nuf + nuf * ncol + (size_t)K * nx * (nx + nu),
-          2 * nxf + 4 * nuf + ncol};
+  return {3 * pad4(nxf * nxf),
+          4 * pad4(nuf * nxf) + pad4(nuf * nuf) + pad4(nuf * ncol) +
+              pad4((size_t)K * nx * nx) + pad4((size_t)K * nx * nu),
+          3 * pad4(nxf) + 4 * pad4(nuf) + 2 * pad32(ncol) + 2 * pad32(nuf)};
+}
+
+// Where the groups of one problem live.  tier 0: all in shared memory;
+// 1: the value group in the workspace; 2: the value and gain groups in the
+// workspace; -1: not even the vectors fit.  `smem` and `work` are values.
+struct RiccatiPlan {
+  int tier;
+  size_t smem, work;
+};
+
+inline RiccatiPlan riccati_plan(int K, int nx, int nu, size_t itemsize,
+                                long long optin) {
+  const RiccatiSizes z = riccati_sizes(K, nx, nu);
+  const size_t room = optin < 0 ? 0 : (size_t)optin / itemsize;
+  if (z.value + z.gain + z.vec <= room) return {0, z.value + z.gain + z.vec, 0};
+  if (z.gain + z.vec <= room) return {1, z.gain + z.vec, z.value};
+  if (z.vec <= room) return {2, z.vec, z.value + z.gain};
+  return {-1, 0, 0};
+}
+
+// The register tile of the nuf-deep products: 4 x 4 where that still gives
+// every thread of a 256-thread CTA a tile of the nxf^2 outputs (and for
+// every problem that needs the workspace), else 2 x 2.
+inline int riccati_tile(int nxf, int tier) {
+  const int n4 = (nxf + 3) / 4;
+  return tier > 0 || n4 * n4 >= 256 ? 4 : 2;
+}
+
+// Threads for one problem: a thread per tile of the nxf^2 outputs, in whole
+// warps, within [lo, hi].
+inline int riccati_threads(int nxf, int tile, int lo, int hi) {
+  const int n = (nxf + tile - 1) / tile;
+  const int threads = (n * n + 31) / 32 * 32;
+  return threads < lo ? lo : threads > hi ? hi : threads;
 }
 
 template <typename T>
 struct RiccatiWork {
   T *P, *AtP, *Qxx;
   T *W1, *Qux, *Kt, *QuuK, *Quu, *M, *At, *Bt;
-  T *p, *Qx, *Qu, *dt, *w, *prow, *colv;
+  T *p, *Qx, *Qu, *dt, *w, *lx, *lu, *prow, *colv;
 };
 
 template <typename T>
-__device__ RiccatiWork<T> riccati_carve(T* value, T* gain, T* vec, int K,
+__device__ __forceinline__ RiccatiWork<T> riccati_carve(T* value, T* gain, T* vec, int K,
                                         int nx, int nu) {
-  const int nxf = K * nx, nuf = K * nu, ncol = nuf + nxf + 1;
+  const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu, ncol = nuf + nxf + 1;
   RiccatiWork<T> ws;
-  ws.P = value;    value += nxf * nxf;
-  ws.AtP = value;  value += nxf * nxf;
+  ws.P = value;    value += pad4(nxf * nxf);
+  ws.AtP = value;  value += pad4(nxf * nxf);
   ws.Qxx = value;
-  ws.W1 = gain;    gain += nuf * nxf;
-  ws.Qux = gain;   gain += nuf * nxf;
-  ws.Kt = gain;    gain += nuf * nxf;
-  ws.QuuK = gain;  gain += nuf * nxf;
-  ws.Quu = gain;   gain += nuf * nuf;
-  ws.M = gain;     gain += nuf * ncol;
-  ws.At = gain;    gain += K * nx * nx;
+  ws.W1 = gain;    gain += pad4(nuf * nxf);
+  ws.Qux = gain;   gain += pad4(nuf * nxf);
+  ws.Kt = gain;    gain += pad4(nuf * nxf);
+  ws.QuuK = gain;  gain += pad4(nuf * nxf);
+  ws.Quu = gain;   gain += pad4(nuf * nuf);
+  ws.M = gain;     gain += pad4(nuf * ncol);
+  ws.At = gain;    gain += pad4((size_t)K * nx * nx);
   ws.Bt = gain;
-  ws.p = vec;      vec += nxf;
-  ws.Qx = vec;     vec += nxf;
-  ws.Qu = vec;     vec += nuf;
-  ws.dt = vec;     vec += nuf;
-  ws.w = vec;      vec += nuf;
-  ws.prow = vec;   vec += ncol;
-  ws.colv = vec;
+  ws.p = vec;      vec += pad4(nxf);
+  ws.Qx = vec;     vec += pad4(nxf);
+  ws.Qu = vec;     vec += pad4(nuf);
+  ws.dt = vec;     vec += pad4(nuf);
+  ws.w = vec;      vec += pad4(nuf);
+  ws.lx = vec;     vec += pad4(nxf);  // the step's L_x and L_u rows, staged
+  ws.lu = vec;     vec += pad4(nuf);
+  ws.prow = vec;   vec += 2 * pad32(ncol);  // two pivot rows
+  ws.colv = vec;                           // two pivot columns
   return ws;
 }
 
+// The groups of one problem under a plan's tier: `sm` is the CTA's dynamic
+// shared memory, `own` the problem's part of the workspace.  The tier is a
+// template argument so that every pointer into shared memory is derived
+// from `sm` alone: the compiler then emits shared-memory loads and stores
+// (LDS, STS) for it.  A pointer chosen at run time between `sm` and `own`
+// is generic, and a generic load costs several times an LDS's latency on
+// every link of the recursion's dependent chain.
+template <int TIER, typename T>
+__device__ __forceinline__ RiccatiWork<T> riccati_place(T* sm, T* own, int K,
+                                                        int nx, int nu) {
+  const RiccatiSizes z = riccati_sizes(K, nx, nu);
+  if constexpr (TIER == 0)
+    return riccati_carve(sm, sm + z.value, sm + z.value + z.gain, K, nx, nu);
+  else if constexpr (TIER == 1)
+    return riccati_carve(own, sm, sm + z.gain, K, nx, nu);
+  else
+    return riccati_carve(own, own + z.value, sm, K, nx, nu);
+}
+
+// W consecutive values at p as one vector load (two in float64 at W = 4);
+// p is aligned for it.
+template <int W, typename T>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[W]) {
+  static_assert(W == 2 || W == 4, "row segments are 2 or 4 values");
+  if constexpr (sizeof(T) == 4 && W == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (sizeof(T) == 4 && W == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else if constexpr (W == 2) {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    const double2 q0 = *reinterpret_cast<const double2*>(p);
+    const double2 q1 = *reinterpret_cast<const double2*>(p + 2);
+    v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
+  }
+}
+
+// W consecutive values from p: one vector load where `vec` says that p is
+// aligned for it and all W are in range, else the first `nvalid` one by one
+// and zeros after them.
+template <int W, typename T>
+__device__ __forceinline__ void load_row(const T* p, int nvalid, bool vec,
+                                         T (&v)[W]) {
+  if (vec) {
+    load_vec<W>(p, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) v[i] = i < nvalid ? p[i] : T(0);
+  }
+}
+
+template <int W, typename T>
+__device__ __forceinline__ void store_row(T* p, int nvalid, bool vec,
+                                          const T (&v)[W]) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4 && W == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else if constexpr (sizeof(T) == 4 && W == 2) {
+      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    } else if constexpr (W == 2) {
+      *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+    } else {
+      *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+      *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (i < nvalid) p[i] = v[i];
+  }
+}
+
+// acc[i][j] = sum_v L[v][r0 + i] R[v][c0 + j], v ascending from 0 (the first
+// product starts the sum), for L (nv, m) and R (nv, n) with row strides ldl
+// and ldr.  Entries past m or n come out as sums of zeros.  Full, aligned
+// tiles take a loop of vector loads with no branch in it.
+template <int TILE, typename T>
+__device__ __forceinline__ void atb_tile(const T* L, int ldl, int m, const T* R,
+                                         int ldr, int n, int nv, int r0, int c0,
+                                         T (&acc)[TILE][TILE]) {
+  const bool vl = ldl % TILE == 0 && r0 + TILE <= m;
+  const bool vr = ldr % TILE == 0 && c0 + TILE <= n;
+  const T* lp = L + r0;
+  const T* rp = R + c0;
+  T a[TILE], b[TILE];
+  load_row<TILE>(lp, m - r0, vl, a);
+  load_row<TILE>(rp, n - c0, vr, b);
+#pragma unroll
+  for (int i = 0; i < TILE; ++i)
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) acc[i][j] = a[i] * b[j];
+  if (vl && vr) {
+#pragma unroll 4
+    for (int v = 1; v < nv; ++v) {
+      lp += ldl;
+      rp += ldr;
+      load_vec<TILE>(lp, a);
+      load_vec<TILE>(rp, b);
+#pragma unroll
+      for (int i = 0; i < TILE; ++i)
+#pragma unroll
+        for (int j = 0; j < TILE; ++j) acc[i][j] = acc[i][j] + a[i] * b[j];
+    }
+  } else {
+    for (int v = 1; v < nv; ++v) {
+      lp += ldl;
+      rp += ldr;
+      load_row<TILE>(lp, m - r0, vl, a);
+      load_row<TILE>(rp, n - c0, vr, b);
+#pragma unroll
+      for (int i = 0; i < TILE; ++i)
+#pragma unroll
+        for (int j = 0; j < TILE; ++j) acc[i][j] = acc[i][j] + a[i] * b[j];
+    }
+  }
+}
+
+// n values copied by the whole CTA into a working buffer: asynchronously
+// where the buffer lies in shared memory (the caller commits and waits),
+// with plain loads and stores where it lies in the workspace.
+template <bool SHARED, typename T>
+__device__ __forceinline__ void stage_copy(T* dst, const T* src, int n) {
+  if constexpr (SHARED) {
+    copy_async(dst, src, n);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  }
+}
+
+// The CTA's threads as nxt columns by nyt rows for a phase whose outputs
+// have `ncols` columns: thread (tx, ty) walks columns tx, tx + nxt, ... and
+// rows ty, ty + nyt, ..., so no entry costs an integer division.  Threads
+// past nxt * nyt sit the phase out.
+struct Grid2 {
+  int tx, ty, nxt, nyt;
+  bool on;
+};
+
+__device__ __forceinline__ Grid2 grid2(int ncols) {
+  const int nth = blockDim.x, nxt = ncols < nth ? ncols : nth, nyt = nth / nxt;
+  const int ty = threadIdx.x / nxt;
+  return {(int)threadIdx.x - ty * nxt, ty, nxt, nyt, ty < nyt};
+}
+
+// Strips of one row by four columns of a product with a block-diagonal LEFT
+// factor: out[r][c] = sum_b Blk[k][b][j] (P[k nx + b][c] (+ mu on the
+// diagonal when REG)) for row r = k w + j, b ascending from 0; Blk holds K
+// blocks of nx x w, out has K w rows.
+template <bool REG, typename T>
+__device__ __forceinline__ void bd_left(const T* Blk, int w, int nrows,
+                                        const T* P, T mu, T* out, int nx,
+                                        int nxf) {
+  const int nx4 = (nxf + 3) / 4;
+  const bool vec4 = nxf % 4 == 0;
+  const Grid2 g = grid2(nx4);
+  if (!g.on) return;
+  const int dk = g.nyt / w, dj = g.nyt % w;
+  for (int cs = g.tx; cs < nx4; cs += g.nxt) {
+    const int c0 = cs * 4;
+    int k = g.ty / w, j = g.ty % w;
+    for (int r = g.ty; r < nrows; r += g.nyt) {
+      const T* prow = P + k * nx * nxf + c0;
+      const T* blk = Blk + k * nx * w + j;
+      T acc[4], pv[4];
+      for (int b = 0; b < nx; ++b) {
+        load_row<4>(prow + b * nxf, nxf - c0, vec4, pv);
+        const T a = blk[b * w];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const T preg = REG ? pv[i] + (k * nx + b == c0 + i ? mu : T(0)) : pv[i];
+          const T term = a * preg;
+          acc[i] = b == 0 ? term : acc[i] + term;
+        }
+      }
+      store_row<4>(out + r * nxf + c0, nxf - c0, vec4, acc);
+      k += dk;
+      j += dj;
+      if (j >= w) {
+        j -= w;
+        ++k;
+      }
+    }
+  }
+}
+
+// acc[i] = sum_b In[r0 + i][kc nx + b] Blk[kc][b][jc], b ascending from 0,
+// for column c = kc w + jc of a product with a block-diagonal RIGHT factor
+// (K blocks of nx x w): four rows of one column.
 template <typename T>
+__device__ __forceinline__ void bd_right(const T* In, int ldin, int nrows,
+                                         const T* Blk, int w, int nx, int r0,
+                                         int kc, int jc, T (&acc)[4]) {
+  const T* in = In + r0 * ldin + kc * nx;
+  const T* blk = Blk + kc * nx * w + jc;
+  const T a0 = blk[0];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    acc[i] = r0 + i < nrows ? in[i * ldin] * a0 : T(0);
+  for (int b = 1; b < nx; ++b) {
+    const T a = blk[b * w];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (r0 + i < nrows) acc[i] = acc[i] + in[i * ldin + b] * a;
+  }
+}
+
+// Rows and columns of the Gauss-Jordan tableau a thread keeps in registers:
+// the elimination runs on ceil(nuf / GJ_ROWS) warps, entry (r, j) on warp
+// r / GJ_ROWS, lane j mod 32, for tableaus of up to 32 GJ_COLS columns;
+// larger ones are eliminated in place by the whole CTA (entry (r, j) on
+// warp r mod warps).
+constexpr int GJ_ROWS = 4, GJ_COLS = 5;
+
+// Gauss-Jordan without pivoting on the nuf x ncol tableau M = [Quu | Qux |
+// Qu], one barrier per pivot.  Every entry has one owning thread for the
+// whole elimination.  Per pivot the owners publish the pivot row, scaled by
+// the reciprocal of the pivot, and the pivot column into one of two
+// buffers (the register path takes its pivot column by warp shuffle
+// instead); after the barrier each thread updates what it owns:
+// M[r][j] -= M[r][kp] (M[kp][j] (1 / M[kp][kp])).  Columns at or left of the
+// pivot never feed the solution columns again, so what they hold afterwards
+// does not matter.
+//
+// A pivot is a short dependent chain (measured: 678 cycles, of which the
+// barrier is ~375 and the reciprocal ~90), so what counts is the number of
+// instructions on it, not of FMAs.  The register path therefore runs on
+// ceil(nuf / GJ_ROWS) warps (a named barrier among them; the rest of the
+// CTA waits at the caller's barrier), takes its pivot column by shuffle
+// from the lane that holds it, and updates whole column blocks from the
+// pivot's block on, whether an entry exists or lies left of the pivot
+// (those are never read again, and rows and columns past the tableau are
+// never stored), so no entry costs a comparison.  On return the columns
+// from nuf on hold the solution; the caller synchronizes.
+template <typename T>
+__device__ __forceinline__ void gauss_jordan(T* M, T* prow2, T* colv2, int nuf,
+                                             int ncol) {
+  const int lane = threadIdx.x & 31, wrp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int pcol = (int)pad32(ncol), pnuf = (int)pad32(nuf);
+  const int gw = (nuf + GJ_ROWS - 1) / GJ_ROWS;  // warps of the register path
+  if (gw <= nw && ncol <= 32 * GJ_COLS) {
+    if (wrp >= gw) return;
+    // The tableau in registers: reg[a][b] = M[GJ_ROWS wrp + a][lane + 32 b].
+    const int ncb = (ncol + 31) / 32, r0 = GJ_ROWS * wrp;
+    T reg[GJ_ROWS][GJ_COLS];
+#pragma unroll
+    for (int a = 0; a < GJ_ROWS; ++a)
+#pragma unroll
+      for (int b = 0; b < GJ_COLS; ++b) {
+        const int r = r0 + a, j = lane + 32 * b;
+        reg[a][b] = r < nuf && j < ncol ? M[r * ncol + j] : T(0);
+      }
+    // Pivot kp = 32 bk + kq + ak: the loops over bk and ak are unrolled, so
+    // the pivot's register row ak and column block bk are compile-time
+    // constants and no entry is picked by a select; the column blocks left
+    // of bk are dead and are not updated.  The two pivot-row buffers
+    // alternate with ak.
+    T* const prow_even = prow2 + lane;
+    T* const prow_odd = prow2 + pcol + lane;
+#pragma unroll
+    for (int bk = 0; bk < GJ_COLS; ++bk) {
+      for (int kq = 0; kq < 32 && 32 * bk + kq < nuf; kq += GJ_ROWS) {
+        const bool owner = wrp == (32 * bk + kq) / GJ_ROWS;  // the pivot rows' warp
+#pragma unroll
+        for (int ak = 0; ak < GJ_ROWS; ++ak) {
+          const int lk = kq + ak;  // the pivot's lane
+          if (32 * bk + lk < nuf) {
+            T* const prow = ak & 1 ? prow_odd : prow_even;
+            if (owner) {
+              // The pivot row, scaled once by the reciprocal of the pivot
+              // (which lane lk holds), for every warp.
+              const T inv = T(1) / __shfl_sync(0xffffffffu, reg[ak][bk], lk);
+#pragma unroll
+              for (int b = bk; b < GJ_COLS; ++b)
+                if (b < ncb) prow[32 * b] = reg[ak][b] * inv;
+            }
+            // The pivot column of this warp's rows sits on its lane lk.
+            T cr[GJ_ROWS], pj[GJ_COLS];
+#pragma unroll
+            for (int a = 0; a < GJ_ROWS; ++a)
+              cr[a] = __shfl_sync(0xffffffffu, reg[a][bk], lk);
+            asm volatile("bar.sync 1, %0;" ::"r"(gw * 32) : "memory");
+#pragma unroll
+            for (int b = bk; b < GJ_COLS; ++b) pj[b] = b < ncb ? prow[32 * b] : T(0);
+#pragma unroll
+            for (int a = 0; a < GJ_ROWS; ++a)
+#pragma unroll
+              for (int b = bk; b < GJ_COLS; ++b) {
+                const T upd = reg[a][b] - cr[a] * pj[b];
+                reg[a][b] = a == ak && owner ? pj[b] : upd;
+              }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < GJ_ROWS; ++a)
+#pragma unroll
+      for (int b = 0; b < GJ_COLS; ++b) {
+        const int r = r0 + a, j = lane + 32 * b;
+        if (r < nuf && j >= nuf && j < ncol) M[r * ncol + j] = reg[a][b];
+      }
+    return;
+  }
+  // In place, four rows of a column at a time.
+  for (int kp = 0; kp < nuf; ++kp) {
+    T* const prow = prow2 + (kp & 1) * pcol;
+    T* const colv = colv2 + (kp & 1) * pnuf;
+    int j0 = lane;  // this lane's first column at or right of the pivot
+    if (j0 < kp) j0 += (kp - lane + 31) / 32 * 32;
+    if (j0 == kp) j0 += 32;  // the pivot's own column is read, not updated
+    if (wrp == kp % nw) {
+      __syncwarp();  // the pivot is another lane's entry of this warp's row
+      const T inv = T(1) / M[kp * ncol + kp];
+      for (int j = j0; j < ncol; j += 32) prow[j] = M[kp * ncol + j] * inv;
+    }
+    if (lane == (kp & 31))
+      for (int r = wrp; r < nuf; r += nw) colv[r] = M[r * ncol + kp];
+    __syncthreads();
+    for (int rb = wrp; rb < nuf; rb += 4 * nw) {
+      T cr[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        cr[a] = rb + a * nw < nuf ? colv[rb + a * nw] : T(0);
+      for (int j = j0; j < ncol; j += 32) {
+        const T pj = prow[j];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int r = rb + a * nw;
+          if (r < nuf) {
+            T* const m = M + r * ncol + j;
+            *m = r == kp ? pj : *m - cr[a] * pj;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Cycles of each phase of one sweep, summed over the steps by the first
+// thread of the first CTA, when compiled with -DDPILQR_PHASE_CLOCKS
+// (scripts/riccati_phase_clocks.py); nothing otherwise.
+#ifdef DPILQR_PHASE_CLOCKS
+constexpr int RICCATI_PHASES = 8;
+__device__ unsigned long long riccati_phase_clocks[RICCATI_PHASES];
+#define RICCATI_CLOCK(i)                                   \
+  if (threadIdx.x == 0 && blockIdx.x == 0) {               \
+    const long long now_ = clock64();                      \
+    riccati_phase_clocks[i] += now_ - phase_start_;        \
+    phase_start_ = now_;                                   \
+  }
+#else
+#define RICCATI_CLOCK(i)
+#endif
+
+// TILE: the register tile of the nuf-deep products; TIER: where the groups
+// live (riccati_plan), which decides what can be copied asynchronously.
+template <int TILE, int TIER, typename T>
 __device__ __forceinline__ void riccati_sweep(
     const T* __restrict__ A, const T* __restrict__ B,
     const T* __restrict__ Luu, const T* __restrict__ Lxx,
     const T* __restrict__ Lx, const T* __restrict__ Lu, const T mu,
     const T* __restrict__ p0, const T* __restrict__ P0, T* __restrict__ Kg,
-    T* __restrict__ dg, int S, int s, int N, int K, int nx, int nu,
+    T* __restrict__ dg, int N, int K, int nx, int nu,
     const RiccatiWork<T>& ws) {
   const int nxf = K * nx, nuf = K * nu;
   const int ncol = nuf + nxf + 1;  // Gauss-Jordan tableau [Quu | Qux | Qu]
@@ -104,128 +539,164 @@ __device__ __forceinline__ void riccati_sweep(
   T* const Qu = ws.Qu;
   T* const dt = ws.dt;
   T* const w = ws.w;
-  T* const prow = ws.prow;
-  T* const colv = ws.colv;
   const int tid = threadIdx.x, nth = blockDim.x;
+  const int ntx = (nxf + TILE - 1) / TILE, ntu = (nuf + TILE - 1) / TILE;
+  const bool vect = nxf % TILE == 0;  // TILE-wide segments of nxf-wide rows
 
   for (int i = tid; i < nxf * nxf; i += nth) P[i] = P0[i];
   for (int i = tid; i < nxf; i += nth) p[i] = p0[i];
+#ifdef DPILQR_PHASE_CLOCKS
+  long long phase_start_ = clock64();
+#endif
+
+  // One group of copies: step t's A, B, L_x and L_u rows.
+  auto fetch_step = [&](int t) {
+    stage_copy<TIER <= 1>(At, A + (size_t)t * K * nx * nx, K * nx * nx);
+    stage_copy<TIER <= 1>(Bt, B + (size_t)t * K * nx * nu, K * nx * nu);
+    stage_copy<true>(ws.lx, Lx + (size_t)t * nxf, nxf);
+    stage_copy<true>(ws.lu, Lu + (size_t)t * nuf, nuf);
+    __pipeline_commit();
+  };
+  if (N > 0) fetch_step(N - 1);
 
   for (int t = N - 1; t >= 0; --t) {
-    for (int i = tid; i < K * nx * nx; i += nth) At[i] = A[(size_t)t * K * nx * nx + i];
-    for (int i = tid; i < K * nx * nu; i += nth) Bt[i] = B[(size_t)t * K * nx * nu + i];
+    // The step's L_xx and L_uu, into the buffers of Q_xx and Q_uu (free
+    // since the last step's phases 7 and 5); they land during phase 1.
+    stage_copy<TIER == 0>(Qxx, Lxx + (size_t)t * nxf * nxf, nxf * nxf);
+    stage_copy<TIER <= 1>(Quu, Luu + (size_t)t * nuf * nuf, nuf * nuf);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // A, B, L_x, L_u of this step
     __syncthreads();
+    RICCATI_CLOCK(0)
 
     // Phase 1: Q_x, Q_u, A^T P, B^T (P + mu I).
     for (int i = tid; i < nxf; i += nth) {
       const int k = i / nx, j = i % nx;
       T acc = At[(k * nx) * nx + j] * p[k * nx];
       for (int b = 1; b < nx; ++b) acc += At[(k * nx + b) * nx + j] * p[k * nx + b];
-      Qx[i] = Lx[(size_t)t * nxf + i] + acc;
+      Qx[i] = ws.lx[i] + acc;
     }
     for (int i = tid; i < nuf; i += nth) {
       const int k = i / nu, j = i % nu;
       T acc = Bt[(k * nx) * nu + j] * p[k * nx];
       for (int b = 1; b < nx; ++b) acc += Bt[(k * nx + b) * nu + j] * p[k * nx + b];
-      Qu[i] = Lu[(size_t)t * nuf + i] + acc;
+      Qu[i] = ws.lu[i] + acc;
     }
-    for (int i = tid; i < nxf * nxf; i += nth) {
-      const int r = i / nxf, c = i % nxf, k = r / nx, j = r % nx;
-      T acc = At[(k * nx) * nx + j] * P[(k * nx) * nxf + c];
-      for (int b = 1; b < nx; ++b)
-        acc += At[(k * nx + b) * nx + j] * P[(k * nx + b) * nxf + c];
-      AtP[i] = acc;
-    }
-    for (int i = tid; i < nuf * nxf; i += nth) {
-      const int r = i / nxf, c = i % nxf, k = r / nu, j = r % nu;
-      T acc = 0;
-      for (int b = 0; b < nx; ++b) {
-        const int row = k * nx + b;
-        const T preg = P[row * nxf + c] + (row == c ? mu : T(0));
-        const T term = Bt[row * nu + j] * preg;
-        acc = b == 0 ? term : acc + term;
-      }
-      W1[i] = acc;
-    }
+    bd_left<false>(At, nx, nxf, P, mu, AtP, nx, nxf);
+    bd_left<true>(Bt, nu, nuf, P, mu, W1, nx, nxf);
+    __pipeline_wait_prior(0);  // L_xx, L_uu
     __syncthreads();
+    RICCATI_CLOCK(1)
 
-    // Phase 2: Q_xx = Lxx + A^T P A, Q_ux = B^T Preg A, Q_uu = B^T Preg B + Luu.
-    for (int i = tid; i < nxf * nxf; i += nth) {
-      const int r = i / nxf, c = i % nxf, k = c / nx, j = c % nx;
-      T acc = AtP[r * nxf + k * nx] * At[(k * nx) * nx + j];
-      for (int b = 1; b < nx; ++b)
-        acc += AtP[r * nxf + k * nx + b] * At[(k * nx + b) * nx + j];
-      Qxx[i] = Lxx[(size_t)t * nxf * nxf + i] + acc;
+    // Phase 2: Q_xx = Lxx + A^T P A, Q_ux = B^T Preg A, Q_uu = B^T Preg B + Luu,
+    // in strips of four rows by one column.
+    {
+      const Grid2 g = grid2(nxf);
+      if (g.on)
+        for (int c = g.tx; c < nxf; c += g.nxt) {
+          const int kc = c / nx, jc = c % nx;
+          T acc[4];
+          for (int r0 = 4 * g.ty; r0 < nxf; r0 += 4 * g.nyt) {
+            bd_right(AtP, nxf, nxf, At, nx, nx, r0, kc, jc, acc);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (r0 + i < nxf) {
+                const int e = (r0 + i) * nxf + c;
+                Qxx[e] = Qxx[e] + acc[i];
+              }
+          }
+          for (int r0 = 4 * g.ty; r0 < nuf; r0 += 4 * g.nyt) {
+            bd_right(W1, nxf, nuf, At, nx, nx, r0, kc, jc, acc);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (r0 + i < nuf) {
+                Qux[(r0 + i) * nxf + c] = acc[i];
+                M[(r0 + i) * ncol + nuf + c] = acc[i];
+              }
+          }
+        }
     }
-    for (int i = tid; i < nuf * nxf; i += nth) {
-      const int r = i / nxf, c = i % nxf, k = c / nx, j = c % nx;
-      T acc = W1[r * nxf + k * nx] * At[(k * nx) * nx + j];
-      for (int b = 1; b < nx; ++b)
-        acc += W1[r * nxf + k * nx + b] * At[(k * nx + b) * nx + j];
-      Qux[i] = acc;
-      M[r * ncol + nuf + c] = acc;
-    }
-    for (int i = tid; i < nuf * nuf; i += nth) {
-      const int r = i / nuf, c = i % nuf, k = c / nu, j = c % nu;
-      T acc = W1[r * nxf + k * nx] * Bt[(k * nx) * nu + j];
-      for (int b = 1; b < nx; ++b)
-        acc += W1[r * nxf + k * nx + b] * Bt[(k * nx + b) * nu + j];
-      const T q = acc + Luu[(size_t)t * nuf * nuf + i];
-      Quu[i] = q;
-      M[r * ncol + c] = q;
+    {
+      const Grid2 g = grid2(nuf);
+      if (g.on)
+        for (int c = g.tx; c < nuf; c += g.nxt) {
+          const int kc = c / nu, jc = c % nu;
+          T acc[4];
+          for (int r0 = 4 * g.ty; r0 < nuf; r0 += 4 * g.nyt) {
+            bd_right(W1, nxf, nuf, Bt, nu, nx, r0, kc, jc, acc);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (r0 + i < nuf) {
+                const int e = (r0 + i) * nuf + c;
+                const T q = acc[i] + Quu[e];
+                Quu[e] = q;
+                M[(r0 + i) * ncol + c] = q;
+              }
+          }
+        }
     }
     for (int i = tid; i < nuf; i += nth) M[i * ncol + nuf + nxf] = Qu[i];
     __syncthreads();
+    RICCATI_CLOCK(2)
+    if (t > 0) fetch_step(t - 1);  // A_t, B_t and the staged rows are done with
 
-    // Phase 3: Gauss-Jordan without pivoting on [Quu | Qux | Qu].
-    for (int kp = 0; kp < nuf; ++kp) {
-      const T inv = T(1) / M[kp * ncol + kp];
-      for (int j = tid; j < ncol; j += nth) prow[j] = M[kp * ncol + j] * inv;
-      for (int r = tid; r < nuf; r += nth) colv[r] = M[r * ncol + kp];
-      __syncthreads();
-      for (int i = tid; i < nuf * ncol; i += nth) {
-        const int r = i / ncol, j = i % ncol;
-        M[i] = r == kp ? prow[j] : M[i] - colv[r] * prow[j];
-      }
-      __syncthreads();
-    }
+    // Phase 3: the solve [K | d] = -Quu^-1 [Qux | Qu].
+    gauss_jordan(M, ws.prow, ws.colv, nuf, ncol);
+    __syncthreads();
+    RICCATI_CLOCK(3)
 
-    // Phase 4: gains K = -X, d = -x, written in (N, nuf, nxf, S) layout.
-    for (int i = tid; i < nuf * nxf; i += nth) {
-      const int r = i / nxf, c = i % nxf;
-      const T kval = -M[r * ncol + nuf + c];
-      Kt[i] = kval;
-      Kg[(((size_t)t * nuf + r) * nxf + c) * S + s] = kval;
+    // Phase 4: gains K = -X, d = -x; a step's block is contiguous.
+    {
+      const Grid2 g = grid2(nxf);
+      T* const Kg_t = Kg + (size_t)t * nuf * nxf;
+      if (g.on)
+        for (int c = g.tx; c < nxf; c += g.nxt)
+          for (int r = g.ty; r < nuf; r += g.nyt) {
+            const T kval = -M[r * ncol + nuf + c];
+            Kt[r * nxf + c] = kval;
+            Kg_t[r * nxf + c] = kval;
+          }
     }
     for (int r = tid; r < nuf; r += nth) {
       const T dval = -M[r * ncol + nuf + nxf];
       dt[r] = dval;
-      dg[((size_t)t * nuf + r) * S + s] = dval;
+      dg[(size_t)t * nuf + r] = dval;
     }
     __syncthreads();
+    RICCATI_CLOCK(4)
 
-    // Phase 5: w = Quu d + Qu, Quu K, K^T Qux (into AtP).
+    // Phase 5: w = Quu d + Qu, Quu K, K^T Qux (into AtP), in register tiles.
     for (int r = tid; r < nuf; r += nth) {
       T acc = Quu[r] * dt[0];
       for (int v = 1; v < nuf; ++v) acc += Quu[v * nuf + r] * dt[v];
       w[r] = acc + Qu[r];
     }
-    for (int i = tid; i < nuf * nxf; i += nth) {
-      const int r = i / nxf, c = i % nxf;
-      T acc = Quu[r] * Kt[c];
-      for (int v = 1; v < nuf; ++v) acc += Quu[v * nuf + r] * Kt[v * nxf + c];
-      QuuK[i] = acc;
+    for (int it = tid; it < ntu * ntx; it += nth) {
+      const int r0 = (it / ntx) * TILE, c0 = (it % ntx) * TILE;
+      T acc[TILE][TILE];
+      atb_tile<TILE>(Quu, nuf, nuf, Kt, nxf, nxf, nuf, r0, c0, acc);
+#pragma unroll
+      for (int i = 0; i < TILE; ++i)
+        if (r0 + i < nuf)
+          store_row<TILE>(QuuK + (r0 + i) * nxf + c0, nxf - c0,
+                          vect && c0 + TILE <= nxf, acc[i]);
     }
-    for (int i = tid; i < nxf * nxf; i += nth) {
-      const int r = i / nxf, c = i % nxf;
-      T acc = Kt[r] * Qux[c];
-      for (int v = 1; v < nuf; ++v) acc += Kt[v * nxf + r] * Qux[v * nxf + c];
-      AtP[i] = acc;
+    for (int it = tid; it < ntx * ntx; it += nth) {
+      const int r0 = (it / ntx) * TILE, c0 = (it % ntx) * TILE;
+      T acc[TILE][TILE];
+      atb_tile<TILE>(Kt, nxf, nxf, Qux, nxf, nxf, nuf, r0, c0, acc);
+#pragma unroll
+      for (int i = 0; i < TILE; ++i)
+        if (r0 + i < nxf)
+          store_row<TILE>(AtP + (r0 + i) * nxf + c0, nxf - c0,
+                          vect && c0 + TILE <= nxf, acc[i]);
     }
     __syncthreads();
+    RICCATI_CLOCK(5)
 
     // Phase 6: full-form value update p, P_new = Qxx + K^T Quu K + K^T Qux
-    // + (K^T Qux)^T (into Qxx, each entry read and written by one thread).
+    // + (K^T Qux)^T (into Qxx; a tile is read and written by one thread,
+    // the transposed tile of K^T Qux read a row segment at a time).
     for (int c = tid; c < nxf; c += nth) {
       T a1 = Kt[c] * w[0];
       for (int v = 1; v < nuf; ++v) a1 += Kt[v * nxf + c] * w[v];
@@ -233,42 +704,52 @@ __device__ __forceinline__ void riccati_sweep(
       for (int v = 1; v < nuf; ++v) a2 += Qux[v * nxf + c] * dt[v];
       p[c] = Qx[c] + a1 + a2;
     }
-    for (int i = tid; i < nxf * nxf; i += nth) {
-      const int r = i / nxf, c = i % nxf;
-      T acc = Kt[r] * QuuK[c];
-      for (int v = 1; v < nuf; ++v) acc += Kt[v * nxf + r] * QuuK[v * nxf + c];
-      Qxx[i] = Qxx[i] + acc + AtP[i] + AtP[c * nxf + r];
+    for (int it = tid; it < ntx * ntx; it += nth) {
+      const int r0 = (it / ntx) * TILE, c0 = (it % ntx) * TILE;
+      const bool full = vect && c0 + TILE <= nxf, fullT = vect && r0 + TILE <= nxf;
+      T acc[TILE][TILE], tr[TILE][TILE];
+      atb_tile<TILE>(Kt, nxf, nxf, QuuK, nxf, nxf, nuf, r0, c0, acc);
+#pragma unroll
+      for (int j = 0; j < TILE; ++j)  // tr[j][i] = (K^T Qux)[c0 + j][r0 + i]
+        load_row<TILE>(AtP + (c0 + j) * nxf + r0, c0 + j < nxf ? nxf - r0 : 0,
+                       fullT && c0 + j < nxf, tr[j]);
+#pragma unroll
+      for (int i = 0; i < TILE; ++i)
+        if (r0 + i < nxf) {
+          T q[TILE], s[TILE];
+          T* const row = Qxx + (r0 + i) * nxf + c0;
+          load_row<TILE>(row, nxf - c0, full, q);
+          load_row<TILE>(AtP + (r0 + i) * nxf + c0, nxf - c0, full, s);
+#pragma unroll
+          for (int j = 0; j < TILE; ++j) q[j] = q[j] + acc[i][j] + s[j] + tr[j][i];
+          store_row<TILE>(row, nxf - c0, full, q);
+        }
     }
     __syncthreads();
+    RICCATI_CLOCK(6)
 
-    // Phase 7: symmetrize.
-    for (int i = tid; i < nxf * nxf; i += nth) {
-      const int r = i / nxf, c = i % nxf;
-      P[i] = T(0.5) * (Qxx[i] + Qxx[c * nxf + r]);
+    // Phase 7: symmetrize, tile by tile.
+    for (int it = tid; it < ntx * ntx; it += nth) {
+      const int r0 = (it / ntx) * TILE, c0 = (it % ntx) * TILE;
+      const bool full = vect && c0 + TILE <= nxf, fullT = vect && r0 + TILE <= nxf;
+      T tr[TILE][TILE];
+#pragma unroll
+      for (int j = 0; j < TILE; ++j)  // tr[j][i] = Qxx[c0 + j][r0 + i]
+        load_row<TILE>(Qxx + (c0 + j) * nxf + r0, c0 + j < nxf ? nxf - r0 : 0,
+                       fullT && c0 + j < nxf, tr[j]);
+#pragma unroll
+      for (int i = 0; i < TILE; ++i)
+        if (r0 + i < nxf) {
+          T q[TILE];
+          load_row<TILE>(Qxx + (r0 + i) * nxf + c0, nxf - c0, full, q);
+#pragma unroll
+          for (int j = 0; j < TILE; ++j) q[j] = T(0.5) * (q[j] + tr[j][i]);
+          store_row<TILE>(P + (r0 + i) * nxf + c0, nxf - c0, full, q);
+        }
     }
     __syncthreads();
+    RICCATI_CLOCK(7)
   }
-}
-
-// The shared memory a block may opt into on the current device, or -1.
-inline long long max_shared_optin() {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return -1;
-  return optin;
-}
-
-// Opt the kernel into `bytes` of dynamic shared memory and launch it.
-template <typename Kernel, typename... Args>
-int launch_with_smem(Kernel kernel, int blocks, int threads, size_t bytes,
-                     void* stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, threads, bytes, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -11,6 +11,15 @@ two batched sweeps over all of them:
 - ``forward_pass_batched``: the closed-loop line-search rollout over all
   alphas (control.py:95-114,162), kernel ``csrc/forward_batched.cu``.
 
+The public shapes are the JAX package's: gains ``Kg (N, nuf, nxf, S)``,
+``d (N, nuf, S)``, candidates ``X5 (N, nx_p, K, n_alpha, S)``.  In memory
+the kernels and their twins keep a subproblem's step contiguous, gains as
+``(S, N, nuf, nxf)`` and candidates column-major as ``(n_alpha, S, N, K,
+nx_p)``, and hand the tensors out as permuted views (``GAIN_ORDER``,
+``D_ORDER``, ``COLUMN_ORDER``): values and shapes are unchanged, the
+forward kernel stages a step's gain block with one contiguous copy and
+``select_alpha`` gathers whole rows.
+
 Each kernel has a plain PyTorch twin beside it (``*_torch``): a Python loop
 over time with the same block algebra as batched einsums.  ``backend``
 "auto" takes the kernel for CUDA tensors and the twin for CPU tensors;
@@ -25,6 +34,7 @@ line search, with finished subproblems retired by halving compaction.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from time import perf_counter
 from typing import NamedTuple
 
@@ -43,7 +53,7 @@ from .costs import (
     stage_cost,
     terminal_cost,
 )
-from .cuda_build import check_tensors, launch, require_cuda, riccati_work_size
+from .cuda_build import check_tensors, launch, require_cuda, riccati_plan
 from .ilqr import SolveResult, line_search_alphas
 
 # Widest flat state (K * nx_p) of the narrow backward kernel; wider
@@ -58,6 +68,94 @@ MAX_NUF = 64
 # Compaction granularity of the retirement schedule (widths halve, rounded
 # up to a multiple of this).
 COMPACTION_UNIT = 16
+
+# Memory orders behind the public shapes: ``t.permute(ORDER)`` is contiguous.
+GAIN_ORDER = (3, 0, 1, 2)  # Kg (N, nuf, nxf, S) lies as (S, N, nuf, nxf)
+D_ORDER = (2, 0, 1)  # d (N, nuf, S) lies as (S, N, nuf)
+COLUMN_ORDER = (3, 4, 0, 2, 1)  # X5 (N, nx_p, K, n_alpha, S): (n_alpha, S, N, K, nx_p)
+
+# Dynamic shared memory a block may use on the card the kernels compile for
+# (sm_90a: 227 KB), and the forward kernel's warps (alphas) per CTA.
+SMEM_LIMIT = 232_448
+FORWARD_WARPS_PER_CTA = 8
+
+
+def _inverse(order):
+    return tuple(order.index(i) for i in range(len(order)))
+
+
+def as_layout(t, order):
+    """``t`` with unchanged shape and values whose memory is contiguous in
+    ``order`` (``t.permute(order).is_contiguous()``); a copy only where it
+    is not already."""
+    return t.permute(order).contiguous().permute(_inverse(order))
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _pad32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def riccati_sizes(K: int, nx: int, nu: int) -> tuple[int, int, int]:
+    """Values of the value, gain and vector groups of one problem's Riccati
+    working set: the mirror of ``riccati_sizes`` in csrc/riccati.cuh (every
+    buffer padded to a multiple of four values, the pivot rows and columns
+    of the Gauss-Jordan solve to whole warps)."""
+    nxf, nuf = K * nx, K * nu
+    ncol = nuf + nxf + 1
+    value = 3 * _pad4(nxf * nxf)
+    gain = (4 * _pad4(nuf * nxf) + _pad4(nuf * nuf) + _pad4(nuf * ncol)
+            + _pad4(K * nx * nx) + _pad4(K * nx * nu))
+    vec = 3 * _pad4(nxf) + 4 * _pad4(nuf) + 2 * _pad32(ncol) + 2 * _pad32(nuf)
+    return value, gain, vec
+
+
+def riccati_smem_bytes(K: int, nx: int, nu: int, itemsize: int,
+                       limit: int = SMEM_LIMIT) -> tuple[int, int, int]:
+    """Where a backward kernel places one problem's working set: the mirror
+    of ``riccati_plan`` in csrc/riccati.cuh.  Returns ``(tier, shared-memory
+    bytes of a CTA, workspace values of one problem)``: tier 0 has all three
+    groups in shared memory, 1 the value group in the device-memory
+    workspace, 2 the gain group too.  Raises where not even the vectors fit
+    ``limit`` bytes."""
+    value, gain, vec = riccati_sizes(K, nx, nu)
+    room = limit // itemsize
+    if value + gain + vec <= room:
+        return 0, (value + gain + vec) * itemsize, 0
+    if gain + vec <= room:
+        return 1, (gain + vec) * itemsize, value
+    if vec <= room:
+        return 2, vec * itemsize, value + gain
+    raise ValueError(
+        f"backward kernels: the vectors of a problem with K*nx={K * nx}, "
+        f"K*nu={K * nu} take {vec * itemsize} bytes of shared memory, over "
+        f"the {limit} a block may use")
+
+
+def forward_smem_bytes(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
+                       gains: bool = True,
+                       limit: int = SMEM_LIMIT) -> tuple[int, int]:
+    """Shared memory of one CTA of the forward kernel: the mirror of
+    ``launch_nxc`` in csrc/forward_batched.cu.  A CTA holds x, dx and u of
+    each of its alphas and, with gains, stages of one step's gain block, d
+    row and nominal X and U rows: two where they fit ``limit`` bytes, else
+    one.  Returns ``(stages, bytes)``; raises where one stage does not fit."""
+    nxf, nuf = K * nx, K * nu
+    chunks = -(-n_alpha // FORWARD_WARPS_PER_CTA)
+    warps = -(-n_alpha // chunks) if chunks else 0
+    stage = (_pad4(nuf * nxf) + 2 * _pad4(nuf) + _pad4(nxf)) if gains else 0
+    cols = warps * (2 * _pad4(nxf) + _pad4(nuf))
+    for n_stage in (2, 1):
+        nbytes = (n_stage * stage + cols) * itemsize
+        if nbytes <= limit:
+            return n_stage, nbytes
+    raise ValueError(
+        f"forward_batched: one stage of a subproblem with K*nx={nxf}, "
+        f"K*nu={nuf} and {warps} alphas a CTA takes {nbytes} bytes of shared "
+        f"memory, over the {limit} a block may use")
 
 
 # ---------------------------------------------------------------------------
@@ -140,15 +238,15 @@ def _gj_solve_torch(Quu, Qux, Qu):
 
 
 def backward_pass_batched_torch(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
-    """Plain PyTorch twin of the backward kernel (same inputs and outputs
-    as ``backward_pass_batched_cuda``)."""
+    """Plain PyTorch twin of the backward kernel (same inputs, outputs and
+    memory layout as ``backward_pass_batched_cuda``)."""
     S, N, K, nx_p, _ = A.shape
     nu_p = B.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
     eye = torch.eye(nxf, dtype=A.dtype, device=A.device)
     p, P = p0, P0
-    Kg = A.new_empty((N, S, nuf, nxf))
-    d = A.new_empty((N, S, nuf))
+    Kg = A.new_empty((S, N, nuf, nxf))
+    d = A.new_empty((S, N, nuf))
     for t in range(N - 1, -1, -1):
         A_t, B_t = A[:, t], B[:, t]
         Preg = P + mu[:, None, None] * eye
@@ -171,7 +269,7 @@ def backward_pass_batched_torch(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
 
         sol_K, sol_d = _gj_solve_torch(Q_uu, Q_ux, Q_u)
         K_t, d_t = -sol_K, -sol_d
-        Kg[t], d[t] = K_t, d_t
+        Kg[:, t], d[:, t] = K_t, d_t
 
         # Full-form value update with symmetrization (control.py:144-146).
         w = torch.einsum("svj,sv->sj", Q_uu, d_t) + Q_u
@@ -189,7 +287,7 @@ def backward_pass_batched_torch(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
             + KtQux.transpose(1, 2)
         )
         P = 0.5 * (P_new + P_new.transpose(1, 2))
-    return Kg.permute(0, 2, 3, 1).contiguous(), d.permute(0, 2, 1).contiguous()
+    return Kg.permute(_inverse(GAIN_ORDER)), d.permute(_inverse(D_ORDER))
 
 
 def _check_width(name: str, nxf: int, nuf: int, max_nxf: int):
@@ -208,9 +306,10 @@ def _check_width(name: str, nxf: int, nuf: int, max_nxf: int):
 
 def _launch_backward(kernel, max_nxf, A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0,
                      workspace=False):
-    """Check the backward inputs and launch ``kernel`` (with a per-subproblem
-    device-memory ``workspace`` if asked); returns ``Kg (N, nuf, nxf, S)``,
-    ``d (N, nuf, S)``."""
+    """Check the backward inputs and launch ``kernel`` (with the
+    per-subproblem device-memory ``workspace`` its plan asks for); returns
+    ``Kg (N, nuf, nxf, S)``, ``d (N, nuf, S)``, views of ``(S, N, nuf,
+    nxf)`` and ``(S, N, nuf)`` memory."""
     S, N, K, nx_p, _ = A.shape
     nu_p = B.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
@@ -224,15 +323,16 @@ def _launch_backward(kernel, max_nxf, A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0,
         "L_x": (S, N, nxf), "L_u": (S, N, nuf), "mu": (S,),
         "p0": (S, nxf), "P0": (S, nxf, nxf),
     }, A.dtype, A.device)
-    Kg = A.new_empty((N, nuf, nxf, S))
-    d = A.new_empty((N, nuf, S))
+    riccati_smem_bytes(K, nx_p, nu_p, A.element_size())  # raises on no fit
+    Kg = A.new_empty((S, N, nuf, nxf))
+    d = A.new_empty((S, N, nuf))
     work = ()
     if workspace:
-        w = A.new_empty((S, riccati_work_size(K, nx_p, nu_p)))
+        w = A.new_empty((S, riccati_plan(K, nx_p, nu_p, A.element_size())[2]))
         work = (w, w.numel())
     launch(kernel, A.dtype, A.device, *ins.values(), Kg, d, *work,
            S, N, K, nx_p, nu_p)
-    return Kg, d
+    return Kg.permute(_inverse(GAIN_ORDER)), d.permute(_inverse(D_ORDER))
 
 
 def backward_pass_batched_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
@@ -246,9 +346,10 @@ def backward_pass_batched_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
 
 def backward_pass_batched_wide_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
     """Launch ``csrc/backward_batched_wide.cu`` (K * nx_p <= 96): the same
-    contract as ``backward_pass_batched_cuda``, with the three nxf^2
-    matrices of each subproblem (and, where shared memory is too small, its
-    gain blocks) in a device-memory workspace."""
+    contract as ``backward_pass_batched_cuda``.  Each subproblem's working
+    set lies in shared memory where it fits (``riccati_smem_bytes``), else
+    its three nxf^2 matrices (and then its gain blocks) in a device-memory
+    workspace."""
     return _launch_backward("backward_batched_wide", WIDE_MAX_NXF, A, B, L_uu,
                             L_xx, L_x, L_u, mu, p0, P0, workspace=True)
 
@@ -281,23 +382,33 @@ def backward_pass_batched(
 # ---------------------------------------------------------------------------
 
 
+@lru_cache(maxsize=64)
+def _model_tables(unique_specs, dt: float, dtype, device):
+    """``(model id, RK4 substeps, step dh = dt / substeps)`` of each unique
+    model, on ``device``: built once per (models, dt, dtype, device), since a
+    tensor made from a Python list is a pageable copy that waits for the
+    stream."""
+    ids = torch.tensor([s.model_id for s in unique_specs], dtype=torch.int32,
+                       device=device)
+    nsub = torch.tensor([s.rk4_substeps for s in unique_specs], dtype=torch.int32,
+                        device=device)
+    dh = torch.tensor([dt / s.rk4_substeps for s in unique_specs],
+                      dtype=torch.float64, device=device).to(dtype)
+    return ids, nsub, dh
+
+
 def _slot_tables(fleet: Fleet, mids_s, dtype):
     """Per-slot ``(model id, RK4 substeps, step dh = dt / substeps)`` from
     the branch indices ``mids_s (S, K)``."""
-    uniq = fleet.unique_specs
-    dev = mids_s.device
-    ids = torch.tensor([s.model_id for s in uniq], dtype=torch.int32, device=dev)
-    nsub = torch.tensor([s.rk4_substeps for s in uniq], dtype=torch.int32, device=dev)
-    dh = torch.tensor([fleet.dt / s.rk4_substeps for s in uniq], dtype=torch.float64,
-                      device=dev).to(dtype)
+    ids, nsub, dh = _model_tables(fleet.unique_specs, fleet.dt, dtype, mids_s.device)
     m = mids_s.long()
-    return ids[m].contiguous(), nsub[m].contiguous(), dh[m].contiguous()
+    return ids[m], nsub[m], dh[m]
 
 
 def forward_pass_batched_torch(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
                                Kg, d, alphas):
-    """Plain PyTorch twin of the forward kernel (same arguments and outputs
-    as ``forward_pass_batched``)."""
+    """Plain PyTorch twin of the forward kernel (same arguments, outputs and
+    memory layout as ``forward_pass_batched``)."""
     S, Np1, K, nx_p = X.shape
     N = Np1 - 1
     nu_p = U.shape[-1]
@@ -339,16 +450,19 @@ def forward_pass_batched_torch(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
             x = x + dh * (k0 + 2.0 * k1 + 2.0 * k2 + k3) / 6.0
         Xs.append(x)
     J = J + terminal_cost(cost_b, x)
-    X5 = torch.stack(Xs).permute(0, 4, 3, 1, 2)  # (N, nx_p, K, n_alpha, S)
-    U5 = torch.stack(Us).permute(0, 4, 3, 1, 2)
-    return X5.contiguous(), U5.contiguous(), J
+    # Column-major memory (n_alpha, S, N, K, nx_p), public (N, nx_p, K, n_alpha, S).
+    X5 = torch.stack(Xs, dim=2).permute(_inverse(COLUMN_ORDER))
+    U5 = torch.stack(Us, dim=2).permute(_inverse(COLUMN_ORDER))
+    return X5, U5, J
 
 
 def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
                               Kg, d, alphas):
-    """Launch ``csrc/forward_batched.cu``: one thread per (alpha,
-    subproblem) column.  Same arguments and outputs as
-    ``forward_pass_batched``."""
+    """Launch ``csrc/forward_batched.cu``: a CTA per subproblem, a warp per
+    alpha.  Same arguments and outputs as ``forward_pass_batched``.  Gains
+    that do not lie in the kernel's memory order (``GAIN_ORDER``,
+    ``D_ORDER``: what the backward wrappers and twins return) are copied
+    into it once."""
     S, Np1, K, nx_p = X.shape
     N = Np1 - 1
     nu_p = U.shape[-1]
@@ -359,7 +473,11 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
         raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
     dtype, dev = X.dtype, X.device
+    forward_smem_bytes(K, nx_p, nu_p, n_alpha, X.element_size(),
+                       gains=Kg is not None)  # raises on no fit
     model, nsub, dh = _slot_tables(fleet, mids_s, dtype)
+    if Kg is not None:
+        Kg, d = as_layout(Kg, GAIN_ORDER), as_layout(d, D_ORDER)
     ins = dict(X=X, U=U, Kg=Kg, d=d, alphas=alphas, model=model, nsub=nsub,
                dh=dh, xf=cost_b.xf, Q=cost_b.Q, R=cost_b.R, Qf=cost_b.Qf,
                mask=cost_b.agent_mask, refw=cost_b.ref_weight,
@@ -373,13 +491,15 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
                   proxw=(S,), npos_eval=(S, K))
     check_tensors("forward_batched",
                   {k: v for k, v in ins.items() if v is not None}, shapes,
-                  dtype, dev, ints=("model", "nsub", "npos_eval"))
-    X5 = X.new_empty((N, nx_p, K, n_alpha, S))
-    U5 = X.new_empty((N, nu_p, K, n_alpha, S))
+                  dtype, dev, ints=("model", "nsub", "npos_eval"),
+                  layouts={"Kg": GAIN_ORDER, "d": D_ORDER})
+    X5 = X.new_empty((n_alpha, S, N, K, nx_p))
+    U5 = X.new_empty((n_alpha, S, N, K, nu_p))
     J = X.new_empty((n_alpha, S))
     launch("forward_batched", dtype, dev, *ins.values(), X5, U5, J,
            S, N, K, nx_p, nu_p, n_alpha)
-    return X5, U5, J
+    return (X5.permute(_inverse(COLUMN_ORDER)),
+            U5.permute(_inverse(COLUMN_ORDER)), J)
 
 
 def forward_pass_batched(
@@ -395,7 +515,8 @@ def forward_pass_batched(
     fields in X's dtype.
 
     Returns ``X5 (N, nx_p, K, n_alpha, S)`` (states 1..N), ``U5 (N, nu_p,
-    K, n_alpha, S)`` and ``J (n_alpha, S)``.
+    K, n_alpha, S)``, views of column-major memory (``COLUMN_ORDER``), and
+    ``J (n_alpha, S)``.
     """
     fn = (
         forward_pass_batched_cuda
@@ -410,14 +531,22 @@ def select_alpha(X5, U5, x0_s, a_idx):
 
     ``X5 (N, nx_p, K, n_alpha, S)``, ``a_idx (S,)`` -> ``X (S, N+1, K,
     nx_p)`` with ``x0_s (S, K, nx_p)`` prepended, ``U (S, N, K, nu_p)``.
+    A candidate is one contiguous row of the column-major memory, so the
+    gather moves whole trajectories.
     """
-    N, nx_p, K, _, S = X5.shape
-    nu_p = U5.shape[1]
-    ix = a_idx.long().view(1, 1, 1, 1, S)
-    Xsel = X5.gather(3, ix.expand(N, nx_p, K, 1, S))[:, :, :, 0]
-    Usel = U5.gather(3, ix.expand(N, nu_p, K, 1, S))[:, :, :, 0]
-    X = torch.cat([x0_s[:, None], Xsel.permute(3, 0, 2, 1)], dim=1)
-    return X, Usel.permute(3, 0, 2, 1).contiguous()
+    S = X5.shape[-1]
+    a = a_idx.long()
+    s = torch.arange(S, device=X5.device)
+    Xsel = X5.permute(COLUMN_ORDER)[a, s]  # (S, N, K, nx_p)
+    Usel = U5.permute(COLUMN_ORDER)[a, s]
+    return torch.cat([x0_s[:, None], Xsel], dim=1), Usel.contiguous()
+
+
+def _cat_alphas(a, b):
+    """Two candidate sets ``(N, n, K, n_alpha_i, S)`` joined along the alpha
+    axis, in column-major memory."""
+    cols = torch.cat([a.permute(COLUMN_ORDER), b.permute(COLUMN_ORDER)], dim=0)
+    return cols.permute(_inverse(COLUMN_ORDER))
 
 
 # ---------------------------------------------------------------------------
@@ -491,8 +620,8 @@ def batched_iteration(
         need_tail = bool(torch.any(c.active & ~torch.any(J_c < c.J, dim=0)))
         if need_tail:
             X5b, U5b, J_b = fwd(alphas[p:])
-            X5 = torch.cat([X5, X5b], dim=3)
-            U5 = torch.cat([U5, U5b], dim=3)
+            X5 = _cat_alphas(X5, X5b)
+            U5 = _cat_alphas(U5, U5b)
             J_c = torch.cat([J_c, J_b], dim=0)
     else:
         X5, U5, J_c = fwd(alphas)

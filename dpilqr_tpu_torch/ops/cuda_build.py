@@ -34,7 +34,10 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libdpilqr_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# DPILQR_NVCC_FLAGS adds compiler flags (and so keys another build), e.g.
+# -DDPILQR_PHASE_CLOCKS for scripts/riccati_phase_clocks.py.
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 *os.environ.get("DPILQR_NVCC_FLAGS", "").split())
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,7 +77,8 @@ def reset_launch_counts():
 
 
 # While a ``timed_launches()`` block is open: its list of
-# ``(kernel, start event, end event)``; None otherwise.
+# ``(kernel, start event, end event, sizes)``, the sizes being the launch's
+# integer arguments as the wrapper passed them; None otherwise.
 _timed = None
 
 
@@ -82,9 +86,9 @@ _timed = None
 def timed_launches():
     """Bracket every kernel launched inside the block with CUDA events.
 
-    Yields the list the launches append ``(kernel, start, end)`` to; after
-    a ``torch.cuda.synchronize()`` ``launch_ms`` turns it into times.  The
-    events surround the C entry point alone, not the wrapper's checks,
+    Yields the list the launches append ``(kernel, start, end, sizes)`` to;
+    after a ``torch.cuda.synchronize()`` ``launch_ms`` turns it into times.
+    The events surround the C entry point alone, not the wrapper's checks,
     allocations or torch preparation."""
     global _timed
     record, previous = [], _timed
@@ -99,7 +103,7 @@ def launch_ms(record, kernel: str) -> list[float]:
     """Milliseconds of each launch of ``kernel`` in a ``timed_launches()``
     record (synchronizes first)."""
     torch.cuda.synchronize()
-    return [s.elapsed_time(e) for k, s, e in record if k == kernel]
+    return [s.elapsed_time(e) for k, s, e, _ in record if k == kernel]
 
 
 def sources() -> list[Path]:
@@ -174,8 +178,10 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, f"dpilqr_{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    lib.dpilqr_riccati_work_size.argtypes = [_I] * 3
-    lib.dpilqr_riccati_work_size.restype = ctypes.c_longlong
+    lib.dpilqr_riccati_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_L)] * 2
+    lib.dpilqr_riccati_plan.restype = ctypes.c_int
+    lib.dpilqr_forward_smem_bytes.argtypes = [_I] * 6
+    lib.dpilqr_forward_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -195,9 +201,11 @@ def require_cuda(name: str, t):
 
 
 def check_tensors(name: str, tensors: dict, shapes: dict, dtype, device,
-                  ints=()):
-    """Raise unless every tensor has its shape, lies on ``device``, is
-    contiguous, and has ``dtype`` (int32 for the keys in ``ints``)."""
+                  ints=(), layouts=None):
+    """Raise unless every tensor has its shape, lies on ``device``, has
+    ``dtype`` (int32 for the keys in ``ints``) and is contiguous in memory:
+    as it stands or, for a key in ``layouts``, after the permutation given
+    there (a tensor handed out as a permuted view of the kernel's layout)."""
     for key, t in tensors.items():
         want = torch.int32 if key in ints else dtype
         if tuple(t.shape) != shapes[key]:
@@ -207,16 +215,29 @@ def check_tensors(name: str, tensors: dict, shapes: dict, dtype, device,
             raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
         if t.dtype != want:
             raise ValueError(f"{name}: {key} has dtype {t.dtype}, expected {want}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
+        perm = (layouts or {}).get(key)
+        if not (t if perm is None else t.permute(perm)).is_contiguous():
+            raise ValueError(
+                f"{name}: {key} must be contiguous"
+                + ("" if perm is None else f" in memory order {perm}"))
 
 
-def riccati_work_size(K: int, nx: int, nu: int) -> int:
-    """Values of the value and gain groups of one problem's Riccati sweep,
-    as the library computes them (``riccati_sizes`` in csrc/riccati.cuh,
-    exported by csrc/backward_batched_wide.cu): the device-memory workspace
-    a backward kernel takes where they do not fit in shared memory."""
-    return load_library().dpilqr_riccati_work_size(K, nx, nu)
+@cache
+def riccati_plan(K: int, nx: int, nu: int, itemsize: int) -> tuple[int, int, int]:
+    """Where the library places one problem's Riccati working set on the
+    current device (``riccati_plan`` in csrc/riccati.cuh, exported by
+    csrc/backward_batched_wide.cu): ``(tier, shared-memory bytes of a CTA,
+    workspace values of one problem)``.  Tier 0 keeps everything in shared
+    memory, 1 the three nxf^2 matrices in a device-memory workspace, 2 the
+    gain blocks too; a working set whose vectors alone exceed shared memory
+    raises."""
+    smem, work = _L(), _L()
+    tier = load_library().dpilqr_riccati_plan(
+        K, nx, nu, itemsize, ctypes.byref(smem), ctypes.byref(work))
+    if tier < 0:
+        raise ValueError(f"a Riccati problem of K={K}, nx={nx}, nu={nu} does "
+                         "not fit the device's shared memory")
+    return tier, smem.value, work.value
 
 
 def ptr(t):
@@ -239,7 +260,8 @@ def launch(kernel: str, dtype, device, *args):
              ctypes.c_void_p(stream.cuda_stream))
     if _timed is not None:
         end.record(stream)
-        _timed.append((kernel, start, end))
+        _timed.append((kernel, start, end,
+                       tuple(a for a in args if isinstance(a, int))))
     if err != 0:
         raise RuntimeError(f"{kernel} kernel failed: cudaError {err}")
     launch_counts[kernel] += 1

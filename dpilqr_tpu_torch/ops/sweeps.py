@@ -24,7 +24,7 @@ import torch
 from ..models.fleet import Fleet
 from .batched import _linearize_batch, _quadraticize_batch, _slot_tables
 from .costs import GameCost, cast_cost
-from .cuda_build import check_tensors, launch, require_cuda, riccati_work_size
+from .cuda_build import check_tensors, launch, require_cuda, riccati_plan
 
 
 def backward_sweep_inputs(fleet: Fleet, cost: GameCost, X, U, mu) -> dict:
@@ -56,7 +56,7 @@ def launch_backward_sweep(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
         "L_uu": (N, nuf, nuf), "L_xx": (N, nxf, nxf), "L_x": (N, nxf),
         "L_u": (N, nuf), "mu": (1,), "p0": (nxf,), "P0": (nxf, nxf),
     }, dtype, dev)
-    n_work = riccati_work_size(n, nx_p, nu_p)
+    n_work = riccati_plan(n, nx_p, nu_p, A.element_size())[2]
     work = A.new_empty((n_work,))
     K = A.new_empty((N, nuf, nxf))
     d = A.new_empty((N, nuf))

@@ -235,6 +235,24 @@ def test_cuda_wrappers_reject_what_they_cannot_take():
     with pytest.raises(NotImplementedError, match="96"):
         bt.forward_pass_batched_cuda(fleet_q, cost_t, mids_t, Xq, Uq, None,
                                      None, alphas)
+    # Past the routing limit the kernels' own guard is the shared memory a
+    # block may use: the sizing the wrappers consult answers any width and
+    # raises only where nothing fits.
+    assert bt.forward_smem_bytes(32, 6, 3, 10, 4)[0] == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        bt.forward_smem_bytes(64, 6, 3, 10, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        bt.riccati_smem_bytes(4000, 6, 3, 8)
+    # Gains must lie in the kernels' memory order (or be copied into it).
+    from dpilqr_tpu_torch.ops.cuda_build import check_tensors
+
+    Kg = torch.zeros((N, 8, 16, S), dtype=torch.float64)
+    with pytest.raises(ValueError, match="memory order"):
+        check_tensors("forward_batched", {"Kg": Kg}, {"Kg": tuple(Kg.shape)},
+                      Kg.dtype, Kg.device, layouts={"Kg": bt.GAIN_ORDER})
+    check_tensors("forward_batched", {"Kg": bt.as_layout(Kg, bt.GAIN_ORDER)},
+                  {"Kg": tuple(Kg.shape)}, Kg.dtype, Kg.device,
+                  layouts={"Kg": bt.GAIN_ORDER})
     # "auto" resolves by device; unknown names are refused.
     assert bt.resolve_backend("auto", Xt) == "torch"
     with pytest.raises(ValueError):
