@@ -16,31 +16,40 @@ Phases (any failure exits non-zero and prints no result line):
       K=8 slots, nx_p=4, nu_p=2, N=50), float64 and float32, forward with 2
       and 10 alphas, with and without gains; a mixed DoubleInt4D+Car3D+
       Bike5D batch in float64; K1 against K3 on the same float32 batches at
-      nxf 8, 16, 24 and 32 (K = 2, 4, 6, 8: the narrow/wide routing datum);
+      nxf 4, 8, 16, 24 and 32 (K = 1, 2, 4, 6, 8: the narrow/wide routing
+      datum) and K1 at batch widths S = 16, 32, 64 and 128;
    b. K3 and the widened K2 on wide subproblems: Quad6D at K=8 (nxf 48)
-      and at K=16 (nxf 96, nuf 48: the shape of phase 4b's loop) and
-      Quad12D at K=8 (nxf 96) from the 64-agent quadrotor swarm (S=64),
-      float64 and float32, 2 and 10 alphas; every timed shape is printed
-      beside its bound by the published peaks;
-   c. K5 and K4 (with gains over 10 alphas, and as a rollout) at the
-      10-agent centralized shape (N=50).
+      and at K=16 (nxf 96, nuf 48) and Quad12D at K=8 (nxf 96) from the
+      64-agent quadrotor swarm (S=64), and Quad6D at K=32 (nxf 192, nuf 96:
+      the width phase 4b's loop reaches; S=16), float64 and float32, 2 and 10
+      alphas; every timed shape is printed beside its bound by the published
+      peaks;
+   c. K5 and K4 with gains (over 10 alphas) at the 10-agent centralized
+      shape (N=50), and K4 without gains, the plain rollout, against both its
+      plain versions at the stitched plans' shapes: 10 and 100 Unicycle4D, 64
+      Quad6D, 500 Unicycle4D and a mixed DoubleInt4D+Car3D+Bike5D fleet,
+      float64 and float32, J bit-equal in two runs, timed beside the torch
+      loop it replaces (whole wrapper, and the launch alone).
 4. Solve paths, each driven with the launch counts set to 0 just before
    and read just after:
    a. main path: ``solve_rhc(centralized=False)`` for 100 Unicycle4D
       agents, float32, 5 MPC steps, on the kernels and again on the twins,
-      and once more with every launch timed: K1's and K2's launches and
-      milliseconds per step by batch width S (the widths the retirement
-      schedule really runs);
-   b. the 64-agent Quad6D swarm closed loop at K=16 (nxf 96, the widest
-      the kernels take; auto K would reach 32), 5 MPC steps on the kernels
-      and 2 on the twins, and K3's and K2's launches by batch width;
+      and once more with every launch timed: K1's, K2's and K4's launches
+      and milliseconds per step by batch width S (the widths the retirement
+      schedule really runs; K4, each solve's stitched-plan rollout, by its
+      agents);
+   b. the 64-agent Quad6D swarm closed loop at auto K (it reaches K=32, nxf
+      192; a truncated step fails the run), 5 MPC steps on the kernels, with
+      K3's, K2's and K4's launches by batch width; once more at K=16 (nxf
+      96), and 2 steps at K=16 on the twins;
    c. one cold ``solve_distributed`` of 64 Quad12D agents at K=8, float32,
       on the kernels; fails if it is not a solve (mean iterations <= 1);
    d. ``ilqr_solve`` for 10 agents on the kernels and on the twins, then
       ``solve_rhc(centralized=True)`` for 5 MPC steps on the kernels.
 5. Float64 solve parity of kernels and twins (equal iterations and
    converged flags, J and X close): a narrow and a wide decomposed solve,
-   and ``ilqr_solve``.
+   and ``ilqr_solve``; the stitched J (K4's, step by step) within 1e-12
+   relative of its time-batched plain version.
 6. Speed-of-light accounting and the deadline solve:
    a. the three ceiling probes K6-K8 (``utils/sol.py``) against their plain
       PyTorch versions at the shapes ``sol_report`` launches them at: K7 on
@@ -64,8 +73,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the eight kernels with their launch counts, errors, times and bounds
-(the least time by the published peaks, computed from the timed shapes; K2
-and K3 also list every other shape they were timed at under ``shapes``),
+(the least time by the published peaks, computed from the timed shapes;
+K1-K4 also list every other shape they were timed at under ``shapes``; K4's
+launches are summed over the decomposed and the centralized paths),
 and the line before that the card's name and power limit.
 """
 
@@ -344,7 +354,7 @@ def narrow_checks(checks, results, dev):
     # The routing datum below nxf 32: K1 and K3 on the same float32 batches
     # (in turns: K1, K3, K3, K1; the smaller of each pair).
     fleet, cost, x0 = unicycle_problem(N_AGENTS, 0.55, torch.float32, dev)
-    for K in (2, 4, 6, 8):
+    for K in (1, 2, 4, 6, 8):
         args = sweep_inputs(fleet, cost, x0, K, dev)[0]
         twin = bt.backward_pass_batched_torch(*args)
         fns = {"K1": bt.backward_pass_batched_cuda, "K3": bt.backward_pass_batched_wide_cuda}
@@ -359,6 +369,19 @@ def narrow_checks(checks, results, dev):
             results[f"{name} routing nxf {4 * K}"] = (min(ms[name]), None)
             checks.shapes[f"{name} routing nxf {4 * K}"] = work_shape(
                 "backward", fleet, K, args[0].shape[0])
+
+    # K1 at the batch widths the retirement schedule runs, cut from one
+    # 128-agent batch: a launch should cost the same at each.
+    fleet, cost, x0 = unicycle_problem(128, 0.55, torch.float32, dev)
+    args = sweep_inputs(fleet, cost, x0, 8, dev)[0]
+    for S in (16, 32, 64, 128):
+        cut = tuple(a[:S].contiguous() for a in args)
+        checks.compare("backward_batched", f"K1 S={S}", ("Kg", "d"),
+                       bt.backward_pass_batched_cuda(*cut),
+                       bt.backward_pass_batched_torch(*cut), TOL[torch.float32])
+        results[f"K1 S={S}"] = (timed(lambda: bt.backward_pass_batched_cuda(*cut), 20),
+                                None)
+        checks.shapes[f"K1 S={S}"] = work_shape("backward", fleet, 8, S)
 
     # Mixed RK4 substeps (Bike5D takes 1, the others 5), float64.
     fleet = dtt.Fleet.from_names(["DoubleInt4D", "Car3D", "Bike5D"] * 4, DT)
@@ -416,6 +439,33 @@ def wide_checks(checks, results, dev):
                            Kg_t, d_t, dtype, dev, gains_off=False)
             print(f"{tag}: S={args[0].shape[0]}, nuf={K * fleet.nu_p}", flush=True)
 
+    # Past nxf 96: Quad6D at K=32 (nxf 192, nuf 96), the width the quad6d_64
+    # loop's auto K reaches.  Every fourth of the 64 subproblems (S = 16: the
+    # twin's L_xx is 0.9 GB at S = 64 in float64).  K3 keeps all its matrices
+    # in the workspace there and eliminates its 289-column tableau in place;
+    # K2 stages two gain blocks in float32 and one in float64.
+    for dtype in (torch.float64, torch.float32):
+        fleet, cost, x0 = quad_problem(dtt.QUAD_6D, 64, 0.7, dtype, dev)
+        args, sub_cost, mids, carry = sweep_inputs(
+            fleet, cost, x0, 32, dev, u_scale=0.01, u_trim=np.array([g, 0, 0]))
+        args = tuple(a[::4].contiguous() for a in args)
+        sub_cost = type(sub_cost)(*(a[::4].contiguous() for a in sub_cost))
+        carry = type(carry)(*(a[::4].contiguous() for a in carry))
+        mids = mids[::4].contiguous()
+        tag = f"Quad6D K=32 nxf 192 S={args[0].shape[0]}"
+        Kg_t, d_t = bt.backward_pass_batched_torch(*args)
+        checks.compare("backward_batched_wide", f"K3 {tag} {str(dtype)[6:]}",
+                       ("Kg", "d"), bt.backward_pass_batched_wide_cuda(*args),
+                       (Kg_t, d_t), TOL[dtype])
+        suffix = "" if dtype == torch.float32 else " float64"
+        results[f"K3 {tag}{suffix}"] = (
+            timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 3), None)
+        if dtype == torch.float32:
+            checks.shapes[f"K3 {tag}"] = work_shape("backward_wide", fleet, 32,
+                                                    args[0].shape[0])
+        forward_checks(checks, results, tag, fleet, sub_cost, mids, carry,
+                       Kg_t, d_t, dtype, dev, gains_off=False)
+
 
 def centralized_inputs(dtype, dev):
     """The 10-agent centralized problem of ``bench.py`` (random_setup,
@@ -470,6 +520,62 @@ def centralized_checks(checks, results, dev):
             checks.shapes["K4 10 alphas"] = work_shape("forward_sweep", fleet, 10, 1, 10)
 
 
+def rollout_checks(checks, results, dev):
+    """Phase 3c, second half: K4 without gains, the plain rollout every CUDA
+    path takes, against ``_rollout_fn`` and ``_rollout_batched_cost`` at the
+    stitched plans' shapes."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import cuda_build, ilqr, sweeps
+
+    def mixed(dtype):
+        fleet = dtt.Fleet.from_names(["DoubleInt4D", "Car3D", "Bike5D"] * 4, DT)
+        x4, xf4 = swap_scenario(fleet.n_agents, 0.55)
+        return (fleet, *problem(fleet, x4, xf4, dtype, dev))
+
+    # Packed starts (spacing 0.55, the swarm at 0.7), so that pairs are
+    # inside the radius and the pair term is exercised.
+    cases = {
+        "10 Unicycle4D": lambda dtype: centralized_inputs(dtype, dev),
+        "100 Unicycle4D": lambda dtype: unicycle_problem(100, 0.55, dtype, dev),
+        "64 Quad6D": lambda dtype: quad_problem(dtt.QUAD_6D, 64, 0.7, dtype, dev),
+        "500 Unicycle4D": lambda dtype: unicycle_problem(500, 0.55, dtype, dev),
+        "12 mixed": mixed,
+    }
+    for name, make in cases.items():
+        for dtype in (torch.float64, torch.float32):
+            fleet, cost, x0 = make(dtype)
+            n = fleet.n_agents
+            x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
+            U = np.random.default_rng(5).uniform(size=(HORIZON, n, fleet.nu_p)) * 0.01
+            if "Quad6D" in name:
+                U[..., 0] += 9.80665  # hover
+            U = torch.as_tensor(U * fleet.control_mask, dtype=dtype, device=dev)
+            got = sweeps.rollout_cuda(fleet, cost, x0, U)
+            tag = f"K4 rollout {name}"
+            for twin in (ilqr._rollout_fn, ilqr._rollout_batched_cost):
+                checks.compare("forward_sweep", f"{tag} {str(dtype)[6:]} vs {twin.__name__}",
+                               ("X5", "J"), got, twin(fleet.step, cost, x0, U), TOL[dtype])
+            if not float(got[1]) > 0:
+                fail(f"{tag}: J is not positive")
+            again = sweeps.rollout_cuda(fleet, cost, x0, U)
+            if not (torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])):
+                fail(f"{tag} {dtype}: two runs differ in bits")
+            if dtype == torch.float32 and name != "12 mixed":
+                def run():
+                    return sweeps.rollout_cuda(fleet, cost, x0, U)
+
+                results[tag] = (
+                    timed(run, 20),
+                    timed(lambda: ilqr._rollout_batched_cost(fleet.step, cost, x0, U), 2))
+                with cuda_build.timed_launches() as record:
+                    for _ in range(10):
+                        run()
+                results[f"{tag}, the launch alone"] = (
+                    min(cuda_build.launch_ms(record, "forward_sweep")), None)
+                for label in (tag, f"{tag}, the launch alone"):
+                    checks.shapes[label] = work_shape("rollout_sweep", fleet, n, 1, 1)
+
+
 def run_counted(fn):
     """``fn()`` with the launch counts set to 0 just before; returns its
     result and the counts read just after."""
@@ -482,13 +588,16 @@ def run_counted(fn):
     return out, dict(cuda_build.launch_counts)
 
 
-SIZE_OF_S = {"backward_batched": 0, "forward_batched": 0, "backward_batched_wide": 1}
+# Where a launch's integer arguments hold its batch width S (K4: its agents n).
+SIZE_OF_S = {"backward_batched": 0, "forward_batched": 0, "backward_batched_wide": 1,
+             "forward_sweep": 0}
 
 
 def launches_by_width(fn, steps, kernels):
     """``fn()`` (a run of ``steps`` MPC steps) with every kernel launch
     bracketed by CUDA events; for each of ``kernels`` the launches and the
-    milliseconds per step at each batch width S (K2 also by its alphas)."""
+    milliseconds per step at each batch width S (K2 also by its alphas; K4,
+    the stitched plan's rollout, by its agents n)."""
     from dpilqr_tpu_torch.ops import cuda_build
 
     with cuda_build.timed_launches() as record:
@@ -498,7 +607,7 @@ def launches_by_width(fn, steps, kernels):
     for kernel, start, end, sizes in record:
         if kernel not in out:
             continue
-        key = f"S={sizes[SIZE_OF_S[kernel]]}"
+        key = f"{'n' if kernel == 'forward_sweep' else 'S'}={sizes[SIZE_OF_S[kernel]]}"
         if kernel == "forward_batched":
             key += f" alphas={sizes[5]}"
         cell = out[kernel].setdefault(key, {"launches_per_step": 0.0, "ms_per_step": 0.0})
@@ -576,10 +685,25 @@ def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None,
     }
 
 
-def require(counts, kernels, path):
+def require(counts, kernels, path, solves=0):
+    """Fail unless the run launched every one of ``kernels`` and, where it is
+    a run of ``solves`` decomposed solves, K4 at least once a solve (each
+    solve's stitched plan is rolled out on it)."""
     missing = [k for k in kernels if counts[k] <= 0]
     if missing:
         fail(f"{path} did not launch {missing}: {counts}")
+    if counts["forward_sweep"] < solves:
+        fail(f"{path}: {counts['forward_sweep']} launches of K4 for {solves} solves")
+
+
+def no_sweep_kernel(counts):
+    """Fail if a run on the twins (``sweep_backend="torch"``) launched a
+    sweep kernel.  Its plain rollouts (the stitched and the executed cost) do
+    go through K4: they pick by the tensors' device, not by the backend."""
+    if any(n for k, n in counts.items() if k != "forward_sweep"):
+        fail(f"the torch backend launched a sweep kernel: {counts}")
+    if counts["forward_sweep"] <= 0:
+        fail("the twins' run did not roll its stitched plans out on K4")
 
 
 def main_path(dev, launches):
@@ -587,47 +711,52 @@ def main_path(dev, launches):
     fleet, cost, x0 = unicycle_problem(N_AGENTS, 1.25, torch.float32, dev)
     rhc_run(fleet, cost, x0, "cuda", MPC_STEPS)  # warm-up (allocator, cuBLAS)
     kern, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS))
-    require(counts, ("backward_batched", "forward_batched"), "the main path")
-    launches.update(backward_batched=counts["backward_batched"],
-                    forward_batched=counts["forward_batched"])
-    launches["per MPC step (100 unicycles)"] = {
-        k: counts[k] / kern["steps"] for k in ("backward_batched", "forward_batched")}
+    path = ("backward_batched", "forward_batched", "forward_sweep")
+    require(counts, path, "the main path", solves=kern["steps"])
+    for k in path:
+        launches[k] = launches.get(k, 0) + counts[k]
+    launches["per MPC step (100 unicycles)"] = {k: counts[k] / kern["steps"] for k in path}
     print("main path (kernels): " + json.dumps(kern), flush=True)
     print_by_width("main path", launches_by_width(
-        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS), MPC_STEPS,
-        ("backward_batched", "forward_batched")))
+        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS), MPC_STEPS, path))
     twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", MPC_STEPS))
-    if any(counts.values()):
-        fail("the torch backend launched a kernel")
+    no_sweep_kernel(counts)
     print("main path (torch twins): " + json.dumps(twin), flush=True)
 
 
 def quad6d_loop(dev, launches):
-    """Phase 4b: the quad6d_64 closed loop (bench.py:716).  Its auto K
-    reaches 32 from the second step (the neighbourhoods of the planned
-    trajectories), nxf 192, wider than any kernel (the JAX package ran
-    those steps on its XLA scans); so K is pinned at 16, nxf 96, the widest
-    the kernels take, and the truncated steps are counted.  Kernels past
-    nxf 96 are an open item (ROADMAP queue B, item 7)."""
+    """Phase 4b: the quad6d_64 closed loop (bench.py:716) at auto K, which
+    reaches 32 (nxf 192, nuf 96) once the planned trajectories' neighbourhoods
+    outgrow 16; a truncated step fails the run.  One more timed run pins
+    K=16 (nxf 96), where two of the five steps drop coupling partners: the
+    shape earlier measurements of this loop were taken at."""
     import dpilqr_tpu_torch as dtt
 
     fleet, cost, x0 = quad_problem(dtt.QUAD_6D, 64, 0.85, torch.float32, dev)
-    kern, counts = run_counted(
-        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, K=16))
-    require(counts, ("backward_batched_wide", "forward_batched"), "the quad6d_64 loop")
+    path = ("backward_batched_wide", "forward_batched", "forward_sweep")
+    rhc_run(fleet, cost, x0, "cuda", MPC_STEPS)  # warm-up (the allocator at nxf 192)
+    kern, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS))
+    require(counts, path, "the quad6d_64 loop", solves=kern["steps"])
+    if max(kern["K"]) <= 16:
+        fail("the quad6d_64 loop did not reach K=32")
     launches["backward_batched_wide"] = counts["backward_batched_wide"]
-    launches["per MPC step (64 Quad6D, K=16)"] = {
-        k: counts[k] / kern["steps"]
-        for k in ("backward_batched_wide", "forward_batched")}
-    print(f"quad6d_64 loop (kernels, K=16, launches {counts}): " + json.dumps(kern),
+    launches["forward_sweep"] += counts["forward_sweep"]
+    launches["per MPC step (64 Quad6D, auto K)"] = {
+        k: counts[k] / kern["steps"] for k in path}
+    print(f"quad6d_64 loop (kernels, auto K, launches {counts}): " + json.dumps(kern),
           flush=True)
     print_by_width("quad6d_64 loop", launches_by_width(
-        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, K=16), MPC_STEPS,
-        ("backward_batched_wide", "forward_batched")))
+        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS), MPC_STEPS, path))
+    pinned, counts = run_counted(
+        lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, K=16))
+    require(counts, path, "the quad6d_64 loop at K=16", solves=pinned["steps"])
+    launches["per MPC step (64 Quad6D, K=16)"] = {
+        k: counts[k] / pinned["steps"] for k in path}
+    print(f"quad6d_64 loop (kernels, K=16, launches {counts}): " + json.dumps(pinned),
+          flush=True)
     twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", 2, K=16))
-    if any(counts.values()):
-        fail("the torch backend launched a kernel")
-    print("quad6d_64 loop (torch twins, 2 steps): " + json.dumps(twin), flush=True)
+    no_sweep_kernel(counts)
+    print("quad6d_64 loop (torch twins, K=16, 2 steps): " + json.dumps(twin), flush=True)
 
 
 def quad12d_solve(dev):
@@ -647,7 +776,8 @@ def quad12d_solve(dev):
         return r, (time.perf_counter() - t0) * 1e3
 
     (res, ms), counts = run_counted(solve)
-    require(counts, ("backward_batched_wide", "forward_batched"), "the quad12d_64_k8 solve")
+    require(counts, ("backward_batched_wide", "forward_batched", "forward_sweep"),
+            "the quad12d_64_k8 solve")
     iters = res.iters.float().mean().item()
     conv = res.converged.float().mean().item()
     summary = {"ms": ms, "mean_iters": iters, "converged_frac": conv,
@@ -686,8 +816,8 @@ def centralized_paths(dev, launches):
             fail(f"ilqr_solve ({backend}): non-finite J")
         if backend == "cuda":
             require(counts, ("backward_sweep", "forward_sweep"), "ilqr_solve")
-            launches.update(backward_sweep=counts["backward_sweep"],
-                            forward_sweep=counts["forward_sweep"])
+            launches["backward_sweep"] = counts["backward_sweep"]
+            launches["forward_sweep"] += counts["forward_sweep"]
             launches[f"per centralized solve (10 unicycles, {int(res.iters)} "
                      "iterations)"] = {
                 k: counts[k] for k in ("backward_sweep", "forward_sweep")}
@@ -723,15 +853,26 @@ def solve_parity(dev):
     """Phase 5: float64 solves, kernels vs twins."""
     import dpilqr_tpu_torch as dtt
 
+    from dpilqr_tpu_torch.ops.ilqr import _rollout_batched_cost
+
     def distributed(fleet, cost, x0, N, seed, u_trim=0.0):
         rng = np.random.default_rng(seed)
         X = torch.as_tensor(x0, device=dev)[None]
         U = torch.as_tensor((u_trim + rng.uniform(size=(N, fleet.n_agents, fleet.nu_p))
                              * 0.01) * fleet.control_mask, device=dev)
-        return {b: dtt.solve_distributed(
+        res = {b: dtt.solve_distributed(
             fleet, cost, X, U, RADIUS,
             config=dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, sweep_backend=b))
             for b in ("cuda", "torch")}
+        # The stitched J comes from K4 under either backend; the plain
+        # version sums time-batched, K4 step by step: 1e-12 relative.
+        J_plain = float(_rollout_batched_cost(fleet.step, cost, X[0], res["cuda"].U)[1])
+        dJ = abs(float(res["cuda"].J) - J_plain) / abs(J_plain)
+        print(f"f64 stitched J: K4 {float(res['cuda'].J)!r} vs plain {J_plain!r} "
+              f"(rel {dJ:.3e})")
+        if not dJ <= 1e-12:
+            fail("float64: the stitched J differs from its plain version beyond 1e-12")
+        return res
 
     # Spacing 1.0 keeps the solve well conditioned (at 0.75 a 1e-14
     # warm-start perturbation already moves X by 2e-8), while neighborhoods
@@ -882,7 +1023,8 @@ def deadline_phase(dev):
     fleet, cost, x0 = unicycle_problem(N_AGENTS, 1.25, torch.float32, dev)
     kern, counts = run_counted(
         lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, t_kill=DT))
-    require(counts, ("backward_batched", "forward_batched"), "the deadline main path")
+    require(counts, ("backward_batched", "forward_batched", "forward_sweep"),
+            "the deadline main path", solves=kern["steps"])
     sync = host_sync_us(dev)
     # One sync an iteration (the active count) and one a step (the loop's
     # scalars): the share of a step spent waiting on those fetches.
@@ -958,6 +1100,7 @@ def main():
     narrow_checks(checks, results, dev)
     wide_checks(checks, results, dev)
     centralized_checks(checks, results, dev)
+    rollout_checks(checks, results, dev)
     probe_plain_ms = probe_checks(checks, dev)
     for label, (ms, plain) in results.items():
         plain_s = "not timed" if plain is None else f"{plain:.3f}"
@@ -967,7 +1110,7 @@ def main():
             bound_s = f", bound {b_ms:.5f} by {by} (share {b_ms / ms:.5f})"
         print(f"{label} ms/launch: kernel {ms:.4f}, twin {plain_s}{bound_s}", flush=True)
 
-    launches = {}
+    launches = {"forward_sweep": 0}  # K4 runs on every path: summed over them
     main_path(dev, launches)
     quad6d_loop(dev, launches)
     quad12d_solve(dev)
@@ -981,8 +1124,9 @@ def main():
               "forward_sweep": "K4 10 alphas",
               "backward_sweep": "K5", "probe_fma": "K6", "probe_hbm": "K7",
               "probe_sin": "K8"}
-    # The other shapes the two redesigned kernels were timed at.
-    others = {"forward_batched": "K2 ", "backward_batched_wide": "K3 "}
+    # The other shapes the redesigned kernels were timed at.
+    others = {"backward_batched": "K1 ", "forward_batched": "K2 ",
+              "backward_batched_wide": "K3 ", "forward_sweep": "K4 "}
     kernels = []
     for key, (fn, replaces) in KERNELS.items():
         ms, plain_ms = results[timing[key]]

@@ -116,17 +116,8 @@ extern "C" int dpilqr_riccati_plan(int K, int nx, int nu, int itemsize,
 }
 
 #ifdef DPILQR_PHASE_CLOCKS
-// The cycles this kernel's phases took since the last reset (riccati.cuh,
-// RICCATI_CLOCK): copies the RICCATI_PHASES sums to `out` after a device
-// synchronize, then clears them.
+// This kernel's cycles by phase (riccati.cuh, RICCATI_CLOCK), read and reset.
 extern "C" int dpilqr_riccati_phase_clocks(unsigned long long* out) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(out, riccati_phase_clocks,
-                               sizeof(unsigned long long) * RICCATI_PHASES);
-  const unsigned long long zero[RICCATI_PHASES] = {0};
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(riccati_phase_clocks, zero, sizeof(zero));
-  return (int)err;
+  return riccati_read_phase_clocks(out);
 }
 #endif

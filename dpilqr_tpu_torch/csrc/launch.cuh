@@ -38,21 +38,28 @@ int launch_with_smem(Kernel kernel, dim3 blocks, int threads, size_t bytes,
 // float64), which the vector loads and the 16-byte async copies need.
 __host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
 
-// Asynchronous copy of n values by the whole CTA: 16 bytes a request where
-// both ends are 16-byte aligned and n fills whole requests, else one value.
+// Asynchronous copy of n values by `nth` threads of which this is number
+// `tid` (default: the whole CTA): 16 bytes a request where both ends are
+// 16-byte aligned and n fills whole requests, else one value.
 template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src, int n) {
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int n, int tid,
+                                           int nth) {
   constexpr int PER = 16 / sizeof(T);
   const bool wide =
       ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0 &&
       n % PER == 0;
   if (wide) {
-    for (int i = threadIdx.x * PER; i < n; i += blockDim.x * PER)
+    for (int i = tid * PER; i < n; i += nth * PER)
       __pipeline_memcpy_async(dst + i, src + i, 16);
   } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
+    for (int i = tid; i < n; i += nth)
       __pipeline_memcpy_async(dst + i, src + i, sizeof(T));
   }
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int n) {
+  copy_async(dst, src, n, (int)threadIdx.x, (int)blockDim.x);
 }
 
 }  // namespace

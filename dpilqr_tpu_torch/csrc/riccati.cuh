@@ -12,7 +12,10 @@
 // product accumulates over the same index in the same order, pivots multiply
 // by a reciprocal, the update is the full form, Q_ux^T K is the transpose of
 // K^T Q_ux.  Float32 convergence depends on that order, so the design below
-// changes which thread computes an entry and never how it is computed.
+// changes which thread computes an entry and never how it is computed: every
+// dot product is round(a0 b0) followed by fused multiply-adds in index order
+// (mul_rn pins the first product), so all three kernels, in every
+// instantiation, give the same bits on the same problem.
 //
 // What the design does about the latency chain (N steps x phases x pivots):
 //
@@ -32,7 +35,18 @@
 //   register index is a constant; larger tableaus are eliminated in place
 //   in shared memory.  Columns left of the pivot (and the pivot's own) never
 //   feed the solution columns again, so what they hold does not matter, and
-//   the solution is the same to the bit (gauss_jordan below);
+//   the solution is the same to the bit (gauss_jordan below).  A narrow
+//   problem (nuf <= 32) is eliminated by one warp with no barrier at all,
+//   each lane holding whole columns, and that warp writes the gains out
+//   itself while the others fetch the next step's inputs
+//   (gauss_jordan_warp);
+// - seven CTA barriers a step (six where one warp eliminates): a step's
+//   inputs have landed before the barrier that ends the step before, so a
+//   step starts without one of its own;
+// - where a kernel compiles the slot widths nx, nu (and the slot count K)
+//   in, the index divisions and the loops over a block cost nothing on the
+//   chain: at nxf 32 they were more than half of phases 1 and 2
+//   (riccati_sweep's NXS, NUS, KS);
 // - the transposed reads of the value update (K^T Q_ux's transpose, the
 //   symmetrization) go tile by tile, a row segment per load, instead of one
 //   column-strided value per thread (a 32-way bank conflict at nxf 32, 96);
@@ -173,6 +187,15 @@ __device__ __forceinline__ RiccatiWork<T> riccati_place(T* sm, T* own, int K,
     return riccati_carve(own, own + z.value, sm, K, nx, nu);
 }
 
+// a b rounded once, never fused into a following addition.  Every dot
+// product below starts with it, so that the sum is round(a0 b0) followed by
+// fused multiply-adds in index order in every instantiation: left to the
+// compiler, an unrolled chain (compile-time widths) may fuse the first
+// product into the second instead, and the bits would differ between the
+// kernels that share this header.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
 // W consecutive values at p as one vector load (two in float64 at W = 4);
 // p is aligned for it.
 template <int W, typename T>
@@ -247,7 +270,7 @@ __device__ __forceinline__ void atb_tile(const T* L, int ldl, int m, const T* R,
 #pragma unroll
   for (int i = 0; i < TILE; ++i)
 #pragma unroll
-    for (int j = 0; j < TILE; ++j) acc[i][j] = a[i] * b[j];
+    for (int j = 0; j < TILE; ++j) acc[i][j] = mul_rn(a[i], b[j]);
   if (vl && vr) {
 #pragma unroll 4
     for (int v = 1; v < nv; ++v) {
@@ -274,16 +297,23 @@ __device__ __forceinline__ void atb_tile(const T* L, int ldl, int m, const T* R,
   }
 }
 
-// n values copied by the whole CTA into a working buffer: asynchronously
-// where the buffer lies in shared memory (the caller commits and waits),
-// with plain loads and stores where it lies in the workspace.
+// n values copied into a working buffer by `nth` threads of which this is
+// number `tid` (default: the whole CTA): asynchronously where the buffer lies
+// in shared memory (the caller commits and waits), with plain loads and
+// stores where it lies in the workspace.
+template <bool SHARED, typename T>
+__device__ __forceinline__ void stage_copy(T* dst, const T* src, int n, int tid,
+                                           int nth) {
+  if constexpr (SHARED) {
+    copy_async(dst, src, n, tid, nth);
+  } else {
+    for (int i = tid; i < n; i += nth) dst[i] = src[i];
+  }
+}
+
 template <bool SHARED, typename T>
 __device__ __forceinline__ void stage_copy(T* dst, const T* src, int n) {
-  if constexpr (SHARED) {
-    copy_async(dst, src, n);
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  }
+  stage_copy<SHARED>(dst, src, n, (int)threadIdx.x, (int)blockDim.x);
 }
 
 // The CTA's threads as nxt columns by nyt rows for a phase whose outputs
@@ -354,7 +384,7 @@ __device__ __forceinline__ void bd_right(const T* In, int ldin, int nrows,
   const T a0 = blk[0];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    acc[i] = r0 + i < nrows ? in[i * ldin] * a0 : T(0);
+    acc[i] = r0 + i < nrows ? mul_rn(in[i * ldin], a0) : T(0);
   for (int b = 1; b < nx; ++b) {
     const T a = blk[b * w];
 #pragma unroll
@@ -495,6 +525,70 @@ __device__ __forceinline__ void gauss_jordan(T* M, T* prow2, T* colv2, int nuf,
   }
 }
 
+// The same elimination for a narrow problem (nuf <= NR <= 32 rows, ncol <=
+// 32 NCB columns), run by ONE warp with no barrier at all: lane l keeps
+// columns l, l + 32, ... of every row in registers, so a pivot is a
+// reciprocal, one shuffle per row for the pivot column and the row's
+// multiply-adds; nothing is published through shared memory.  Every entry's
+// arithmetic is gauss_jordan's: M[r][j] -= M[r][kp] (M[kp][j] (1 / M[kp][kp])).
+// The solution leaves negated, straight from the registers: the gains K = -X
+// into Kt (shared memory, row stride nxf) and Kg_t (device memory, the step's
+// contiguous block), d = -x into dt and dg_t.  The other warps of the CTA
+// wait at the caller's barrier.
+template <int NR, int NCB, typename T>
+__device__ __forceinline__ void gauss_jordan_warp(const T* M, int nuf, int nxf,
+                                                  T* Kt, T* Kg_t, T* dt,
+                                                  T* dg_t) {
+  const int lane = threadIdx.x & 31, ncol = nuf + nxf + 1;
+  T reg[NR][NCB];
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int b = 0; b < NCB; ++b) {
+      const int j = lane + 32 * b;
+      reg[r][b] = r < nuf && j < ncol ? M[r * ncol + j] : T(0);
+    }
+  // The loop over pivots is unrolled, so the pivot's register row kp and
+  // column block bk are constants; column blocks left of bk are dead.  Rows
+  // past nuf hold zeros and stay zero.
+#pragma unroll
+  for (int kp = 0; kp < NR; ++kp) {
+    if (kp < nuf) {
+      const int bk = kp / 32, lk = kp % 32;
+      // All of the pivot column's shuffles first, so that they are in
+      // flight together and under the reciprocal.
+      T cr[NR], pj[NCB];
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        cr[r] = __shfl_sync(0xffffffffu, reg[r][bk], lk);
+      const T inv = T(1) / cr[kp];
+#pragma unroll
+      for (int b = bk; b < NCB; ++b) pj[b] = reg[kp][b] * inv;
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int b = bk; b < NCB; ++b)
+          reg[r][b] = r == kp ? pj[b] : reg[r][b] - cr[r] * pj[b];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int b = 0; b < NCB; ++b) {
+      const int j = lane + 32 * b - nuf;  // column of [K | d]
+      if (r < nuf && j >= 0 && j <= nxf) {
+        const T v = -reg[r][b];
+        if (j < nxf) {
+          Kt[r * nxf + j] = v;
+          Kg_t[r * nxf + j] = v;
+        } else {
+          dt[r] = v;
+          dg_t[r] = v;
+        }
+      }
+    }
+}
+
 // Cycles of each phase of one sweep, summed over the steps by the first
 // thread of the first CTA, when compiled with -DDPILQR_PHASE_CLOCKS
 // (scripts/riccati_phase_clocks.py); nothing otherwise.
@@ -507,20 +601,43 @@ __device__ unsigned long long riccati_phase_clocks[RICCATI_PHASES];
     riccati_phase_clocks[i] += now_ - phase_start_;        \
     phase_start_ = now_;                                   \
   }
+// The cycles the phases of this translation unit's kernel took since the
+// last reset: copies the RICCATI_PHASES sums to `out` after a device
+// synchronize, then clears them.
+inline int riccati_read_phase_clocks(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, riccati_phase_clocks,
+                               sizeof(unsigned long long) * RICCATI_PHASES);
+  const unsigned long long zero[RICCATI_PHASES] = {0};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(riccati_phase_clocks, zero, sizeof(zero));
+  return (int)err;
+}
 #else
 #define RICCATI_CLOCK(i)
 #endif
 
 // TILE: the register tile of the nuf-deep products; TIER: where the groups
-// live (riccati_plan), which decides what can be copied asynchronously.
-template <int TILE, int TIER, typename T>
+// live (riccati_plan), which decides what can be copied asynchronously;
+// GJ_NR, GJ_NCB: where GJ_NR > 0 the elimination runs in one warp's
+// registers (gauss_jordan_warp: nuf <= GJ_NR, ncol <= 32 GJ_NCB) and writes
+// the gains itself, so phases 3 and 4 are one; NXS, NUS, KS: where not 0, the
+// slot widths nx and nu and the slot count K as compile-time constants (the
+// index divisions become shifts or multiplications and the loops over a
+// block unroll: at nxf 32 more than half of phases 1 and 2 was index
+// arithmetic on the dependent chain).
+template <int TILE, int TIER, int GJ_NR = 0, int GJ_NCB = 0, int NXS = 0,
+          int NUS = 0, int KS = 0, typename T>
 __device__ __forceinline__ void riccati_sweep(
     const T* __restrict__ A, const T* __restrict__ B,
     const T* __restrict__ Luu, const T* __restrict__ Lxx,
     const T* __restrict__ Lx, const T* __restrict__ Lu, const T mu,
     const T* __restrict__ p0, const T* __restrict__ P0, T* __restrict__ Kg,
-    T* __restrict__ dg, int N, int K, int nx, int nu,
+    T* __restrict__ dg, int N, int K_arg, int nx_arg, int nu_arg,
     const RiccatiWork<T>& ws) {
+  const int nx = NXS ? NXS : nx_arg, nu = NUS ? NUS : nu_arg;
+  const int K = KS ? KS : K_arg;
   const int nxf = K * nx, nuf = K * nu;
   const int ncol = nuf + nxf + 1;  // Gauss-Jordan tableau [Quu | Qux | Qu]
   T* const P = ws.P;
@@ -549,36 +666,40 @@ __device__ __forceinline__ void riccati_sweep(
   long long phase_start_ = clock64();
 #endif
 
-  // One group of copies: step t's A, B, L_x and L_u rows.
-  auto fetch_step = [&](int t) {
-    stage_copy<TIER <= 1>(At, A + (size_t)t * K * nx * nx, K * nx * nx);
-    stage_copy<TIER <= 1>(Bt, B + (size_t)t * K * nx * nu, K * nx * nu);
-    stage_copy<true>(ws.lx, Lx + (size_t)t * nxf, nxf);
-    stage_copy<true>(ws.lu, Lu + (size_t)t * nuf, nuf);
+  // One group of copies: step t's A, B, L_x and L_u rows, by threads ft of
+  // fn.  Where one warp eliminates alone, the others fetch meanwhile.
+  const bool warp_gj = GJ_NR > 0 && nth > 32;
+  auto fetch_step = [&](int t, int ft, int fn) {
+    stage_copy<TIER <= 1>(At, A + (size_t)t * K * nx * nx, K * nx * nx, ft, fn);
+    stage_copy<TIER <= 1>(Bt, B + (size_t)t * K * nx * nu, K * nx * nu, ft, fn);
+    stage_copy<true>(ws.lx, Lx + (size_t)t * nxf, nxf, ft, fn);
+    stage_copy<true>(ws.lu, Lu + (size_t)t * nuf, nuf, ft, fn);
     __pipeline_commit();
   };
-  if (N > 0) fetch_step(N - 1);
+  if (N > 0) fetch_step(N - 1, tid, nth);
+  __pipeline_wait_prior(0);
+  __syncthreads();  // P, p and the last step's A, B, L_x, L_u are in place
 
   for (int t = N - 1; t >= 0; --t) {
     // The step's L_xx and L_uu, into the buffers of Q_xx and Q_uu (free
-    // since the last step's phases 7 and 5); they land during phase 1.
+    // since the last step's phases 7 and 5); they land during phase 1.  The
+    // step's A, B, L_x and L_u landed before the barrier that ended the
+    // step before (or the one above), so phase 1 starts at once.
     stage_copy<TIER == 0>(Qxx, Lxx + (size_t)t * nxf * nxf, nxf * nxf);
     stage_copy<TIER <= 1>(Quu, Luu + (size_t)t * nuf * nuf, nuf * nuf);
     __pipeline_commit();
-    __pipeline_wait_prior(1);  // A, B, L_x, L_u of this step
-    __syncthreads();
     RICCATI_CLOCK(0)
 
     // Phase 1: Q_x, Q_u, A^T P, B^T (P + mu I).
     for (int i = tid; i < nxf; i += nth) {
       const int k = i / nx, j = i % nx;
-      T acc = At[(k * nx) * nx + j] * p[k * nx];
+      T acc = mul_rn(At[(k * nx) * nx + j], p[k * nx]);
       for (int b = 1; b < nx; ++b) acc += At[(k * nx + b) * nx + j] * p[k * nx + b];
       Qx[i] = ws.lx[i] + acc;
     }
     for (int i = tid; i < nuf; i += nth) {
       const int k = i / nu, j = i % nu;
-      T acc = Bt[(k * nx) * nu + j] * p[k * nx];
+      T acc = mul_rn(Bt[(k * nx) * nu + j], p[k * nx]);
       for (int b = 1; b < nx; ++b) acc += Bt[(k * nx + b) * nu + j] * p[k * nx + b];
       Qu[i] = ws.lu[i] + acc;
     }
@@ -638,15 +759,24 @@ __device__ __forceinline__ void riccati_sweep(
     for (int i = tid; i < nuf; i += nth) M[i * ncol + nuf + nxf] = Qu[i];
     __syncthreads();
     RICCATI_CLOCK(2)
-    if (t > 0) fetch_step(t - 1);  // A_t, B_t and the staged rows are done with
+    // A_t, B_t and the staged rows are done with.
+    if (t > 0 && !warp_gj) fetch_step(t - 1, tid, nth);
 
-    // Phase 3: the solve [K | d] = -Quu^-1 [Qux | Qu].
-    gauss_jordan(M, ws.prow, ws.colv, nuf, ncol);
-    __syncthreads();
-    RICCATI_CLOCK(3)
+    // Phases 3 and 4: the solve [K | d] = -Quu^-1 [Qux | Qu] and the gains
+    // K = -X, d = -x; a step's block is contiguous.
+    if constexpr (GJ_NR > 0) {
+      if (tid < 32)
+        gauss_jordan_warp<GJ_NR, GJ_NCB>(M, nuf, nxf, Kt,
+                                         Kg + (size_t)t * nuf * nxf, dt,
+                                         dg + (size_t)t * nuf);
+      else if (t > 0)
+        fetch_step(t - 1, tid - 32, nth - 32);
+      RICCATI_CLOCK(3)
+    } else {
+      gauss_jordan(M, ws.prow, ws.colv, nuf, ncol);
+      __syncthreads();
+      RICCATI_CLOCK(3)
 
-    // Phase 4: gains K = -X, d = -x; a step's block is contiguous.
-    {
       const Grid2 g = grid2(nxf);
       T* const Kg_t = Kg + (size_t)t * nuf * nxf;
       if (g.on)
@@ -656,18 +786,18 @@ __device__ __forceinline__ void riccati_sweep(
             Kt[r * nxf + c] = kval;
             Kg_t[r * nxf + c] = kval;
           }
-    }
-    for (int r = tid; r < nuf; r += nth) {
-      const T dval = -M[r * ncol + nuf + nxf];
-      dt[r] = dval;
-      dg[(size_t)t * nuf + r] = dval;
+      for (int r = tid; r < nuf; r += nth) {
+        const T dval = -M[r * ncol + nuf + nxf];
+        dt[r] = dval;
+        dg[(size_t)t * nuf + r] = dval;
+      }
     }
     __syncthreads();
     RICCATI_CLOCK(4)
 
     // Phase 5: w = Quu d + Qu, Quu K, K^T Qux (into AtP), in register tiles.
     for (int r = tid; r < nuf; r += nth) {
-      T acc = Quu[r] * dt[0];
+      T acc = mul_rn(Quu[r], dt[0]);
       for (int v = 1; v < nuf; ++v) acc += Quu[v * nuf + r] * dt[v];
       w[r] = acc + Qu[r];
     }
@@ -698,9 +828,9 @@ __device__ __forceinline__ void riccati_sweep(
     // + (K^T Qux)^T (into Qxx; a tile is read and written by one thread,
     // the transposed tile of K^T Qux read a row segment at a time).
     for (int c = tid; c < nxf; c += nth) {
-      T a1 = Kt[c] * w[0];
+      T a1 = mul_rn(Kt[c], w[0]);
       for (int v = 1; v < nuf; ++v) a1 += Kt[v * nxf + c] * w[v];
-      T a2 = Qux[c] * dt[0];
+      T a2 = mul_rn(Qux[c], dt[0]);
       for (int v = 1; v < nuf; ++v) a2 += Qux[v * nxf + c] * dt[v];
       p[c] = Qx[c] + a1 + a2;
     }
@@ -747,6 +877,7 @@ __device__ __forceinline__ void riccati_sweep(
           store_row<TILE>(P + (r0 + i) * nxf + c0, nxf - c0, full, q);
         }
     }
+    __pipeline_wait_prior(0);  // the next step's A, B, L_x, L_u
     __syncthreads();
     RICCATI_CLOCK(7)
   }

@@ -7,7 +7,8 @@ two batched sweeps over all of them:
 
 - ``backward_pass_batched``: the Riccati recursion (reference
   control.py:116-148), kernel ``csrc/backward_batched.cu`` for flat states
-  up to 32 wide and ``csrc/backward_batched_wide.cu`` up to 96;
+  up to 32 wide and ``csrc/backward_batched_wide.cu`` for every wider one
+  whose working set the card can place (``riccati_smem_bytes``);
 - ``forward_pass_batched``: the closed-loop line-search rollout over all
   alphas (control.py:95-114,162), kernel ``csrc/forward_batched.cu``.
 
@@ -56,14 +57,13 @@ from .costs import (
 from .cuda_build import check_tensors, launch, require_cuda, riccati_plan
 from .ilqr import SolveResult, line_search_alphas
 
-# Widest flat state (K * nx_p) of the narrow backward kernel; wider
-# subproblems, up to WIDE_MAX_NXF, take the wide one, and the forward kernel
-# takes them all.  The JAX package has no kernel past 96 either
-# (pallas_batched.WIDE_NXF_LIMIT).  No model has more controls than states
-# (at most 2 per 3: Car3D), so flat controls stay within MAX_NUF.
+# Widest flat state (K * nx_p, and K * nu_p) of the narrow backward kernel,
+# whose elimination keeps the tableau in one warp's registers; wider
+# subproblems take the wide one.  Past that routing the only width limit is
+# the card's: what ``riccati_smem_bytes`` and ``forward_smem_bytes`` can
+# place in the shared memory of a block (the rest lies in a device-memory
+# workspace), e.g. Quad6D at K = 32 (nxf 192, nuf 96) in either type.
 MAX_NXF = 32
-WIDE_MAX_NXF = 96
-MAX_NUF = 64
 
 # Compaction granularity of the retirement schedule (widths halve, rounded
 # up to a multiple of this).
@@ -130,9 +130,10 @@ def riccati_smem_bytes(K: int, nx: int, nu: int, itemsize: int,
     if vec <= room:
         return 2, vec * itemsize, value + gain
     raise ValueError(
-        f"backward kernels: the vectors of a problem with K*nx={K * nx}, "
-        f"K*nu={K * nu} take {vec * itemsize} bytes of shared memory, over "
-        f"the {limit} a block may use")
+        f"backward kernels: riccati_plan finds no tier for a problem with "
+        f"K*nx={K * nx}, K*nu={K * nu}: its vectors alone take "
+        f"{vec * itemsize} bytes of shared memory, over the {limit} a block "
+        "may use")
 
 
 def forward_smem_bytes(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
@@ -153,9 +154,9 @@ def forward_smem_bytes(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
         if nbytes <= limit:
             return n_stage, nbytes
     raise ValueError(
-        f"forward_batched: one stage of a subproblem with K*nx={nxf}, "
-        f"K*nu={nuf} and {warps} alphas a CTA takes {nbytes} bytes of shared "
-        f"memory, over the {limit} a block may use")
+        f"forward kernels: one stage (a step's gain block and rows) of a "
+        f"problem with K*nx={nxf}, K*nu={nuf} and {warps} alphas a CTA takes "
+        f"{nbytes} bytes of shared memory, over the {limit} a block may use")
 
 
 # ---------------------------------------------------------------------------
@@ -290,21 +291,22 @@ def backward_pass_batched_torch(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
     return Kg.permute(_inverse(GAIN_ORDER)), d.permute(_inverse(D_ORDER))
 
 
-def _check_width(name: str, nxf: int, nuf: int, max_nxf: int):
-    if nxf > WIDE_MAX_NXF or nuf > MAX_NUF:
-        raise NotImplementedError(
-            f"{name}: K*nx_p={nxf}, K*nu_p={nuf}: no kernel takes flat states "
-            f"wider than {WIDE_MAX_NXF} or controls wider than {MAX_NUF}; "
-            'sweep_backend="torch" runs the plain PyTorch twin'
-        )
-    if nxf > max_nxf:
+def _check_width(name: str, K: int, nx_p: int, nu_p: int, itemsize: int,
+                 narrow: bool = False):
+    """Raise unless backward kernel ``name`` takes subproblems of ``K``
+    slots: the narrow kernel up to ``MAX_NXF`` flat states and controls, the
+    wide one whatever ``riccati_smem_bytes`` places (it raises, naming the
+    plan, where no tier fits)."""
+    nxf, nuf = K * nx_p, K * nu_p
+    if narrow and max(nxf, nuf) > MAX_NXF:
         raise ValueError(
-            f"{name} takes K*nx_p <= {max_nxf}, got {nxf}: wider subproblems "
-            "take backward_pass_batched_wide_cuda"
+            f"{name} takes K*nx_p, K*nu_p <= {MAX_NXF}, got {nxf}, {nuf}: "
+            "wider subproblems take backward_pass_batched_wide_cuda"
         )
+    riccati_smem_bytes(K, nx_p, nu_p, itemsize)
 
 
-def _launch_backward(kernel, max_nxf, A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0,
+def _launch_backward(kernel, narrow, A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0,
                      workspace=False):
     """Check the backward inputs and launch ``kernel`` (with the
     per-subproblem device-memory ``workspace`` its plan asks for); returns
@@ -313,7 +315,7 @@ def _launch_backward(kernel, max_nxf, A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0,
     S, N, K, nx_p, _ = A.shape
     nu_p = B.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
-    _check_width(kernel, nxf, nuf, max_nxf)
+    _check_width(kernel, K, nx_p, nu_p, A.element_size(), narrow)
     require_cuda(kernel, A)
     ins = dict(A=A, B=B, L_uu=L_uu, L_xx=L_xx, L_x=L_x, L_u=L_u, mu=mu, p0=p0,
                P0=P0)
@@ -323,7 +325,6 @@ def _launch_backward(kernel, max_nxf, A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0,
         "L_x": (S, N, nxf), "L_u": (S, N, nuf), "mu": (S,),
         "p0": (S, nxf), "P0": (S, nxf, nxf),
     }, A.dtype, A.device)
-    riccati_smem_bytes(K, nx_p, nu_p, A.element_size())  # raises on no fit
     Kg = A.new_empty((S, N, nuf, nxf))
     d = A.new_empty((S, N, nuf))
     work = ()
@@ -340,17 +341,17 @@ def backward_pass_batched_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
     recursion for all subproblems, one CTA each.  Inputs as
     ``_quadraticize_batch`` / ``_linearize_batch`` produce them; returns
     ``Kg (N, nuf, nxf, S)``, ``d (N, nuf, S)``."""
-    return _launch_backward("backward_batched", MAX_NXF, A, B, L_uu, L_xx,
+    return _launch_backward("backward_batched", True, A, B, L_uu, L_xx,
                             L_x, L_u, mu, p0, P0)
 
 
 def backward_pass_batched_wide_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
-    """Launch ``csrc/backward_batched_wide.cu`` (K * nx_p <= 96): the same
-    contract as ``backward_pass_batched_cuda``.  Each subproblem's working
-    set lies in shared memory where it fits (``riccati_smem_bytes``), else
-    its three nxf^2 matrices (and then its gain blocks) in a device-memory
-    workspace."""
-    return _launch_backward("backward_batched_wide", WIDE_MAX_NXF, A, B, L_uu,
+    """Launch ``csrc/backward_batched_wide.cu`` (any width the card places):
+    the same contract as ``backward_pass_batched_cuda``.  Each subproblem's
+    working set lies in shared memory where it fits (``riccati_smem_bytes``),
+    else its three nxf^2 matrices (and then its gain blocks) in a
+    device-memory workspace; it raises where not even the vectors fit."""
+    return _launch_backward("backward_batched_wide", False, A, B, L_uu,
                             L_xx, L_x, L_u, mu, p0, P0, workspace=True)
 
 
@@ -362,8 +363,9 @@ def backward_pass_batched(
     ``X (S, N+1, K, nx_p)``, ``U (S, N, K, nu_p)``, ``mu (S,)``,
     ``mids_s (S, K)`` per-slot branch indices.  Returns ``Kg (N, nuf, nxf,
     S)`` and ``d (N, nuf, S)``, the JAX package's layout.  On the kernels
-    flat states up to 32 wide take the narrow kernel and up to 96 the wide
-    one (the JAX package's routing, pallas_batched.py:989-1001).
+    flat states up to 32 wide take the narrow kernel and wider ones the wide
+    one (the JAX package's routing, pallas_batched.py:989-1001, which past
+    96 falls to its XLA scans; here the wide kernel goes on).
     """
     q = _quadraticize_batch(cost_b, X, U)
     A, B = _linearize_batch(fleet, cost_b, mids_s, X, U)
@@ -468,13 +470,12 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     nu_p = U.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
     n_alpha = alphas.shape[0]
-    _check_width("forward_batched", nxf, nuf, WIDE_MAX_NXF)
+    forward_smem_bytes(K, nx_p, nu_p, n_alpha, X.element_size(),
+                       gains=Kg is not None)  # raises on no fit
     require_cuda("forward_batched", X)
     if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
         raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
     dtype, dev = X.dtype, X.device
-    forward_smem_bytes(K, nx_p, nu_p, n_alpha, X.element_size(),
-                       gains=Kg is not None)  # raises on no fit
     model, nsub, dh = _slot_tables(fleet, mids_s, dtype)
     if Kg is not None:
         Kg, d = as_layout(Kg, GAIN_ORDER), as_layout(d, D_ORDER)

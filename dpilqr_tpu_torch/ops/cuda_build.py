@@ -50,7 +50,7 @@ _SIGNATURES = {
     "backward_batched_wide": [_P] * 12 + [_L] + [_I] * 5 + [_P],
     "backward_sweep": [_P] * 12 + [_L] + [_I] * 4 + [_P],
     "forward_batched": [_P] * 20 + [_I] * 6 + [_P],
-    "forward_sweep": [_P] * 20 + [_I] * 5 + [_P],
+    "forward_sweep": [_P] * 21 + [_I] * 6 + [_P],
     "probe_fma": [_P] * 2 + [_L, _I] + [_F] * 8 + [_P],
     "probe_hbm": [_P] * 2 + [_I, _L] + [_P],
     "probe_sin": [_P] * 2 + [_L, _I] + [_P],

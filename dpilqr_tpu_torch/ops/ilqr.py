@@ -95,9 +95,30 @@ def _rollout_fn(step_fn, cost: GameCost, x0, U):
     return torch.stack(X), J
 
 
-def rollout(fleet, cost: GameCost, x0, U):
-    """Public rollout on a static fleet: ``(X, J)``."""
-    return _rollout_fn(fleet.step, cost, x0, U)
+def rollout_backend(device) -> str:
+    """Which rollout serves tensors on ``device``: "cuda", the kernel
+    ``csrc/forward_sweep.cu`` without gains, for a CUDA device; "torch", the
+    plain versions ``_rollout_fn`` / ``_rollout_batched_cost``, for the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+def rollout(fleet, cost: GameCost, x0, U, time_batched_cost: bool = False):
+    """Public rollout on a static fleet: ``x0 (n, nx_p)``, ``U (N, n, nu_p)``
+    -> ``X (N+1, n, nx_p)``, ``J ()``.
+
+    Picks by the device of ``x0`` (``rollout_backend``): CUDA tensors take
+    the kernel (``sweeps.rollout_cuda``; a failed launch raises), CPU tensors
+    the plain versions: ``_rollout_fn``, or with ``time_batched_cost`` (the
+    stitched plan's joint cost) ``_rollout_batched_cost``.  The kernel sums
+    each step's cost and then the steps in order, so its J differs from
+    either plain version by a float rounding."""
+    if rollout_backend(x0.device) == "cuda":
+        from . import sweeps
+
+        return sweeps.rollout_cuda(fleet, cast_cost(cost, x0.dtype),
+                                   x0.contiguous(), U.contiguous())
+    plain = _rollout_batched_cost if time_batched_cost else _rollout_fn
+    return plain(fleet.step, cost, x0, U)
 
 
 def _rollout_batched_cost(step_fn, cost: GameCost, x0, U):

@@ -8,8 +8,10 @@ the whole fleet (``X (N+1, n, nx_p)``, ``U (N, n, nu_p)``), flat gains
   (twin: ``ops.ilqr._backward_pass``);
 - ``forward_pass_cuda``: the closed-loop line search over all alphas,
   kernel ``csrc/forward_sweep.cu`` (twin: ``ops.ilqr._forward_pass``), and
-  ``rollout_cuda``, the same kernel with no gains (twin:
-  ``ops.ilqr._rollout_fn``).
+  ``rollout_cuda``, the same kernel with no gains: the plain rollout of a
+  fleet of any size (twins: ``ops.ilqr._rollout_fn``,
+  ``_rollout_batched_cost``), which ``ops.ilqr.rollout`` routes every CUDA
+  rollout to (the stitched plan's joint cost, the executed trajectory's).
 
 The quadraticization and linearization run in torch before the backward
 kernel, as in the JAX package (``pallas_sweeps.py:430-454``), through the
@@ -19,12 +21,26 @@ agent.  The wrappers take CUDA tensors only and raise otherwise.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..models.fleet import Fleet
-from .batched import _linearize_batch, _quadraticize_batch, _slot_tables
+from .batched import (
+    _linearize_batch,
+    _quadraticize_batch,
+    _slot_tables,
+    forward_smem_bytes,
+)
 from .costs import GameCost, cast_cost
 from .cuda_build import check_tensors, launch, require_cuda, riccati_plan
+
+
+@lru_cache(maxsize=64)
+def _branch_indices(fleet: Fleet, device):
+    """``fleet.branch_index_array`` on ``device``, copied once: it is a host
+    array, and a copy from pageable memory waits for the stream."""
+    return torch.as_tensor(fleet.branch_index_array, device=device)
 
 
 def backward_sweep_inputs(fleet: Fleet, cost: GameCost, X, U, mu) -> dict:
@@ -33,7 +49,7 @@ def backward_sweep_inputs(fleet: Fleet, cost: GameCost, X, U, mu) -> dict:
     ()``."""
     dtype, dev = X.dtype, X.device
     cost_b = GameCost(*(a[None] for a in cast_cost(cost, dtype)))
-    mids = torch.as_tensor(fleet.branch_index_array, device=dev)[None]
+    mids = _branch_indices(fleet, dev)[None]
     q = _quadraticize_batch(cost_b, X[None], U[None])
     A, B = _linearize_batch(fleet, cost_b, mids, X[None], U[None])
     return dict(A=A[0], B=B[0], L_uu=q["L_uu"][0], L_xx=q["L_xx"][0],
@@ -73,49 +89,77 @@ def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
     return launch_backward_sweep(**backward_sweep_inputs(fleet, cost, X, U, mu))
 
 
-def forward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
-    """Launch ``csrc/forward_sweep.cu``: the closed-loop rollouts ``u = U +
-    K (x - X) + alpha d`` for all ``alphas (n_alpha,)`` in one launch (plain
-    rollouts of U when ``K`` and ``d`` are None).  Returns ``X_c (n_alpha,
-    N+1, n, nx_p)``, ``U_c (n_alpha, N, n, nu_p)``, ``J_c (n_alpha,)``."""
+# Parts a step's cost may be split into by the plain rollout
+# (COST_PARTS_MAX in csrc/forward_sweep.cu): its scratch is one value a part
+# and step.
+ROLLOUT_COST_PARTS = 32
+
+
+@lru_cache(maxsize=64)
+def _agent_tables(fleet: Fleet, dtype, device):
+    """Per-agent ``(model id, RK4 substeps, dh)`` of ``fleet`` on ``device``,
+    built once per fleet, type and device."""
+    tables = _slot_tables(fleet, _branch_indices(fleet, device), dtype)
+    return tuple(t.contiguous() for t in tables)
+
+
+def _launch_forward_sweep(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
+    """Check the inputs of ``csrc/forward_sweep.cu`` and launch it: with
+    gains ``X (N+1, n, nx_p)`` is the nominal trajectory, without
+    ``X (n, nx_p)`` the initial state and ``alphas`` is None (one column)."""
     require_cuda("forward_sweep", X)
+    gains = K is not None
     N, n, nu_p = U.shape
-    nx_p = X.shape[2]
+    nx_p = X.shape[-1]
     nxf, nuf = n * nx_p, n * nu_p
-    n_alpha = alphas.shape[0]
+    n_alpha = alphas.shape[0] if gains else 1
     if fleet.n_agents != n or fleet.nx_p != nx_p or fleet.nu_p != nu_p:
         raise ValueError("X/U shapes do not match the fleet")
     dtype, dev = X.dtype, X.device
     cost = cast_cost(cost, dtype)
-    mids = torch.as_tensor(fleet.branch_index_array, device=dev)
-    model, nsub, dh = _slot_tables(fleet, mids, dtype)
+    model, nsub, dh = _agent_tables(fleet, dtype, dev)
     ins = dict(X=X, U=U, K=K, d=d, alphas=alphas, model=model, nsub=nsub,
                dh=dh, xf=cost.xf, Q=cost.Q, R=cost.R, Qf=cost.Qf,
                mask=cost.agent_mask, refw=cost.ref_weight.reshape(1),
                radius=cost.radius.reshape(1),
                proxw=cost.prox_weight.reshape(1), npos_eval=cost.n_pos_eval)
-    shapes = dict(X=(N + 1, n, nx_p), U=(N, n, nu_p), K=(N, nuf, nxf),
-                  d=(N, nuf), alphas=(n_alpha,), model=(n,), nsub=(n,),
-                  dh=(n,), xf=(n, nx_p), Q=(n, nx_p, nx_p), R=(n, nu_p, nu_p),
-                  Qf=(n, nx_p, nx_p), mask=(n,), refw=(1,), radius=(1,),
-                  proxw=(1,), npos_eval=(n,))
+    shapes = dict(X=(N + 1, n, nx_p) if gains else (n, nx_p), U=(N, n, nu_p),
+                  K=(N, nuf, nxf), d=(N, nuf), alphas=(n_alpha,), model=(n,),
+                  nsub=(n,), dh=(n,), xf=(n, nx_p), Q=(n, nx_p, nx_p),
+                  R=(n, nu_p, nu_p), Qf=(n, nx_p, nx_p), mask=(n,), refw=(1,),
+                  radius=(1,), proxw=(1,), npos_eval=(n,))
     check_tensors("forward_sweep",
                   {k: v for k, v in ins.items() if v is not None}, shapes,
                   dtype, dev, ints=("model", "nsub", "npos_eval"))
     X_c = X.new_empty((n_alpha, N + 1, n, nx_p))
-    U_c = X.new_empty((n_alpha, N, n, nu_p))
+    U_c = X.new_empty((n_alpha, N, n, nu_p)) if gains else None
     J_c = X.new_empty((n_alpha,))
-    launch("forward_sweep", dtype, dev, *ins.values(), X_c, U_c, J_c,
-           n, N, nx_p, nu_p, n_alpha)
+    work = None if gains else X.new_empty(((N + 1) * ROLLOUT_COST_PARTS,))
+    launch("forward_sweep", dtype, dev, *ins.values(), X_c, U_c, J_c, work,
+           n, N, nx_p, nu_p, n_alpha, 0 if gains else work.numel())
     return X_c, U_c, J_c
+
+
+def forward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
+    """Launch ``csrc/forward_sweep.cu`` with gains: the closed-loop rollouts
+    ``u = U + K (x - X) + alpha d`` for all ``alphas (n_alpha,)`` in one
+    launch, a warp per alpha.  Returns ``X_c (n_alpha, N+1, n, nx_p)``,
+    ``U_c (n_alpha, N, n, nu_p)``, ``J_c (n_alpha,)``.  A step's gain block
+    must fit a block's shared memory (``forward_smem_bytes`` with K = n
+    raises where it does not)."""
+    if K is None or d is None:
+        raise ValueError("forward_pass_cuda takes gains K and d; the plain "
+                         "rollout of U is rollout_cuda")
+    N, n, nu_p = U.shape
+    forward_smem_bytes(n, X.shape[-1], nu_p, alphas.shape[0], X.element_size())
+    return _launch_forward_sweep(fleet, cost, X, U, K, d, alphas)
 
 
 def rollout_cuda(fleet: Fleet, cost: GameCost, x0, U):
     """The plain rollout of ``U (N, n, nu_p)`` from ``x0 (n, nx_p)`` on
-    ``csrc/forward_sweep.cu`` (no gains, one alpha): ``X (N+1, n, nx_p)``,
-    ``J ()``."""
-    N = U.shape[0]
-    X_ref = x0[None].expand(N + 1, *x0.shape).contiguous()
-    X_c, _, J_c = forward_pass_cuda(fleet, cost, X_ref, U, None, None,
-                                    x0.new_zeros((1,)))
+    ``csrc/forward_sweep.cu`` without gains: a thread per agent integrates,
+    a grid of (step, pair tile) blocks sums the cost in a fixed order (J has
+    the same bits in every run), for fleets of any size.  Returns ``X (N+1,
+    n, nx_p)``, ``J ()``."""
+    X_c, _, J_c = _launch_forward_sweep(fleet, cost, x0, U, None, None, None)
     return X_c[0], J_c[0]

@@ -5,7 +5,8 @@ Counterpart of ``dpilqr_tpu/parallel/distributed.py`` (reference
 become one rectangular batch solved by ``solve_subproblems_batched`` (the
 batched sweep kernels on CUDA tensors, their torch twins on CPU tensors);
 each owner's rows are then scattered back and the stitched plan's joint
-cost rolled out.
+cost rolled out (``ops.ilqr.rollout``: the centralized forward kernel
+without gains on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..config import DEFAULT_CONFIG, SolverConfig, resolve_device
 from ..models.fleet import Fleet
 from ..ops.batched import solve_subproblems_batched
 from ..ops.costs import GameCost, cast_cost
-from ..ops.ilqr import _rollout_batched_cost
+from ..ops.ilqr import rollout
 from .graph import interaction_graph
 from .subproblems import (
     extract_owner,
@@ -141,8 +142,9 @@ def _solve_decomposed(fleet, cost, X, U, radius, ignore_mask, K, graph_n_d,
     X_dec = X_dec * keep[None, :, None]
     U_dec = U_dec * keep[None, :, None]
 
-    # 5. Joint cost of the stitched plan (distributed.py:99-103).
-    _, J_full = _rollout_batched_cost(fleet.step, cost, X[0], U_dec)
+    # 5. Joint cost of the stitched plan (distributed.py:99-103): the
+    #    rollout kernel on the card, the time-batched plain version on the CPU.
+    _, J_full = rollout(fleet, cost, X[0], U_dec, time_batched_cost=True)
 
     return DistributedResult(
         X=X_dec, U=U_dec, J=J_full, membership=membership, iters=res.iters,

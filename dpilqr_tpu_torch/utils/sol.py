@@ -33,8 +33,10 @@ term and leave out the work that exists only on the TPU:
 
 One backward count serves K1, K3 (``csrc/riccati.cuh`` is their common
 arithmetic) and K5 with ``K = n`` agents and ``S = 1``; one forward count
-serves K2, and K4 with ``S = 1``.  Byte counts follow the tensors the
-wrappers really pass (``ops/batched.py``, ``ops/sweeps.py``).
+serves K2, and K4 with ``S = 1``; K4 without gains (family ``rollout_sweep``:
+the plain rollout of a fleet) is the same count less the gain product, the
+gain bytes and the nominal trajectory, with one column.  Byte counts follow
+the tensors the wrappers really pass (``ops/batched.py``, ``ops/sweeps.py``).
 
 Each probe has a plain PyTorch version beside it (``probe_*_torch``) for the
 tests; the wrappers (``probe_*_cuda``) take CUDA tensors only and never give
@@ -163,14 +165,18 @@ def forward_step_trig_ops(K: int, nx_p: int, nu_p: int, n_alpha: int,
 
 
 def forward_step_flops(K: int, nx_p: int, nu_p: int, n_alpha: int,
-                       substeps: int, f_flops_per_slot: int = 2) -> int:
+                       substeps: int, f_flops_per_slot: int = 2,
+                       gains: bool = True) -> int:
     """FLOPs of ONE time step of the forward (line-search) sweep for ONE
-    (sub)problem across its ``n_alpha`` candidates (K2; K4 with K = n)."""
+    (sub)problem across its ``n_alpha`` candidates (K2; K4 with K = n);
+    without ``gains`` the plain rollout's: no gain product, no control
+    update."""
     nxf, nuf = K * nx_p, K * nu_p
     C = K * n_alpha  # slot columns per (sub)problem
     fl = 0
-    fl += 2 * nxf * nuf * n_alpha  # du = Kg dx
-    fl += 3 * nu_p * C  # u = U + du + alpha * d
+    if gains:
+        fl += 2 * nxf * nuf * n_alpha  # du = Kg dx
+        fl += 3 * nu_p * C  # u = U + du + alpha * d
     # stage cost: two quadratic forms + mask/weight muls
     fl += (2 * nx_p * nx_p + 2 * nx_p) * C
     fl += (2 * nu_p * nu_p + 2 * nu_p) * C
@@ -183,11 +189,15 @@ def forward_step_flops(K: int, nx_p: int, nu_p: int, n_alpha: int,
 
 
 def forward_step_hbm_bytes(K: int, nx_p: int, nu_p: int, n_alpha: int,
-                           dtype_bytes: int = 4) -> int:
+                           dtype_bytes: int = 4, gains: bool = True) -> int:
     """Device-memory bytes per time step per (sub)problem of the forward
     kernels: the nominal X and U rows, the gain block and d read once (all
-    alphas share them); one X and one U row written per alpha."""
+    alphas share them); one X and one U row written per alpha.  Without
+    ``gains`` (the plain rollout) the U row is read and the X row written,
+    nothing else."""
     nxf, nuf = K * nx_p, K * nu_p
+    if not gains:
+        return (nuf + nxf) * dtype_bytes
     n = nxf + nuf + nuf * nxf + nuf + n_alpha * (nxf + nuf)
     return n * dtype_bytes
 
@@ -448,7 +458,7 @@ def measure_batched_matmul_gflops(nb: int = 400, m: int = 16, k: int = 5,
 # ---------------------------------------------------------------------------
 
 BACKWARD_FAMILIES = ("backward", "backward_wide", "backward_sweep")
-FORWARD_FAMILIES = ("forward", "forward_sweep")
+FORWARD_FAMILIES = ("forward", "forward_sweep", "rollout_sweep")
 
 
 def sweep_work(family: str, N: int, K: int, nx_p: int, nu_p: int, S: int,
@@ -457,7 +467,8 @@ def sweep_work(family: str, N: int, K: int, nx_p: int, nu_p: int, S: int,
     """``(flops, sin/cos/tan evaluations, device-memory bytes)`` of one
     launch of a kernel family: ``backward`` (K1), ``backward_wide`` (K3) and
     ``backward_sweep`` (K5: K = n agents, S = 1) share one count, ``forward``
-    (K2) and ``forward_sweep`` (K4: S = 1) the other."""
+    (K2) and ``forward_sweep`` (K4: S = 1) the other; ``rollout_sweep`` is
+    K4 without gains (S = 1, one column: ``n_alpha`` is read as 1)."""
     if family in BACKWARD_FAMILIES:
         fl = backward_step_flops(K, nx_p, nu_p) * N * S
         by = (backward_step_hbm_bytes(K, nx_p, nu_p, dtype_bytes) * N
@@ -465,12 +476,16 @@ def sweep_work(family: str, N: int, K: int, nx_p: int, nu_p: int, S: int,
         return fl, 0, by
     if family in FORWARD_FAMILIES:
         w = model_work(model)
-        fl = forward_step_flops(K, nx_p, nu_p, n_alpha, w.substeps, w.f_flops) * N * S
+        gains = family != "rollout_sweep"
+        if not gains:
+            n_alpha = 1
+        fl = forward_step_flops(K, nx_p, nu_p, n_alpha, w.substeps, w.f_flops,
+                                gains) * N * S
         trig = forward_step_trig_ops(K, nx_p, nu_p, n_alpha, w.substeps, w.f_trig) * N * S
-        by = (forward_step_hbm_bytes(K, nx_p, nu_p, n_alpha, dtype_bytes) * N
+        by = (forward_step_hbm_bytes(K, nx_p, nu_p, n_alpha, dtype_bytes, gains) * N
               + forward_fixed_hbm_bytes(K, nx_p, nu_p, n_alpha, dtype_bytes,
-                                        sweep=family == "forward_sweep")) * S
-        return fl, trig, by + n_alpha * dtype_bytes  # the alphas, once
+                                        sweep=family != "forward")) * S
+        return fl, trig, by + (n_alpha * dtype_bytes if gains else 0)  # the alphas
     raise ValueError(f"unknown kernel family {family!r}")
 
 
@@ -597,7 +612,8 @@ def sol_report(device=None, n_alpha: int | None = None, k: int = 7) -> dict:
     Shapes (float32, N = 50, dt = 0.1, radius 0.5): K1 and K2 at Unicycle4D,
     K = 8, S = 128, ``n_alpha`` line-search candidates (default: the
     ``SolverConfig`` default); K3 at Quad6D, K = 16, S = 64 (nxf 96, nuf 48);
-    K5 and K4 at 10 unicycles; the associative scan at 4 unicycles and
+    K5 and K4 at 10 unicycles, K4 without gains (the plain rollout) at 100
+    unicycles; the associative scan at 4 unicycles and
     N = 200 beside the sequential PyTorch sweep and K5 on the same problem.
     Raises without a CUDA device."""
     dev = _device(device)
@@ -680,6 +696,16 @@ def _sol_report(dev, n_alpha, k):
     add("K4", "forward_sweep", "forward_sweep",
         lambda: sweeps.forward_pass_cuda(fleet5, cost5, X5, U5, K5g, d5, alphas),
         shape5, "Unicycle4D", torch.isfinite(J4).all())
+    # K4 without gains: the plain rollout of a 100-unicycle fleet (the
+    # stitched plan's joint cost on the decomposed path).
+    fleet_r, cost_r, _, _, Xr, Ur = _report_problem(
+        UNICYCLE_4D, 100, 1, N, dt, radius, 0.0, 0.1, 4, dev)
+    x0_r, Ur = Xr[0, 0].contiguous(), Ur[0].contiguous()
+    Jr = sweeps.rollout_cuda(fleet_r, cost_r, x0_r, Ur)[1]
+    add("K4 rollout", "forward_sweep", "rollout_sweep",
+        lambda: sweeps.rollout_cuda(fleet_r, cost_r, x0_r, Ur),
+        dict(N=N, K=100, nx_p=fleet_r.nx_p, nu_p=fleet_r.nu_p, S=1), "Unicycle4D",
+        torch.isfinite(Jr))
 
     # The associative scan at a long horizon, beside the sequential PyTorch
     # sweep and K5 on the same problem.

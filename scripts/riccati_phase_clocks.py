@@ -1,63 +1,88 @@
 #!/usr/bin/env python3
-"""Where a step of the wide batched Riccati kernel (K3) spends its cycles.
+"""Where a step of a batched Riccati kernel (K1 narrow, K3 wide) spends its cycles.
 
 Builds the kernels with ``-DDPILQR_PHASE_CLOCKS`` (``csrc/riccati.cuh``: the
 first thread of the first CTA sums ``clock64()`` deltas between the phase
-barriers), launches ``backward_pass_batched_wide_cuda`` once at each of
-``chip_smoke.py``'s float32 shapes and prints the cycles per step of each
-phase.  Needs one CUDA device; run from the repository root:
+barriers), launches the kernel once at each shape and prints the cycles per
+step of each phase, with the launch's milliseconds beside them.  Needs one
+CUDA device; run from the repository root:
 
-    python3 scripts/riccati_phase_clocks.py
+    python3 scripts/riccati_phase_clocks.py                  # K3, the wide shapes
+    python3 scripts/riccati_phase_clocks.py --kernel narrow  # K1: S=100 at K=8, 4, 2, 1
+
+``--threads N`` builds K1 with N threads a CTA (``-DDPILQR_NARROW_THREADS``;
+256 is what ships).  K1's elimination stores the gains itself, so its phase
+4 reads as the wait at the barrier that follows.
 """
 
+import argparse
 import ctypes
 import os
 import sys
 
-os.environ["DPILQR_NVCC_FLAGS"] = "-DDPILQR_PHASE_CLOCKS"
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-
-import chip_smoke as cs  # noqa: E402
-import dpilqr_tpu_torch as dtt  # noqa: E402
-from dpilqr_tpu_torch.ops import batched as bt  # noqa: E402
-from dpilqr_tpu_torch.ops import cuda_build  # noqa: E402
-
-PHASES = ("load A, B", "1 Qx Qu AtP W1", "2 Qxx Qux Quu", "3 Gauss-Jordan",
+PHASES = ("issue Lxx, Luu", "1 Qx Qu AtP W1", "2 Qxx Qux Quu", "3 Gauss-Jordan",
           "4 gains", "5 QuuK KtQux", "6 value update", "7 symmetrize")
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=("wide", "narrow"), default="wide")
+    parser.add_argument("--threads", type=int, default=None)
+    opts = parser.parse_args()
+    flags = "-DDPILQR_PHASE_CLOCKS"
+    if opts.threads:
+        flags += f" -DDPILQR_NARROW_THREADS={opts.threads}"
+    os.environ["DPILQR_NVCC_FLAGS"] = flags  # read when cuda_build is imported
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+    from dpilqr_tpu_torch.ops import cuda_build
+
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     dev = torch.device("cuda", 0)
     lib = cuda_build.load_library()
-    lib.dpilqr_riccati_phase_clocks.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    narrow = opts.kernel == "narrow"
+    read = (lib.dpilqr_riccati_phase_clocks_narrow if narrow
+            else lib.dpilqr_riccati_phase_clocks)
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    launch = bt.backward_pass_batched_cuda if narrow else bt.backward_pass_batched_wide_cuda
     buf = (ctypes.c_ulonglong * len(PHASES))()
-    print(f"device: {torch.cuda.get_device_name(0)}; cycles per step (N = {cs.HORIZON}) "
-          "of the first CTA, float32")
+    print(f"device: {torch.cuda.get_device_name(0)}; {opts.kernel} kernel"
+          + (f", {opts.threads} threads" if opts.threads else "")
+          + f"; cycles per step (N = {cs.HORIZON}) of the first CTA, float32")
     g = 9.80665
-    cases = [("Unicycle4D K=8 nxf 32", None)] + [
-        (f"{m.name} K={K} nxf {K * m.n_x}", (m, K, us, trim)) for m, K, us, trim in (
-            (dtt.QUAD_6D, 8, 0.01, [g, 0, 0]), (dtt.QUAD_12D, 8, 1e-7, [0, 0, 0, g * 63 / 2000]),
-            (dtt.QUAD_6D, 16, 0.01, [g, 0, 0]))]
+    if narrow:
+        cases = [(f"Unicycle4D K={K} nxf {4 * K}", K) for K in (8, 4, 2, 1)]
+    else:
+        cases = [("Unicycle4D K=8 nxf 32", 8)] + [
+            (f"{m.name} K={K} nxf {K * m.n_x}", (m, K, us, trim)) for m, K, us, trim in (
+                (dtt.QUAD_6D, 8, 0.01, [g, 0, 0]),
+                (dtt.QUAD_12D, 8, 1e-7, [0, 0, 0, g * 63 / 2000]),
+                (dtt.QUAD_6D, 16, 0.01, [g, 0, 0]))]
     for tag, case in cases:
-        if case is None:
+        if isinstance(case, int):
             fleet, cost, x0 = cs.unicycle_problem(cs.N_AGENTS, 0.55, torch.float32, dev)
-            args = cs.sweep_inputs(fleet, cost, x0, 8, dev)[0]
+            args = cs.sweep_inputs(fleet, cost, x0, case, dev)[0]
         else:
             model, K, u_scale, trim = case
             fleet, cost, x0 = cs.quad_problem(model, 64, 0.7, torch.float32, dev)
             args = cs.sweep_inputs(fleet, cost, x0, K, dev, u_scale=u_scale,
                                    u_trim=np.array(trim))[0]
-        lib.dpilqr_riccati_phase_clocks(buf)  # clear
-        bt.backward_pass_batched_wide_cuda(*args)
-        if lib.dpilqr_riccati_phase_clocks(buf) != 0:
+        ms = cs.timed(lambda: launch(*args), 20)
+        read(buf)  # clear
+        launch(*args)
+        if read(buf) != 0:
             sys.exit("reading the phase clocks failed")
         per_step = np.array(list(buf), dtype=np.float64) / cs.HORIZON
-        print(f"{tag}: total {per_step.sum():.0f}; "
+        print(f"{tag} S={args[0].shape[0]}: {ms:.4f} ms a launch (clocks on); total "
+              f"{per_step.sum():.0f}; "
               + ", ".join(f"{name} {c:.0f}" for name, c in zip(PHASES, per_step)),
               flush=True)
 

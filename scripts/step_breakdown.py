@@ -3,15 +3,17 @@
 
 Wraps the sections of the decomposed solve (graph, gather, the batched
 solve loop with its torch preparation, the three batched kernels' wrappers,
-``select_alpha``, the stitched plan's joint-cost rollout) in wall-clock
-timers that synchronize the device before and after, then drives
-``chip_smoke.py``'s two closed loops (100 Unicycle4D agents at auto K; 64
-Quad6D agents at K=16), 5 MPC steps each after a warm-up run, and prints the
-milliseconds per step of every section.  The synchronizations serialize host
-and device, so the step itself runs slower here than in ``chip_smoke.py``;
-the shares are what this script is for.  Sections nest: the solve loop
-contains the preparation, the kernels and ``select_alpha``.  Needs one CUDA device;
-run from the repository root:
+``select_alpha``, the stitched plan's joint-cost rollout, which on the card
+is K4's wrapper ``rollout_cuda``) in wall-clock timers that synchronize the
+device before and after, then drives ``chip_smoke.py``'s closed loops (100
+Unicycle4D agents at auto K; 64 Quad6D agents at K=16 and at auto K), 5 MPC
+steps each after a warm-up run, and prints the milliseconds per step of
+every section and K4's share of the timed step.  The synchronizations
+serialize host and device, so the step itself runs slower here than in
+``chip_smoke.py``; the shares are what this script is for.  Sections nest:
+the solve loop contains the preparation, the kernels and ``select_alpha``;
+``rollout`` contains ``rollout_cuda``.  Needs one CUDA device; run from the
+repository root:
 
     python3 scripts/step_breakdown.py
 """
@@ -33,7 +35,8 @@ import dpilqr_tpu_torch as dtt  # noqa: E402
 SECTIONS = {
     "dpilqr_tpu_torch.parallel.distributed": (
         "interaction_graph", "gather_subproblems", "gather_cost", "gather_states",
-        "gather_controls", "solve_subproblems_batched", "_rollout_batched_cost"),
+        "gather_controls", "solve_subproblems_batched", "rollout"),
+    "dpilqr_tpu_torch.ops.sweeps": ("rollout_cuda",),
     "dpilqr_tpu_torch.ops.batched": (
         "init_batch_carry", "_quadraticize_batch", "_linearize_batch",
         "backward_pass_batched_cuda", "backward_pass_batched_wide_cuda",
@@ -73,6 +76,8 @@ def main():
             (cs.unicycle_problem(cs.N_AGENTS, 1.25, torch.float32, dev), None),
         "quad6d_64 loop (64 Quad6D, K=16)":
             (cs.quad_problem(dtt.QUAD_6D, 64, 0.85, torch.float32, dev), 16),
+        "quad6d_64 loop (64 Quad6D, auto K)":
+            (cs.quad_problem(dtt.QUAD_6D, 64, 0.85, torch.float32, dev), None),
     }
     for tag, ((fleet, cost, x0), K) in loops.items():
         cs.rhc_run(fleet, cost, x0, "cuda", cs.MPC_STEPS, K=K)  # warm-up
@@ -80,7 +85,9 @@ def main():
         run = cs.rhc_run(fleet, cost, x0, "cuda", cs.MPC_STEPS, K=K)
         per_step = {name: {"ms_per_step": ms / run["steps"], "calls_per_step": n / run["steps"]}
                     for name, (ms, n) in totals.items()}
-        print(f"{tag}: {run['ms_per_step']:.1f} ms a step with the timers on; "
+        k4 = per_step.get("rollout_cuda", {"ms_per_step": 0.0})["ms_per_step"]
+        print(f"{tag}: {run['ms_per_step']:.1f} ms a step with the timers on, of which "
+              f"K4's rollouts {k4:.3f} ms ({k4 / run['ms_per_step']:.4f}); "
               + json.dumps(per_step), flush=True)
 
 

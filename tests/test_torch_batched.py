@@ -219,22 +219,63 @@ def test_cuda_wrappers_reject_what_they_cannot_take():
         bt.forward_pass_batched_cuda(fleet_t, cost_t, mids_t, Xt, Ut, None,
                                      None, alphas)
     # Flat states past 32 take the wide kernel, whose wrapper reaches its
-    # CUDA check at nxf 48; past 96 no kernel exists and the wrappers raise
-    # NotImplementedError naming the limit.
+    # CUDA check at nxf 48, at nxf 100 and at Quad6D's K=32 (nxf 192, nuf 96)
+    # alike: no literal width stops it.  The first width riccati_plan cannot
+    # place (not even the vectors fit a block's shared memory) raises, naming
+    # the plan.
     wide = torch.zeros((S, N, 12, 4, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="wide"):
         bt.backward_pass_batched_cuda(wide, *args[1:])
     with pytest.raises(ValueError, match="CUDA"):
         bt.backward_pass_batched_wide_cuda(wide, *args[1:])
-    too_wide = torch.zeros((S, N, 25, 4, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="96"):
-        bt.backward_pass_batched_wide_cuda(too_wide, *args[1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        bt.backward_pass_batched_wide_cuda(
+            torch.zeros((S, N, 25, 4, 4), dtype=torch.float64), *args[1:])
+    for itemsize, dtype in ((4, torch.float32), (8, torch.float64)):
+        assert bt.riccati_smem_bytes(32, 6, 3, itemsize)[0] == 2
+        with pytest.raises(ValueError, match="CUDA"):
+            bt.backward_pass_batched_wide_cuda(
+                torch.zeros((1, 1, 32, 6, 6), dtype=dtype),
+                torch.zeros((1, 1, 32, 6, 3), dtype=dtype), *args[2:])
+
+    def placed(K_):
+        try:
+            bt.riccati_smem_bytes(K_, 4, 2, 8)
+        except ValueError:
+            return False
+        return True
+
+    first = next(K_ for K_ in range(1, 4000) if not placed(K_))
+    assert first > 192 and placed(first - 1)
+    with pytest.raises(ValueError, match="riccati_plan"):
+        bt.backward_pass_batched_wide_cuda(
+            torch.zeros((1, 1, first, 4, 4), dtype=torch.float64), *args[1:])
+    # The forward kernel: Quad12D at K=9 (nxf 108) reaches the CUDA check;
+    # the first K whose one stage (a step's gain block and rows) does not fit
+    # raises, saying that it is the stage.
     fleet_q = dtt.homogeneous_fleet(dtt.QUAD_12D, 9, 0.1)
     Xq = torch.zeros((S, N + 1, 9, 12), dtype=torch.float64)
     Uq = torch.zeros((S, N, 9, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="96"):
+    with pytest.raises(ValueError, match="CUDA"):
         bt.forward_pass_batched_cuda(fleet_q, cost_t, mids_t, Xq, Uq, None,
                                      None, alphas)
+
+    def staged(K_):
+        try:
+            bt.forward_smem_bytes(K_, 12, 4, 2, 8)
+        except ValueError:
+            return False
+        return True
+
+    first = next(K_ for K_ in range(1, 200) if not staged(K_))
+    assert first > 16 and staged(first - 1)
+    with pytest.raises(ValueError, match="one stage"):
+        bt.forward_pass_batched_cuda(
+            fleet_q, cost_t, mids_t,
+            torch.zeros((1, 2, first, 12), dtype=torch.float64),
+            torch.zeros((1, 1, first, 4), dtype=torch.float64),
+            torch.zeros((1, 4 * first, 12 * first, 1), dtype=torch.float64),
+            torch.zeros((1, 4 * first, 1), dtype=torch.float64), alphas)
     # Past the routing limit the kernels' own guard is the shared memory a
     # block may use: the sizing the wrappers consult answers any width and
     # raises only where nothing fits.

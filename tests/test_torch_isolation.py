@@ -73,6 +73,32 @@ KERNEL_SOURCES = {
 }
 
 
+# The headers the sources share, and which source must include which.
+KERNEL_HEADERS = {
+    "dynamics.cuh": ("rollout.cuh",),
+    "launch.cuh": ("riccati.cuh", "rollout.cuh"),
+    "riccati.cuh": ("backward_batched.cu", "backward_batched_wide.cu", "backward_sweep.cu"),
+    "rollout.cuh": ("forward_batched.cu", "forward_sweep.cu"),
+}
+
+
+@pytest.mark.parametrize("header", sorted(KERNEL_HEADERS))
+def test_kernel_headers_are_listed_hashed_and_included(header):
+    """Every header under csrc is one the table names (a new one must be
+    added here), is part of the build's source hash, and is included by the
+    files that share it; no source includes a header that is not there."""
+    import dpilqr_tpu_torch.ops.cuda_build as cb
+
+    csrc = PKG / "csrc"
+    assert {p.name for p in csrc.glob("*.cuh")} == set(KERNEL_HEADERS)
+    assert csrc / header in cb.sources()
+    for user in KERNEL_HEADERS[header]:
+        assert f'#include "{header}"' in (csrc / user).read_text(), (user, header)
+    for src in cb.sources():
+        for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (csrc / inc).exists(), (src.name, inc)
+
+
 @pytest.mark.parametrize("name", sorted(KERNEL_SOURCES))
 def test_kernel_sources_name_the_tpu_kernel_they_replace(name):
     text = (PKG / "csrc" / name).read_text()

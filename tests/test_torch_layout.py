@@ -29,14 +29,19 @@ torch.set_num_threads(1)
 HETERO = ["DoubleInt4D", "Car3D", "Bike5D"]
 # (K, nx_p, nu_p) of every subproblem shape chip_smoke.py drives and the
 # routing admits: the main path (K = 1 and 8), the routing datum (K = 2, 4,
-# 6), quadrotor swarms, the mixed fleet at K = 8, Car3D at the widest nuf.
+# 6), quadrotor swarms up to the quad6d_64 loop's auto K = 32 (nxf 192, nuf
+# 96), the mixed fleet at K = 8, Car3D at a wide nuf.
 SHAPES = [(1, 4, 2), (2, 4, 2), (4, 4, 2), (6, 4, 2), (8, 4, 2), (8, 6, 3),
-          (16, 6, 3), (4, 12, 4), (8, 12, 4), (8, 5, 2), (32, 3, 2), (24, 4, 2)]
+          (16, 6, 3), (4, 12, 4), (8, 12, 4), (8, 5, 2), (32, 3, 2), (24, 4, 2),
+          (32, 6, 3)]
 
 
-def _batch(names, S, K, N=4, seed=0):
+def _batch(names, S, K, N=4, seed=0, spread=0.3, rates=0.3):
     """Seeded batch over the models ``names`` with one padded slot: fleet,
-    cost fields, branch indices, X, U, mu (numpy, float64)."""
+    cost fields, branch indices, X, U, mu (numpy, float64).  States are
+    normal, the first two (positions) with deviation ``spread`` (at 0.3 most
+    slots lie inside each other's radius, 0.5), the rest (a third position,
+    headings, angles, rates) with deviation ``rates``."""
     rng = np.random.default_rng(seed)
     fleet = dtt.Fleet.from_names(names, 0.1)
     nx_p, nu_p = fleet.nx_p, fleet.nu_p
@@ -45,7 +50,8 @@ def _batch(names, S, K, N=4, seed=0):
     mask[S // 2, K - 1] = 0.0  # one padded slot
     smask = np.stack([[fleet.state_mask[m] for m in row] for row in mids])
     umask = np.stack([[fleet.control_mask[m] for m in row] for row in mids])
-    X = 0.3 * rng.standard_normal((S, N + 1, K, nx_p)) * smask[:, None]
+    X = rates * rng.standard_normal((S, N + 1, K, nx_p)) * smask[:, None]
+    X[..., :2] *= spread / rates
     U = 0.3 * rng.standard_normal((S, N, K, nu_p)) * umask[:, None]
     U = U * mask[:, None, :, None]
     n_pos = 3 if nx_p >= 6 else 2
@@ -192,7 +198,6 @@ def test_slot_tables_are_built_once_per_fleet(names):
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "K{}nx{}nu{}".format(*s))
 def test_every_routed_shape_fits_shared_memory(shape, itemsize):
     K, nx, nu = shape
-    assert K * nx <= bt.WIDE_MAX_NXF and K * nu <= bt.MAX_NUF
     tier, smem, work = bt.riccati_smem_bytes(K, nx, nu, itemsize)
     value, gain, vec = bt.riccati_sizes(K, nx, nu)
     assert tier in (0, 1, 2) and 0 < smem <= bt.SMEM_LIMIT
@@ -203,7 +208,9 @@ def test_every_routed_shape_fits_shared_memory(shape, itemsize):
     for n_alpha in (1, 2, 10):
         for gains in (True, False):
             stages, nbytes = bt.forward_smem_bytes(K, nx, nu, n_alpha, itemsize, gains)
-            assert stages == 2 and 0 < nbytes <= bt.SMEM_LIMIT
+            # Only nxf 192 in float64 is down to one stage of gains.
+            one = gains and (K * nx, itemsize) == (192, 8)
+            assert stages == (1 if one else 2) and 0 < nbytes <= bt.SMEM_LIMIT
 
 
 def test_working_set_placement_follows_type_and_width():
@@ -243,7 +250,7 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cuda_library_sizes_equal_the_python_mirrors(cuda_device):
     lib = cuda_build.load_library()
-    for K, nx, nu in SHAPES + [(32, 6, 3)]:
+    for K, nx, nu in SHAPES:
         for itemsize in (4, 8):
             assert cuda_build.riccati_plan(K, nx, nu, itemsize) == bt.riccati_smem_bytes(
                 K, nx, nu, itemsize)
@@ -297,4 +304,80 @@ def test_cuda_kernels_match_twins_at_compacted_widths(cuda_device, names, K, S, 
         a_idx = torch.argmin(got[2], dim=0).to(torch.int32)
         for a, b in zip(bt.select_alpha(got[0], got[1], Xt[:, 0], a_idx),
                         bt.select_alpha(want[0], want[1], Xt[:, 0], a_idx)):
+            assert float((a - b).abs().max()) <= tol[1] * float(b.abs().max())
+
+
+# The narrow kernel at flat widths that are no multiple of 4 (Car3D, Bike5D,
+# Quad6D slots), at K = 1, and at the batch widths a solve runs; mu spread
+# from 0.25 to 4.  Its elimination runs in one warp's registers, instantiated
+# for nuf <= 8, 16 and 32; Unicycle4D slots also compile nx, nu (and K = 8) in.
+NARROW = {
+    "car3d-nxf3": (["Car3D"], 1), "unicycle-nxf4": (["Unicycle4D"], 1),
+    "car3d-nxf15": (["Car3D"], 5), "unicycle-nxf24": (["Unicycle4D"], 6),
+    "quad12d-nxf24": (["Quad12D"], 2), "bike5d-nxf30": (["Bike5D"], 6),
+    "car3d-nxf30-nuf20": (["Car3D"], 10), "quad6d-nxf30": (["Quad6D"], 5),
+    "unicycle-nxf32": (["Unicycle4D"], 8), "mixed-nxf20": (HETERO, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("S", [1, 16, 100, 128])
+@pytest.mark.parametrize("case", sorted(NARROW))
+def test_cuda_narrow_kernel_matches_twin(cuda_device, case, S, dtype):
+    names, K = NARROW[case]
+    # Slots a metre apart (some pairs inside the radius) at small angles and
+    # rates: gains that float32 resolves.  Packed at 0.3, or with steering
+    # angles and body rates of 0.3, these batches have gains of 1e4 to 1e7.
+    fleet, fields, mids, X, U, _ = _batch(names, S, K, N=6, seed=11, spread=1.0,
+                                          rates=0.1)
+    mu = np.geomspace(0.25, 4.0, S)
+    cost, mids_t, Xt, Ut, mut = _tensors(fields, mids, X, U, mu, dtype, cuda_device)
+    assert K * fleet.nx_p <= bt.MAX_NXF
+    q = bt._quadraticize_batch(cost, Xt, Ut)
+    A, B = bt._linearize_batch(fleet, cost, mids_t, Xt, Ut)
+    args = (A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"], mut, q["p0"], q["P0"])
+    got = bt.backward_pass_batched_cuda(*args)
+    want = bt.backward_pass_batched_torch(*args)
+    wide = bt.backward_pass_batched_wide_cuda(*args)
+    ref = bt.backward_pass_batched_torch(*(a.double() for a in args))
+    for a, b, w, r in zip(got, want, wide, ref):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        # The two kernels share every entry's arithmetic: the same bits.
+        assert torch.equal(a, w)
+        # Float32: these packed random batches are ill conditioned (rounding
+        # alone moves the twin's gains by far more than 2e-3 in some
+        # subproblems), so there the kernel is held to a multiple of the
+        # float32 twin's own distance from the float64 twin.
+        rounding = float((b.double() - r).abs().max())
+        tol = 1e-9 if dtype == torch.float64 else 2e-3
+        assert float((a - b).abs().max()) <= max(tol * float(b.abs().max()), 16.0 * rounding)
+
+
+# Past nxf 96: Quad6D at K = 32 (nxf 192, nuf 96), where the wide backward
+# kernel keeps every matrix in its workspace and eliminates in place, and the
+# forward kernel stages two gain blocks in float32 and one in float64.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_cuda_kernels_match_twins_at_nxf_192(cuda_device, dtype):
+    tol = {torch.float64: (1e-9, 1e-9), torch.float32: (2e-3, 1e-4)}[dtype]
+    fleet, fields, mids, X, U, mu = _batch(["Quad6D"], 6, 32, N=5, seed=13)
+    cost, mids_t, Xt, Ut, mut = _tensors(fields, mids, X, U, mu, dtype, cuda_device)
+    assert bt.riccati_smem_bytes(32, 6, 3, Xt.element_size())[0] == 2
+    Kg_t, d_t = bt.backward_pass_batched(fleet, cost, mids_t, Xt, Ut, mut, "torch")
+    Kg_c, d_c = bt.backward_pass_batched(fleet, cost, mids_t, Xt, Ut, mut, "cuda")
+    Kg_64, d_64 = bt.backward_pass_batched(
+        fleet, game_cost_from_numpy(fields, cuda_device, torch.float64), mids_t,
+        Xt.double(), Ut.double(), mut.double(), "torch")
+    assert float(Kg_t.abs().max()) > 0 and not torch.equal(Kg_c, torch.zeros_like(Kg_c))
+    for a, b, ref in ((Kg_c, Kg_t, Kg_64), (d_c, d_t, d_64)):
+        rounding = float((b.double() - ref).abs().max())
+        assert float((a - b).abs().max()) <= max(tol[0] * float(b.abs().max()),
+                                                 4.0 * rounding)
+    s = 0.1 / float(Kg_t.abs().max())
+    for n_alpha in (2, 10):
+        alphas = line_search_alphas(n_alpha, dtype, cuda_device)
+        args = (fleet, cost, mids_t, Xt, Ut, s * Kg_t, s * d_t, alphas)
+        for a, b in zip(bt.forward_pass_batched(*args, backend="cuda"),
+                        bt.forward_pass_batched(*args, backend="torch")):
             assert float((a - b).abs().max()) <= tol[1] * float(b.abs().max())

@@ -168,6 +168,19 @@ def test_byte_counts_equal_the_wrappers_tensors(dtype):
                               dtype_bytes=nbytes)
     assert by == _nbytes(*ins4, *outs4)
 
+    # K4 without gains: rollout_cuda's inputs (the initial state, U, the
+    # tables and the cost; no gains, no nominal trajectory, no alphas) and its
+    # outputs X and J; its FLOPs are the line search's at one column less the
+    # gain product and the control update.
+    X4, J4 = It._rollout_fn(fleet.step, cost, X1[0], U1)
+    fl, trig, by = sol.sweep_work("rollout_sweep", N, K, 4, 2, 1, n_alpha,
+                                  dtype_bytes=nbytes)
+    assert by == _nbytes(X1[0], U1, *ins4[5:], X4, J4)
+    nxf, nuf = K * 4, K * 2
+    assert fl == sol.sweep_work("forward_sweep", N, K, 4, 2, 1, 1,
+                                dtype_bytes=nbytes)[0] - (2 * nxf * nuf + 3 * nuf) * N
+    assert trig == 5 * 4 * 2 * K * N
+
 
 def _patch_ceilings(monkeypatch, fma=1000.0, hbm=700.0, sin=50e9):
     monkeypatch.setattr(sol, "measure_fma_peak_gflops", lambda: fma)
@@ -206,10 +219,12 @@ def test_kernel_sol_rejects_unknown_family():
 @pytest.mark.parametrize("family", sol.FORWARD_FAMILIES)
 def test_kernel_sol_report_forward_folds_in_the_sine_rate(monkeypatch, family):
     _patch_ceilings(monkeypatch)
-    S = 1 if family == "forward_sweep" else 128
+    S = 1 if family in ("forward_sweep", "rollout_sweep") else 128
     rep = sol.kernel_sol(family, N=50, K=8, nx_p=4, nu_p=2, S=S, n_alpha=10,
                          measured_s=5e-3, model="Unicycle4D")
-    assert rep["trig_gops"] == pytest.approx(5 * 4 * 2 * 8 * 10 * 50 * S / 1e9, rel=1e-3)
+    columns = 1 if family == "rollout_sweep" else 10  # the plain rollout has one
+    assert rep["trig_gops"] == pytest.approx(5 * 4 * 2 * 8 * columns * 50 * S / 1e9,
+                                             rel=1e-3)
     t_c = rep["gflops"] / 1000.0 + rep["trig_gops"] / 50.0
     t_m = rep["gbytes"] / 700.0
     assert rep["sol_s"] == pytest.approx(max(t_c, t_m), rel=1e-3)
@@ -367,7 +382,7 @@ def test_cuda_sol_report_shares_are_plausible(cuda_device):
     assert 0 < ceil["hbm_gb_s"] <= 1.05 * 3.35e3
     # A sine is many instructions: its rate stays below the FMA instruction rate.
     assert 0 < ceil["sin_gops_s"] < ceil["fma_gflop_s"] / 2
-    assert set(rep["kernels"]) == {"K1", "K2", "K3", "K4", "K5"}
+    assert set(rep["kernels"]) == {"K1", "K2", "K3", "K4", "K4 rollout", "K5"}
     for tag, r in rep["kernels"].items():
         assert r["outputs_finite"], tag
         assert 0 < r["sol_frac"] <= 1.05, (tag, r)
