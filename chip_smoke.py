@@ -24,12 +24,16 @@ Phases (any failure exits non-zero and prints no result line):
       the width phase 4b's loop reaches; S=16), float64 and float32, 2 and 10
       alphas; every timed shape is printed beside its bound by the published
       peaks;
-   c. K5 and K4 with gains (over 10 alphas) at the 10-agent centralized
-      shape (N=50), and K4 without gains, the plain rollout, against both its
-      plain versions at the stitched plans' shapes: 10 and 100 Unicycle4D, 64
-      Quad6D, 500 Unicycle4D and a mixed DoubleInt4D+Car3D+Bike5D fleet,
-      float64 and float32, J bit-equal in two runs, timed beside the torch
-      loop it replaces (whole wrapper, and the launch alone).
+   c. K5 (the whole backward pass, its inputs computed in the kernel) on
+      10 Unicycle4D at N=50 and N=200, one agent of each of the nine models,
+      16 Quad6D and 32 Unicycle4D (its working set in the device workspace),
+      float64 and float32, each launch timed; K4 with gains (over 10 alphas)
+      at the 10-agent centralized shape, and K4 without gains, the plain
+      rollout, against both its plain versions at the stitched plans'
+      shapes: 10 and 100 Unicycle4D, 64 Quad6D, 500 Unicycle4D and a mixed
+      DoubleInt4D+Car3D+Bike5D fleet, float64 and float32, J bit-equal in two
+      runs, timed beside the torch loop it replaces (whole wrapper, and the
+      launch alone).
 4. Solve paths, each driven with the launch counts set to 0 just before
    and read just after:
    a. main path: ``solve_rhc(centralized=False)`` for 100 Unicycle4D
@@ -41,10 +45,17 @@ Phases (any failure exits non-zero and prints no result line):
    b. the 64-agent Quad6D swarm closed loop at auto K (it reaches K=32, nxf
       192; a truncated step fails the run), 5 MPC steps on the kernels, with
       K3's, K2's and K4's launches by batch width; once more at K=16 (nxf
-      96), and 2 steps at K=16 on the twins;
+      96), 2 steps at K=16 on the twins, and the auto-K loop in float64 on
+      the kernels beside the float32 one (``noise_limited`` where float64
+      iterates a third more);
    c. one cold ``solve_distributed`` of 64 Quad12D agents at K=8, float32,
       on the kernels; fails if it is not a solve (mean iterations <= 1);
-   d. ``ilqr_solve`` for 10 agents on the kernels and on the twins, then
+      again in float64 and in float32 with ``mu_floor``, each beside the
+      bar (mean iterations >= 5 and converged fraction > 0.5);
+   d. ``ilqr_solve`` for 10 agents on the kernels and on the twins, float32
+      (no quality datum at its tol=1e-9) and float64; the CUDA kernels of
+      one centralized iteration counted by ``torch.profiler`` (K5, K4 and
+      the accept step's elementwise kernels, nothing else); then
       ``solve_rhc(centralized=True)`` for 5 MPC steps on the kernels.
 5. Float64 solve parity of kernels and twins (equal iterations and
    converged flags, J and X close): a narrow and a wide decomposed solve,
@@ -74,7 +85,7 @@ Phases (any failure exits non-zero and prints no result line):
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the eight kernels with their launch counts, errors, times and bounds
 (the least time by the published peaks, computed from the timed shapes;
-K1-K4 also list every other shape they were timed at under ``shapes``; K4's
+K1-K5 also list every other shape they were timed at under ``shapes``; K4's
 launches are summed over the decomposed and the centralized paths),
 and the line before that the card's name and power limit.
 """
@@ -383,17 +394,23 @@ def narrow_checks(checks, results, dev):
                                 None)
         checks.shapes[f"K1 S={S}"] = work_shape("backward", fleet, 8, S)
 
-    # Mixed RK4 substeps (Bike5D takes 1, the others 5), float64.
+    # Mixed RK4 substeps (Bike5D takes 1, the others 5); timed in float32
+    # beside its bound (the slots' models averaged).
     fleet = dtt.Fleet.from_names(["DoubleInt4D", "Car3D", "Bike5D"] * 4, DT)
     x4, xf4 = swap_scenario(fleet.n_agents, 0.55)
-    cost, x0 = problem(fleet, x4, xf4, torch.float64, dev)
-    args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, 4, dev, seed=1)
-    Kg, d = bt.backward_pass_batched_torch(*args)
-    alphas = dtt.ops.line_search_alphas(10, torch.float64, dev)
-    fa = (fleet, sub_cost, mids, carry.X, carry.U, Kg, d, alphas)
-    checks.compare("forward_batched", "K2 float64 mixed-substeps", ("X5", "U5", "J"),
-                   bt.forward_pass_batched_cuda(*fa), bt.forward_pass_batched_torch(*fa),
-                   TOL[torch.float64])
+    for dtype in (torch.float64, torch.float32):
+        cost, x0 = problem(fleet, x4, xf4, dtype, dev)
+        args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, 4, dev, seed=1)
+        Kg, d = bt.backward_pass_batched_torch(*args)
+        alphas = dtt.ops.line_search_alphas(10, dtype, dev)
+        fa = (fleet, sub_cost, mids, carry.X, carry.U, Kg, d, alphas)
+        checks.compare("forward_batched", f"K2 {str(dtype)[6:]} mixed-substeps",
+                       ("X5", "U5", "J"), bt.forward_pass_batched_cuda(*fa),
+                       bt.forward_pass_batched_torch(*fa), TOL[dtype])
+    label = "K2 mixed DoubleInt4D+Car3D+Bike5D K=4 10 alphas"
+    results[label] = (timed(lambda: bt.forward_pass_batched_cuda(*fa), 10), None)
+    checks.shapes[label] = dict(work_shape("forward", fleet, 4, args[0].shape[0], 10),
+                                model=("DoubleInt4D", "Car3D", "Bike5D", "DoubleInt4D"))
 
 
 def wide_checks(checks, results, dev):
@@ -479,44 +496,100 @@ def centralized_inputs(dtype, dev):
     return fleet, cost, x0
 
 
-def centralized_checks(checks, results, dev):
-    """Phase 3c: K5 and K4 at the 10-agent centralized shape."""
+G = 9.80665
+# Hover controls of the models that fall without them (Quad6D thrust is u0,
+# Quad12D's u3 with its thrust coefficient 2000/63).
+HOVER = {"Quad6D": (0, G), "Quad12D": (3, G * 63 / 2000)}
+
+
+def k5_problems(dtype, dev):
+    """The fleets phase 3c holds K5 against its twin on: ``{name: (fleet,
+    cost, X, U)}``, X the rollout of a small random warm start (about hover
+    for the quadrotors).  10 Unicycle4D at N=50 (the centralized problem of
+    phase 4d) and N=200; one agent of each of the nine models (padded to
+    nx_p 12, nu_p 4: every Jacobian); 16 Quad6D; 32 Unicycle4D, whose
+    working set lies in the device workspace (tier 1 or 2).  Quad12D's torque
+    gains are ~6e4: its random part is 1e-7, as in phase 3b."""
     import dpilqr_tpu_torch as dtt
-    from dpilqr_tpu_torch.ops import ilqr, sweeps
+    from dpilqr_tpu_torch.models.specs import MODEL_REGISTRY
+    from dpilqr_tpu_torch.ops import ilqr
+
+    def nine(dtype, dev):
+        fleet = dtt.Fleet.from_names([s.name for s in MODEL_REGISTRY], DT)
+        ang = np.linspace(0, 2 * np.pi, fleet.n_agents, endpoint=False)
+        pos = np.stack([np.cos(ang), np.sin(ang), 0.1 * np.sin(2 * ang)], -1) * 0.6
+        n = fleet.n_agents
+        cost, x0 = problem(fleet, pos, -pos, dtype, dev, pos=3)
+        cost = cost._replace(n_pos=torch.as_tensor(fleet.n_pos, dtype=torch.int32,
+                                                   device=dev))
+        return fleet, cost, x0
+
+    cases = {
+        "10 Unicycle4D": (lambda: centralized_inputs(dtype, dev), HORIZON, 0.1),
+        "9 models": (lambda: nine(dtype, dev), HORIZON, 0.01),
+        "16 Quad6D": (lambda: quad_problem(dtt.QUAD_6D, 16, 0.7, dtype, dev), HORIZON, 0.01),
+        "32 Unicycle4D": (lambda: unicycle_problem(32, 0.55, dtype, dev), HORIZON, 0.1),
+        "10 Unicycle4D N=200": (lambda: unicycle_problem(10, 1.0, dtype, dev), 200, 0.01),
+    }
+    out = {}
+    for name, (make, N, scale) in cases.items():
+        fleet, cost, x0 = make()
+        rng = np.random.default_rng(2)
+        U = rng.uniform(size=(N, fleet.n_agents, fleet.nu_p)) * scale
+        for i, spec in enumerate(fleet.specs):
+            if spec.name == "Quad12D":
+                U[:, i] *= 1e-7 / scale
+            if spec.name in HOVER:
+                U[:, i, HOVER[spec.name][0]] += HOVER[spec.name][1]
+        U = torch.as_tensor(U * fleet.control_mask, dtype=dtype, device=dev)
+        x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
+        out[name] = (fleet, cost, ilqr._rollout_fn(fleet.step, cost, x0, U)[0], U)
+    return out
+
+
+def centralized_checks(checks, results, dev):
+    """Phase 3c: K5 on its fleets (``k5_problems``) and K4 with gains at the
+    10-agent centralized shape."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import cuda_build, ilqr, sweeps
 
     for dtype in (torch.float64, torch.float32):
-        fleet, cost, x0 = centralized_inputs(dtype, dev)
-        x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
-        rng = np.random.default_rng(2)
-        U0 = torch.as_tensor(rng.uniform(size=(HORIZON, 10, 2)) * 0.1, dtype=dtype,
-                             device=dev)
-        roll_t = ilqr._rollout_fn(fleet.step, cost, x0, U0)
-        checks.compare("forward_sweep", f"K4 rollout {str(dtype)[6:]}", ("X5", "J"),
-                       sweeps.rollout_cuda(fleet, cost, x0, U0), roll_t, TOL[dtype])
-        X = roll_t[0]
         mu = torch.tensor(1.0, dtype=dtype, device=dev)
-        bw = (fleet, cost, X, U0, mu)
+        for name, (fleet, cost, X, U) in k5_problems(dtype, dev).items():
+            bw = (fleet, cost, X, U, mu)
+            K_t, d_t = ilqr._backward_pass(fleet.linearize, cost, X, U, mu)
+            tier = sweeps.sweep_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p,
+                                           X.element_size())[0]
+            checks.compare("backward_sweep", f"K5 {name} {str(dtype)[6:]} (tier {tier})",
+                           ("Kg", "d"), sweeps.backward_pass_cuda(*bw), (K_t, d_t),
+                           TOL[dtype])
+            with cuda_build.timed_launches() as record:
+                for _ in range(10):
+                    sweeps.backward_pass_cuda(*bw)
+            ms = min(cuda_build.launch_ms(record, "backward_sweep"))
+            label = "K5" if name == "10 Unicycle4D" else f"K5 {name}"
+            if dtype == torch.float64:
+                label += " float64"
+            twin = None
+            if label == "K5":
+                twin = timed(lambda: ilqr._backward_pass(fleet.linearize, cost, X, U, mu), 3)
+            results[label] = (ms, twin)
+            checks.shapes[label] = dict(work_shape("backward_sweep", fleet, fleet.n_agents,
+                                                   1), N=U.shape[0],
+                                        model=tuple(s.name for s in fleet.specs))
+            print(f"{label}: {ms:.4f} ms a launch (tier {tier})", flush=True)
+
+        fleet, cost, X, U0 = k5_problems(dtype, dev)["10 Unicycle4D"]
         K_t, d_t = ilqr._backward_pass(fleet.linearize, cost, X, U0, mu)
-        checks.compare("backward_sweep", f"K5 {str(dtype)[6:]}", ("Kg", "d"),
-                       sweeps.backward_pass_cuda(*bw), (K_t, d_t), TOL[dtype])
         alphas = dtt.ops.line_search_alphas(10, dtype, dev)
         fw = (cost, X, U0, K_t, d_t, alphas)
         checks.compare("forward_sweep", f"K4 10 alphas {str(dtype)[6:]}",
                        ("X5", "U5", "J"), sweeps.forward_pass_cuda(fleet, *fw),
                        ilqr._forward_pass(fleet.step, *fw), TOL[dtype])
         if dtype == torch.float32:
-            # The kernel alone (its torch prep done once), as for K1; the
-            # twin's time includes its own prep.
-            ins = sweeps.backward_sweep_inputs(*bw)
-            results["K5"] = (
-                timed(lambda: sweeps.launch_backward_sweep(**ins), 20),
-                timed(lambda: ilqr._backward_pass(fleet.linearize, cost, X, U0, mu), 3))
-            results["K5 with its torch prep"] = (
-                timed(lambda: sweeps.backward_pass_cuda(*bw), 20), None)
             results["K4 10 alphas"] = (
                 timed(lambda: sweeps.forward_pass_cuda(fleet, *fw), 20),
                 timed(lambda: ilqr._forward_pass(fleet.step, *fw), 3))
-            checks.shapes["K5"] = work_shape("backward_sweep", fleet, 10, 1)
             checks.shapes["K4 10 alphas"] = work_shape("forward_sweep", fleet, 10, 1, 10)
 
 
@@ -628,11 +701,12 @@ def print_by_width(path, by_width):
 
 
 def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None,
-            t_kill=None):
-    """A closed-loop MPC run of ``steps`` steps; returns a summary.  Under
-    auto K (``K`` None) a truncated step fails the run; with ``K`` pinned
-    the summary counts them.  With ``t_kill`` every step's solve runs under
-    that deadline, and the summary says how many steps reached it."""
+            t_kill=None, dtype=np.float32):
+    """A closed-loop MPC run of ``steps`` steps in ``dtype`` (the cost's
+    type must match); returns a summary.  Under auto K (``K`` None) a
+    truncated step fails the run; with ``K`` pinned the summary counts them.
+    With ``t_kill`` every step's solve runs under that deadline, and the
+    summary says how many steps reached it."""
     import warnings
 
     import dpilqr_tpu_torch as dtt
@@ -644,7 +718,7 @@ def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None,
         if K:  # pinned K: truncation warnings, counted below
             warnings.simplefilter("ignore", RuntimeWarning)
         res = dtt.solve_rhc(
-            fleet, cost, x0.astype(np.float32), HORIZON,
+            fleet, cost, x0.astype(dtype), HORIZON,
             radius=None if centralized else RADIUS, centralized=centralized,
             step_size=1, J_converge=1e-3, t_diverge=(steps - 1) * DT, K=K,
             t_kill=t_kill, config=cfg, rng=np.random.default_rng(0),
@@ -682,6 +756,7 @@ def rhc_run(fleet, cost, x0, backend, steps, centralized=False, K=None,
         "converged_frac": float(conv.mean()),
         "converged_frac_by_step": [float(np.mean(np.asarray(s.converged)))
                                    for s in res.steps],
+        "mean_iters_by_step": [float(np.mean(np.asarray(s.iters))) for s in res.steps],
     }
 
 
@@ -757,73 +832,149 @@ def quad6d_loop(dev, launches):
     twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", 2, K=16))
     no_sweep_kernel(counts)
     print("quad6d_64 loop (torch twins, K=16, 2 steps): " + json.dumps(twin), flush=True)
+    # ROADMAP C2: the same loop in float64 on the kernels.  If it iterates
+    # materially more (a third more iterations a step), float32 stops on
+    # noise: its J is ~1e6 and a float32 accept resolves 1e-1.
+    fleet64, cost64, x064 = quad_problem(dtt.QUAD_6D, 64, 0.85, torch.float64, dev)
+    f64 = rhc_run(fleet64, cost64, x064, "cuda", MPC_STEPS, dtype=np.float64)
+    noise = f64["mean_iters"] > 4 / 3 * kern["mean_iters"]
+    print("quad6d_64 loop float32 vs float64 (kernels, auto K): " + json.dumps({
+        "noise_limited": bool(noise), "float32": kern, "float64": f64}), flush=True)
 
 
 def quad12d_solve(dev):
-    """Phase 4c: one cold quad12d_64_k8 decomposed solve (bench.py:335-347)."""
+    """Phase 4c: one cold quad12d_64_k8 decomposed solve (bench.py:335-347),
+    float32 on the kernels; then (ROADMAP C1) in float64 and in float32 with
+    ``mu_floor``, printed beside it with the bar (mean iterations >= 5 and
+    converged fraction > 0.5) each meets."""
     import dpilqr_tpu_torch as dtt
 
-    fleet, cost, x0 = quad_problem(dtt.QUAD_12D, 64, 0.85, torch.float32, dev)
-    X0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)[None]
-    U0 = torch.zeros((HORIZON, 64, 4), dtype=torch.float32, device=dev)
-    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, sweep_backend="cuda")
-
-    def solve():
+    def solve(dtype, mu_floor=False):
+        fleet, cost, x0 = quad_problem(dtt.QUAD_12D, 64, 0.85, dtype, dev)
+        X0 = torch.as_tensor(x0, dtype=dtype, device=dev)[None]
+        U0 = torch.zeros((HORIZON, 64, 4), dtype=dtype, device=dev)
+        cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, sweep_backend="cuda",
+                               mu_floor=mu_floor)
         t0 = time.perf_counter()
         r = dtt.solve_distributed(fleet, cost, X0.expand(HORIZON + 1, -1, -1), U0,
                                   RADIUS, K=8, config=cfg)
         torch.cuda.synchronize()
         return r, (time.perf_counter() - t0) * 1e3
 
-    (res, ms), counts = run_counted(solve)
+    def summary(res, ms):
+        iters = res.iters.float().mean().item()
+        conv = res.converged.float().mean().item()
+        return {"ms": ms, "mean_iters": iters, "converged_frac": conv,
+                "J": float(res.J), "truncated": bool(res.truncated),
+                "meets_bar": iters >= 5 and conv > 0.5}
+
+    (res, ms), counts = run_counted(lambda: solve(torch.float32))
     require(counts, ("backward_batched_wide", "forward_batched", "forward_sweep"),
             "the quad12d_64_k8 solve")
-    iters = res.iters.float().mean().item()
-    conv = res.converged.float().mean().item()
-    summary = {"ms": ms, "mean_iters": iters, "converged_frac": conv,
-               "J": float(res.J), "truncated": bool(res.truncated)}
-    print("quad12d_64_k8 cold solve (kernels, f32): " + json.dumps(summary), flush=True)
-    if not np.isfinite(summary["J"]) or bool(res.truncated):
+    out = {"float32": summary(res, ms)}
+    if not np.isfinite(out["float32"]["J"]) or bool(res.truncated):
         fail("quad12d_64_k8: non-finite J or truncated")
-    if iters <= 1.0:
-        fail(f"quad12d_64_k8: mean iterations {iters} <= 1, not a solve")
+    if out["float32"]["mean_iters"] <= 1.0:
+        fail(f"quad12d_64_k8: mean iterations {out['float32']['mean_iters']} <= 1, "
+             "not a solve")
+    out["float64"] = summary(*solve(torch.float64))
+    out["float32 mu_floor"] = summary(*solve(torch.float32, mu_floor=True))
+    print("quad12d_64_k8 cold solve (kernels): " + json.dumps(out), flush=True)
+
+
+# Kernels of torch's own that one centralized iteration may launch besides
+# K5 and K4: the accept step's elementwise, reduction and indexing work.
+ACCEPT_KERNELS = ("elementwise", "reduce", "index", "argmax", "copy", "where",
+                  "fill", "compare", "unrolled")
+
+
+def iteration_kernels(dev):
+    """The CUDA kernels of one centralized iteration (``make_iteration_fn``
+    on the 10-agent problem, float32), counted by ``torch.profiler``: fails
+    unless K5 and K4 run once each and everything else is the accept step's
+    elementwise work (no prep: no matmul, einsum or Jacobian kernels)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import ilqr
+
+    fleet, cost, x0 = centralized_inputs(torch.float32, dev)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-9, sweep_backend="cuda")
+    iterate = ilqr.make_iteration_fn(fleet, cfg, "cuda")
+    U0 = torch.zeros((HORIZON, 10, 2), dtype=torch.float32, device=dev)
+    c = ilqr.init_carry(fleet, cfg, cost, x0, U0, "cuda")
+    c = iterate(cost, c)  # warm-up: the alphas, the allocator
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        iterate(cost, c)
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower()
+        and "memset" not in e.name.lower())
+    k5 = sum(n for k, n in names.items() if "backward_sweep_kernel" in k)
+    k4 = sum(n for k, n in names.items() if "forward_sweep_kernel" in k)
+    other = {k: n for k, n in names.items()
+             if "backward_sweep_kernel" not in k and "forward_sweep_kernel" not in k}
+    foreign = {k: n for k, n in other.items()
+               if not any(w in k.lower() for w in ACCEPT_KERNELS)}
+    out = {"kernels": sum(names.values()), "K5": k5, "K4": k4,
+           "accept_step": sum(other.values()), "other": foreign}
+    print("one centralized iteration, CUDA kernels (torch.profiler): " + json.dumps(out),
+          flush=True)
+    if not names:
+        fail("torch.profiler saw no CUDA kernel in a centralized iteration")
+    if k5 != 1 or k4 != 1 or foreign:
+        fail("a centralized iteration runs more than K5, K4 and the accept step")
 
 
 def centralized_paths(dev, launches):
-    """Phase 4d: ilqr_solve (kernels vs twins) and the centralized loop."""
+    """Phase 4d: ilqr_solve (kernels vs twins, float32 and float64), the
+    CUDA kernels of one iteration, and the centralized loop.  The float32
+    solve at tol=1e-9 is no quality datum: the problem amplifies one
+    rounding by about 1e6 (ROADMAP C3), so its iterations and J move with the
+    order of the kernels' sums; float64 is printed beside it."""
     import dpilqr_tpu_torch as dtt
 
-    fleet, cost, x0 = centralized_inputs(torch.float32, dev)
-    x0_t = torch.as_tensor(x0, dtype=torch.float32, device=dev)
     out = {}
-    for backend in ("cuda", "torch"):
-        cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-9, sweep_backend=backend)
-        solve = dtt.make_solver(fleet, HORIZON, cfg)
-        U0 = torch.zeros((HORIZON, 10, 2), dtype=torch.float32, device=dev)
-        solve(cost, x0_t, U0)  # warm-up
+    for dtype in (torch.float32, torch.float64):
+        fleet, cost, x0 = centralized_inputs(dtype, dev)
+        x0_t = torch.as_tensor(x0, dtype=dtype, device=dev)
+        for backend in ("cuda", "torch"):
+            cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-9, sweep_backend=backend)
+            solve = dtt.make_solver(fleet, HORIZON, cfg)
+            U0 = torch.zeros((HORIZON, 10, 2), dtype=dtype, device=dev)
+            solve(cost, x0_t, U0)  # warm-up
 
-        def run(solve=solve, U0=U0):
-            t0 = time.perf_counter()
-            r = solve(cost, x0_t, U0)
-            torch.cuda.synchronize()
-            return r, (time.perf_counter() - t0) * 1e3
+            def run(solve=solve, U0=U0, x0_t=x0_t, cost=cost):
+                t0 = time.perf_counter()
+                r = solve(cost, x0_t, U0)
+                torch.cuda.synchronize()
+                return r, (time.perf_counter() - t0) * 1e3
 
-        (res, ms), counts = run_counted(run)
-        out[backend] = {"ms": ms, "iters": int(res.iters), "converged": bool(res.converged),
+            (res, ms), counts = run_counted(run)
+            key = f"{backend} {str(dtype)[6:]}"
+            out[key] = {"ms": ms, "iters": int(res.iters),
+                        "converged": bool(res.converged),
                         "failed_line_search": bool(res.failed_line_search),
-                        "J": float(res.J)}
-        if not np.isfinite(out[backend]["J"]):
-            fail(f"ilqr_solve ({backend}): non-finite J")
-        if backend == "cuda":
-            require(counts, ("backward_sweep", "forward_sweep"), "ilqr_solve")
-            launches["backward_sweep"] = counts["backward_sweep"]
-            launches["forward_sweep"] += counts["forward_sweep"]
-            launches[f"per centralized solve (10 unicycles, {int(res.iters)} "
-                     "iterations)"] = {
-                k: counts[k] for k in ("backward_sweep", "forward_sweep")}
-        elif any(counts.values()):
-            fail("the torch backend launched a kernel")
-        print(f"ilqr_solve 10 agents ({backend}): " + json.dumps(out[backend]), flush=True)
+                        "J": float(res.J), "quality_datum": dtype == torch.float64}
+            if not np.isfinite(out[key]["J"]):
+                fail(f"ilqr_solve ({key}): non-finite J")
+            if backend == "cuda" and dtype == torch.float32:
+                require(counts, ("backward_sweep", "forward_sweep"), "ilqr_solve")
+                launches["backward_sweep"] = counts["backward_sweep"]
+                launches["forward_sweep"] += counts["forward_sweep"]
+                launches[f"per centralized solve (10 unicycles, {int(res.iters)} "
+                         "iterations)"] = {
+                    k: counts[k] for k in ("backward_sweep", "forward_sweep")}
+            elif backend == "torch" and any(counts.values()):
+                fail("the torch backend launched a kernel")
+            print(f"ilqr_solve 10 agents ({key}): " + json.dumps(out[key]), flush=True)
+    iteration_kernels(dev)
+    fleet, cost, x0 = centralized_inputs(torch.float32, dev)
     kern, counts = run_counted(
         lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS, centralized=True))
     require(counts, ("backward_sweep", "forward_sweep"), "solve_rhc(centralized=True)")
@@ -966,9 +1117,13 @@ def sol_phase(checks, results, probe_plain_ms, dev, launches):
     print(f"K7 probe_hbm: {probes['probe_hbm'].ms:.4f} ms, {ceil['hbm_gb_s']:.1f} GB/s = "
           f"{hbm_share:.3f} of the published 3.35 TB/s; x.sum(0): "
           f"{probes['hbm_library_ms']:.4f} ms, {ceil['hbm_library_gb_s']:.1f} GB/s")
+    sass_ms = sol.probe_sin_sass_bound_s(sol.PROBE_SHAPE[0] * sol.PROBE_SHAPE[1],
+                                         sol.SIN_ITERS) * 1e3
     print(f"K8 probe_sin: {probes['probe_sin'].ms:.4f} ms, {ceil['sin_gops_s']:.2f} "
-          f"G sinf/s = {sin_share:.4f} of the measured FMA instruction rate; plain "
-          f"version {plain_ms['probe_sin']:.3f} ms", flush=True)
+          f"G sinf/s = {sin_share:.4f} of the measured FMA instruction rate; bound "
+          f"by its SASS ({sol.SIN_LOOP_SASS / 16} instructions a sine) {sass_ms:.5f} ms "
+          f"(share {sass_ms / probes['probe_sin'].ms:.4f}); plain version "
+          f"{plain_ms['probe_sin']:.3f} ms", flush=True)
     if fma_share > PEAK_OVERSHOOT:
         fail("K6 reads over 105% of the published float32 peak: a miscount or a folded loop")
     if hbm_share > PEAK_OVERSHOOT:
@@ -1126,7 +1281,8 @@ def main():
               "probe_sin": "K8"}
     # The other shapes the redesigned kernels were timed at.
     others = {"backward_batched": "K1 ", "forward_batched": "K2 ",
-              "backward_batched_wide": "K3 ", "forward_sweep": "K4 "}
+              "backward_batched_wide": "K3 ", "forward_sweep": "K4 ",
+              "backward_sweep": "K5 "}
     kernels = []
     for key, (fn, replaces) in KERNELS.items():
         ms, plain_ms = results[timing[key]]

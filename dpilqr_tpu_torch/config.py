@@ -46,8 +46,10 @@ class SolverConfig:
     # "torch" (their plain PyTorch twins), or "auto": the kernels for CUDA
     # tensors, the twins for CPU tensors.  "pscan" runs the centralized
     # solve's backward sweep as the log-depth associative scan of
-    # ops/pscan.py (forward sweep as under "auto"); the decomposed solve has
-    # no scan and reads it as "auto".
+    # ops/pscan.py (forward sweep as under "auto"); the centralized "auto"
+    # takes it on the card where K5 finds no tier for the problem
+    # (ops/ilqr.py resolve_sweep_backend); the decomposed solve has no scan
+    # and reads it as "auto".
     sweep_backend: str = "auto"
 
     # Two-stage batched line search: evaluate the first ``ls_probe`` alphas

@@ -1,83 +1,296 @@
-// Centralized Riccati backward sweep: one iLQR problem over the whole fleet.
+// Centralized Riccati backward sweep with its inputs: one iLQR problem over
+// the whole fleet, from the trajectory and the cost to the gains.
 //
 // Replaces the TPU kernel dpilqr_tpu/ops/pallas_sweeps.py ::
-// backward_pass_pallas (the Pallas program at :458-513): the value
-// recursion of reference dpilqr/control.py:116-148 for one problem of n
-// agents, nxf = n nx, nuf = n nu, returning the flat gains K (N, nuf, nxf)
-// and d (N, nuf).  The Pallas kernel took dense flat-space A_f, B_f (a
-// Mosaic constraint); this one takes the block-diagonal per-agent A and B
-// and runs the algebra of riccati.cuh, the decomposed kernels' recursion at
-// one problem with n slots (its products and sums group differently from
-// the Pallas kernel's dense matmuls, so results agree to rounding).  The
-// Q_uu solve is the unpivoted Gauss-Jordan of dpilqr_tpu/ops/ilqr.py
-// gauss_jordan_solve, with the pivot row restored after elimination.
+// backward_pass_pallas, the whole function: its XLA phase (:430-454: the
+// time-batched quadraticization, the Euler-discretized Jacobians and the
+// dense flat-space embedding of A, B, L_uu and L_xx) and its Pallas program
+// (:458-513: the value recursion of reference dpilqr/control.py:116-148).
+// It reads X (N+1, n, nx), U (N, n, nu), the cost's compact fields, the
+// per-agent model ids, dt and mu, and writes K (N, nuf, nxf) and d (N, nuf)
+// with nxf = n nx, nuf = n nu.  The Pallas kernel took dense A_f and B_f and
+// a dense L_xx assembled outside it (a Mosaic constraint on the
+// (n,k,n,k) -> (nxf,nxf) reshape); this kernel computes every input itself
+// (derivatives.cuh: the Jacobians by dual numbers through dynamics.cuh's
+// right-hand sides, the cost's gradient and Hessian blocks in closed form)
+// and runs the algebra of riccati.cuh on block-diagonal A and B.  Its sums
+// group differently from the torch version's (ops/ilqr.py _backward_pass),
+// so results agree to rounding.  The Q_uu solve is the unpivoted
+// Gauss-Jordan of dpilqr_tpu/ops/ilqr.py gauss_jordan_solve.
 //
 // What bounds it on the H100: a single problem is one dependent chain of N
-// steps x (8 phases + a barrier per pivot), so it is latency-bound and
-// runs on one SM; the 10-agent problem (nxf 40, nuf 20) streams a few KB a
-// step.  Design: one CTA of 512 threads runs the whole sweep with the
-// register tiles and the one-barrier Gauss-Jordan of riccati.cuh.  When the
-// working set (~96 n^2 values for unicycles) fits the 227 KB of shared
-// memory (up to 17 unicycles in float64, 24 in float32) all of it lives
-// there; past that riccati_plan moves the matrices to a workspace in device
-// memory (L2-resident for any fleet a single problem is solved for).
+// steps x (8 phases + the elimination's pivots), so it is latency-bound and
+// runs on one SM; the inputs it reads are a few KB, its gains a few KB a
+// step.  The prep is not on that chain: step t depends on step t+1 through
+// P and p alone, and its inputs on (X, U) alone.  Design: one CTA of 512
+// threads runs the sweep (register tiles, the elimination of riccati.cuh);
+// while a few warps eliminate, the warps the elimination leaves idle compute
+// the NEXT step's A, B, L_x, L_u and proximity blocks into the shared-memory
+// buffers the recursion reads (work items in two stages: a Jacobian column
+// by one dual evaluation of the model and an ordered pair's Hessian block and
+// gradient term, one geometry each; then an agent's L_x, L_u and diagonal
+// block from its row of those), so nothing but the gains ever goes to device
+// memory; phase 2 reads each entry of L_xx and L_uu from those blocks where
+// it adds it to Q_xx and Q_uu (no dense L_xx is ever stored: writing one at
+// a step's top cost 2,200 cycles a step of 22,000 at 10 Unicycle4D, 16,000
+// of 145,000 for the nine-model fleet; scripts/riccati_phase_clocks.py
+// --kernel sweep).  The 10-agent
+// Unicycle4D problem users run (nxf 40, nuf 20) has its slot widths, slot
+// count and a one-warp register elimination compiled in (riccati_sweep's
+// NXS, NUS, KS, GJ_NR); other shapes run the run-time path.  When the working
+// set (~108 n^2 values for unicycles) fits the 227 KB of shared memory (up
+// to 15 unicycles in float64, 22 in float32) all of it lives there; past that
+// riccati_plan moves the matrices (then K5's blocks too) to a workspace in
+// device memory.  Tensor cores are not used: a 40-wide float32 problem would
+// need TF32 and change the results.
 //
-// Layouts (contiguous): A (N, n, nx, nx), B (N, n, nx, nu) (zero for
-// masked agents), Luu (N, nuf, nuf), Lxx (N, nxf, nxf), Lx (N, nxf),
-// Lu (N, nuf), mu (1), p0 (nxf), P0 (nxf, nxf) -> K (N, nuf, nxf),
-// d (N, nuf); work holds the values dpilqr_riccati_plan asks for.
+// Layouts (contiguous): X (N+1, n, nx), U (N, n, nu), xf (n, nx), Q, Qf
+// (n, nx, nx), R (n, nu, nu), mask (n), refw, radius, pw (1), npos, model
+// (n) int32, dt (1), mu (1) -> K (N, nuf, nxf), d (N, nuf); work holds the
+// values dpilqr_sweep_plan asks for.
 
+#include "derivatives.cuh"
 #include "riccati.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;
+// Threads a CTA; scripts/riccati_phase_clocks.py --kernel sweep --threads N
+// rebuilds with another count to measure it.
+#ifndef DPILQR_SWEEP_THREADS
+#define DPILQR_SWEEP_THREADS 512
+#endif
+constexpr int THREADS = DPILQR_SWEEP_THREADS;
 
-template <typename T, int TIER, int TILE>
+// K5's own buffers after the gain group (riccati_plan's `extra`): per agent
+// QQ = Q + Q^T (Qf + Qf^T until the terminal step is done), RR = R + R^T,
+// Ld = w QQ and Lu = w RR + 2 (1 - m) I (derivatives.cuh constant_blocks), and
+// one step's proximity blocks Lblk (n, n, k, k) and pair gradient terms G
+// (n, n, 3).
+__host__ __device__ inline size_t sweep_extra_values(int n, int nx, int nu) {
+  const size_t k = nx < 3 ? nx : 3;
+  return 2 * pad4((size_t)n * nx * nx) + 2 * pad4((size_t)n * nu * nu) +
+         pad4((size_t)n * n * k * k) + pad4((size_t)n * n * 3);
+}
+
+// What a step's inputs are computed from.
+template <typename T>
+struct SweepProblem {
+  const T *X, *U, *xf, *Q, *R, *Qf, *mask;
+  const int *npos, *model;
+  T refw, radius, pw, dt;
+  int N;
+};
+
+// Step t's inputs, by threads ft of fn, in two stages of work items apart by
+// a named barrier among those threads: first every Jacobian column (one dual
+// evaluation of the model) and every ordered pair's Hessian block and
+// gradient term (one geometry each), then every agent's L_x, L_u and
+// diagonal block from its row of pair results (derivatives.cuh).  At the
+// terminal step (t = N) no controls and no Jacobians: lx is p.
+template <int NXC, typename T>
+__device__ __forceinline__ void sweep_prep_items_inline(
+    const SweepProblem<T>& pb, const CostTerms<T>& c, int t, T* lx, T* lu, T* At,
+    T* Bt, T* Lblk, T* G, int ft, int fn) {
+  const int n = c.n, nx = c.nx, nu = c.nu, k = c.k, kk = k * k;
+  const bool terminal = t == pb.N;
+  const T* x = pb.X + (size_t)t * n * nx;
+  const T* u = terminal ? nullptr : pb.U + (size_t)t * n * nu;
+  const int n_jac = terminal ? 0 : n * (nx + nu);
+  for (int it = ft; it < n_jac + n * (n - 1); it += fn) {
+    if (it < n_jac) {
+      const int i = it / (nx + nu), q = it % (nx + nu);
+      jacobian_column<NXC>(pb.model[i], x + i * nx, u + i * nu, nx, nu, q, pb.dt,
+                           c.mask[i], At + i * nx * nx, nx, Bt + i * nx * nu, nu);
+    } else {
+      const int p = it - n_jac, i = p / (n - 1), jj = p % (n - 1);
+      const int j = jj + (jj >= i);
+      pair_terms_block(c, i, j, x, Lblk + (i * n + j) * kk, G + (i * n + j) * 3);
+    }
+  }
+  asm volatile("bar.sync 2, %0;" ::"r"(fn) : "memory");
+  for (int i = ft; i < n; i += fn)
+    agent_terms(c, i, x, u, Lblk, G, lx + i * nx, terminal ? nullptr : lu + i * nu,
+                Lblk + (i * n + i) * kk);
+}
+
+// The same, not inlined: the nine models' derivatives compile once per type
+// and width for the run-time path, not once per instantiation of the sweep
+// (the compiled-in main shape inlines them: its shared-memory pointers stay
+// shared-memory accesses).
+template <int NXC, typename T>
+__device__ __noinline__ void sweep_prep_items(const SweepProblem<T> pb,
+                                              const CostTerms<T> c, int t, T* lx,
+                                              T* lu, T* At, T* Bt, T* Lblk, T* G,
+                                              int ft, int fn) {
+  sweep_prep_items_inline<NXC>(pb, c, t, lx, lu, At, Bt, Lblk, G, ft, fn);
+}
+
+template <bool INLINE, int NXC, typename T>
+__device__ __forceinline__ void prep_items(const SweepProblem<T>& pb,
+                                           const CostTerms<T>& c, int t, T* lx, T* lu,
+                                           T* At, T* Bt, T* Lblk, T* G, int ft, int fn) {
+  if constexpr (INLINE)
+    sweep_prep_items_inline<NXC>(pb, c, t, lx, lu, At, Bt, Lblk, G, ft, fn);
+  else
+    sweep_prep_items<NXC, T>(pb, c, t, lx, lu, At, Bt, Lblk, G, ft, fn);
+}
+
+// The input source of riccati_sweep_from that computes a step's inputs in
+// place (riccati.cuh CopiedInputs copies them); INLINE: the prep inlined.
+template <bool INLINE, int NXC, typename T>
+struct ComputedInputs {
+  static constexpr bool kComputes = true;
+  SweepProblem<T> pb;
+  T *QQ, *RR, *Ld, *Lu, *Lblk, *G;
+
+  __device__ __forceinline__ CostTerms<T> terms(int n, int nx, int nu) const {
+    return {pb.xf, QQ, RR, pb.mask, pb.npos, pb.refw, pb.radius, pb.pw,
+            n, nx, nu, nx < 3 ? nx : 3};
+  }
+
+  // Sums W + W^T of n blocks of w x w into S.
+  static __device__ __forceinline__ void symmetrize(const T* W, T* S, int n, int w) {
+    for (int e = threadIdx.x; e < n * w * w; e += blockDim.x) {
+      const int i = e / (w * w), a = e % (w * w) / w, b = e % w;
+      S[e] = W[e] + W[(i * w + b) * w + a];
+    }
+  }
+
+  // The terminal step's P and p (Qf, proximity included), then the stage
+  // blocks (the sweep's first fetch follows and synchronizes); three
+  // barriers, once a sweep.
+  __device__ __forceinline__ void init(const RiccatiWork<T>& ws, int n, int nx,
+                                       int nu) const {
+    const int nxf = n * nx, k = nx < 3 ? nx : 3;
+    const int tid = threadIdx.x, nth = blockDim.x;
+    symmetrize(pb.Qf, QQ, n, nx);
+    symmetrize(pb.R, RR, n, nu);
+    __syncthreads();
+    const CostTerms<T> c = terms(n, nx, nu);
+    constant_blocks(c, Ld, Lu, tid, nth);
+    prep_items<INLINE, NXC, T>(pb, c, pb.N, ws.p, nullptr, nullptr, nullptr, Lblk, G,
+                               tid, nth);
+    __syncthreads();
+    for (int e = tid; e < nxf * nxf; e += nth)
+      ws.P[e] = lxx_entry(e / nxf, e % nxf, n, nx, k, Ld, Lblk);
+    symmetrize(pb.Q, QQ, n, nx);
+    __syncthreads();
+    constant_blocks(c, Ld, Lu, tid, nth);
+  }
+
+  __device__ __forceinline__ void fetch(int t, const RiccatiWork<T>& ws, int n,
+                                        int nx, int nu, int ft, int fn) const {
+    prep_items<INLINE, NXC, T>(pb, terms(n, nx, nu), t, ws.lx, ws.lu, ws.At, ws.Bt,
+                               Lblk, G, ft, fn);
+  }
+
+  // L_xx and L_uu are not staged: phase 2 reads each entry from the blocks
+  // where it adds it.
+  __device__ __forceinline__ void hessians(int, const RiccatiWork<T>&, int, int,
+                                           int) const {}
+  __device__ __forceinline__ T lxx(const RiccatiWork<T>&, int, int r, int c, int n,
+                                   int nx) const {
+    return lxx_entry(r, c, n, nx, nx < 3 ? nx : 3, Ld, Lblk);
+  }
+  __device__ __forceinline__ T luu(const RiccatiWork<T>&, int, int r, int c,
+                                   int nu) const {
+    return luu_entry(r, c, nu, Lu);
+  }
+};
+
+// NXC: the state width the models are compiled for (the right-hand sides
+// of wider models compile to nothing); GJ_NR, GJ_NCB, NXS, NUS, KS as
+// riccati_sweep_from's.
+template <typename T, int TIER, int TILE, int NXC, int GJ_NR = 0, int GJ_NCB = 0,
+          int NXS = 0, int NUS = 0, int KS = 0>
 __global__ void __launch_bounds__(THREADS) backward_sweep_kernel(
-    const T* __restrict__ A, const T* __restrict__ B,
-    const T* __restrict__ Luu, const T* __restrict__ Lxx,
-    const T* __restrict__ Lx, const T* __restrict__ Lu,
-    const T* __restrict__ mu, const T* __restrict__ p0,
-    const T* __restrict__ P0, T* __restrict__ Kg, T* __restrict__ dg,
-    T* __restrict__ work, int N, int n, int nx, int nu) {
+    const T* __restrict__ X, const T* __restrict__ U, const T* __restrict__ xf,
+    const T* __restrict__ Q, const T* __restrict__ R, const T* __restrict__ Qf,
+    const T* __restrict__ mask, const T* __restrict__ refw,
+    const T* __restrict__ radius, const T* __restrict__ pw,
+    const int* __restrict__ npos, const int* __restrict__ model,
+    const T* __restrict__ dt, const T* __restrict__ mu, T* __restrict__ Kg,
+    T* __restrict__ dg, T* __restrict__ work, int N, int n, int nx, int nu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const RiccatiWork<T> ws = riccati_place<TIER>(sm, work, n, nx, nu);
-  riccati_sweep<TILE, TIER>(A, B, Luu, Lxx, Lx, Lu, mu[0], p0, P0, Kg, dg, N, n, nx,
-                      nu, ws);
+  T* extra = nullptr;
+  const RiccatiWork<T> ws = riccati_place<TIER>(
+      sm, work, n, nx, nu, sweep_extra_values(n, nx, nu), &extra);
+  ComputedInputs<NXS != 0, NXC, T> src;
+  src.pb = {X, U, xf, Q, R, Qf, mask, npos, model, refw[0], radius[0], pw[0], dt[0], N};
+  src.QQ = extra;
+  src.RR = src.QQ + pad4((size_t)n * nx * nx);
+  src.Ld = src.RR + pad4((size_t)n * nu * nu);
+  src.Lu = src.Ld + pad4((size_t)n * nx * nx);
+  src.Lblk = src.Lu + pad4((size_t)n * nu * nu);
+  src.G = src.Lblk + pad4((size_t)n * n * (nx < 3 ? nx : 3) * (nx < 3 ? nx : 3));
+  riccati_sweep_from<TILE, TIER, GJ_NR, GJ_NCB, NXS, NUS, KS>(src, mu[0], Kg, dg, N,
+                                                              n, nx, nu, ws);
+}
+
+// riccati_plan with K5's own buffers in the gain group.
+inline RiccatiPlan sweep_plan(int n, int nx, int nu, size_t itemsize) {
+  return riccati_plan(n, nx, nu, itemsize, max_shared_optin(),
+                      sweep_extra_values(n, nx, nu));
 }
 
 template <typename T>
-int launch(const T* A, const T* B, const T* Luu, const T* Lxx, const T* Lx,
-           const T* Lu, const T* mu, const T* p0, const T* P0, T* Kg, T* d,
-           T* work, long long work_size, int N, int n, int nx, int nu,
-           void* stream) {
-  if (n < 1 || nx < 1 || nu < 1) return (int)cudaErrorInvalidValue;
-  const RiccatiPlan plan = riccati_plan(n, nx, nu, sizeof(T), max_shared_optin());
+int launch(const T* X, const T* U, const T* xf, const T* Q, const T* R,
+           const T* Qf, const T* mask, const T* refw, const T* radius,
+           const T* pw, const int* npos, const int* model, const T* dt,
+           const T* mu, T* Kg, T* d, T* work, long long work_size, int N, int n,
+           int nx, int nu, void* stream) {
+  if (n < 1 || nx < 1 || nu < 1 || nx > MAX_NX || nu > MAX_NU)
+    return (int)cudaErrorInvalidValue;
+  const RiccatiPlan plan = sweep_plan(n, nx, nu, sizeof(T));
   if (plan.tier < 0 || (size_t)work_size < plan.work)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  const auto kernel = plan.tier == 2   ? backward_sweep_kernel<T, 2, 4>
-                      : plan.tier == 1 ? backward_sweep_kernel<T, 1, 4>
-                      : riccati_tile(n * nx, 0) == 4
-                          ? backward_sweep_kernel<T, 0, 4>
-                          : backward_sweep_kernel<T, 0, 2>;
-  return launch_with_smem(kernel, 1, THREADS, plan.smem * sizeof(T), stream, A,
-                          B, Luu, Lxx, Lx, Lu, mu, p0, P0, Kg, d, work, N, n,
-                          nx, nu);
+  // The 10-agent Unicycle4D problem (nxf 40, nuf 20, a 61-column tableau):
+  // widths, slot count and the one-warp elimination compiled in.
+  const bool main_shape = plan.tier == 0 && n == 10 && nx == 4 && nu == 2;
+  const auto kernel =
+      main_shape           ? backward_sweep_kernel<T, 0, 2, 4, 20, 2, 4, 2, 10>
+      : plan.tier == 2     ? backward_sweep_kernel<T, 2, 4, MAX_NX>
+      : plan.tier == 1     ? backward_sweep_kernel<T, 1, 4, MAX_NX>
+      : riccati_tile(n * nx, 0) == 4 ? backward_sweep_kernel<T, 0, 4, MAX_NX>
+                                     : backward_sweep_kernel<T, 0, 2, MAX_NX>;
+  return launch_with_smem(kernel, 1, THREADS, plan.smem * sizeof(T), stream, X, U,
+                          xf, Q, R, Qf, mask, refw, radius, pw, npos, model, dt,
+                          mu, Kg, d, work, N, n, nx, nu);
 }
 
 }  // namespace
 
-#define DPILQR_BACKWARD_SWEEP(NAME, T)                                         \
-  extern "C" int NAME(const T* A, const T* B, const T* Luu, const T* Lxx,      \
-                      const T* Lx, const T* Lu, const T* mu, const T* p0,      \
-                      const T* P0, T* K, T* d, T* work, long long work_size,   \
-                      int N, int n, int nx, int nu, void* stream) {            \
-    return launch<T>(A, B, Luu, Lxx, Lx, Lu, mu, p0, P0, K, d, work,           \
-                     work_size, N, n, nx, nu, stream);                         \
+#define DPILQR_BACKWARD_SWEEP(NAME, T)                                          \
+  extern "C" int NAME(const T* X, const T* U, const T* xf, const T* Q,          \
+                      const T* R, const T* Qf, const T* mask, const T* refw,    \
+                      const T* radius, const T* pw, const int* npos,            \
+                      const int* model, const T* dt, const T* mu, T* K, T* d,   \
+                      T* work, long long work_size, int N, int n, int nx,       \
+                      int nu, void* stream) {                                   \
+    return launch<T>(X, U, xf, Q, R, Qf, mask, refw, radius, pw, npos, model,   \
+                     dt, mu, K, d, work, work_size, N, n, nx, nu, stream);      \
   }
 
 DPILQR_BACKWARD_SWEEP(dpilqr_backward_sweep_f32, float)
 DPILQR_BACKWARD_SWEEP(dpilqr_backward_sweep_f64, double)
+
+// Where K5's working set goes on the current device: riccati_plan with K5's
+// own buffers added to the gain group (the tier, or -1, and the shared-memory
+// bytes and workspace values).  ops/sweeps.py sizes the workspace through it
+// and mirrors it in Python (sweep_smem_bytes).
+extern "C" int dpilqr_sweep_plan(int n, int nx, int nu, int itemsize,
+                                 long long* smem_bytes, long long* work_values) {
+  const RiccatiPlan plan = sweep_plan(n, nx, nu, itemsize);
+  *smem_bytes = (long long)(plan.smem * itemsize);
+  *work_values = (long long)plan.work;
+  return plan.tier;
+}
+
+#ifdef DPILQR_PHASE_CLOCKS
+// This kernel's cycles by phase (riccati.cuh, RICCATI_CLOCK), read and reset.
+extern "C" int dpilqr_riccati_phase_clocks_sweep(unsigned long long* out) {
+  return riccati_read_phase_clocks(out);
+}
+#endif

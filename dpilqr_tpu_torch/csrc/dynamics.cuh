@@ -1,6 +1,9 @@
 // Device-side dynamics shared by the forward kernels (forward_batched.cu,
 // forward_sweep.cu): the nine models' continuous right-hand sides, one
 // slot's RK4 substep schedule and the per-agent quadratic form of the cost.
+// The right-hand sides (and the d_* functions they call) are also host
+// functions, so that derivatives.cuh, which differentiates them, compiles
+// with a plain C++ compiler for the CPU tests (csrc/derivatives_host.cpp).
 //
 // A slot's state lives in registers while it integrates: the per-slot
 // arrays have a compile-time width NXC (the caller's bound on nx, at most
@@ -14,7 +17,15 @@
 
 #pragma once
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#define DPILQR_HD __host__ __device__
+#else  // a host compiler: the device-only helpers below compile as inline
+#include <cmath>
+#define DPILQR_HD
+#define __device__
+#define __forceinline__ inline
+#endif
 
 namespace {
 
@@ -31,25 +42,25 @@ constexpr double Q12_CX = 85899976080679.0 / 175721491136944.0;
 constexpr double Q12_CY = 95876456000597.0 / 185697971056862.0;
 constexpr double Q12_CZ = 9976479919918.0 / 271597947137541.0;
 
-__device__ __forceinline__ float d_sin(float v) { return sinf(v); }
-__device__ __forceinline__ double d_sin(double v) { return sin(v); }
-__device__ __forceinline__ float d_tan(float v) { return tanf(v); }
-__device__ __forceinline__ double d_tan(double v) { return tan(v); }
-__device__ __forceinline__ float d_sqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double d_sqrt(double v) { return sqrt(v); }
+DPILQR_HD __forceinline__ float d_sin(float v) { return sinf(v); }
+DPILQR_HD __forceinline__ double d_sin(double v) { return sin(v); }
+DPILQR_HD __forceinline__ float d_tan(float v) { return tanf(v); }
+DPILQR_HD __forceinline__ double d_tan(double v) { return tan(v); }
+DPILQR_HD __forceinline__ float d_sqrt(float v) { return sqrtf(v); }
+DPILQR_HD __forceinline__ double d_sqrt(double v) { return sqrt(v); }
 
-__device__ __forceinline__ void d_sincos(float v, float* s, float* c) {
+DPILQR_HD __forceinline__ void d_sincos(float v, float* s, float* c) {
   sincosf(v, s, c);
 }
-__device__ __forceinline__ void d_sincos(double v, double* s, double* c) {
+DPILQR_HD __forceinline__ void d_sincos(double v, double* s, double* c) {
   sincos(v, s, c);
 }
 
 // Continuous dynamics of one slot; components a model does not set are 0.
 // Sine and cosine of one angle come from one sincos call.
 template <int NXC, typename T>
-__device__ __forceinline__ void rhs(int model, const T (&x)[NXC], const T* u,
-                                    T (&xd)[NXC]) {
+DPILQR_HD __forceinline__ void rhs(int model, const T (&x)[NXC], const T* u,
+                                   T (&xd)[NXC]) {
 #pragma unroll
   for (int i = 0; i < NXC; ++i) xd[i] = T(0);
   const T g = T(GRAVITY);

@@ -55,7 +55,10 @@
 //   asynchronously (cp.async) into the buffers that will hold Q_xx and Q_uu
 //   while phase 1 runs, and the next step's A, B, L_x and L_u while the
 //   Gauss-Jordan runs (a group that lives in the workspace is copied with
-//   plain loads instead).
+//   plain loads instead).  Where a step's inputs come from is the sweep's
+//   input source (CopiedInputs below: device memory, for K1 and K3); K5
+//   computes them in place instead, the next step's on the warps the
+//   elimination leaves idle (backward_sweep.cu).
 //
 // Working memory comes in three groups, each carved from its own base
 // pointer, so a kernel can place each group in shared or in device memory
@@ -107,9 +110,12 @@ struct RiccatiPlan {
   size_t smem, work;
 };
 
+// `extra`: values a kernel adds to the gain group for itself (K5's input
+// buffers; 0 for K1 and K3).
 inline RiccatiPlan riccati_plan(int K, int nx, int nu, size_t itemsize,
-                                long long optin) {
-  const RiccatiSizes z = riccati_sizes(K, nx, nu);
+                                long long optin, size_t extra = 0) {
+  RiccatiSizes z = riccati_sizes(K, nx, nu);
+  z.gain += extra;
   const size_t room = optin < 0 ? 0 : (size_t)optin / itemsize;
   if (z.value + z.gain + z.vec <= room) return {0, z.value + z.gain + z.vec, 0};
   if (z.gain + z.vec <= room) return {1, z.gain + z.vec, z.value};
@@ -175,14 +181,20 @@ __device__ __forceinline__ RiccatiWork<T> riccati_carve(T* value, T* gain, T* ve
 // (LDS, STS) for it.  A pointer chosen at run time between `sm` and `own`
 // is generic, and a generic load costs several times an LDS's latency on
 // every link of the recursion's dependent chain.
+// `extra` values (riccati_plan) follow the gain group's own; *extra_at
+// (where given) points at them.
 template <int TIER, typename T>
 __device__ __forceinline__ RiccatiWork<T> riccati_place(T* sm, T* own, int K,
-                                                        int nx, int nu) {
+                                                        int nx, int nu,
+                                                        size_t extra = 0,
+                                                        T** extra_at = nullptr) {
   const RiccatiSizes z = riccati_sizes(K, nx, nu);
+  T* gain = TIER == 0 ? sm + z.value : TIER == 1 ? sm : own + z.value;
+  if (extra_at != nullptr) *extra_at = gain + z.gain;
   if constexpr (TIER == 0)
-    return riccati_carve(sm, sm + z.value, sm + z.value + z.gain, K, nx, nu);
+    return riccati_carve(sm, sm + z.value, sm + z.value + z.gain + extra, K, nx, nu);
   else if constexpr (TIER == 1)
-    return riccati_carve(own, sm, sm + z.gain, K, nx, nu);
+    return riccati_carve(own, sm, sm + z.gain + extra, K, nx, nu);
   else
     return riccati_carve(own, own + z.value, sm, K, nx, nu);
 }
@@ -618,6 +630,67 @@ inline int riccati_read_phase_clocks(unsigned long long* out) {
 #define RICCATI_CLOCK(i)
 #endif
 
+// Where a step's inputs come from: the sweep calls its input source at
+// fixed points, with the slot widths it runs at.
+//   init(ws, ...): P and p of the terminal step, by every thread; it may
+//     synchronize the CTA;
+//   fetch(t, ws, ..., ft, fn): step t's A, B, L_x and L_u into At, Bt, lx
+//     and lu, by threads ft of fn, while the CTA's other work goes on (the
+//     next step's, during the elimination); done by the barrier that ends
+//     the step;
+//   hessians(t, ws, ...): step t's L_xx and L_uu into Qxx and Quu, by every
+//     thread at the step's top; done by the barrier that ends phase 1;
+//   lxx(ws, e, r, c, ...), luu(...): entry (r, c) of the step's L_xx and
+//     L_uu where phase 2 adds it (e: its index in Qxx, Quu).  CopiedInputs
+//     reads what hessians staged; a source may compute it there instead.
+// kComputes says the source computes instead of copying: then the next
+// step's fetch runs on the warps the elimination leaves idle.
+// CopiedInputs reads them from device memory, as the decomposed path's prep
+// (ops/batched.py) lays them out (K1, K3).
+template <int TIER, typename T>
+struct CopiedInputs {
+  static constexpr bool kComputes = false;
+  const T *A, *B, *Luu, *Lxx, *Lx, *Lu, *p0, *P0;
+
+  __device__ __forceinline__ void init(const RiccatiWork<T>& ws, int K, int nx,
+                                       int nu) const {
+    const int nxf = K * nx, tid = threadIdx.x, nth = blockDim.x;
+    for (int i = tid; i < nxf * nxf; i += nth) ws.P[i] = P0[i];
+    for (int i = tid; i < nxf; i += nth) ws.p[i] = p0[i];
+  }
+  __device__ __forceinline__ void fetch(int t, const RiccatiWork<T>& ws, int K,
+                                        int nx, int nu, int ft, int fn) const {
+    const int nxf = K * nx, nuf = K * nu;
+    stage_copy<TIER <= 1>(ws.At, A + (size_t)t * K * nx * nx, K * nx * nx, ft, fn);
+    stage_copy<TIER <= 1>(ws.Bt, B + (size_t)t * K * nx * nu, K * nx * nu, ft, fn);
+    stage_copy<true>(ws.lx, Lx + (size_t)t * nxf, nxf, ft, fn);
+    stage_copy<true>(ws.lu, Lu + (size_t)t * nuf, nuf, ft, fn);
+    __pipeline_commit();
+  }
+  __device__ __forceinline__ void hessians(int t, const RiccatiWork<T>& ws, int K,
+                                           int nx, int nu) const {
+    const int nxf = K * nx, nuf = K * nu;
+    stage_copy<TIER == 0>(ws.Qxx, Lxx + (size_t)t * nxf * nxf, nxf * nxf);
+    stage_copy<TIER <= 1>(ws.Quu, Luu + (size_t)t * nuf * nuf, nuf * nuf);
+    __pipeline_commit();
+  }
+  __device__ __forceinline__ T lxx(const RiccatiWork<T>& ws, int e, int, int, int,
+                                   int) const {
+    return ws.Qxx[e];
+  }
+  __device__ __forceinline__ T luu(const RiccatiWork<T>& ws, int e, int, int,
+                                   int) const {
+    return ws.Quu[e];
+  }
+};
+
+// The first warp the register elimination (gauss_jordan) leaves idle, or
+// 0 where it takes the whole CTA (every warp, or the in-place path).
+__device__ __forceinline__ int gauss_jordan_idle_warp(int nuf, int ncol) {
+  const int gw = (nuf + GJ_ROWS - 1) / GJ_ROWS, nw = blockDim.x >> 5;
+  return gw < nw && ncol <= 32 * GJ_COLS ? gw : 0;
+}
+
 // TILE: the register tile of the nuf-deep products; TIER: where the groups
 // live (riccati_plan), which decides what can be copied asynchronously;
 // GJ_NR, GJ_NCB: where GJ_NR > 0 the elimination runs in one warp's
@@ -627,15 +700,12 @@ inline int riccati_read_phase_clocks(unsigned long long* out) {
 // index divisions become shifts or multiplications and the loops over a
 // block unroll: at nxf 32 more than half of phases 1 and 2 was index
 // arithmetic on the dependent chain).
+// src: the input source (CopiedInputs, or K5's).
 template <int TILE, int TIER, int GJ_NR = 0, int GJ_NCB = 0, int NXS = 0,
-          int NUS = 0, int KS = 0, typename T>
-__device__ __forceinline__ void riccati_sweep(
-    const T* __restrict__ A, const T* __restrict__ B,
-    const T* __restrict__ Luu, const T* __restrict__ Lxx,
-    const T* __restrict__ Lx, const T* __restrict__ Lu, const T mu,
-    const T* __restrict__ p0, const T* __restrict__ P0, T* __restrict__ Kg,
-    T* __restrict__ dg, int N, int K_arg, int nx_arg, int nu_arg,
-    const RiccatiWork<T>& ws) {
+          int NUS = 0, int KS = 0, typename Src, typename T>
+__device__ __forceinline__ void riccati_sweep_from(
+    const Src& src, const T mu, T* __restrict__ Kg, T* __restrict__ dg, int N,
+    int K_arg, int nx_arg, int nu_arg, const RiccatiWork<T>& ws) {
   const int nx = NXS ? NXS : nx_arg, nu = NUS ? NUS : nu_arg;
   const int K = KS ? KS : K_arg;
   const int nxf = K * nx, nuf = K * nu;
@@ -660,22 +730,15 @@ __device__ __forceinline__ void riccati_sweep(
   const int ntx = (nxf + TILE - 1) / TILE, ntu = (nuf + TILE - 1) / TILE;
   const bool vect = nxf % TILE == 0;  // TILE-wide segments of nxf-wide rows
 
-  for (int i = tid; i < nxf * nxf; i += nth) P[i] = P0[i];
-  for (int i = tid; i < nxf; i += nth) p[i] = p0[i];
+  src.init(ws, K, nx, nu);
 #ifdef DPILQR_PHASE_CLOCKS
   long long phase_start_ = clock64();
 #endif
 
-  // One group of copies: step t's A, B, L_x and L_u rows, by threads ft of
-  // fn.  Where one warp eliminates alone, the others fetch meanwhile.
+  // Step t's A, B, L_x and L_u rows, by threads ft of fn.  Where one warp
+  // eliminates alone, the others fetch meanwhile.
   const bool warp_gj = GJ_NR > 0 && nth > 32;
-  auto fetch_step = [&](int t, int ft, int fn) {
-    stage_copy<TIER <= 1>(At, A + (size_t)t * K * nx * nx, K * nx * nx, ft, fn);
-    stage_copy<TIER <= 1>(Bt, B + (size_t)t * K * nx * nu, K * nx * nu, ft, fn);
-    stage_copy<true>(ws.lx, Lx + (size_t)t * nxf, nxf, ft, fn);
-    stage_copy<true>(ws.lu, Lu + (size_t)t * nuf, nuf, ft, fn);
-    __pipeline_commit();
-  };
+  auto fetch_step = [&](int t, int ft, int fn) { src.fetch(t, ws, K, nx, nu, ft, fn); };
   if (N > 0) fetch_step(N - 1, tid, nth);
   __pipeline_wait_prior(0);
   __syncthreads();  // P, p and the last step's A, B, L_x, L_u are in place
@@ -685,9 +748,7 @@ __device__ __forceinline__ void riccati_sweep(
     // since the last step's phases 7 and 5); they land during phase 1.  The
     // step's A, B, L_x and L_u landed before the barrier that ended the
     // step before (or the one above), so phase 1 starts at once.
-    stage_copy<TIER == 0>(Qxx, Lxx + (size_t)t * nxf * nxf, nxf * nxf);
-    stage_copy<TIER <= 1>(Quu, Luu + (size_t)t * nuf * nuf, nuf * nuf);
-    __pipeline_commit();
+    src.hessians(t, ws, K, nx, nu);
     RICCATI_CLOCK(0)
 
     // Phase 1: Q_x, Q_u, A^T P, B^T (P + mu I).
@@ -723,7 +784,7 @@ __device__ __forceinline__ void riccati_sweep(
             for (int i = 0; i < 4; ++i)
               if (r0 + i < nxf) {
                 const int e = (r0 + i) * nxf + c;
-                Qxx[e] = Qxx[e] + acc[i];
+                Qxx[e] = src.lxx(ws, e, r0 + i, c, K, nx) + acc[i];
               }
           }
           for (int r0 = 4 * g.ty; r0 < nuf; r0 += 4 * g.nyt) {
@@ -749,7 +810,7 @@ __device__ __forceinline__ void riccati_sweep(
             for (int i = 0; i < 4; ++i)
               if (r0 + i < nuf) {
                 const int e = (r0 + i) * nuf + c;
-                const T q = acc[i] + Quu[e];
+                const T q = acc[i] + src.luu(ws, e, r0 + i, c, nu);
                 Quu[e] = q;
                 M[(r0 + i) * ncol + c] = q;
               }
@@ -760,7 +821,7 @@ __device__ __forceinline__ void riccati_sweep(
     __syncthreads();
     RICCATI_CLOCK(2)
     // A_t, B_t and the staged rows are done with.
-    if (t > 0 && !warp_gj) fetch_step(t - 1, tid, nth);
+    if (!Src::kComputes && t > 0 && !warp_gj) fetch_step(t - 1, tid, nth);
 
     // Phases 3 and 4: the solve [K | d] = -Quu^-1 [Qux | Qu] and the gains
     // K = -X, d = -x; a step's block is contiguous.
@@ -774,6 +835,13 @@ __device__ __forceinline__ void riccati_sweep(
       RICCATI_CLOCK(3)
     } else {
       gauss_jordan(M, ws.prow, ws.colv, nuf, ncol);
+      if (Src::kComputes && t > 0) {
+        // The warps the elimination leaves idle compute the next step's
+        // inputs while it runs; where it takes them all, all of them do
+        // after it.
+        const int w0 = 32 * gauss_jordan_idle_warp(nuf, ncol);
+        if (tid >= w0) fetch_step(t - 1, tid - w0, nth - w0);
+      }
       __syncthreads();
       RICCATI_CLOCK(3)
 
@@ -881,6 +949,22 @@ __device__ __forceinline__ void riccati_sweep(
     __syncthreads();
     RICCATI_CLOCK(7)
   }
+}
+
+
+// The sweep over inputs in device memory (CopiedInputs): K1 and K3.
+template <int TILE, int TIER, int GJ_NR = 0, int GJ_NCB = 0, int NXS = 0,
+          int NUS = 0, int KS = 0, typename T>
+__device__ __forceinline__ void riccati_sweep(
+    const T* __restrict__ A, const T* __restrict__ B,
+    const T* __restrict__ Luu, const T* __restrict__ Lxx,
+    const T* __restrict__ Lx, const T* __restrict__ Lu, const T mu,
+    const T* __restrict__ p0, const T* __restrict__ P0, T* __restrict__ Kg,
+    T* __restrict__ dg, int N, int K_arg, int nx_arg, int nu_arg,
+    const RiccatiWork<T>& ws) {
+  const CopiedInputs<TIER, T> src{A, B, Luu, Lxx, Lx, Lu, p0, P0};
+  riccati_sweep_from<TILE, TIER, GJ_NR, GJ_NCB, NXS, NUS, KS>(
+      src, mu, Kg, dg, N, K_arg, nx_arg, nu_arg, ws);
 }
 
 }  // namespace

@@ -114,14 +114,17 @@ def riccati_sizes(K: int, nx: int, nu: int) -> tuple[int, int, int]:
 
 
 def riccati_smem_bytes(K: int, nx: int, nu: int, itemsize: int,
-                       limit: int = SMEM_LIMIT) -> tuple[int, int, int]:
+                       limit: int = SMEM_LIMIT,
+                       extra: int = 0) -> tuple[int, int, int]:
     """Where a backward kernel places one problem's working set: the mirror
     of ``riccati_plan`` in csrc/riccati.cuh.  Returns ``(tier, shared-memory
     bytes of a CTA, workspace values of one problem)``: tier 0 has all three
     groups in shared memory, 1 the value group in the device-memory
-    workspace, 2 the gain group too.  Raises where not even the vectors fit
-    ``limit`` bytes."""
+    workspace, 2 the gain group too; ``extra`` values join the gain group
+    (K5's own buffers, ``sweeps.sweep_extra_values``).  Raises where not
+    even the vectors fit ``limit`` bytes."""
     value, gain, vec = riccati_sizes(K, nx, nu)
+    gain += extra
     room = limit // itemsize
     if value + gain + vec <= room:
         return 0, (value + gain + vec) * itemsize, 0

@@ -48,7 +48,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "backward_batched": [_P] * 11 + [_I] * 5 + [_P],
     "backward_batched_wide": [_P] * 12 + [_L] + [_I] * 5 + [_P],
-    "backward_sweep": [_P] * 12 + [_L] + [_I] * 4 + [_P],
+    "backward_sweep": [_P] * 17 + [_L] + [_I] * 4 + [_P],
     "forward_batched": [_P] * 20 + [_I] * 6 + [_P],
     "forward_sweep": [_P] * 21 + [_I] * 6 + [_P],
     "probe_fma": [_P] * 2 + [_L, _I] + [_F] * 8 + [_P],
@@ -178,8 +178,9 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, f"dpilqr_{base}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    lib.dpilqr_riccati_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_L)] * 2
-    lib.dpilqr_riccati_plan.restype = ctypes.c_int
+    for plan in (lib.dpilqr_riccati_plan, lib.dpilqr_sweep_plan):
+        plan.argtypes = [_I] * 4 + [ctypes.POINTER(_L)] * 2
+        plan.restype = ctypes.c_int
     lib.dpilqr_forward_smem_bytes.argtypes = [_I] * 6
     lib.dpilqr_forward_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -223,17 +224,20 @@ def check_tensors(name: str, tensors: dict, shapes: dict, dtype, device,
 
 
 @cache
-def riccati_plan(K: int, nx: int, nu: int, itemsize: int) -> tuple[int, int, int]:
+def riccati_plan(K: int, nx: int, nu: int, itemsize: int,
+                 sweep: bool = False) -> tuple[int, int, int]:
     """Where the library places one problem's Riccati working set on the
     current device (``riccati_plan`` in csrc/riccati.cuh, exported by
-    csrc/backward_batched_wide.cu): ``(tier, shared-memory bytes of a CTA,
-    workspace values of one problem)``.  Tier 0 keeps everything in shared
-    memory, 1 the three nxf^2 matrices in a device-memory workspace, 2 the
-    gain blocks too; a working set whose vectors alone exceed shared memory
-    raises."""
+    csrc/backward_batched_wide.cu; with ``sweep`` K5's, which adds its own
+    buffers, exported by csrc/backward_sweep.cu): ``(tier, shared-memory
+    bytes of a CTA, workspace values of one problem)``.  Tier 0 keeps
+    everything in shared memory, 1 the three nxf^2 matrices in a
+    device-memory workspace, 2 the gain blocks too; a working set whose
+    vectors alone exceed shared memory raises."""
     smem, work = _L(), _L()
-    tier = load_library().dpilqr_riccati_plan(
-        K, nx, nu, itemsize, ctypes.byref(smem), ctypes.byref(work))
+    lib = load_library()
+    plan = lib.dpilqr_sweep_plan if sweep else lib.dpilqr_riccati_plan
+    tier = plan(K, nx, nu, itemsize, ctypes.byref(smem), ctypes.byref(work))
     if tier < 0:
         raise ValueError(f"a Riccati problem of K={K}, nx={nx}, nu={nu} does "
                          "not fit the device's shared memory")

@@ -233,13 +233,29 @@ class IlqrCarry(NamedTuple):
     failed: torch.Tensor
 
 
-def resolve_sweep_backend(cfg: SolverConfig, x) -> str:
-    """``cfg.sweep_backend`` for a solve on ``x``'s device: "auto" is the
-    kernels for CUDA tensors and the plain PyTorch sweeps for CPU tensors;
-    "pscan" stays "pscan" (its rollouts pick by device in ``_sweeps``)."""
+def resolve_sweep_backend(cfg: SolverConfig, x, fleet: Fleet) -> str:
+    """``cfg.sweep_backend`` for a solve of ``fleet`` on ``x``'s device and
+    dtype.  "auto" is the plain PyTorch sweeps for CPU tensors and the
+    kernels for CUDA tensors -- unless K5 finds no tier for the problem
+    (``sweeps.sweep_smem_bytes``: its vectors alone exceed a block's shared
+    memory), and then "pscan": the JAX package's rule (the fused kernel
+    where it fits, the scan where it does not) without its TPU crossover at
+    N >= 100, since on the card K5 beats the scan at every horizon.  An
+    explicit "cuda" raises there; "pscan" stays "pscan"."""
     if cfg.sweep_backend == "pscan":
         return "pscan"
-    return resolve_backend(cfg.sweep_backend, x)
+    backend = resolve_backend(cfg.sweep_backend, x)
+    if backend == "cuda":
+        from .sweeps import sweep_smem_bytes
+
+        try:
+            sweep_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p,
+                             x.element_size())
+        except ValueError:
+            if cfg.sweep_backend != "auto":
+                raise
+            return "pscan"
+    return backend
 
 
 def _sweeps(fleet: Fleet, backend: str):
@@ -376,7 +392,7 @@ def _solve(fleet: Fleet, cfg: SolverConfig, cost: GameCost, x0, U0,
     cost = cast_cost(GameCost(*(a.to(x0.device) for a in cost)), x0.dtype)
     U0 = U0.to(dtype=x0.dtype, device=x0.device).contiguous()
     return solve_core(fleet, cfg, cost, x0.contiguous(), U0,
-                      resolve_sweep_backend(cfg, x0), **deadline)
+                      resolve_sweep_backend(cfg, x0, fleet), **deadline)
 
 
 def make_solver(fleet: Fleet, N: int, config: SolverConfig = DEFAULT_CONFIG):

@@ -22,7 +22,8 @@ term is then removed by the standard change of variables
 (``tests/test_torch_pscan.py`` holds it element for element against the
 sequential sweep).
 
-Enabled with ``sweep_backend="pscan"`` (the centralized solve).  The scan is
+Enabled with ``sweep_backend="pscan"`` (the centralized solve), and by
+``"auto"`` on the card for a problem past K5's widest tier.  The scan is
 not a hand-written kernel: its combines are batched ``torch.matmul`` calls
 and the batched Gauss-Jordan of ``ops.ilqr.gauss_jordan_solve``, as the JAX
 package leaves them to XLA.  The line-search rollout stays sequential

@@ -4,8 +4,10 @@ Counterpart of ``dpilqr_tpu/ops/pallas_sweeps.py``: one iLQR problem over
 the whole fleet (``X (N+1, n, nx_p)``, ``U (N, n, nu_p)``), flat gains
 ``K (N, nuf, nxf)``, ``d (N, nuf)`` with ``nxf = n nx_p``, ``nuf = n nu_p``.
 
-- ``backward_pass_cuda``: the Riccati sweep, kernel ``csrc/backward_sweep.cu``
-  (twin: ``ops.ilqr._backward_pass``);
+- ``backward_pass_cuda``: the whole of ``backward_pass_pallas``, its
+  quadraticization and linearization included, as ONE launch of kernel
+  ``csrc/backward_sweep.cu``, which computes each step's Jacobians and cost
+  derivatives itself (twin: ``ops.ilqr._backward_pass``);
 - ``forward_pass_cuda``: the closed-loop line search over all alphas,
   kernel ``csrc/forward_sweep.cu`` (twin: ``ops.ilqr._forward_pass``), and
   ``rollout_cuda``, the same kernel with no gains: the plain rollout of a
@@ -13,10 +15,8 @@ the whole fleet (``X (N+1, n, nx_p)``, ``U (N, n, nu_p)``), flat gains
   ``_rollout_batched_cost``), which ``ops.ilqr.rollout`` routes every CUDA
   rollout to (the stitched plan's joint cost, the executed trajectory's).
 
-The quadraticization and linearization run in torch before the backward
-kernel, as in the JAX package (``pallas_sweeps.py:430-454``), through the
-batched prep at one problem with n slots; A and B stay block-diagonal per
-agent.  The wrappers take CUDA tensors only and raise otherwise.
+The wrappers take CUDA tensors only and raise otherwise; between the caller
+and a kernel they only check arguments and allocate outputs.
 """
 
 from __future__ import annotations
@@ -26,12 +26,7 @@ from functools import lru_cache
 import torch
 
 from ..models.fleet import Fleet
-from .batched import (
-    _linearize_batch,
-    _quadraticize_batch,
-    _slot_tables,
-    forward_smem_bytes,
-)
+from .batched import _pad4, _slot_tables, forward_smem_bytes, riccati_smem_bytes
 from .costs import GameCost, cast_cost
 from .cuda_build import check_tensors, launch, require_cuda, riccati_plan
 
@@ -43,50 +38,62 @@ def _branch_indices(fleet: Fleet, device):
     return torch.as_tensor(fleet.branch_index_array, device=device)
 
 
-def backward_sweep_inputs(fleet: Fleet, cost: GameCost, X, U, mu) -> dict:
-    """The backward kernel's inputs: the problem linearized and
-    quadraticized about ``(X, U)`` (torch), and the regularization ``mu
-    ()``."""
-    dtype, dev = X.dtype, X.device
-    cost_b = GameCost(*(a[None] for a in cast_cost(cost, dtype)))
-    mids = _branch_indices(fleet, dev)[None]
-    q = _quadraticize_batch(cost_b, X[None], U[None])
-    A, B = _linearize_batch(fleet, cost_b, mids, X[None], U[None])
-    return dict(A=A[0], B=B[0], L_uu=q["L_uu"][0], L_xx=q["L_xx"][0],
-                L_x=q["L_x"][0], L_u=q["L_u"][0],
-                mu=torch.as_tensor(mu, dtype=dtype, device=dev).reshape(1),
-                p0=q["p0"][0], P0=q["P0"][0])
+def sweep_extra_values(n: int, nx: int, nu: int) -> int:
+    """Values K5 adds to the Riccati working set's gain group (per agent Q +
+    Q^T, R + R^T and their weighted blocks, a step's (n, n, k, k) proximity
+    blocks and (n, n, 3) pair gradient terms): the mirror of
+    ``sweep_extra_values`` in csrc/backward_sweep.cu."""
+    k = min(3, nx)
+    return (2 * _pad4(n * nx * nx) + 2 * _pad4(n * nu * nu) + _pad4(n * n * k * k)
+            + _pad4(n * n * 3))
 
 
-def launch_backward_sweep(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
-    """Launch ``csrc/backward_sweep.cu`` on ``backward_sweep_inputs``;
-    returns ``K (N, nuf, nxf)``, ``d (N, nuf)``."""
-    require_cuda("backward_sweep", A)
-    N, n, nx_p, nu_p = B.shape
-    nxf, nuf = n * nx_p, n * nu_p
-    dtype, dev = A.dtype, A.device
-    ins = dict(A=A, B=B, L_uu=L_uu, L_xx=L_xx, L_x=L_x, L_u=L_u, mu=mu, p0=p0,
-               P0=P0)
-    check_tensors("backward_sweep", ins, {
-        "A": (N, n, nx_p, nx_p), "B": (N, n, nx_p, nu_p),
-        "L_uu": (N, nuf, nuf), "L_xx": (N, nxf, nxf), "L_x": (N, nxf),
-        "L_u": (N, nuf), "mu": (1,), "p0": (nxf,), "P0": (nxf, nxf),
-    }, dtype, dev)
-    n_work = riccati_plan(n, nx_p, nu_p, A.element_size())[2]
-    work = A.new_empty((n_work,))
-    K = A.new_empty((N, nuf, nxf))
-    d = A.new_empty((N, nuf))
-    launch("backward_sweep", dtype, dev, *ins.values(), K, d, work, n_work,
-           N, n, nx_p, nu_p)
-    return K, d
+def sweep_smem_bytes(n: int, nx: int, nu: int, itemsize: int) -> tuple[int, int, int]:
+    """Where K5 places its working set: ``(tier, shared-memory bytes,
+    workspace values)``, the mirror of ``dpilqr_sweep_plan``; raises where
+    no tier fits (``batched.riccati_smem_bytes``)."""
+    return riccati_smem_bytes(n, nx, nu, itemsize,
+                              extra=sweep_extra_values(n, nx, nu))
+
+
+@lru_cache(maxsize=64)
+def _dt_tensor(dt: float, dtype, device):
+    """The fleet's step as a one-value tensor on ``device``, made once."""
+    return torch.tensor([dt], dtype=torch.float64).to(dtype).to(device)
 
 
 def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
     """The centralized Riccati sweep about ``(X, U)`` with regularization
-    ``mu ()`` on ``csrc/backward_sweep.cu``; returns ``K (N, nuf, nxf)``,
-    ``d (N, nuf)``."""
+    ``mu ()``, its inputs (Euler-discretized Jacobians, the cost's gradient
+    and Hessian blocks) computed inside the one launch of
+    ``csrc/backward_sweep.cu``; returns ``K (N, nuf, nxf)``, ``d (N,
+    nuf)``."""
     require_cuda("backward_sweep", X)
-    return launch_backward_sweep(**backward_sweep_inputs(fleet, cost, X, U, mu))
+    N, n, nu_p = U.shape
+    nx_p = X.shape[-1]
+    if fleet.n_agents != n or fleet.nx_p != nx_p or fleet.nu_p != nu_p:
+        raise ValueError("X/U shapes do not match the fleet")
+    nxf, nuf = n * nx_p, n * nu_p
+    dtype, dev = X.dtype, X.device
+    cost = cast_cost(cost, dtype)
+    model = _agent_tables(fleet, dtype, dev)[0]
+    ins = dict(X=X, U=U, xf=cost.xf, Q=cost.Q, R=cost.R, Qf=cost.Qf,
+               mask=cost.agent_mask, refw=cost.ref_weight.reshape(1),
+               radius=cost.radius.reshape(1), proxw=cost.prox_weight.reshape(1),
+               npos=cost.n_pos, model=model, dt=_dt_tensor(fleet.dt, dtype, dev),
+               mu=torch.as_tensor(mu, dtype=dtype, device=dev).reshape(1))
+    check_tensors("backward_sweep", ins, dict(
+        X=(N + 1, n, nx_p), U=(N, n, nu_p), xf=(n, nx_p), Q=(n, nx_p, nx_p),
+        R=(n, nu_p, nu_p), Qf=(n, nx_p, nx_p), mask=(n,), refw=(1,), radius=(1,),
+        proxw=(1,), npos=(n,), model=(n,), dt=(1,), mu=(1,)),
+        dtype, dev, ints=("npos", "model"))
+    n_work = riccati_plan(n, nx_p, nu_p, X.element_size(), sweep=True)[2]
+    work = X.new_empty((n_work,))
+    K = X.new_empty((N, nuf, nxf))
+    d = X.new_empty((N, nuf))
+    launch("backward_sweep", dtype, dev, *ins.values(), K, d, work, n_work,
+           N, n, nx_p, nu_p)
+    return K, d
 
 
 # Parts a step's cost may be split into by the plain rollout

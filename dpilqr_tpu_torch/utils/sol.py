@@ -77,22 +77,37 @@ PUBLISHED_HBM_BYTES_S = 3.35e12
 class ModelWork(NamedTuple):
     """Work of one model's continuous dynamics, counted from ``rhs`` in
     csrc/dynamics.cuh: one FLOP per +, -, *, / and unary minus of one
-    evaluation for one slot, its sin/cos/tan evaluations, and the RK4
-    substeps of one control period."""
+    evaluation for one slot, its sin/cos/tan evaluations, the RK4 substeps
+    of one control period, and the FLOPs of its continuous Jacobian's
+    nonzero partials in closed form beyond the right-hand side's own sines
+    and cosines (a constant partial costs nothing; d tan = 1 + tan^2)."""
 
     f_flops: int
     f_trig: int
     substeps: int
+    jac_flops: int
 
 
 MODEL_WORK = {
-    # x2 cos(x3), x2 sin(x3).
-    "Unicycle4D": ModelWork(f_flops=2, f_trig=2, substeps=5),
-    # g tan(u2), -g tan(u1), u0 - g.
-    "Quad6D": ModelWork(f_flops=3, f_trig=2, substeps=5),
+    # x2, x3, u0, u1: no arithmetic.
+    "DoubleInt4D": ModelWork(f_flops=0, f_trig=0, substeps=5, jac_flops=0),
+    "DoubleInt6D": ModelWork(f_flops=0, f_trig=0, substeps=5, jac_flops=0),
+    # u0 cos(x2), u0 sin(x2); partials -u0 sin, u0 cos.
+    "Car3D": ModelWork(f_flops=2, f_trig=2, substeps=5, jac_flops=3),
+    # x2 cos(x3), x2 sin(x3); partials -x2 sin, x2 cos.
+    "Unicycle4D": ModelWork(f_flops=2, f_trig=2, substeps=5, jac_flops=3),
+    # x3 cos(u0), x3 sin(u0); partials -x3 sin, x3 cos.
+    "Human6D": ModelWork(f_flops=2, f_trig=2, substeps=5, jac_flops=3),
+    "HumanLin6D": ModelWork(f_flops=0, f_trig=0, substeps=5, jac_flops=0),
+    # g tan(u2), -g tan(u1), u0 - g; partials +-g (1 + tan^2).
+    "Quad6D": ModelWork(f_flops=3, f_trig=2, substeps=5, jac_flops=6),
     # Rows xd0..xd11: 14 + 15 + 8 + 5 + 3 + 6 + 5 + 7 + 8 + 4 + 4 + 4; sin and
-    # cos of three angles and one tan.
-    "Quad12D": ModelWork(f_flops=83, f_trig=7, substeps=5),
+    # cos of three angles and one tan.  Partials by row: 32 + 32 + 16 + 12 +
+    # 4 + 12 + 3 + 6 + 6 + 4 + 4 + 4.
+    "Quad12D": ModelWork(f_flops=83, f_trig=7, substeps=5, jac_flops=135),
+    # x2 cos(x3), x2 sin(x3), x2 tan(x4); partials -x2 sin, x2 cos,
+    # x2 (1 + tan^2).
+    "Bike5D": ModelWork(f_flops=3, f_trig=3, substeps=1, jac_flops=6),
 }
 
 
@@ -105,6 +120,44 @@ def model_work(model: str) -> ModelWork:
             f"csrc/dynamics.cuh and add a MODEL_WORK row (have {sorted(MODEL_WORK)})"
         )
     return MODEL_WORK[model]
+
+
+def _models(model, K: int) -> tuple[str, ...]:
+    """``model`` as one name per slot: a name (every slot) or a sequence."""
+    names = (model,) * K if isinstance(model, str) else tuple(model)
+    if len(names) != K:
+        raise ValueError(f"{len(names)} model names for {K} slots")
+    return names
+
+
+def pair_flops(k: int) -> int:
+    """FLOPs of one pair's proximity terms at one step (derivatives.cuh
+    ``pair_terms``) and their share of the sums: the difference (3), its
+    square norm (5), the root, activity, weight and clamp (4), the two
+    scales (6), the Hessian's k^2 entries (4 each), the gradient scale (3)
+    and vector (3), the two agents' gradient sums (2 k), the weighted
+    Hessian (k^2) and the two agents' diagonal sums (2 k^2)."""
+    return 24 + 7 * k * k + 2 * k
+
+
+def sweep_prep_flops(K: int, nx_p: int, nu_p: int, model="Unicycle4D",
+                     terminal: bool = False) -> tuple[int, int]:
+    """``(flops, sin/cos/tan evaluations)`` of K5's inputs at one step of a
+    problem of ``K`` agents (``model``: a name or one per agent): the
+    Euler-discretized Jacobians (the model's partials, ``I + dt A_c``,
+    ``dt B_c m``), the cost gradients (``w (Q + Q^T)^T e`` and the
+    proximity sum; ``w (R + R^T)^T u + 2 (1 - m) u``), every pair's terms and
+    the diagonal blocks' proximity sums added into L_xx.  At the terminal
+    step no Jacobians and no control terms."""
+    k = min(3, nx_p)
+    works = [model_work(m) for m in _models(model, K)]
+    fl = K * (2 * nx_p * nx_p + 2 * nx_p + 2 * k)  # L_x
+    fl += K * (K - 1) // 2 * pair_flops(k) + K * k * k  # pairs, L_xx's diagonal
+    if terminal:
+        return fl, 0
+    fl += K * (2 * nu_p * nu_p + 4 * nu_p)  # L_u
+    fl += sum(w.jac_flops for w in works) + K * (2 * nx_p * nx_p + 2 * nx_p * nu_p)
+    return fl, sum(w.f_trig for w in works)
 
 
 def backward_step_flops(K: int, nx_p: int, nu_p: int) -> int:
@@ -217,6 +270,24 @@ def forward_fixed_hbm_bytes(K: int, nx_p: int, nu_p: int, n_alpha: int,
     return n * dtype_bytes + 3 * K * 4
 
 
+def sweep_fixed_flops(K: int, nx_p: int, nu_p: int) -> int:
+    """K5's work once a sweep: Q + Q^T, Qf + Qf^T and R + R^T, and the
+    weighted blocks w (Q + Q^T), w (Qf + Qf^T) (two products an entry) and
+    w (R + R^T) + 2 (1 - m) I (three)."""
+    return K * (2 * nx_p * nx_p + nu_p * nu_p) + K * (4 * nx_p * nx_p + 3 * nu_p * nu_p)
+
+
+def sweep_hbm_bytes(N: int, K: int, nx_p: int, nu_p: int, dtype_bytes: int = 4) -> int:
+    """Device-memory bytes of one launch of K5, which computes its inputs:
+    X and U read, the cost (xf, Q, R, Qf, mask, three scalars; n_pos and
+    the model ids int32), dt and mu read, K and d written."""
+    nxf, nuf = K * nx_p, K * nu_p
+    n_in = ((N + 1) * nxf + N * nuf + nxf + 2 * K * nx_p * nx_p
+            + K * nu_p * nu_p + K + 3 + 2)
+    n_out = N * (nuf * nxf + nuf)
+    return (n_in + n_out) * dtype_bytes + 2 * K * 4
+
+
 def pscan_sweep_flops(N: int, nxf: int) -> int:
     """FLOPs of one associative-scan Riccati sweep (ops/pscan.py): a combine
     does 8 dense (nxf, nxf) matmuls (2 nxf^3 each) plus one Gauss-Jordan
@@ -235,6 +306,12 @@ def pscan_sweep_flops(N: int, nxf: int) -> int:
 PROBE_REPS = 20
 # The shape and iteration counts the ceilings are measured at.
 PROBE_SHAPE, FMA_ITERS, SIN_ITERS, HBM_MB = (256, 512), 2048, 256, 256
+
+# Instructions of one iteration (16 sines) of csrc/probe_sin.cu's loop on
+# the path its arguments take, in the SASS of its sm_90a build: 390, 24.4 a
+# sine (scripts/sass_count.py on an NVIDIA H100 80GB HBM3; the loop holds
+# 1410 with the large-argument reductions it jumps over).
+SIN_LOOP_SASS = 390
 
 # Multiplier and addend of the four FMA chains a, b, c, d.
 FMA_CONSTS = (1.0000001, 1.0000001e-7, 0.9999999, 1.0000002e-7,
@@ -353,6 +430,15 @@ def probe_work(kernel: str, n: int, iters: int = 0, T: int = 1) -> tuple[int, in
     raise ValueError(f"unknown probe {kernel!r}")
 
 
+def probe_sin_sass_bound_s(n: int, iters: int) -> float:
+    """The least time of one ``probe_sin`` launch over ``n`` elements if
+    each instruction its sine loop issues (``SIN_LOOP_SASS`` an iteration)
+    took one FP32 issue slot at the published rate (half of 67 TFLOP/s):
+    the bound that counts what an accurate ``sinf`` costs, beside
+    ``published_bound``'s one slot a sine."""
+    return n * iters * SIN_LOOP_SASS / (PUBLISHED_FP32_FLOPS / 2)
+
+
 @functools.cache
 def time_probe_fma(S: int = PROBE_SHAPE[1], rows: int = PROBE_SHAPE[0],
                    iters: int = FMA_ITERS, k: int = 5, device=None) -> ProbeRun:
@@ -462,26 +548,41 @@ FORWARD_FAMILIES = ("forward", "forward_sweep", "rollout_sweep")
 
 
 def sweep_work(family: str, N: int, K: int, nx_p: int, nu_p: int, S: int,
-               n_alpha: int, model: str = "Unicycle4D",
+               n_alpha: int, model="Unicycle4D",
                dtype_bytes: int = 4) -> tuple[int, int, int]:
     """``(flops, sin/cos/tan evaluations, device-memory bytes)`` of one
-    launch of a kernel family: ``backward`` (K1), ``backward_wide`` (K3) and
-    ``backward_sweep`` (K5: K = n agents, S = 1) share one count, ``forward``
-    (K2) and ``forward_sweep`` (K4: S = 1) the other; ``rollout_sweep`` is
-    K4 without gains (S = 1, one column: ``n_alpha`` is read as 1)."""
+    launch of a kernel family: ``backward`` (K1) and ``backward_wide`` (K3)
+    share the recursion's count, and ``backward_sweep`` (K5: K = n agents,
+    S = 1) adds its inputs' (``sweep_prep_flops`` at each step and the
+    terminal one, ``sweep_fixed_flops``) and reads the trajectory and the
+    cost instead of them (``sweep_hbm_bytes``); ``forward`` (K2) and
+    ``forward_sweep`` (K4: S = 1) share the other; ``rollout_sweep`` is K4
+    without gains (S = 1, one column: ``n_alpha`` is read as 1).  ``model``
+    is a ModelSpec name or one per slot (a mixed batch: the forward count
+    is the mean over them)."""
+    if family == "backward_sweep":
+        prep, trig = sweep_prep_flops(K, nx_p, nu_p, model)
+        fl = ((backward_step_flops(K, nx_p, nu_p) + prep) * N
+              + sweep_prep_flops(K, nx_p, nu_p, model, terminal=True)[0]
+              + sweep_fixed_flops(K, nx_p, nu_p))
+        return fl * S, trig * N * S, sweep_hbm_bytes(N, K, nx_p, nu_p, dtype_bytes) * S
     if family in BACKWARD_FAMILIES:
         fl = backward_step_flops(K, nx_p, nu_p) * N * S
         by = (backward_step_hbm_bytes(K, nx_p, nu_p, dtype_bytes) * N
               + backward_fixed_hbm_bytes(K, nx_p, dtype_bytes)) * S
         return fl, 0, by
     if family in FORWARD_FAMILIES:
-        w = model_work(model)
         gains = family != "rollout_sweep"
         if not gains:
             n_alpha = 1
-        fl = forward_step_flops(K, nx_p, nu_p, n_alpha, w.substeps, w.f_flops,
-                                gains) * N * S
-        trig = forward_step_trig_ops(K, nx_p, nu_p, n_alpha, w.substeps, w.f_trig) * N * S
+        names = _models(model, K)
+        fl = trig = 0
+        for name in names:
+            w = model_work(name)
+            fl += forward_step_flops(K, nx_p, nu_p, n_alpha, w.substeps, w.f_flops,
+                                     gains)
+            trig += forward_step_trig_ops(K, nx_p, nu_p, n_alpha, w.substeps, w.f_trig)
+        fl, trig = fl * N * S // len(names), trig * N * S // len(names)
         by = (forward_step_hbm_bytes(K, nx_p, nu_p, n_alpha, dtype_bytes, gains) * N
               + forward_fixed_hbm_bytes(K, nx_p, nu_p, n_alpha, dtype_bytes,
                                         sweep=family != "forward")) * S
@@ -730,7 +831,7 @@ def _sol_report(dev, n_alpha, k):
     report["pscan"] = {
         "shape": dict(n=n_ps, N=N_ps, nxf=nxf_p),
         "pscan_ms": ms_ps, "sequential_torch_ms": ms_seq,
-        "k5_launch_ms": ms_k5, "k5_with_prep_ms": whole_k5,
+        "k5_launch_ms": ms_k5, "k5_wrapper_ms": whole_k5,
         "gflops": fl_ps / 1e9, "pscan_gflop_s": gflop_s,
         "pscan_sol_frac": gflop_s / report["ceilings"]["matmul_1024_gflop_s"],
         "pscan_sol_frac_fair": gflop_s / fair,

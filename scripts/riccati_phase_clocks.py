@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a step of a batched Riccati kernel (K1 narrow, K3 wide) spends its cycles.
+"""Where a step of a Riccati kernel (K1 narrow, K3 wide, K5 sweep) spends its cycles.
 
 Builds the kernels with ``-DDPILQR_PHASE_CLOCKS`` (``csrc/riccati.cuh``: the
 first thread of the first CTA sums ``clock64()`` deltas between the phase
@@ -9,10 +9,14 @@ CUDA device; run from the repository root:
 
     python3 scripts/riccati_phase_clocks.py                  # K3, the wide shapes
     python3 scripts/riccati_phase_clocks.py --kernel narrow  # K1: S=100 at K=8, 4, 2, 1
+    python3 scripts/riccati_phase_clocks.py --kernel sweep   # K5: chip_smoke.py's fleets
 
-``--threads N`` builds K1 with N threads a CTA (``-DDPILQR_NARROW_THREADS``;
-256 is what ships).  K1's elimination stores the gains itself, so its phase
-4 reads as the wait at the barrier that follows.
+``--threads N`` builds K1 (or K5) with N threads a CTA
+(``-DDPILQR_NARROW_THREADS``, ``-DDPILQR_SWEEP_THREADS``; 256 and 512 ship).
+K1's elimination stores the gains itself, so its phase 4 reads as the wait
+at the barrier that follows; so does K5's at 10 Unicycle4D, where that wait
+is the part of the next step's input computation that the elimination does
+not hide (K5's phase 0 writes L_xx and L_uu from their blocks).
 """
 
 import argparse
@@ -28,12 +32,13 @@ PHASES = ("issue Lxx, Luu", "1 Qx Qu AtP W1", "2 Qxx Qux Quu", "3 Gauss-Jordan",
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("wide", "narrow"), default="wide")
+    parser.add_argument("--kernel", choices=("wide", "narrow", "sweep"), default="wide")
     parser.add_argument("--threads", type=int, default=None)
     opts = parser.parse_args()
     flags = "-DDPILQR_PHASE_CLOCKS"
     if opts.threads:
-        flags += f" -DDPILQR_NARROW_THREADS={opts.threads}"
+        macro = "SWEEP" if opts.kernel == "sweep" else "NARROW"
+        flags += f" -DDPILQR_{macro}_THREADS={opts.threads}"
     os.environ["DPILQR_NVCC_FLAGS"] = flags  # read when cuda_build is imported
 
     import numpy as np
@@ -42,21 +47,32 @@ def main():
     import chip_smoke as cs
     import dpilqr_tpu_torch as dtt
     from dpilqr_tpu_torch.ops import batched as bt
-    from dpilqr_tpu_torch.ops import cuda_build
+    from dpilqr_tpu_torch.ops import cuda_build, sweeps
 
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     dev = torch.device("cuda", 0)
     lib = cuda_build.load_library()
     narrow = opts.kernel == "narrow"
-    read = (lib.dpilqr_riccati_phase_clocks_narrow if narrow
-            else lib.dpilqr_riccati_phase_clocks)
+    read = {"narrow": lib.dpilqr_riccati_phase_clocks_narrow,
+            "wide": lib.dpilqr_riccati_phase_clocks,
+            "sweep": lib.dpilqr_riccati_phase_clocks_sweep}[opts.kernel]
     read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     launch = bt.backward_pass_batched_cuda if narrow else bt.backward_pass_batched_wide_cuda
     buf = (ctypes.c_ulonglong * len(PHASES))()
     print(f"device: {torch.cuda.get_device_name(0)}; {opts.kernel} kernel"
           + (f", {opts.threads} threads" if opts.threads else "")
           + f"; cycles per step (N = {cs.HORIZON}) of the first CTA, float32")
+    if opts.kernel == "sweep":
+        mu = torch.tensor(1.0, device=dev)
+        problems = cs.k5_problems(torch.float32, dev)
+        for name in ("10 Unicycle4D", "9 models", "16 Quad6D"):
+            fleet, cost, X, U = problems[name]
+            args = (fleet, cost, X, U, mu)
+            ms = cs.timed(lambda: sweeps.backward_pass_cuda(*args), 20)
+            report(read, buf, lambda: sweeps.backward_pass_cuda(*args),
+                   f"K5 {name}", ms, cs.HORIZON)
+        return
     g = 9.80665
     if narrow:
         cases = [(f"Unicycle4D K={K} nxf {4 * K}", K) for K in (8, 4, 2, 1)]
@@ -76,15 +92,23 @@ def main():
             args = cs.sweep_inputs(fleet, cost, x0, K, dev, u_scale=u_scale,
                                    u_trim=np.array(trim))[0]
         ms = cs.timed(lambda: launch(*args), 20)
-        read(buf)  # clear
-        launch(*args)
-        if read(buf) != 0:
-            sys.exit("reading the phase clocks failed")
-        per_step = np.array(list(buf), dtype=np.float64) / cs.HORIZON
-        print(f"{tag} S={args[0].shape[0]}: {ms:.4f} ms a launch (clocks on); total "
-              f"{per_step.sum():.0f}; "
-              + ", ".join(f"{name} {c:.0f}" for name, c in zip(PHASES, per_step)),
-              flush=True)
+        report(read, buf, lambda: launch(*args), f"{tag} S={args[0].shape[0]}", ms,
+               cs.HORIZON)
+
+
+def report(read, buf, run, tag, ms, N):
+    """One launch of ``run`` between two reads of the clocks: its cycles per
+    step by phase."""
+    import numpy as np
+
+    read(buf)  # clear
+    run()
+    if read(buf) != 0:
+        sys.exit("reading the phase clocks failed")
+    per_step = np.array(list(buf), dtype=np.float64) / N
+    print(f"{tag}: {ms:.4f} ms a launch (clocks on); total {per_step.sum():.0f}; "
+          + ", ".join(f"{name} {c:.0f}" for name, c in zip(PHASES, per_step)),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -88,19 +88,64 @@ def _nominal(fleet, cost, x0, U0):
     return np.array(X0)
 
 
-def test_backward_twin_matches_jax():
-    fleet, cost, x0, U0 = _setup("homogeneous")
-    X0 = _nominal(fleet, cost, x0, U0)
+# Hover controls (slot, value) of the models that fall without them.
+_HOVER = {"Quad6D": (0, 9.80665), "Quad12D": (3, 9.80665 * 63 / 2000)}
+
+
+def _model_setup(names, N=5):
+    """Three agents of one model (or a mixed fleet) packed inside each
+    other's radius, each with its own position size, about hover where the
+    model falls (Quad12D's torques stay at 1e-7: its gains are ~6e4): JAX
+    fleet, cost, x0, U0 (numpy)."""
+    fleet = dtl.Fleet(tuple(names), 0.1)
+    n, nx, nu = fleet.n_agents, fleet.nx_p, fleet.nu_p
+    rng = np.random.default_rng(n + 17 * len(set(names)))
+    x0 = np.zeros((n, nx))
+    x0[:, :3] = rng.uniform(-0.25, 0.25, (n, 3))[:, :min(3, nx)]
+    xf = -x0
+    cost = dtl.make_game_cost(
+        xf, np.tile(np.eye(nx), (n, 1, 1)), np.tile(np.eye(nu), (n, 1, 1)),
+        np.tile(1e2 * np.eye(nx), (n, 1, 1)), radius=0.5,
+        n_pos=np.array([s.n_pos for s in fleet.specs], np.int32))
+    U0 = 0.05 * rng.normal(size=(N, n, nu)) * np.asarray(fleet.control_mask)
+    for i, spec in enumerate(fleet.specs):
+        if spec.name == "Quad12D":
+            U0[:, i] *= 2e-6
+        if spec.name in _HOVER:
+            U0[:, i, _HOVER[spec.name][0]] += _HOVER[spec.name][1]
+    return fleet, cost, x0, U0
+
+
+BACKWARD_CASES = {s.name: [s.name] * 3 for s in dtl.MODEL_REGISTRY}
+BACKWARD_CASES["mixed"] = [s.name for s in dtl.MODEL_REGISTRY]
+
+
+@pytest.mark.parametrize("case", ["homogeneous", *BACKWARD_CASES])
+def test_backward_twin_matches_jax(case):
+    """K5's twin against the JAX package's Pallas sweep in interpret mode
+    (and, on the Unicycle4D swap of tests/test_pallas.py, its XLA sweep):
+    the swap, three agents of each of the nine models, and one agent of each
+    (padded to nx_p 12: every Jacobian in one fleet)."""
+    if case == "homogeneous":
+        fleet, cost, x0, U0 = _setup("homogeneous")
+        X0 = _nominal(fleet, cost, x0, U0)
+    else:  # the nominal from the port's rollout: the JAX one compiles per fleet
+        fleet, cost, x0, U0 = _model_setup(BACKWARD_CASES[case])
+        X0 = It._rollout_fn(_port_fleet(fleet).step, _port_cost(cost),
+                            torch.as_tensor(x0), torch.as_tensor(U0))[0].numpy()
     # Precondition: proximity pairs are active along the nominal.
     assert float(dtt.proximity_cost(_port_cost(cost), torch.as_tensor(X0)).max()) > 0
-    K_x, d_x = I._backward_pass(fleet.linearize, cost, jnp.asarray(X0),
-                                jnp.asarray(U0), jnp.float64(1.0))
     K_p, d_p = backward_pass_pallas(fleet, cost, jnp.asarray(X0), jnp.asarray(U0),
                                     jnp.float64(1.0), interpret=True)
     K_t, d_t = It._backward_pass(_port_fleet(fleet).linearize, _port_cost(cost),
                                  torch.as_tensor(X0), torch.as_tensor(U0),
                                  torch.tensor(1.0, dtype=torch.float64))
-    for got, want in ((K_t, K_x), (d_t, d_x), (K_t, K_p), (d_t, d_p)):
+    pairs = [(K_t, K_p), (d_t, d_p)]
+    if case == "homogeneous":
+        K_x, d_x = I._backward_pass(fleet.linearize, cost, jnp.asarray(X0),
+                                    jnp.asarray(U0), jnp.float64(1.0))
+        pairs += [(K_t, K_x), (d_t, d_x)]
+    for got, want in pairs:
         _close(got, want)
 
 

@@ -75,7 +75,8 @@ KERNEL_SOURCES = {
 
 # The headers the sources share, and which source must include which.
 KERNEL_HEADERS = {
-    "dynamics.cuh": ("rollout.cuh",),
+    "derivatives.cuh": ("backward_sweep.cu", "derivatives_host.cpp"),
+    "dynamics.cuh": ("rollout.cuh", "derivatives.cuh"),
     "launch.cuh": ("riccati.cuh", "rollout.cuh"),
     "riccati.cuh": ("backward_batched.cu", "backward_batched_wide.cu", "backward_sweep.cu"),
     "rollout.cuh": ("forward_batched.cu", "forward_sweep.cu"),

@@ -21,6 +21,7 @@ import torch
 import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops import cuda_build
+from dpilqr_tpu_torch.ops import sweeps
 from dpilqr_tpu_torch.ops.costs import game_cost_from_numpy
 from dpilqr_tpu_torch.ops.ilqr import line_search_alphas
 
@@ -254,6 +255,9 @@ def test_cuda_library_sizes_equal_the_python_mirrors(cuda_device):
         for itemsize in (4, 8):
             assert cuda_build.riccati_plan(K, nx, nu, itemsize) == bt.riccati_smem_bytes(
                 K, nx, nu, itemsize)
+            # K5's plan: its own buffers join the gain group.
+            assert cuda_build.riccati_plan(K, nx, nu, itemsize, sweep=True) == (
+                sweeps.sweep_smem_bytes(K, nx, nu, itemsize))
             for n_alpha in (1, 2, 10):
                 for gains in (1, 0):
                     two_stages = lib.dpilqr_forward_smem_bytes(K, nx, nu, n_alpha, gains,

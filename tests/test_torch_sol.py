@@ -20,9 +20,9 @@ import pytest
 import torch
 
 import dpilqr_tpu_torch as dtt
+from dpilqr_tpu_torch.models.specs import MODEL_REGISTRY
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops import ilqr as It
-from dpilqr_tpu_torch.ops import sweeps
 from dpilqr_tpu_torch.utils import sol
 
 torch.set_num_threads(1)
@@ -83,18 +83,26 @@ def test_work_counts_are_the_jax_counts_less_the_tpu_only_terms(jsol, shape):
 
 
 def test_model_work_table():
-    # Unicycle4D: x2 cos(x3), x2 sin(x3).
-    assert sol.model_work("Unicycle4D") == (2, 2, 5)
-    assert sol.model_work("Quad6D") == (3, 2, 5)
-    assert sol.model_work("Quad12D") == (83, 7, 5)
-    # The substep counts are the model specs' own.
+    # Unicycle4D: x2 cos(x3), x2 sin(x3); partials -x2 sin(x3), x2 cos(x3).
+    assert sol.model_work("Unicycle4D") == (2, 2, 5, 3)
+    assert sol.model_work("Quad6D") == (3, 2, 5, 6)
+    assert sol.model_work("Quad12D") == (83, 7, 5, 135)
+    assert sol.model_work("Bike5D") == (3, 3, 1, 6)
+    # Every model has a row, and the substep counts are the model specs' own.
+    assert set(sol.MODEL_WORK) == {s.name for s in MODEL_REGISTRY}
     for name, work in sol.MODEL_WORK.items():
         spec = dtt.Fleet.from_names([name], 0.1).specs[0]
         assert work.substeps == spec.rk4_substeps
+        # Models with no trigonometry have constant Jacobians.
+        assert (work.f_trig == 0) == (work.jac_flops == 0)
     with pytest.raises(KeyError, match="no work count"):
-        sol.model_work("Bike5D")
+        sol.model_work("Unicycle3D")
     with pytest.raises(KeyError):
-        sol.sweep_work("forward", 5, 2, 5, 2, 3, 2, model="Bike5D")
+        sol.sweep_work("forward", 5, 2, 5, 2, 3, 2, model="Unicycle3D")
+    # A mixed batch: the mean of its slots' counts.
+    mixed = sol.sweep_work("forward", 5, 2, 5, 2, 3, 2, model=("Bike5D", "Car3D"))
+    one = [sol.sweep_work("forward", 5, 2, 5, 2, 3, 2, model=m) for m in ("Bike5D", "Car3D")]
+    assert mixed[0] == (one[0][0] + one[1][0]) // 2 and mixed[2] == one[0][2]
 
 
 def _nbytes(*tensors):
@@ -148,14 +156,27 @@ def test_byte_counts_equal_the_wrappers_tensors(dtype):
     assert by == _nbytes(*fwd_ins, *outs)
     assert trig == 5 * 4 * 2 * K * n_alpha * N * S
 
-    # K5: launch_backward_sweep's arguments (one problem, K = n agents).
+    # K5: backward_pass_cuda's arguments, from their shapes (one problem,
+    # K = n agents): the trajectory, the cost's fields, the model ids, dt and
+    # mu in, the gains out; no Jacobian or Hessian goes through memory.
     X1, U1 = X[0].contiguous(), U[0].contiguous()
-    ins5 = sweeps.backward_sweep_inputs(fleet, cost, X1, U1, 1.0)
     K5, d5 = It._backward_pass(fleet.linearize, cost, X1, U1,
                                torch.tensor(1.0, dtype=dtype))
-    _, _, by = sol.sweep_work("backward_sweep", N, K, 4, 2, 1, n_alpha,
-                              dtype_bytes=nbytes)
-    assert by == _nbytes(*ins5.values(), K5, d5)
+    scalar = torch.ones((1,), dtype=dtype)
+    ins5 = (X1, U1, cost.xf, cost.Q, cost.R, cost.Qf, cost.agent_mask, scalar, scalar,
+            scalar, cost.n_pos, torch.zeros((K,), dtype=torch.int32), scalar, scalar)
+    fl, trig, by = sol.sweep_work("backward_sweep", N, K, 4, 2, 1, n_alpha,
+                                  dtype_bytes=nbytes)
+    assert by == _nbytes(*ins5, K5, d5)
+    # Its work: the recursion, each step's Jacobians (one sine and cosine an
+    # agent) and pair terms, the terminal step's cost terms and the once-a-
+    # sweep blocks.
+    prep, prep_trig = sol.sweep_prep_flops(K, 4, 2)
+    assert trig == N * prep_trig == N * 2 * K
+    assert fl == ((sol.backward_step_flops(K, 4, 2) + prep) * N
+                  + sol.sweep_prep_flops(K, 4, 2, terminal=True)[0]
+                  + sol.sweep_fixed_flops(K, 4, 2))
+    assert prep > sol.sweep_prep_flops(K, 4, 2, terminal=True)[0] >= sol.pair_flops(3)
 
     # K4: forward_pass_cuda's ``ins`` and its three outputs.
     tables1 = bt._slot_tables(
@@ -199,16 +220,19 @@ def test_kernel_sol_report_backward(monkeypatch, family):
     assert 0 < rep["sol_frac"]
     assert rep["achieved_gflop_s"] == pytest.approx(rep["gflops"] / 5e-3, rel=1e-2)
     # The bound is the larger of the compute and the memory time.
-    t_c = rep["gflops"] / 1000.0
+    t_trig = rep.get("trig_gops", 0.0) / 50.0
+    t_c = rep["gflops"] / 1000.0 + t_trig
     t_m = rep["gbytes"] / 700.0
     assert rep["sol_s"] == pytest.approx(max(t_c, t_m), rel=1e-3)
     assert rep["sol_frac"] == pytest.approx(rep["sol_s"] / 5e-3)
     # Against the published peaks of the H100 (67 TFLOP/s, 3.35 TB/s).
-    t_pub = max(rep["gflops"] / 67e3, rep["gbytes"] / 3.35e3)
+    t_pub = max((rep["gflops"] + 2 * rep.get("trig_gops", 0.0)) / 67e3,
+                rep["gbytes"] / 3.35e3)
     assert rep["bound_published_s"] == pytest.approx(t_pub, rel=1e-3)
     assert rep["bound_published_by"] in ("operations", "bytes")
     assert rep["published_frac"] == pytest.approx(t_pub / 5e-3, rel=1e-3)
-    assert "trig_gops" not in rep
+    # K5 computes its Jacobians: their sines and cosines are its only ones.
+    assert ("trig_gops" in rep) == (family == "backward_sweep")
 
 
 def test_kernel_sol_rejects_unknown_family():
@@ -257,6 +281,13 @@ def test_probe_work_counts():
     assert sol.probe_work("probe_hbm", m, T=256) == (256 * m, 0, 257 * m * 4)
     with pytest.raises(ValueError):
         sol.probe_work("probe_cos", n)
+    # K8 beside its one-slot-a-sine bound: the instructions its loop issues
+    # (scripts/sass_count.py), one FP32 issue slot each at half the FLOP rate.
+    sines = sol.probe_work("probe_sin", n, iters=256)[1]
+    one_slot = sol.published_bound(0, 0, trig=sines)[0]
+    sass = sol.probe_sin_sass_bound_s(n, 256)
+    assert sass == pytest.approx(one_slot * sol.SIN_LOOP_SASS / 16)
+    assert 16 < sol.SIN_LOOP_SASS / 16 < 100  # tens of instructions a sinf
     assert (sol.PROBE_SHAPE, sol.FMA_ITERS, sol.SIN_ITERS, sol.HBM_MB) == (
         (256, 512), 2048, 256, 256)  # the shapes of the JAX package's probes
 

@@ -2,13 +2,15 @@
 
 On the CPU: the wrappers refuse CPU tensors (no quiet twin), and
 ``ilqr_solve`` with ``sweep_backend="cuda"`` raises on them too.  The
-``cuda`` cases hold ``csrc/backward_sweep.cu`` (K5) and
-``csrc/forward_sweep.cu`` (K4, with gains over 10 alphas and as a rollout)
-against their plain PyTorch twins (``ops.ilqr._backward_pass``,
+``cuda`` cases hold ``csrc/backward_sweep.cu`` (K5, its inputs computed in
+the kernel) and ``csrc/forward_sweep.cu`` (K4, with gains over 10 alphas and
+as a rollout) against their plain PyTorch twins (``ops.ilqr._backward_pass``,
 ``_forward_pass``, ``_rollout_fn``) on a card, for a homogeneous, a mixed
-and a single-agent fleet, and skip without one.  This file imports no JAX,
-so on a machine without it the ``cuda`` cases run alone with
-``python -m pytest tests/test_torch_sweeps.py -m cuda --noconftest``.
+and a single-agent fleet, and K5 on the fleets of ``chip_smoke.py`` phase 3c
+(every model, every placement of its working set); they skip without one.
+This file imports no JAX, so on a machine without it the ``cuda`` cases run
+alone with ``python -m pytest tests/test_torch_sweeps.py -m cuda
+--noconftest``.
 """
 
 import numpy as np
@@ -58,10 +60,8 @@ def test_sweep_wrappers_refuse_cpu_tensors():
     alphas = dtt.ops.line_search_alphas(3, torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         sweeps.backward_pass_cuda(fleet, cost, X, U, mu)
-    with pytest.raises(ValueError, match="CUDA"):
-        sweeps.launch_backward_sweep(**{
-            k: v for k, v in zip(("A", "B", "L_uu", "L_xx", "L_x", "L_u", "mu",
-                                  "p0", "P0"), [X] * 9)})
+    with pytest.raises(ValueError, match="CUDA"):  # before any shape check
+        sweeps.backward_pass_cuda(fleet, cost, X[:, :2], U, mu)
     with pytest.raises(ValueError, match="CUDA"):
         sweeps.forward_pass_cuda(fleet, cost, X, U, K, d, alphas)
     with pytest.raises(ValueError, match="CUDA"):
@@ -98,3 +98,63 @@ def test_cuda_sweeps_match_twins(cuda_device, case, dtype):
           It._forward_pass(fleet.step, cost, X, U, K, d, alphas), tol[1])
     close(sweeps.rollout_cuda(fleet, cost, X[0], U),
           It._rollout_fn(fleet.step, cost, X[0], U), tol[1])
+
+
+K5_FLEETS = ("10 Unicycle4D", "9 models", "16 Quad6D", "32 Unicycle4D",
+             "10 Unicycle4D N=200")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K5_FLEETS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_cuda_k5_matches_twin_on_smoke_fleets(cuda_device, name, dtype):
+    """K5 against its twin on the fleets of chip_smoke.py phase 3c, at the
+    smoke's tolerances (f64 1e-9, f32 2e-3 relative to max|twin|)."""
+    import chip_smoke as cs
+
+    fleet, cost, X, U = cs.k5_problems(dtype, cuda_device)[name]
+    mu = torch.tensor(1.0, dtype=dtype, device=cuda_device)
+    tol = cs.TOL[dtype]["Kg"]
+    got = sweeps.backward_pass_cuda(fleet, cost, X, U, mu)
+    want = It._backward_pass(fleet.linearize, cost, X, U, mu)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+class _OnCard:
+    """Stands in for a CUDA tensor of ``dtype``: the routing reads the
+    device and the element size only."""
+
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def element_size(self):
+        return torch.empty((), dtype=self.dtype).element_size()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_auto_routes_to_pscan_only_past_k5s_widest_tier(dtype):
+    """ROADMAP C7: on the card "auto" takes the kernels wherever K5's plan
+    places the problem (any horizon: no TPU crossover) and the scan past its
+    widest tier, where an explicit "cuda" raises; CPU tensors take the
+    twins on both sides of that line."""
+    auto = dtt.SolverConfig()
+    small = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 10, 0.1)
+    huge = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 2000, 0.1)
+    card, cpu = _OnCard(dtype), torch.empty((), dtype=dtype)
+    with pytest.raises(ValueError, match="no tier"):
+        sweeps.sweep_smem_bytes(2000, 4, 2, card.element_size())
+    assert sweeps.sweep_smem_bytes(10, 4, 2, card.element_size())[0] == 0
+    assert It.resolve_sweep_backend(auto, card, small) == "cuda"
+    assert It.resolve_sweep_backend(auto, card, huge) == "pscan"
+    assert It.resolve_sweep_backend(auto, cpu, small) == "torch"
+    assert It.resolve_sweep_backend(auto, cpu, huge) == "torch"
+    explicit = dtt.SolverConfig(sweep_backend="cuda")
+    assert It.resolve_sweep_backend(explicit, card, small) == "cuda"
+    with pytest.raises(ValueError, match="no tier"):
+        It.resolve_sweep_backend(explicit, card, huge)
+    scan = dtt.SolverConfig(sweep_backend="pscan")
+    assert It.resolve_sweep_backend(scan, card, small) == "pscan"
