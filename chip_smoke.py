@@ -81,6 +81,26 @@ Phases (any failure exits non-zero and prints no result line):
       problem under the same deadline, and in float64
       ``solve_distributed_steppable(t_kill=None)`` against
       ``solve_distributed``.
+7. The reference-shaped facade (``dpilqr_tpu_torch.api``), Monte-Carlo
+   trials and the custom-model guard, each path driven with the launch
+   counts set to 0 just before and read just after:
+   a. ``api.solve_rhc(centralized=False)`` for 100 ``UnicycleDynamics4D``
+      in float64, 5 MPC steps: K1, K2 and K4 must launch, and X, U and J
+      must have the bits of ``dpilqr_tpu_torch.solve_rhc`` on the same
+      arrays; prints ms a step, mean iterations, converged fraction and J;
+   b. ``api.ilqrSolver.solve`` and 3 steps of ``RecedingHorizonController``
+      on phase 5's 10 unicycles: K5 and K4 must launch, each result
+      bit-equal to ``ilqr_solve`` on the same input;
+   c. ``solve_trials_sharded``: 8 trials of 100 Unicycle4D (seeds 0-7) at
+      K=8 as one batch of S=800 on a one-card mesh, float64 and float32;
+      trials 0, 3 and 7 against their own ``solve_distributed`` (float64:
+      equal iterations and flags, X within the float64 tolerance; float32:
+      J within its tolerance), the wall time beside 8 sequential solves, and
+      K1's and K2's launches and ms a launch at S=800 beside their bound;
+   d. a fleet of a custom model (a ``ModelSpec`` with its own ``f``) on the
+      card: ``solve_distributed`` and ``ilqr_solve`` raise
+      ``NotImplementedError`` with every launch count still 0.
+   It also prints whether sympy, matplotlib and networkx are installed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the eight kernels with their launch counts, errors, times and bounds
@@ -1230,6 +1250,225 @@ def deadline_phase(dev):
         fail("t_kill=0 did not return the warm start after zero iterations")
 
 
+def facade_problem(n, spacing, dev, seed=0):
+    """The reference-shaped problem of ``n`` Unicycle4D agents on the swap
+    grid (``api``: models, ``ReferenceCost``s with Q = I, R = I, Qf = 1e3 I,
+    a ``ProximityCost`` of radius 0.5), with the flat start and the same
+    problem as the tensor API takes it: ``(problem, x0 flat, fleet, cost,
+    x0 block)``."""
+    from dpilqr_tpu_torch import api
+
+    api._reset_ids()
+    x0, xf = swap_scenario(n, spacing, seed)
+    dyn = api.MultiDynamicalModel([api.UnicycleDynamics4D(DT, device=dev)
+                                   for _ in range(n)])
+    rcs = [api.ReferenceCost(xf[i], np.eye(4), np.eye(2), 1e3 * np.eye(4))
+           for i in range(n)]
+    prob = api.ilqrProblem(dyn, api.GameCost(rcs, api.ProximityCost([4] * n, RADIUS)))
+    fleet = dyn._fleet
+    return prob, x0.reshape(-1), fleet, prob._as_game().to_array_spec(fleet, dev), x0
+
+
+def bit_equal(tag, got, want):
+    """Fail unless the facade's arrays have the bits of the tensor API's."""
+    for name, a, b in zip(("X", "U", "J"), got, want):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            d = float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+            fail(f"{tag}: the facade's {name} differs from the tensor API's (max {d:.3e})")
+    print(f"{tag}: X, U and J bit-equal to the tensor API", flush=True)
+
+
+def facade_phase(dev, launches):
+    """Phase 7: the facade (``api``), Monte-Carlo trials and the model guard."""
+    import importlib.util
+
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch import api
+    from dpilqr_tpu_torch.models.specs import ModelSpec
+    from dpilqr_tpu_torch.ops import cuda_build
+    from dpilqr_tpu_torch.parallel.mesh import stack_costs
+
+    print("optional modules on this machine: " + json.dumps(
+        {m: importlib.util.find_spec(m) is not None
+         for m in ("sympy", "matplotlib", "networkx")}), flush=True)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3)
+    path = ("backward_batched", "forward_batched", "forward_sweep")
+
+    # a. The facade's decomposed MPC loop, 100 agents, float64.
+    prob, x0, fleet, cost, x0b = facade_problem(N_AGENTS, 1.25, dev)
+    steps = []
+    kw = dict(radius=RADIUS, centralized=False, J_converge=1e-3, t_diverge=4 * DT,
+              config=cfg)
+
+    def run_facade():
+        steps.clear()
+        t0 = time.perf_counter()
+        out = api.solve_rhc(prob, x0, HORIZON, rng=np.random.default_rng(0),
+                            log_fn=steps.append, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run_facade()  # warm-up
+    (got, wall), counts = run_counted(run_facade)
+    require(counts, path, "the facade's decomposed loop", solves=len(steps))
+    for k in path:
+        launches[k] += counts[k]
+    if len(steps) != MPC_STEPS or not np.isfinite(got[0]).all():
+        fail(f"the facade's decomposed loop ran {len(steps)} steps or diverged")
+    res = dtt.solve_rhc(fleet, cost, x0b, HORIZON, rng=np.random.default_rng(0),
+                        device=dev, **kw)
+    bit_equal("facade solve_rhc(centralized=False)", got,
+              (fleet.unpad_states(res.X), fleet.unpad_controls(res.U), res.J))
+    iters = np.concatenate([np.asarray(s.iters) for s in steps])
+    conv = np.concatenate([np.asarray(s.converged) for s in steps])
+    print(f"facade decomposed loop ({N_AGENTS} Unicycle4D, float64, launches "
+          f"{ {k: counts[k] for k in path} }): " + json.dumps(
+              {"ms_per_step": wall / len(steps) * 1e3, "steps": len(steps),
+               "mean_iters": float(iters.mean()), "converged_frac": float(conv.mean()),
+               "J_executed": got[2]}), flush=True)
+
+    # b. The facade's centralized solve and controller, phase 5's problem.
+    prob, x0, fleet, cost, x0b = facade_problem(10, 1.0, dev)
+    U0 = np.random.default_rng(3).uniform(size=(HORIZON, 20)) * 0.01
+    solver = api.ilqrSolver(prob, HORIZON)
+    got, counts = run_counted(
+        lambda: solver.solve(x0, U0, n_lqr_iter=15, tol=1e-3, verbose=False))
+    require(counts, ("backward_sweep", "forward_sweep"), "the facade's ilqrSolver")
+    for k in ("backward_sweep", "forward_sweep"):
+        launches[k] += counts[k]
+
+    def tensor_solve(x, U):
+        r = dtt.ilqr_solve(fleet, cost, torch.as_tensor(fleet.pad_states(x), device=dev),
+                           U0=torch.as_tensor(fleet.pad_controls(U), device=dev),
+                           config=cfg)
+        return fleet.unpad_states(r.X.cpu()), fleet.unpad_controls(r.U.cpu()), float(r.J)
+
+    bit_equal("facade ilqrSolver.solve (10 agents)", got, tensor_solve(x0, U0))
+    rhc = api.RecedingHorizonController(x0, solver, 1)
+    x, U = x0, U0
+    for i, (Xs, Us, J) in enumerate(rhc.solve(U0, J_converge=0.0, n_lqr_iter=15,
+                                              tol=1e-3, verbose=False)):
+        Xw, Uw, Jw = tensor_solve(x, U)
+        bit_equal(f"facade RecedingHorizonController step {i}", (Xs, Us, J),
+                  (Xw[:1], Uw[:1], Jw))
+        x, U = Xw[1], np.vstack([Uw[1:], np.zeros((1, 20))])
+        if i == 2:
+            break
+    print(f"facade centralized (10 agents, float64, launches "
+          f"{ {k: counts[k] for k in ('backward_sweep', 'forward_sweep')} }): "
+          f"J {got[2]!r}", flush=True)
+
+    # c. Monte-Carlo trials: 8 x 100 Unicycle4D at K = 8, one batch of 800.
+    T, K = 8, 8
+    fleet = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, N_AGENTS, DT)
+    mesh = dtt.make_mesh([dev])
+    for dtype in (torch.float64, torch.float32):
+        npd = np.float64 if dtype == torch.float64 else np.float32
+        costs, X_T, U_T = [], [], []
+        for t in range(T):
+            x0_t, xf_t = swap_scenario(N_AGENTS, 1.25, seed=t)
+            costs.append(problem(fleet, x0_t, xf_t, dtype, dev)[0])
+            X_T.append(x0_t[None])
+            U_T.append(np.random.default_rng(t).uniform(size=(HORIZON, N_AGENTS, 2))
+                       * 0.01)
+        X_T, U_T = np.stack(X_T).astype(npd), np.stack(U_T).astype(npd)
+
+        def trials():
+            t0 = time.perf_counter()
+            r = dtt.solve_trials_sharded(fleet, stack_costs(costs), X_T, U_T, RADIUS,
+                                         mesh, K, config=cfg)
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        def sequential():
+            t0 = time.perf_counter()
+            out = [dtt.solve_distributed(fleet, costs[t], torch.as_tensor(X_T[t], device=dev),
+                                         torch.as_tensor(U_T[t], device=dev), RADIUS, K=K,
+                                         config=cfg) for t in range(T)]
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        trials()  # warm-up
+        (res, wall), counts = run_counted(trials)
+        require(counts, path, f"the trials batch ({str(dtype)[6:]})", solves=T)
+        for k in path:
+            launches[k] += counts[k]
+        seq, wall_seq = sequential()
+        tol = TOL[dtype]
+        for t in (0, 3, 7):
+            ref = seq[t]
+            if dtype == torch.float64:
+                if not (torch.equal(res.iters[t], ref.iters)
+                        and torch.equal(res.converged[t], ref.converged)):
+                    fail(f"trial {t} (float64): iterations or flags differ from its "
+                         "own solve_distributed")
+                rel, ab = rel_err(res.X[t], ref.X)
+                print(f"trial {t} float64 X: rel err {rel:.3e} (abs {ab:.3e})")
+                if not rel <= tol["X5"]:
+                    fail(f"trial {t} (float64): X differs from its own solve_distributed")
+            dJ = abs(float(res.J[t]) - float(ref.J)) / abs(float(ref.J))
+            print(f"trial {t} {str(dtype)[6:]} J: {float(res.J[t])!r} vs "
+                  f"{float(ref.J)!r} (rel {dJ:.3e}, tol {tol['J']:g})")
+            if not dJ <= tol["J"]:
+                fail(f"trial {t} ({str(dtype)[6:]}): J differs from its own "
+                     "solve_distributed")
+        by_width = launches_by_width(lambda: trials(), 1,
+                                     ("backward_batched", "forward_batched"))
+        at800 = {}
+        for kernel, family in (("backward_batched", "backward"),
+                               ("forward_batched", "forward")):
+            for key, cell in by_width[kernel].items():
+                if not key.startswith(f"S={T * N_AGENTS}"):
+                    continue
+                n_alpha = int(key.split("alphas=")[1]) if "alphas" in key else 0
+                b_ms, by = bound_ms(dict(work_shape(family, fleet, K, T * N_AGENTS, n_alpha),
+                                         dtype_bytes=dtype.itemsize))
+                at800[f"{kernel} {key}"] = {
+                    "launches": cell["launches_per_step"],
+                    "ms_per_launch": cell["ms_per_launch"], "bound_ms": b_ms,
+                    "bound_by": by, "share": b_ms / cell["ms_per_launch"]}
+            if not any(k.startswith(kernel) for k in at800):
+                fail(f"the trials batch never launched {kernel} at S={T * N_AGENTS}")
+        print(f"trials {T} x {N_AGENTS} Unicycle4D K={K} {str(dtype)[6:]} (launches "
+              f"{ {k: counts[k] for k in path} }): " + json.dumps(
+                  {"wall_ms": wall * 1e3, "sequential_wall_ms": wall_seq * 1e3,
+                   "mean_iters": float(res.iters.float().mean()),
+                   "converged_frac": float(res.converged.float().mean()),
+                   "J": res.J.tolist()}), flush=True)
+        print_by_width(f"trials {str(dtype)[6:]}", by_width)
+        print(f"trials {str(dtype)[6:]} at S={T * N_AGENTS}: " + json.dumps(at800),
+              flush=True)
+
+    # d. The guard: a custom model never reaches a kernel.
+    def uni(x, u):
+        return torch.stack([x[..., 2] * torch.cos(x[..., 3]),
+                            x[..., 2] * torch.sin(x[..., 3]), u[..., 0], u[..., 1]], -1)
+
+    custom = dtt.Fleet((ModelSpec("SmokeCustom", 1000, 4, 2, f=uni),) * 10, DT)
+    cost, x0b = problem(custom, *swap_scenario(10, 1.0), torch.float64, dev)
+    X = torch.as_tensor(x0b, device=dev)
+    U = torch.zeros((HORIZON, 10, 2), dtype=torch.float64, device=dev)
+    for name, call in (
+            ("solve_distributed", lambda: dtt.solve_distributed(fleet=custom, cost=cost,
+                                                                X=X[None], U=U,
+                                                                radius=RADIUS)),
+            ("ilqr_solve", lambda: dtt.ilqr_solve(custom, cost, X, U0=U))):
+        def refused(call=call):
+            try:
+                call()
+            except NotImplementedError as e:
+                return str(e)
+            return None
+
+        msg, counts = run_counted(refused)
+        if msg is None:
+            fail(f"{name} ran a custom model on the card")
+        if any(counts.values()):
+            fail(f"{name} launched a kernel before refusing a custom model: {counts}")
+        print(f"guard: {name} on a custom model raised before any launch: {msg}")
+    cuda_build.reset_launch_counts()
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the GPU path only")
@@ -1273,6 +1512,7 @@ def main():
     solve_parity(dev)
     sol_phase(checks, results, probe_plain_ms, dev, launches)
     deadline_phase(dev)
+    facade_phase(dev, launches)
 
     timing = {"backward_batched": "K1", "forward_batched": "K2 nxf 32 2 alphas",
               "backward_batched_wide": "K3 Quad6D K=16 nxf 96",

@@ -16,7 +16,11 @@ device, and ``device="cpu"`` or CPU tensors ask for the CPU.  With
 ``t_kill`` the solves stop at a wall-clock deadline (``ilqr_solve_steppable``,
 ``solve_distributed_steppable``, ``solve_rhc(t_kill=)``); ``utils.sol`` holds
 the speed-of-light accounting (work counts, the three ceiling probes,
-``sol_report``).
+``sol_report``).  ``solve_trials_sharded`` solves Monte-Carlo trials as one
+kernel batch over the devices of ``make_mesh``; ``api`` is the
+reference-shaped object facade (``UnicycleDynamics4D``, ``ilqrSolver``,
+``solve_rhc`` on flat numpy arrays) and ``native.host`` the g++-built host
+dynamics of ``native/bbdyn.cpp``; neither is imported here.
 """
 
 from .config import DEFAULT_CONFIG, SolverConfig, default_device
@@ -44,12 +48,15 @@ from .parallel import (
     RhcStepInfo,
     graph_to_dict,
     interaction_graph,
+    make_mesh,
     selfish_warmstart,
     solve_distributed,
     solve_distributed_steppable,
     solve_rhc,
+    solve_trials_sharded,
 )
 from .utils import (
+    Rate,
     compute_energy,
     distance_to_goal,
     face_goal,

@@ -110,13 +110,13 @@ class Fleet:
     # (``branch_index_array`` values) broadcasting against ``x.shape[:-1]``;
     # the slot count may differ from n_agents (gathered subproblems).
     def f_dyn(self, mids, x, u):
-        outs = [padded_f(s.name, x, u) for s in self.unique_specs]
+        outs = [padded_f(s, x, u) for s in self.unique_specs]
         return select_branches(outs, mids)
 
     def step_dyn(self, mids, x, u):
         outs = [
             rk4_integrate(
-                lambda a, b, nm=s.name: padded_f(nm, a, b),
+                lambda a, b, s=s: padded_f(s, a, b),
                 x, u, self.dt, s.rk4_substeps,
             )
             for s in self.unique_specs
@@ -126,7 +126,7 @@ class Fleet:
     def linearize_dyn(self, mids, x, u):
         As, Bs = [], []
         for s in self.unique_specs:
-            A, B = euler_discretize(*padded_jacobians(s.name, x, u), self.dt)
+            A, B = euler_discretize(*padded_jacobians(s, x, u), self.dt)
             As.append(A)
             Bs.append(B)
         return select_branches(As, mids, 2), select_branches(Bs, mids, 2)

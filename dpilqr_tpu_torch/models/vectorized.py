@@ -9,7 +9,9 @@ one ``__device__`` function per model.
 
 Heterogeneous batches evaluate every unique model on the whole batch and
 select per row by branch index (the counterpart of ``lax.switch`` under
-``vmap``).
+``vmap``).  The functions take a ``ModelSpec`` or a built-in model's name;
+a custom spec (one with its own ``f``) is evaluated through that ``f`` on
+its native dims and zero-padded.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from .specs import (
     _Q12_KTZ,
     GRAVITY,
     ModelSpec,
+    TableRHS,
 )
 
 
@@ -120,20 +123,25 @@ RHS = {
 }
 
 
-def padded_f(name: str, x, u):
-    """``x (..., nx_p)``, ``u (..., nu_p)`` -> ``xdot (..., nx_p)``."""
+def padded_f(model, x, u):
+    """``x (..., nx_p)``, ``u (..., nu_p)`` -> ``xdot (..., nx_p)`` of
+    ``model``, a ``ModelSpec`` or a built-in model's name."""
+    if isinstance(model, ModelSpec) and not isinstance(model.f, TableRHS):
+        xdot = model.f(x[..., : model.n_x], u[..., : model.n_u])
+        return torch.nn.functional.pad(xdot, (0, x.shape[-1] - model.n_x))
+    name = model.name if isinstance(model, ModelSpec) else model
     cols = RHS[name](lambda i: x[..., i], lambda j: u[..., j])
     zero = torch.zeros_like(x[..., 0])
     return torch.stack([cols.get(c, zero) for c in range(x.shape[-1])], -1)
 
 
-def padded_jacobians(name: str, x, u):
+def padded_jacobians(model, x, u):
     """Exact continuous Jacobians of ``padded_f``: ``A_c (..., nx_p, nx_p)``,
     ``B_c (..., nx_p, nu_p)`` (forward-mode AD, row-vectorized)."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
     uf = u.reshape(-1, u.shape[-1])
-    jac = torch.func.jacfwd(lambda a, b: padded_f(name, a, b), argnums=(0, 1))
+    jac = torch.func.jacfwd(lambda a, b: padded_f(model, a, b), argnums=(0, 1))
     A, B = torch.func.vmap(jac)(xf, uf)
     # Forward mode promotes the tangents of terms with a Python-float
     # constant (the quadrotors' gravity) to float64: cast back.
@@ -169,9 +177,9 @@ def blended_f(specs: tuple[ModelSpec, ...]):
     """Fleet RHS ``f(x, u, branch_idx) -> xdot`` over the unique models of
     ``specs``; ``branch_idx (*lead)`` indexes that table (ignored when the
     fleet has one model)."""
-    names = [s.name for s in unique_branches(specs)]
+    branches = unique_branches(specs)
 
     def f(x, u, branch_idx=None):
-        return select_branches([padded_f(nm, x, u) for nm in names], branch_idx)
+        return select_branches([padded_f(s, x, u) for s in branches], branch_idx)
 
     return f

@@ -54,7 +54,8 @@ from .costs import (
     stage_cost,
     terminal_cost,
 )
-from .cuda_build import check_tensors, launch, require_cuda, riccati_plan
+from .cuda_build import (check_tensors, launch, require_cuda,
+                         require_kernel_models, riccati_plan)
 from .ilqr import SolveResult, line_search_alphas
 
 # Widest flat state (K * nx_p, and K * nu_p) of the narrow backward kernel,
@@ -473,6 +474,7 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     nu_p = U.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
     n_alpha = alphas.shape[0]
+    require_kernel_models(fleet)
     forward_smem_bytes(K, nx_p, nu_p, n_alpha, X.element_size(),
                        gains=Kg is not None)  # raises on no fit
     require_cuda("forward_batched", X)

@@ -194,6 +194,19 @@ def dtype_suffix(dtype) -> str:
     raise ValueError(f"kernels take float32 or float64, got {dtype}")
 
 
+def require_kernel_models(fleet):
+    """Raise ``NotImplementedError`` unless every model of ``fleet`` is one
+    of the nine whose right-hand sides ``csrc/dynamics.cuh`` compiles: the
+    kernels that integrate (K2, K4, K5) switch on the model id and would
+    hold any other model still.  A custom model runs on the CPU."""
+    for spec in fleet.unique_specs:
+        if not spec.builtin:
+            raise NotImplementedError(
+                f"model {spec.name!r} (id {spec.model_id}) is not one of the "
+                "nine models compiled into the CUDA kernels "
+                '(csrc/dynamics.cuh); solve it with device="cpu"')
+
+
 def require_cuda(name: str, t):
     """Raise unless ``t`` lies on a CUDA device: a wrapper never runs a
     kernel's twin in its place."""

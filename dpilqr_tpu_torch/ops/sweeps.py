@@ -28,7 +28,8 @@ import torch
 from ..models.fleet import Fleet
 from .batched import _pad4, _slot_tables, forward_smem_bytes, riccati_smem_bytes
 from .costs import GameCost, cast_cost
-from .cuda_build import check_tensors, launch, require_cuda, riccati_plan
+from .cuda_build import (check_tensors, launch, require_cuda,
+                         require_kernel_models, riccati_plan)
 
 
 @lru_cache(maxsize=64)
@@ -68,6 +69,7 @@ def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
     and Hessian blocks) computed inside the one launch of
     ``csrc/backward_sweep.cu``; returns ``K (N, nuf, nxf)``, ``d (N,
     nuf)``."""
+    require_kernel_models(fleet)
     require_cuda("backward_sweep", X)
     N, n, nu_p = U.shape
     nx_p = X.shape[-1]
@@ -114,6 +116,7 @@ def _launch_forward_sweep(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
     """Check the inputs of ``csrc/forward_sweep.cu`` and launch it: with
     gains ``X (N+1, n, nx_p)`` is the nominal trajectory, without
     ``X (n, nx_p)`` the initial state and ``alphas`` is None (one column)."""
+    require_kernel_models(fleet)
     require_cuda("forward_sweep", X)
     gains = K is not None
     N, n, nu_p = U.shape

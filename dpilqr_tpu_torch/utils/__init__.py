@@ -1,3 +1,4 @@
+from .rate import Rate
 from .geometry import (
     compute_energy,
     distance_to_goal,

@@ -1,0 +1,128 @@
+"""The port's host utilities: the reference CSV schema and JSON-lines sink
+(``utils/metrics.py``), the Riccati block-nnz counter, the fixed-rate loop
+(``utils/rate.py``) and the plots (``utils/viz.py``), against the JAX
+package's copies where they compute something."""
+
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from dpilqr_tpu.utils import metrics as jmetrics
+import dpilqr_tpu_torch as dtt
+from dpilqr_tpu_torch.utils import metrics, viz
+from dpilqr_tpu_torch.utils.metrics import (
+    CSV_SCHEMA,
+    JsonlWriter,
+    SolveMetrics,
+    csv_row,
+    riccati_block_nnz,
+    setup_csv_logger,
+)
+
+ROW = ("UnicycleDynamics4D", 3, 0, True, False, 0.1, 42.0, 50, 0.1, True,
+       [0, 1, 2], [0.01], [[0, 1, 2]], [1.0, 2.0, 3.0])
+
+
+def test_csv_schema_parity(tmp_path):
+    """The CSV log matches the reference's analysis schema verbatim
+    (reference analysis.py:120-123), row for row the JAX package's."""
+    path = tmp_path / "log.csv"
+    logger = setup_csv_logger(path)
+    logger.info(csv_row(*ROW))
+    lines = path.read_text().strip().split("\n")
+    assert CSV_SCHEMA == jmetrics.CSV_SCHEMA
+    assert lines[0] == (
+        "dynamics,n_agents,trial,centralized,last,t,J,horizon,dt,converged,"
+        "ids,times,subgraphs,dist_left"
+    )
+    assert lines[1] == jmetrics.csv_row(*ROW)
+
+
+def test_csv_row_takes_tensors():
+    """Tensors and numpy values print as the Python numbers and lists the
+    JAX package's row holds."""
+    row = list(ROW)
+    row[5], row[6] = torch.tensor(0.1, dtype=torch.float64), np.float64(42.0)
+    row[10], row[13] = torch.arange(3), np.array([1.0, 2.0, 3.0])
+    assert csv_row(*row) == jmetrics.csv_row(*ROW)
+
+
+def test_jsonl_writer(tmp_path):
+    w = JsonlWriter(tmp_path / "sub" / "m.jsonl")
+    w.write({"J": torch.tensor(1.5, dtype=torch.float64), "iters": torch.tensor([1, 2]),
+             "conv": np.array([True, False]), "n": 3})
+    m = SolveMetrics(n_agents=4, horizon=10, wall_time_s=0.5, iters=3,
+                     converged=True, mode="distributed").finalize(nx=4)
+    w.write(m)
+    recs = [json.loads(line) for line in (tmp_path / "sub" / "m.jsonl").read_text().splitlines()]
+    assert recs[0] == {"J": 1.5, "iters": [1, 2], "conv": [True, False], "n": 3}
+    assert recs[1]["block_nnz_per_s"] == 10 * (16 + 8) * 3 / 0.5
+    assert recs[1]["mode"] == "distributed"
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 2, 10), (100, 4, 2, 50), (8, 12, 4, 20)])
+def test_riccati_block_nnz_equals_jax(shape):
+    assert riccati_block_nnz(*shape) == jmetrics.riccati_block_nnz(*shape)
+
+
+def test_rate_paces_and_counts_misses():
+    """Drift-free rate pacing (reference timer_sleep.py / sleepForRate):
+    absolute deadlines, overruns counted, no catch-up bursting."""
+    r = dtt.Rate(100.0)  # 10 ms period
+    t0 = time.monotonic()
+    for _ in range(5):
+        r.sleep()
+    elapsed = time.monotonic() - t0
+    # 5 ticks at 10 ms, first returns immediately: ~40 ms lower bound.
+    assert elapsed >= 0.035
+    assert r.ticks == 5 and r.missed == 0
+
+    # A slow iteration (3 periods) registers exactly one miss and the next
+    # deadline lands in the future (no burst of immediate returns).
+    time.sleep(0.03)
+    slack = r.sleep()
+    assert slack < 0 and r.missed == 1
+    assert r.remaining() > 0
+    r.reset()
+    assert r.ticks == 0 and r.remaining() == pytest.approx(0.01)
+
+    with pytest.raises(ValueError):
+        dtt.Rate(0.0)
+
+
+def test_viz_smoke_under_agg(tmp_path):
+    """Every plot draws from numpy and from tensors under the Agg backend."""
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    T, n = 6, 3
+    X = np.zeros((T, n, 4))
+    X[:, :, 0] = np.linspace(0, 1, T)[:, None] + np.arange(n)
+    X[:, :, 1] = np.linspace(1, 0, T)[:, None]
+    xf = X[-1] + 0.1
+    try:
+        assert viz.plot_solve(torch.as_tensor(X), torch.tensor(3.0), xf) is not None
+        plt.figure()
+        ax = viz.plot_pairwise_distances(torch.as_tensor(X), 0.5)
+        (line, *_) = ax.get_lines()
+        d = dtt.pairwise_distances(torch.as_tensor(X)).numpy()
+        np.testing.assert_array_equal(line.get_ydata(), d[:, 0])
+        plt.figure()
+        viz.eyeball_scenario(X[0], xf)
+        pytest.importorskip("networkx")
+        plt.figure()
+        viz.plot_interaction_graph({0: [0, 1], 1: [0, 1], 2: [2]})
+    finally:
+        plt.close("all")
+
+
+def test_metrics_and_viz_import_no_plotting_library():
+    import sys
+
+    assert metrics.__name__ in sys.modules and viz.__name__ in sys.modules
+    src = open(viz.__file__).read()
+    assert "\nimport matplotlib" not in src and "\nimport networkx" not in src

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it never imports JAX or the JAX package,
-and importing it (kernel wrappers included) builds nothing and needs no
-CUDA toolchain -- the kernels compile on first use."""
+and importing it (kernel wrappers, facade and host utilities included)
+builds nothing, needs no CUDA toolchain and pulls in neither sympy nor the
+plotting libraries -- the kernels and the native host library compile on
+first use, sympy and matplotlib load where they are used."""
 
 import os
 import re
@@ -16,21 +18,28 @@ PKG = REPO / "dpilqr_tpu_torch"
 _PROBE = """
 import sys
 import dpilqr_tpu_torch
+import dpilqr_tpu_torch.api
+import dpilqr_tpu_torch.native.host as host
 import dpilqr_tpu_torch.ops.batched
 import dpilqr_tpu_torch.ops.cuda_build as cb
 import dpilqr_tpu_torch.ops.ilqr
 import dpilqr_tpu_torch.ops.pscan
 import dpilqr_tpu_torch.ops.sweeps
 import dpilqr_tpu_torch.parallel.deadline
+import dpilqr_tpu_torch.parallel.mesh
 import dpilqr_tpu_torch.parallel.rhc
 import dpilqr_tpu_torch.utils.checkpoint
+import dpilqr_tpu_torch.utils.metrics
 import dpilqr_tpu_torch.utils.profiling
+import dpilqr_tpu_torch.utils.rate
 import dpilqr_tpu_torch.utils.sol
+import dpilqr_tpu_torch.utils.viz
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.") or m == "dpilqr_tpu"
-                or m.startswith("dpilqr_tpu."))
+                if m.split(".")[0] in ("jax", "dpilqr_tpu", "sympy", "matplotlib",
+                                       "networkx"))
 assert not leaked, leaked
 assert cb.load_library.cache_info().currsize == 0
+assert host._lib is None and host._build_error is None  # no g++ run
 print("ok")
 """
 
