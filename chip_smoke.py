@@ -10,7 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
 1. Device: a CUDA device must be present; prints its name and
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 2. Build: compiles the hand-written kernels in ``dpilqr_tpu_torch/csrc``
-   with nvcc, one process per source (timed).
+   with nvcc, one process per source, and beside it the custom-model build
+   of phase 8 (K2, K4 and K5 with the right-hand side ``ops.codegen``
+   generates from a user bicycle's sympy field), both timed; prints K2's
+   registers and spills in both builds.
 3. Kernel vs plain PyTorch twin, each timed with CUDA events:
    a. K1 and K2 at the 100-agent main path's shape (S=100 subproblems,
       K=8 slots, nx_p=4, nu_p=2, N=50), float64 and float32, forward with 2
@@ -101,12 +104,41 @@ Phases (any failure exits non-zero and prints no result line):
       card: ``solve_distributed`` and ``ilqr_solve`` raise
       ``NotImplementedError`` with every launch count still 0.
    It also prints whether sympy, matplotlib and networkx are installed.
+8. Custom (sympy) models on the card and the sharded solve, every failure
+   fatal, each path driven with the launch counts set to 0 just before and
+   read just after:
+   a. K2 (2 and 10 alphas, with and without gains) at the main path's shape,
+      K4 without gains at 100 agents, K4 with gains and K5 at 10 agents, on
+      fleets of the user bicycle (a ``SymbolicModel``, the custom-model
+      build) against their plain versions, float64 and float32, each timed
+      beside the same launch on ``Bike5D`` (whether the bits agree printed);
+   b. the decomposed MPC loop of 100 user bicycles (one spec) at the main
+      path's scenario, float32, 5 steps, K2 and K4 from the custom build:
+      equal K, mean iterations and converged fraction within 2% of the same
+      loop on ``Bike5D``; then 2 steps in float64, equal iterations and
+      flags, X within 1e-9;
+   c. the facade's ``ilqrSolver.solve`` on 10 ``SymbolicModel`` bicycles (10
+      model ids, one generated field), float64, against 10
+      ``BikeDynamics5D`` and against the twins on the CPU (equal
+      iterations, J within 1e-9); float32 through ``ilqr_solve``; 3 steps of
+      ``api.solve_rhc(centralized=True)``; K5 and K4 only, from the custom
+      build;
+   d. one decomposed solve of 30 user bicycles, 40 Unicycle4D and 30 Car3D
+      (K=8, packed at 0.55), float64: bit-equal to the same fleet with
+      ``Bike5D`` for the bicycles; one iteration's K3 and K2 against their
+      twins; the twins' whole solve beside it, and beside itself from a warm
+      start changed by 1e-13 (this packing's conditioning, printed);
+   e. ``solve_distributed_sharded`` of 100 Unicycle4D packed at 0.55 (K=8,
+      float64) on ``make_mesh()`` and in two chunks on the one card: bit-equal
+      to ``solve_distributed``, compaction firing in every chunk (K1's and
+      K2's widths printed by chunk).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the eight kernels with their launch counts, errors, times and bounds
 (the least time by the published peaks, computed from the timed shapes;
-K1-K5 also list every other shape they were timed at under ``shapes``; K4's
-launches are summed over the decomposed and the centralized paths),
+K1-K5 also list every other shape they were timed at under ``shapes``, the
+custom-model build's K2, K4 and K5 among them, bound by ``Bike5D``'s work;
+K4's launches are summed over the decomposed and the centralized paths),
 and the line before that the card's name and power limit.
 """
 
@@ -312,10 +344,11 @@ def sweep_inputs(fleet, cost, x0, K, dev, seed=0, u_scale=0.01, u_trim=0.0):
     return args, sub_cost, mids, carry
 
 
-def work_shape(family, fleet, K, S, n_alpha=0):
-    """The arguments ``utils.sol.sweep_work`` takes for a timed launch."""
+def work_shape(family, fleet, K, S, n_alpha=0, model=None):
+    """The arguments ``utils.sol.sweep_work`` takes for a timed launch
+    (``model``: the work-count model, by default the fleet's first)."""
     return dict(family=family, N=HORIZON, K=K, nx_p=fleet.nx_p, nu_p=fleet.nu_p,
-                S=S, n_alpha=n_alpha, model=fleet.specs[0].name)
+                S=S, n_alpha=n_alpha, model=model or fleet.specs[0].name)
 
 
 def bound_ms(work):
@@ -330,8 +363,9 @@ def bound_ms(work):
 
 
 def forward_checks(checks, results, tag, fleet, sub_cost, mids, carry, Kg, d,
-                   dtype, dev, gains_off=True):
-    """K2 against its twin at 2 and 10 alphas; times float32 with gains."""
+                   dtype, dev, gains_off=True, model=None):
+    """K2 against its twin at 2 and 10 alphas; times float32 with gains
+    (``model``: the work-count model of its bound, as ``work_shape``)."""
     import dpilqr_tpu_torch as dtt
     from dpilqr_tpu_torch.ops import batched as bt
 
@@ -349,7 +383,8 @@ def forward_checks(checks, results, tag, fleet, sub_cost, mids, carry, Kg, d,
                     timed(lambda: bt.forward_pass_batched_cuda(*fa), 10),
                     timed(lambda: bt.forward_pass_batched_torch(*fa), 2))
                 checks.shapes[f"K2 {tag} {n_alpha} alphas"] = work_shape(
-                    "forward", fleet, carry.X.shape[2], carry.X.shape[0], n_alpha)
+                    "forward", fleet, carry.X.shape[2], carry.X.shape[0], n_alpha,
+                    model)
 
 
 def narrow_checks(checks, results, dev):
@@ -1469,6 +1504,499 @@ def facade_phase(dev, launches):
     cuda_build.reset_launch_counts()
 
 
+def user_bike_class():
+    """The user bicycle of ``tests/test_torch_api.py``: a facade
+    ``SymbolicModel`` whose sympy field is ``Bike5D``'s."""
+    import sympy as sym
+
+    from dpilqr_tpu_torch import api
+
+    class UserBike(api.SymbolicModel):
+        def __init__(self, dt, id=None, device=None):
+            super().__init__(5, 2, dt, id, device=device)
+            x = sym.Matrix(sym.symbols("p_x p_y v theta phi"))
+            u = sym.Matrix(sym.symbols("a rho"))
+            x_dot = sym.Matrix([x[2] * sym.cos(x[3]), x[2] * sym.sin(x[3]), u[0],
+                                x[2] * sym.tan(x[4]), u[1]])
+            self._build(x, u, x_dot)
+
+    return UserBike
+
+
+def print_registers(tag, lib, source, kernel):
+    """Print the registers and spills of ``kernel``'s instantiations, from
+    the build's ``-Xptxas=-v`` report, and return them (None where the
+    library was built before this run, without the report)."""
+    import re
+
+    from dpilqr_tpu_torch.ops import cuda_build
+
+    if not (lib.parent / f"{source}.log").exists():
+        print(f"{tag}: built before this run, no ptxas report", flush=True)
+        return None
+    report = cuda_build.ptxas_report(lib, source, kernel)
+    if not report:
+        fail(f"{tag}: no {kernel} entry in the ptxas report of {source}")
+    rows = {}
+    for name, (regs, st, ld) in sorted(report.items()):
+        m = re.search(r"kernelI([fd])Li(\d+)E", name)
+        key = f"{'float' if m.group(1) == 'f' else 'double'} NXC {m.group(2)}" if m else name
+        rows[key] = {"registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld}
+    print(f"{tag} {kernel} registers: " + json.dumps(rows), flush=True)
+    return rows
+
+
+def custom_counts():
+    """Launches from the custom-model library since the last reset."""
+    from dpilqr_tpu_torch.ops import cuda_build
+
+    return dict(cuda_build.custom_launch_counts)
+
+
+def require_custom(counts, kernels, path):
+    """Fail unless every launch of ``kernels`` in the run came from the
+    custom-model library (and there was one)."""
+    custom = custom_counts()
+    for k in kernels:
+        if counts[k] <= 0 or custom[k] != counts[k]:
+            fail(f"{path}: {k} launched {counts[k]} times, {custom[k]} from the "
+                 "custom-model library")
+
+
+def bits_agree(got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def custom_checks(checks, results, dev, UserBike):
+    """Phase 8a: K2, K4 and K5 of the custom-model build on fleets of the
+    user bicycle against their plain versions, each timed beside the same
+    launch of the default build on ``Bike5D`` fleets of the same shape and
+    the same inputs."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+    from dpilqr_tpu_torch.ops import cuda_build, ilqr, sweeps
+
+    bike = UserBike(DT).spec
+    x0p, xfp = swap_scenario(N_AGENTS, 0.55)
+    x10, xf10 = swap_scenario(10, 1.0)
+    for dtype in (torch.float64, torch.float32):
+        fl = {"custom bicycle": dtt.homogeneous_fleet(bike, N_AGENTS, DT),
+              "Bike5D": dtt.homogeneous_fleet(dtt.BIKE_5D, N_AGENTS, DT)}
+        # K2 at the main path's shape (S = 100, K = 8, nxf 40), inputs made
+        # once on the Bike5D fleet.
+        cost, x0 = problem(fl["Bike5D"], x0p, xfp, dtype, dev)
+        args, sub_cost, mids, carry = sweep_inputs(fl["Bike5D"], cost, x0, 8, dev)
+        Kg, d = bt.backward_pass_batched_torch(*args)
+        for name, fleet in fl.items():
+            forward_checks(checks, results, f"{name} K=8", fleet, sub_cost, mids, carry,
+                           Kg, d, dtype, dev, model="Bike5D")
+        alphas = dtt.ops.line_search_alphas(2, dtype, dev)
+        outs = [bt.forward_pass_batched_cuda(f, sub_cost, mids, carry.X, carry.U, Kg, d,
+                                             alphas) for f in fl.values()]
+        print(f"K2 {str(dtype)[6:]}: custom bicycle and Bike5D bit-equal: "
+              f"{bits_agree(*outs)}", flush=True)
+
+        # K4 without gains (the plain rollout) at 100 agents.
+        x0_t = torch.as_tensor(x0, dtype=dtype, device=dev)
+        U = torch.as_tensor(np.random.default_rng(5).uniform(size=(HORIZON, N_AGENTS, 2))
+                            * 0.01, dtype=dtype, device=dev)
+        outs = []
+        for name, fleet in fl.items():
+            got = sweeps.rollout_cuda(fleet, cost, x0_t, U)
+            checks.compare("forward_sweep", f"K4 rollout {name} 100 {str(dtype)[6:]}",
+                           ("X5", "J"), got, ilqr._rollout_fn(fleet.step, cost, x0_t, U),
+                           TOL[dtype])
+            outs.append(got)
+            if dtype == torch.float32:
+                label = f"K4 rollout {name} 100, the launch alone"
+                with cuda_build.timed_launches() as record:
+                    for _ in range(10):
+                        sweeps.rollout_cuda(fleet, cost, x0_t, U)
+                results[label] = (min(cuda_build.launch_ms(record, "forward_sweep")), None)
+                checks.shapes[label] = work_shape("rollout_sweep", fleet, N_AGENTS, 1, 1,
+                                                  "Bike5D")
+        print(f"K4 rollout {str(dtype)[6:]}: custom bicycle and Bike5D bit-equal: "
+              f"{bits_agree(*outs)}", flush=True)
+
+        # K5 and K4 with gains at the centralized shape: 10 bicycles.
+        f10 = {"custom bicycle": dtt.homogeneous_fleet(bike, 10, DT),
+               "Bike5D": dtt.homogeneous_fleet(dtt.BIKE_5D, 10, DT)}
+        cost10, x10_0 = problem(f10["Bike5D"], x10, xf10, dtype, dev)
+        # A warm start of 0.01 as phase 3c's rollouts: at 0.1 the bicycles'
+        # closed loop amplifies float32 rounding to 2e-4 (on Bike5D alike).
+        U10 = torch.as_tensor(np.random.default_rng(2).uniform(size=(HORIZON, 10, 2)) * 0.01,
+                              dtype=dtype, device=dev)
+        X10 = ilqr._rollout_fn(f10["Bike5D"].step, cost10,
+                               torch.as_tensor(x10_0, dtype=dtype, device=dev), U10)[0]
+        mu = torch.tensor(1.0, dtype=dtype, device=dev)
+        K_t, d_t = ilqr._backward_pass(f10["Bike5D"].linearize, cost10, X10, U10, mu)
+        alphas = dtt.ops.line_search_alphas(10, dtype, dev)
+        k5, k4 = [], []
+        for name, fleet in f10.items():
+            bw = (fleet, cost10, X10, U10, mu)
+            got = sweeps.backward_pass_cuda(*bw)
+            checks.compare("backward_sweep", f"K5 {name} 10 {str(dtype)[6:]}", ("Kg", "d"),
+                           got, ilqr._backward_pass(fleet.linearize, cost10, X10, U10, mu),
+                           TOL[dtype])
+            k5.append(got)
+            fw = (cost10, X10, U10, K_t, d_t, alphas)
+            got = sweeps.forward_pass_cuda(fleet, *fw)
+            checks.compare("forward_sweep", f"K4 {name} 10 alphas {str(dtype)[6:]}",
+                           ("X5", "U5", "J"), got, ilqr._forward_pass(fleet.step, *fw),
+                           TOL[dtype])
+            k4.append(got)
+            if dtype == torch.float32:
+                with cuda_build.timed_launches() as record:
+                    for _ in range(10):
+                        sweeps.backward_pass_cuda(*bw)
+                label = f"K5 {name} 10"
+                results[label] = (
+                    min(cuda_build.launch_ms(record, "backward_sweep")),
+                    timed(lambda: ilqr._backward_pass(fleet.linearize, cost10, X10, U10,
+                                                      mu), 3))
+                checks.shapes[label] = dict(work_shape("backward_sweep", fleet, 10, 1,
+                                                       model="Bike5D"))
+                label = f"K4 {name} 10 alphas"
+                results[label] = (
+                    timed(lambda: sweeps.forward_pass_cuda(fleet, *fw), 20),
+                    timed(lambda: ilqr._forward_pass(fleet.step, *fw), 3))
+                checks.shapes[label] = work_shape("forward_sweep", fleet, 10, 1, 10, "Bike5D")
+        print(f"K5 {str(dtype)[6:]}: custom bicycle and Bike5D bit-equal: "
+              f"{bits_agree(k5[0], k5[1])}; K4 with gains: {bits_agree(k4[0], k4[1])}",
+              flush=True)
+    # Every launch of a custom fleet above came from the custom library.
+    cuda_build.reset_launch_counts()
+    sweeps.backward_pass_cuda(f10["custom bicycle"], cost10, X10, U10, mu)
+    if custom_counts()["backward_sweep"] != 1:
+        fail("K5 of a custom fleet did not launch from the custom-model library")
+    cuda_build.reset_launch_counts()
+
+
+def rhc_result(fleet, cost, x0, steps, dtype=np.float32):
+    """``solve_rhc`` as ``rhc_run`` drives it, returning its result."""
+    import dpilqr_tpu_torch as dtt
+
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3)
+    return dtt.solve_rhc(fleet, cost, x0.astype(dtype), HORIZON, radius=RADIUS,
+                         centralized=False, step_size=1, J_converge=1e-3,
+                         t_diverge=(steps - 1) * DT, config=cfg,
+                         rng=np.random.default_rng(0), device=cost.xf.device)
+
+
+def within(a, b, rel):
+    return abs(a - b) <= rel * abs(b) + 1e-12
+
+
+def custom_main_path(dev, launches, UserBike):
+    """Phase 8b: the decomposed MPC loop of 100 user bicycles (one shared
+    spec) at the main path's scenario, on the kernels, beside the same loop
+    of ``Bike5D``."""
+    import dpilqr_tpu_torch as dtt
+
+    x0p, xfp = swap_scenario(N_AGENTS, 1.25)
+    specs = {"custom bicycle": UserBike(DT).spec, "Bike5D": dtt.BIKE_5D}
+    # K1 up to K = 6 slots (nxf 30), K3 past it (K = 8: nxf 40).
+    path = ("backward_batched", "forward_batched", "forward_sweep")
+    runs = {}
+    for name, spec in specs.items():
+        fleet = dtt.homogeneous_fleet(spec, N_AGENTS, DT)
+        cost, x0 = problem(fleet, x0p, xfp, torch.float32, dev)
+        rhc_run(fleet, cost, x0, "cuda", MPC_STEPS)  # warm-up
+        runs[name], counts = run_counted(lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS))
+        require(counts, path, f"the {name} loop", solves=runs[name]["steps"])
+        if name == "custom bicycle":
+            require_custom(counts, ("forward_batched", "forward_sweep"), "the custom loop")
+            for k in (*path, "backward_batched_wide"):
+                launches[k] += counts[k]
+            print_by_width("custom bicycle loop", launches_by_width(
+                lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS), MPC_STEPS,
+                (*path, "backward_batched_wide")))
+        elif any(custom_counts().values()):
+            fail("the Bike5D loop launched the custom-model library")
+        print(f"{name} loop ({N_AGENTS} agents, float32, launches {counts}): "
+              + json.dumps(runs[name]), flush=True)
+    c, b = runs["custom bicycle"], runs["Bike5D"]
+    if c["K"] != b["K"]:
+        fail(f"the custom loop's K {c['K']} differs from Bike5D's {b['K']}")
+    for key in ("mean_iters", "converged_frac"):
+        if not within(c[key], b[key], 0.02):
+            fail(f"the custom loop's {key} {c[key]} is not within 2% of Bike5D's {b[key]}")
+    print(f"custom bicycle loop: {c['ms_per_step']:.1f} ms a step, Bike5D "
+          f"{b['ms_per_step']:.1f}; mean iterations {c['mean_iters']} / {b['mean_iters']}, "
+          f"converged {c['converged_frac']} / {b['converged_frac']}", flush=True)
+
+    res = {}
+    for name, spec in specs.items():
+        fleet = dtt.homogeneous_fleet(spec, N_AGENTS, DT)
+        cost, x0 = problem(fleet, x0p, xfp, torch.float64, dev)
+        res[name] = rhc_result(fleet, cost, x0, 2, np.float64)
+    c, b = res["custom bicycle"], res["Bike5D"]
+    it_c = [np.asarray(s.iters).tolist() for s in c.steps]
+    it_b = [np.asarray(s.iters).tolist() for s in b.steps]
+    cv_c = [np.asarray(s.converged).tolist() for s in c.steps]
+    cv_b = [np.asarray(s.converged).tolist() for s in b.steps]
+    if len(c.steps) != 2 or it_c != it_b or cv_c != cv_b:
+        fail("float64: the custom loop's iterations or flags differ from Bike5D's")
+    dX = float(np.abs(c.X - b.X).max()) / float(np.abs(b.X).max())
+    print(f"custom bicycle loop float64, 2 steps: iterations and flags equal to "
+          f"Bike5D's, X rel {dX:.3e}, bit-equal {np.array_equal(c.X, b.X)}", flush=True)
+    if not dX <= 1e-9:
+        fail("float64: the custom loop's X differs from Bike5D's beyond 1e-9")
+
+
+def facade_bikes(make, n, device):
+    """The facade problem of ``n`` bicycles (``make(device)`` each) on phase
+    5's placement (the swap grid at spacing 1.0), Q = I, R = I, Qf = 1e3 I,
+    radius 0.5; with the flat start and warm start."""
+    from dpilqr_tpu_torch import api
+
+    api._reset_ids()
+    x0p, xfp = swap_scenario(n, 1.0)
+    pad = np.zeros(3)
+    dyn = api.MultiDynamicalModel([make(device) for _ in range(n)])
+    rcs = [api.ReferenceCost(np.r_[xfp[i, :2], pad], np.eye(5), np.eye(2), 1e3 * np.eye(5))
+           for i in range(n)]
+    prob = api.ilqrProblem(dyn, api.GameCost(rcs, api.ProximityCost([5] * n, RADIUS)))
+    x0 = np.concatenate([np.r_[x0p[i, :2], pad] for i in range(n)])
+    U0 = np.random.default_rng(3).uniform(size=(HORIZON, 2 * n)) * 0.01
+    return prob, x0, U0
+
+
+def facade_solve(prob, x0, U0):
+    """``ilqrSolver.solve`` at 15 iterations, tol 1e-3: ``(X, U, J,
+    iterations)``, the iterations read from its verbose line."""
+    import contextlib
+    import io
+
+    from dpilqr_tpu_torch import api
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        X, U, J = api.ilqrSolver(prob, HORIZON).solve(x0, U0, n_lqr_iter=15, tol=1e-3,
+                                                     verbose=True)
+    torch.cuda.synchronize()
+    return X, U, J, int(buf.getvalue().split("/")[0])
+
+
+def custom_centralized(dev, launches, UserBike):
+    """Phase 8c: the facade's centralized solve and loop on 10
+    ``SymbolicModel`` bicycles (10 instances, 10 model ids, one generated
+    field): K5 and K4 from the custom-model library and nothing else."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch import api
+    from dpilqr_tpu_torch.ops.costs import cast_cost
+
+    def user(device):
+        return UserBike(DT, device=device)
+
+    prob, x0, U0 = facade_bikes(user, 10, dev)
+    fleet = prob.dynamics._fleet
+    if len(fleet.unique_specs) != 10:
+        fail("the facade bicycles do not carry 10 model ids")
+    kernels = ("backward_sweep", "forward_sweep")
+    facade_solve(prob, x0, U0)  # warm-up
+    (X, U, J, it), counts = run_counted(lambda: facade_solve(prob, x0, U0))
+    require_custom(counts, kernels, "the facade's ilqrSolver on custom bicycles")
+    if any(n for k, n in counts.items() if k not in kernels):
+        fail(f"the custom centralized solve launched another kernel: {counts}")
+    for k in kernels:
+        launches[k] += counts[k]
+    refs = {"BikeDynamics5D": facade_solve(*facade_bikes(
+                lambda device: api.BikeDynamics5D(DT, device=device), 10, dev)),
+            "twins (CPU)": facade_solve(*facade_bikes(user, 10, "cpu"))}
+    for name, (_, _, J_r, it_r) in refs.items():
+        dJ = abs(J - J_r) / abs(J_r)
+        print(f"custom centralized float64: J {J!r} vs {name} {J_r!r} (rel {dJ:.3e}), "
+              f"iterations {it} / {it_r}", flush=True)
+        if it != it_r or not dJ <= 1e-9:
+            fail(f"the custom centralized solve differs from {name}")
+    print(f"custom centralized (10 facade bicycles, float64, launches "
+          f"{ {k: counts[k] for k in kernels} }): J {J!r}, {it} iterations", flush=True)
+
+    # Float32 through the tensor API on the same fleet and cost.
+    cost32 = cast_cost(prob._as_game().to_array_spec(fleet, dev), torch.float32)
+    x0b = torch.as_tensor(fleet.pad_states(x0), dtype=torch.float32, device=dev)
+    U0b = torch.as_tensor(fleet.pad_controls(U0), dtype=torch.float32, device=dev)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3)
+    r32, counts = run_counted(lambda: dtt.ilqr_solve(fleet, cost32, x0b, U0=U0b, config=cfg))
+    require_custom(counts, kernels, "ilqr_solve float32 on custom bicycles")
+    if not np.isfinite(float(r32.J)):
+        fail("the custom centralized solve (float32) has a non-finite J")
+    print(f"custom centralized float32: J {float(r32.J)!r} (float64 {J!r}), "
+          f"{int(r32.iters)} iterations", flush=True)
+
+    steps = []
+    (Xr, Ur, Jr), counts = run_counted(lambda: api.solve_rhc(
+        prob, x0, HORIZON, centralized=True, J_converge=1e-3, t_diverge=2 * DT,
+        config=cfg, rng=np.random.default_rng(0), log_fn=steps.append))
+    require_custom(counts, kernels, "the facade's solve_rhc(centralized=True)")
+    if len(steps) != 3 or not np.isfinite(Xr).all() or not np.isfinite(Jr):
+        fail(f"the custom centralized loop ran {len(steps)} steps or diverged")
+    for k in kernels:
+        launches[k] += counts[k]
+    print(f"custom centralized loop (3 steps, launches "
+          f"{ {k: counts[k] for k in kernels} }): J {Jr!r}", flush=True)
+
+
+def custom_mixed(checks, dev, launches, UserBike):
+    """Phase 8d: 30 user bicycles, 40 Unicycle4D and 30 Car3D in one
+    decomposed solve (K=8, packed at spacing 0.55 so that pairs couple),
+    float64.  The kernels' solve must have the bits of the same fleet with
+    ``Bike5D`` in the bicycles' place, and one iteration's K3 and K2 (ids
+    1000, 3 and 2 in one subproblem) must agree with their twins.  The whole
+    solve is not held against the twins' solve: this packing amplifies a
+    1e-13 change of the warm start into other iteration counts in the twins'
+    own solve (printed), on the built-in fleet alike."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    bike = UserBike(DT).spec
+    path = ("backward_batched_wide", "forward_batched", "forward_sweep")  # nxf 40: K3
+
+    def fleet_of(b):
+        return dtt.Fleet(tuple(b if i % 10 < 3 else dtt.UNICYCLE_4D if i % 10 < 7
+                               else dtt.CAR_3D for i in range(N_AGENTS)), DT)
+
+    custom, builtin = fleet_of(bike), fleet_of(dtt.BIKE_5D)
+    cost, x0 = problem(custom, *swap_scenario(N_AGENTS, 0.55), torch.float64, dev)
+    X = torch.as_tensor(x0, device=dev)[None]
+    U = torch.as_tensor(np.random.default_rng(4).uniform(size=(HORIZON, N_AGENTS, 2))
+                        * 0.01 * custom.control_mask, device=dev)
+
+    def solve(fleet, backend, U=U):
+        cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, sweep_backend=backend)
+        res, counts = run_counted(lambda: dtt.solve_distributed(
+            fleet, cost, X, U, RADIUS, K=8, config=cfg))
+        if backend == "cuda":
+            require(counts, path, "the mixed solve", solves=1)
+            if fleet is custom:
+                require_custom(counts, ("forward_batched", "forward_sweep"),
+                               "the mixed custom solve")
+                for k in path:
+                    launches[k] += counts[k]
+            elif any(custom_counts().values()):
+                fail("the built-in mixed fleet launched the custom-model library")
+        else:
+            no_sweep_kernel(counts)
+        return res
+
+    got, want = solve(custom, "cuda"), solve(builtin, "cuda")
+    if int(got.sizes.min()) < 2:
+        fail("the mixed custom scenario has an uncoupled agent")
+    for name, a, b in zip(got._fields, got, want):
+        if not torch.equal(a, b):
+            fail(f"the mixed solve: {name} of the custom bicycles differs from Bike5D's")
+    print(f"mixed solve (30 custom bicycles + 40 Unicycle4D + 30 Car3D, K=8, "
+          f"neighbourhoods {int(got.sizes.min())}-{int(got.sizes.max())}, float64): "
+          f"bit-equal to the fleet with Bike5D, J {float(got.J)!r}, mean iterations "
+          f"{float(got.iters.float().mean())}", flush=True)
+
+    # One iteration's kernels on the gathered batch, against their twins.
+    args, sub_cost, mids, carry = sweep_inputs(custom, cost, x0, 8, dev)
+    Kg, d = bt.backward_pass_batched_torch(*args)
+    checks.compare("backward_batched_wide", "K3 mixed custom float64", ("Kg", "d"),
+                   bt.backward_pass_batched_wide_cuda(*args), (Kg, d), TOL[torch.float64])
+    forward_checks(checks, {}, "mixed custom", custom, sub_cost, mids, carry, Kg, d,
+                   torch.float64, dev)
+
+    twin = solve(custom, "torch")
+    nudged = solve(custom, "torch", U * (1 + 1e-13))
+    print(f"mixed solve: kernels and twins differ in "
+          f"{int((got.iters != twin.iters).sum())} of {N_AGENTS} iteration counts "
+          f"(J {float(got.J)!r} / {float(twin.J)!r}); the twins' own solve with the "
+          f"warm start times 1 + 1e-13 differs from it in "
+          f"{int((twin.iters != nudged.iters).sum())} (J {float(nudged.J)!r})",
+          flush=True)
+
+
+def sharded_phase(dev, launches):
+    """Phase 8e: ``solve_distributed_sharded`` of 100 Unicycle4D packed at
+    spacing 0.55 (K=8, float64) on one card in one chunk and in two, each
+    bit-equal to ``solve_distributed``; K1's and K2's widths per chunk."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import cuda_build
+
+    fleet, cost, x0 = unicycle_problem(N_AGENTS, 0.55, torch.float64, dev)
+    X = torch.as_tensor(x0, device=dev)[None]
+    U = torch.as_tensor(np.random.default_rng(0).uniform(size=(HORIZON, N_AGENTS, 2)) * 0.01,
+                        device=dev)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3)
+    ref = dtt.solve_distributed(fleet, cost, X, U, RADIUS, K=8, config=cfg)
+    for tag, mesh in (("one chunk", dtt.make_mesh()),
+                      ("two chunks", dtt.make_mesh(["cuda:0", "cuda:0"]))):
+        def run(mesh=mesh):
+            with cuda_build.timed_launches() as record:
+                out = dtt.solve_distributed_sharded(fleet, cost, X, U, RADIUS, mesh, K=8,
+                                                    config=cfg)
+            return out, record
+
+        (res, record), counts = run_counted(run)
+        require(counts, ("backward_batched", "forward_batched", "forward_sweep"),
+                f"solve_distributed_sharded ({tag})", solves=1)
+        for k in ("backward_batched", "forward_batched", "forward_sweep"):
+            launches[k] += counts[k]
+        for name, a, b in zip(res._fields, res, ref):
+            if not torch.equal(a, b):
+                fail(f"solve_distributed_sharded ({tag}): {name} differs from "
+                     "solve_distributed")
+        # The batch widths each chunk's K1 and K2 ran at, in launch order; a
+        # chunk starts where the width grows.
+        widths = {}
+        for kernel in ("backward_batched", "forward_batched"):
+            chunks = []
+            for k, _, _, sizes in record:
+                if k == kernel:
+                    if not chunks or sizes[0] > chunks[-1][-1]:
+                        chunks.append([])
+                    chunks[-1].append(sizes[0])
+            widths[kernel] = [sorted(set(c), reverse=True) for c in chunks]
+        print(f"solve_distributed_sharded ({tag}): bit-equal to solve_distributed; "
+              f"widths by chunk {json.dumps(widths)}", flush=True)
+        if len(widths["backward_batched"]) != len(mesh) or any(
+                len(w) < 2 for w in widths["backward_batched"]):
+            fail(f"solve_distributed_sharded ({tag}): compaction did not fire in "
+                 "every chunk")
+
+
+def custom_phase(checks, results, dev, launches, UserBike):
+    """Phase 8: custom models on the card and the sharded solve."""
+    custom_checks(checks, results, dev, UserBike)
+    custom_main_path(dev, launches, UserBike)
+    custom_centralized(dev, launches, UserBike)
+    custom_mixed(checks, dev, launches, UserBike)
+    sharded_phase(dev, launches)
+
+
+def build_phase():
+    """Phase 2: the default library and the custom-model one of phase 8 (K2,
+    K4 and K5 with the user bicycle's generated right-hand side), built
+    together; returns the user bicycle's class."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dpilqr_tpu_torch.ops import codegen, cuda_build
+
+    UserBike = user_bike_class()
+    header = codegen.generate_header((UserBike(DT).spec,))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        custom_build = pool.submit(cuda_build.build, True, header)
+        lib, build_s = cuda_build.build(verbose=True)
+        custom_lib, custom_s = custom_build.result()
+    both_s = time.perf_counter() - t0
+    cuda_build.load_library()
+    cuda_build.load_library(header)
+    print(f"build: {build_s:.1f} s; custom-model build (K2, K4, K5 with the user "
+          f"bicycle's generated right-hand side, {cuda_build.build_dir(header).name}): "
+          f"{custom_s:.1f} s; both together {both_s:.1f} s", flush=True)
+    regs = {tag: print_registers(tag, path, "forward_batched", "forward_batched_kernel")
+            for tag, path in (("default build", lib), ("custom build", custom_lib))}
+    if all(regs.values()):
+        print("K2 registers, custom build against default: " + json.dumps(
+            {k: [regs["custom build"][k]["registers"], regs["default build"][k]["registers"]]
+             for k in regs["custom build"]}), flush=True)
+    return UserBike
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the GPU path only")
@@ -1484,11 +2012,7 @@ def main():
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi_line}", flush=True)
 
-    from dpilqr_tpu_torch.ops import cuda_build
-
-    _, build_s = cuda_build.build(verbose=True)
-    cuda_build.load_library()
-    print(f"build: {build_s:.1f} s", flush=True)
+    UserBike = build_phase()
 
     checks, results = Checks(), {}
     narrow_checks(checks, results, dev)
@@ -1513,6 +2037,7 @@ def main():
     sol_phase(checks, results, probe_plain_ms, dev, launches)
     deadline_phase(dev)
     facade_phase(dev, launches)
+    custom_phase(checks, results, dev, launches, UserBike)
 
     timing = {"backward_batched": "K1", "forward_batched": "K2 nxf 32 2 alphas",
               "backward_batched_wide": "K3 Quad6D K=16 nxf 96",

@@ -16,11 +16,15 @@ device, and ``device="cpu"`` or CPU tensors ask for the CPU.  With
 ``t_kill`` the solves stop at a wall-clock deadline (``ilqr_solve_steppable``,
 ``solve_distributed_steppable``, ``solve_rhc(t_kill=)``); ``utils.sol`` holds
 the speed-of-light accounting (work counts, the three ceiling probes,
-``sol_report``).  ``solve_trials_sharded`` solves Monte-Carlo trials as one
-kernel batch over the devices of ``make_mesh``; ``api`` is the
-reference-shaped object facade (``UnicycleDynamics4D``, ``ilqrSolver``,
-``solve_rhc`` on flat numpy arrays) and ``native.host`` the g++-built host
-dynamics of ``native/bbdyn.cpp``; neither is imported here.
+``sol_report``).  ``solve_distributed_sharded`` splits one decomposed
+solve's subproblem batch over the devices of ``make_mesh``, and
+``solve_trials_sharded`` solves Monte-Carlo trials as one kernel batch over
+them.  A custom model (``api.SymbolicModel``: a ``ModelSpec`` carrying its
+sympy form) runs in the kernels through a right-hand side generated from
+that form (``ops.codegen``); one given only a torch ``f`` runs on the CPU.
+``api`` is the reference-shaped object facade (``UnicycleDynamics4D``,
+``ilqrSolver``, ``solve_rhc`` on flat numpy arrays) and ``native.host`` the
+g++-built host dynamics of ``native/bbdyn.cpp``; neither is imported here.
 """
 
 from .config import DEFAULT_CONFIG, SolverConfig, default_device
@@ -51,6 +55,7 @@ from .parallel import (
     make_mesh,
     selfish_warmstart,
     solve_distributed,
+    solve_distributed_sharded,
     solve_distributed_steppable,
     solve_rhc,
     solve_trials_sharded,

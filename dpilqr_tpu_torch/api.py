@@ -16,9 +16,10 @@ dynamics' device, a solver its problem's, and a module-level function the
 device of the problem it is given, unless the call names another.  The work
 then runs on the card's kernels in float64 (the decomposed solve on K1, K2
 and K4, the centralized one on K5 and K4) or on their torch twins on the
-CPU.  A custom model (``SymbolicModel``) runs on the CPU only: the kernels
-compile the nine built-in models and refuse any other
-(``ops.cuda_build.require_kernel_models``).
+CPU.  A custom model (``SymbolicModel``) runs there too: its sympy vector
+field is printed as device code (``ops.codegen``) and compiled into a
+second build of the kernels that integrate and differentiate it (K2, K4,
+K5; ``ops.cuda_build.require_kernel_models`` routes a fleet to it).
 
 The facade is host-side convenience: performance-critical users should
 drive the tensor API (``dpilqr_tpu_torch.ilqr_solve`` /
@@ -209,12 +210,15 @@ class SymbolicModel(DynamicalModel):
     reference-compatible ``_f``/``A_num``/``B_num`` numpy lambdas, AND
     lambdifies the vector field into torch as the ``f`` of a ``ModelSpec``,
     so the custom model runs through the port's torch core (Fleet dispatch,
-    centralized and decomposed solves) like a built-in model.  sympy is
-    imported by ``_build`` alone.
-
-    The CUDA kernels compile only the nine built-in models, so a solve with
-    a custom model runs with ``device="cpu"``; on the card it raises
-    ``NotImplementedError`` before any launch.
+    centralized and decomposed solves) like a built-in model.  The spec also
+    keeps the sympy form (``ModelSpec.expr``), from which ``ops.codegen``
+    generates the CUDA right-hand side that K2, K4 and K5 integrate and
+    differentiate on the card, the default device, as they do the built-in
+    models.  That needs ``n_x <= 12``, ``n_u <= 4`` and a field built from
+    ``+``, ``*``, powers, ``sin``, ``cos``, ``tan``, ``exp``, ``log``,
+    ``sqrt``, ``Abs``, ``atan2`` and ``tanh``; any other model raises
+    ``NotImplementedError`` on the card before any launch and runs with
+    ``device="cpu"``.  sympy is imported by ``_build`` alone.
 
     Object semantics match the reference: ``__call__`` integrates with
     single-substep RK4 over ``dt`` (dynamics.py:70-74), ``linearize``
@@ -271,6 +275,7 @@ class SymbolicModel(DynamicalModel):
             rk4_substeps=1,  # reference SymbolicModel integrates dh=dt
             n_pos=self.n_pos,
             f=f_torch,
+            expr=_specs.SymbolicRHS(tuple(x_sym), tuple(u_sym), tuple(x_dot_sym)),
         )
         self._fleet = _fleet_mod.Fleet((self.spec,), self.dt)
 

@@ -77,6 +77,56 @@ DPILQR_HD __forceinline__ Dual<T> d_tan(Dual<T> v) {
   return {t, (T(1) + t * t) * v.d};
 }
 
+// The other functions a generated right-hand side may call (ops/codegen.py),
+// on dual numbers; found by argument-dependent lookup from the generated
+// templates, which are defined before these.
+template <typename T>
+DPILQR_HD __forceinline__ Dual<T> d_sin(Dual<T> v) {
+  return {d_sin(v.v), d_cos(v.v) * v.d};
+}
+template <typename T>
+DPILQR_HD __forceinline__ Dual<T> d_cos(Dual<T> v) {
+  return {d_cos(v.v), -d_sin(v.v) * v.d};
+}
+template <typename T>
+DPILQR_HD __forceinline__ Dual<T> d_sqrt(Dual<T> v) {
+  const T s = d_sqrt(v.v);
+  return {s, v.d / (T(2) * s)};
+}
+template <typename T>
+DPILQR_HD __forceinline__ Dual<T> d_exp(Dual<T> v) {
+  const T e = d_exp(v.v);
+  return {e, e * v.d};
+}
+template <typename T>
+DPILQR_HD __forceinline__ Dual<T> d_log(Dual<T> v) {
+  return {d_log(v.v), v.d / v.v};
+}
+template <typename T>
+DPILQR_HD __forceinline__ Dual<T> d_tanh(Dual<T> v) {
+  const T t = d_tanh(v.v);
+  return {t, (T(1) - t * t) * v.d};
+}
+// The derivative of |v| is sign(v), 0 at 0 (torch's).
+template <typename T>
+DPILQR_HD __forceinline__ Dual<T> d_abs(Dual<T> v) {
+  const T sg = v.v > T(0) ? T(1) : (v.v < T(0) ? T(-1) : T(0));
+  return {d_abs(v.v), sg * v.d};
+}
+template <typename T>
+DPILQR_HD __forceinline__ Dual<T> d_atan2(Dual<T> y, Dual<T> x) {
+  return {d_atan2(y.v, x.v), (x.v * y.d - y.v * x.d) / (x.v * x.v + y.v * y.v)};
+}
+// a^b: the exponent's term only where its tangent is not 0, so a constant
+// exponent over a negative base keeps a finite derivative.
+template <typename T>
+DPILQR_HD __forceinline__ Dual<T> d_pow(Dual<T> a, Dual<T> b) {
+  const T p = d_pow(a.v, b.v);
+  T dp = b.v * d_pow(a.v, b.v - T(1)) * a.d;
+  if (b.d != T(0)) dp = dp + p * d_log(a.v) * b.d;
+  return {p, dp};
+}
+
 // Column q of one agent's discretized Jacobians at (x, u): for q < nx column
 // q of A (nx, nx), A[b][q] = [b == q] + dt df_b/dx_q; else column q - nx of
 // B (nx, nu), B[b][q - nx] = dt df_b/du_(q-nx) mask.  Rows and columns are

@@ -4,12 +4,29 @@
 // through ctypes (tests/test_torch_derivatives.py).  float64 only.
 //
 //   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I csrc -o lib.so csrc/derivatives_host.cpp
+//
+// With -DDPILQR_CUSTOM_MODELS and the directory of a header generated by
+// ops/codegen.py on the include path (-I), the same functions also take the
+// generated models' library-local ids (tests/test_torch_codegen.py).
 
 #include <vector>
 
 #include "derivatives.cuh"
 
 extern "C" {
+
+// One agent's continuous right-hand side at (x (nx), u (nu)): xd (nx).
+// Returns 1 for widths past the models'.
+int dpilqr_host_rhs(int model, const double* x, const double* u, int nx, int nu,
+                    double* xd) {
+  if (nx > MAX_NX || nu > MAX_NU) return 1;
+  double xs[MAX_NX], us[MAX_NU], out[MAX_NX];
+  for (int a = 0; a < MAX_NX; ++a) xs[a] = a < nx ? x[a] : 0.0;
+  for (int b = 0; b < MAX_NU; ++b) us[b] = b < nu ? u[b] : 0.0;
+  rhs(model, xs, us, out);
+  for (int a = 0; a < nx; ++a) xd[a] = out[a];
+  return 0;
+}
 
 // One agent's discretized Jacobians at (x (nx), u (nu)): A (nx, nx), B
 // (nx, nu).  Returns 1 for widths past the models'.

@@ -13,7 +13,11 @@
 //
 // Model RHS: transcribed from dpilqr_tpu_torch/models/vectorized.py (same
 // formulas and association order as dpilqr_tpu/models/vectorized.py:42-117);
-// the switch index is ModelSpec.model_id.
+// the switch index is ModelSpec.model_id.  A translation unit built with
+// -DDPILQR_CUSTOM_MODELS also holds the custom models' right-hand sides that
+// ops/codegen.py generates from their sympy forms (the header
+// dpilqr_custom_models.cuh on the include path, ids from 1000), reached
+// from the switch's default case.
 
 #pragma once
 
@@ -48,6 +52,22 @@ DPILQR_HD __forceinline__ float d_tan(float v) { return tanf(v); }
 DPILQR_HD __forceinline__ double d_tan(double v) { return tan(v); }
 DPILQR_HD __forceinline__ float d_sqrt(float v) { return sqrtf(v); }
 DPILQR_HD __forceinline__ double d_sqrt(double v) { return sqrt(v); }
+// The other functions a generated right-hand side may call (ops/codegen.py;
+// their dual-number overloads are in derivatives.cuh).
+DPILQR_HD __forceinline__ float d_cos(float v) { return cosf(v); }
+DPILQR_HD __forceinline__ double d_cos(double v) { return cos(v); }
+DPILQR_HD __forceinline__ float d_exp(float v) { return expf(v); }
+DPILQR_HD __forceinline__ double d_exp(double v) { return exp(v); }
+DPILQR_HD __forceinline__ float d_log(float v) { return logf(v); }
+DPILQR_HD __forceinline__ double d_log(double v) { return log(v); }
+DPILQR_HD __forceinline__ float d_tanh(float v) { return tanhf(v); }
+DPILQR_HD __forceinline__ double d_tanh(double v) { return tanh(v); }
+DPILQR_HD __forceinline__ float d_abs(float v) { return fabsf(v); }
+DPILQR_HD __forceinline__ double d_abs(double v) { return fabs(v); }
+DPILQR_HD __forceinline__ float d_atan2(float y, float x) { return atan2f(y, x); }
+DPILQR_HD __forceinline__ double d_atan2(double y, double x) { return atan2(y, x); }
+DPILQR_HD __forceinline__ float d_pow(float a, float b) { return powf(a, b); }
+DPILQR_HD __forceinline__ double d_pow(double a, double b) { return pow(a, b); }
 
 DPILQR_HD __forceinline__ void d_sincos(float v, float* s, float* c) {
   sincosf(v, s, c);
@@ -55,6 +75,11 @@ DPILQR_HD __forceinline__ void d_sincos(float v, float* s, float* c) {
 DPILQR_HD __forceinline__ void d_sincos(double v, double* s, double* c) {
   sincos(v, s, c);
 }
+
+#ifdef DPILQR_CUSTOM_MODELS
+// custom_rhs: the generated right-hand sides, by library-local id.
+#include "dpilqr_custom_models.cuh"
+#endif
 
 // Continuous dynamics of one slot; components a model does not set are 0.
 // Sine and cosine of one angle come from one sincos call.
@@ -146,6 +171,9 @@ DPILQR_HD __forceinline__ void rhs(int model, const T (&x)[NXC], const T* u,
       }
       break;
     default:
+#ifdef DPILQR_CUSTOM_MODELS
+      custom_rhs(model, x, u, xd);
+#endif
       break;
   }
 }

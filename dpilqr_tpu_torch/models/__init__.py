@@ -12,6 +12,7 @@ from .specs import (
     QUAD_12D,
     UNICYCLE_4D,
     ModelSpec,
+    SymbolicRHS,
     get_model,
 )
 from .integrate import euler_discretize, rk4_integrate, rk4_step

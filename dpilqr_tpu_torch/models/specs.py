@@ -5,11 +5,13 @@ same ids, state/control sizes, RK4 substep counts and position sizes.  Each
 model's continuous-time right-hand side lives once, in the layout-agnostic
 table of ``models/vectorized.py``; ``ModelSpec.f`` evaluates it on native
 dimensions.  A custom model (``api.SymbolicModel``) is a spec that brings
-its own ``f``: the torch path evaluates it, and the CUDA kernels, which
-compile only the nine built-in right-hand sides (``csrc/dynamics.cuh``),
-refuse it (``ops.cuda_build.require_kernel_models``).  Jacobians are
-exact (forward-mode ``torch.func``), discretized with the reference's
-forward-Euler rule ``A_d = I + dt A_c``, ``B_d = dt B_c``
+its own ``f``: the torch path evaluates it.  The CUDA kernels compile the
+nine built-in right-hand sides (``csrc/dynamics.cuh``) and, for a custom
+spec that also carries its sympy form (``expr``, a ``SymbolicRHS``), a
+right-hand side generated from it (``ops.codegen``); a custom spec with
+only ``f`` is refused on the card (``ops.cuda_build.require_kernel_models``).
+Jacobians are exact (forward-mode ``torch.func``), discretized with the
+reference's forward-Euler rule ``A_d = I + dt A_c``, ``B_d = dt B_c``
 (dpilqr/bbdynamics.cpp:95-106).
 """
 
@@ -46,6 +48,18 @@ class TableRHS:
         return padded_f(self.name, x, u)
 
 
+@dataclass(frozen=True, eq=False)
+class SymbolicRHS:
+    """A custom model's continuous right-hand side in sympy: ``field[i]`` is
+    dx_i/dt, an expression over the symbols ``states`` (n_x of them) and
+    ``controls`` (n_u).  ``ops.codegen`` prints it as device code for the
+    kernels.  Compared and hashed by identity: sympy is never touched here."""
+
+    states: tuple
+    controls: tuple
+    field: tuple
+
+
 @dataclass(frozen=True)
 class ModelSpec:
     """Static description of one dynamics model."""
@@ -65,6 +79,11 @@ class ModelSpec:
     # the hash, so the nine built-ins keep theirs.
     f: Callable | None = field(default=None, compare=False, hash=False,
                                repr=False)
+    # A custom model's sympy form, from which ``ops.codegen`` generates the
+    # kernels' right-hand side; None for the built-ins and for a custom spec
+    # that brings only ``f`` (which then runs on the CPU only).
+    expr: SymbolicRHS | None = field(default=None, compare=False, hash=False,
+                                     repr=False)
 
     def __post_init__(self):
         if self.f is None:

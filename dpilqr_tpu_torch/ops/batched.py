@@ -54,6 +54,7 @@ from .costs import (
     stage_cost,
     terminal_cost,
 )
+from .codegen import library_ids
 from .cuda_build import (check_tensors, launch, require_cuda,
                          require_kernel_models, riccati_plan)
 from .ilqr import SolveResult, line_search_alphas
@@ -389,13 +390,14 @@ def backward_pass_batched(
 
 
 @lru_cache(maxsize=64)
-def _model_tables(unique_specs, dt: float, dtype, device):
+def _model_tables(unique_specs, dt: float, dtype, device, forms=None):
     """``(model id, RK4 substeps, step dh = dt / substeps)`` of each unique
     model, on ``device``: built once per (models, dt, dtype, device), since a
     tensor made from a Python list is a pageable copy that waits for the
-    stream."""
-    ids = torch.tensor([s.model_id for s in unique_specs], dtype=torch.int32,
-                       device=device)
+    stream.  The ids are those of the library that runs the models
+    (``codegen.library_ids``: a custom field's library-local id); ``forms``,
+    the specs' sympy forms, only keys the cache (equal specs may carry two)."""
+    ids = torch.tensor(library_ids(unique_specs), dtype=torch.int32, device=device)
     nsub = torch.tensor([s.rk4_substeps for s in unique_specs], dtype=torch.int32,
                         device=device)
     dh = torch.tensor([dt / s.rk4_substeps for s in unique_specs],
@@ -406,7 +408,9 @@ def _model_tables(unique_specs, dt: float, dtype, device):
 def _slot_tables(fleet: Fleet, mids_s, dtype):
     """Per-slot ``(model id, RK4 substeps, step dh = dt / substeps)`` from
     the branch indices ``mids_s (S, K)``."""
-    ids, nsub, dh = _model_tables(fleet.unique_specs, fleet.dt, dtype, mids_s.device)
+    specs = fleet.unique_specs
+    ids, nsub, dh = _model_tables(specs, fleet.dt, dtype, mids_s.device,
+                                  tuple(s.expr for s in specs))
     m = mids_s.long()
     return ids[m], nsub[m], dh[m]
 
@@ -474,7 +478,7 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     nu_p = U.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
     n_alpha = alphas.shape[0]
-    require_kernel_models(fleet)
+    library = require_kernel_models(fleet)
     forward_smem_bytes(K, nx_p, nu_p, n_alpha, X.element_size(),
                        gains=Kg is not None)  # raises on no fit
     require_cuda("forward_batched", X)
@@ -503,7 +507,7 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     U5 = X.new_empty((n_alpha, S, N, K, nu_p))
     J = X.new_empty((n_alpha, S))
     launch("forward_batched", dtype, dev, *ins.values(), X5, U5, J,
-           S, N, K, nx_p, nu_p, n_alpha)
+           S, N, K, nx_p, nu_p, n_alpha, library=library)
     return (X5.permute(_inverse(COLUMN_ORDER)),
             U5.permute(_inverse(COLUMN_ORDER)), J)
 

@@ -139,13 +139,32 @@ def _pairs(n: int, device: torch.device):
 
 
 @lru_cache(maxsize=64)
-def _signed_incidence(n: int, dtype: torch.dtype, device: torch.device):
-    """(n, npairs) W with W[i, p] = +1, W[j, p] = -1 for pair p = (i, j)."""
+def _partners(n: int, device: torch.device):
+    """Each agent's pairs in partner order: ``idx (n, n-1)``, agent i's
+    pairs p = (i, j) for j = 0..n-1, j != i, as indices into ``_pairs``;
+    ``sign (n, n-1)``, +1 where i is the pair's first agent (its gradient
+    term is the pair's) and -1 where it is the second; ``p_of (n, n)``, the
+    pair of (i, j) (0 on the diagonal)."""
     ii, jj = np.triu_indices(n, k=1)
-    W = np.zeros((n, len(ii)))
-    W[ii, np.arange(len(ii))] = 1.0
-    W[jj, np.arange(len(jj))] = -1.0
-    return torch.as_tensor(W, dtype=dtype, device=device)
+    p_of = np.zeros((n, n), dtype=np.int64)
+    p_of[ii, jj] = p_of[jj, ii] = np.arange(len(ii))
+    j = np.array([[j for j in range(n) if j != i] for i in range(n)],
+                 dtype=np.int64).reshape(n, n - 1)
+    idx = np.take_along_axis(p_of, j, axis=1)
+    sign = np.where(j > np.arange(n)[:, None], 1.0, -1.0)
+    return (torch.as_tensor(idx, device=device), torch.as_tensor(sign, device=device),
+            torch.as_tensor(p_of, device=device))
+
+
+def _ordered_sum(t, dim: int):
+    """Sum over ``dim`` in index order by elementwise adds.  A batched
+    matrix product or a reduction may group its sums by the batch's size (a
+    kernel chosen per shape, on the card), so a subproblem's result would
+    depend on the batch it was computed in; this one does not."""
+    acc = t.select(dim, 0)
+    for r in range(1, t.shape[dim]):
+        acc = acc + t.select(dim, r)
+    return acc
 
 
 def _pair_geometry(cost: GameCost, x, n_pos_src=None):
@@ -201,8 +220,9 @@ def proximity_quadraticize_compact(cost: GameCost, x):
     cm = comp.to(x.dtype)
     H = H * (cm[..., :, None] * cm[..., None, :]) * w_pair[..., None, None]
 
-    W = _signed_incidence(n, x.dtype, x.device)
-    L_x = torch.einsum("ip,...pa->...ia", W, g[..., :k])
+    # Agent i's gradient: its pairs' terms in partner order (as K5 sums them).
+    idx, sign, _ = _partners(n, x.device)
+    L_x = _ordered_sum(g[..., idx, :k] * sign.to(x.dtype)[..., None], dim=-2)
     L_x = torch.nn.functional.pad(L_x, (0, nx_p - k))
     return L_x, H[..., :k, :k]
 
@@ -212,10 +232,14 @@ def assemble_pair_hessian(H, n: int, nx_p: int):
     ``(*B, n, nx_p, n, nx_p)``: per pair p=(i,j) the block lands at
     ``(+ii, +jj, -ij, -ji)`` (reference cost.py:160-166)."""
     k = H.shape[-1]
-    W = _signed_incidence(n, H.dtype, H.device)
-    blocks = torch.einsum("ip,...pab,jp->...iajb", W, H, W)
+    idx, _, p_of = _partners(n, H.device)
+    # Block (i, j) of pair p: -H_p; block (i, i): agent i's pairs' H_p
+    # summed in partner order.
+    diag = _ordered_sum(H[..., idx, :, :], dim=-3)  # (*B, n, k, k)
+    eye = torch.eye(n, dtype=torch.bool, device=H.device)[..., None, None]
+    blocks = torch.where(eye, diag[..., :, None, :, :], -H[..., p_of, :, :])
     L_xx = H.new_zeros((*H.shape[:-3], n, nx_p, n, nx_p))
-    L_xx[..., :k, :, :k] = blocks
+    L_xx[..., :k, :, :k] = blocks.transpose(-3, -2)
     return L_xx
 
 
@@ -258,8 +282,9 @@ def terminal_cost(cost: GameCost, x):
 
 
 def _vecmat(e, M):
-    """``e^T M`` over the last dims: ``(..., a), (..., a, b) -> (..., b)``."""
-    return (e[..., None, :] @ M)[..., 0, :]
+    """``e^T M`` over the last dims: ``(..., a), (..., a, b) -> (..., b)``,
+    summed in index order (``_ordered_sum``)."""
+    return _ordered_sum(e[..., :, None] * M, dim=-2)
 
 
 def quadraticize_stage_compact(cost: GameCost, x, u):

@@ -7,11 +7,19 @@ use, never at import, into ``dpilqr_tpu_torch/_build/<hash>/`` keyed by a
 hash of the sources and the compiler flags, so an edited kernel rebuilds
 and an unchanged one loads.
 
+Fleets of custom models (``ops.codegen``) run on a second library: the
+three kernels that integrate or differentiate a fleet (K2, K4, K5) compiled
+once more with ``-DDPILQR_CUSTOM_MODELS`` and the generated header on the
+include path, into ``_build/custom/<hash of sources, flags and header>/``.
+``require_kernel_models`` routes a fleet to its library (or refuses it);
+K1, K3 and the probes hold no model and always come from the default one.
+
 ``launch`` is the one way a wrapper calls a kernel: it raises on a failed
-launch and counts the launch in ``launch_counts`` (the plain-torch twins
-never count).  Inside a ``timed_launches()`` block it also brackets each
-kernel with CUDA events, so a caller can read the kernel's own time apart
-from its wrapper's torch preparation.
+launch and counts the launch in ``launch_counts`` (and, from a custom
+library, in ``custom_launch_counts``; the plain-torch twins never count).
+Inside a ``timed_launches()`` block it also brackets each kernel with CUDA
+events, so a caller can read the kernel's own time apart from its
+wrapper's torch preparation.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,6 +42,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libdpilqr_kernels.so"
+# The generated header's name in a custom library's build directory (the
+# name csrc/dynamics.cuh includes).
+HEADER_NAME = "dpilqr_custom_models.cuh"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # DPILQR_NVCC_FLAGS adds compiler flags (and so keys another build), e.g.
 # -DDPILQR_PHASE_CLOCKS for scripts/riccati_phase_clocks.py.
@@ -67,13 +79,20 @@ _DTYPES = {
     "probe_sin": ("f32",),
 }
 
-# Launches of each kernel since the last reset.
+# The sources (and so the kernels) of a custom-model library: those whose
+# kernels run a fleet's right-hand sides.
+CUSTOM_KERNELS = ("backward_sweep", "forward_batched", "forward_sweep")
+
+# Launches of each kernel since the last reset, and of those the launches
+# from a custom-model library.
 launch_counts = dict.fromkeys(_SIGNATURES, 0)
+custom_launch_counts = dict.fromkeys(CUSTOM_KERNELS, 0)
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, custom_launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 # While a ``timed_launches()`` block is open: its list of
@@ -121,12 +140,23 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def source_hash() -> str:
+def source_hash(header: str | None = None) -> str:
+    """Hash of the sources and flags, and of a custom library's header."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
+    if header is not None:
+        h.update(b"\0custom\0" + header.encode())
     return h.hexdigest()[:16]
+
+
+def build_dir(header: str | None = None) -> Path:
+    """Where the default library (``header`` None) or the custom library of
+    a generated header is built."""
+    if header is None:
+        return BUILD_DIR / source_hash()
+    return BUILD_DIR / "custom" / source_hash(header)
 
 
 def _check(returncode: int, what: str, out: str, err: str):
@@ -134,29 +164,42 @@ def _check(returncode: int, what: str, out: str, err: str):
         raise RuntimeError(f"nvcc failed on {what} ({returncode}):\n{out}\n{err}")
 
 
-def build(verbose: bool = False) -> tuple[Path, float]:
-    """Compile the kernels if needed; returns ``(library path, seconds)``."""
-    out_dir = BUILD_DIR / source_hash()
+def build(verbose: bool = False, header: str | None = None) -> tuple[Path, float]:
+    """Compile the kernels if needed; returns ``(library path, seconds)``.
+
+    With ``header`` (a header ``ops.codegen`` generated) the custom-model
+    library: ``CUSTOM_KERNELS``' sources with ``-DDPILQR_CUSTOM_MODELS`` and
+    the header on the include path.  With ``verbose`` nvcc reports each
+    kernel's registers and spills (``-Xptxas=-v``), kept beside the library
+    as ``<source>.log`` (``ptxas_report`` reads it)."""
+    out_dir = build_dir(header)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     extra = ["-Xptxas=-v"] if verbose else []
+    srcs = [s for s in sources() if s.suffix == ".cu"]
+    if header is not None:
+        srcs = [s for s in srcs if s.stem in CUSTOM_KERNELS]
+        tmp_header = out_dir / f".{HEADER_NAME}.{os.getpid()}"
+        tmp_header.write_text(header)
+        os.replace(tmp_header, out_dir / HEADER_NAME)
+        extra += ["-DDPILQR_CUSTOM_MODELS", "-I", str(out_dir)]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         procs = []
-        for src in (s for s in sources() if s.suffix == ".cu"):
+        for src in srcs:
             obj = Path(tmp) / f"{src.stem}.o"
             cmd = [nvcc, *COMPILE_FLAGS, *extra, "-I", str(CSRC_DIR), "-c",
                    "-o", str(obj), str(src)]
-            procs.append((src.name, obj, subprocess.Popen(
+            procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        for name, _, proc in procs:
+        for src, _, proc in procs:
             out, err = proc.communicate()
-            _check(proc.returncode, name, out, err)
-            if verbose and err:
-                print(err)
+            _check(proc.returncode, src.name, out, err)
+            if verbose:
+                (out_dir / f"{src.stem}.log").write_text(err)
         so = Path(tmp) / LIB_NAME
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(so),
@@ -168,21 +211,43 @@ def build(verbose: bool = False) -> tuple[Path, float]:
     return lib, time.perf_counter() - t0
 
 
+def ptxas_report(lib: Path, source: str, kernel: str) -> dict[str, tuple[int, int, int]]:
+    """``{entry: (registers, spill-store bytes, spill-load bytes)}`` of the
+    entry functions of ``kernel`` (a substring of their mangled names) in
+    the ``-Xptxas=-v`` report of ``source`` (a stem) kept beside the
+    library ``lib`` by ``build(verbose=True)``."""
+    out, name, spill = {}, None, (0, 0)
+    for line in (lib.parent / f"{source}.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = (m.group(1) if kernel in m.group(1) else None), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
+
+
 @cache
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call."""
-    lib_path, _ = build()
+def load_library(header: str | None = None) -> ctypes.CDLL:
+    """The kernels' shared library, built on first call: the default one,
+    or with ``header`` the custom-model library of that generated header."""
+    lib_path, _ = build(header=header)
     lib = ctypes.CDLL(str(lib_path))
-    for base, argtypes in _SIGNATURES.items():
+    for base in _SIGNATURES if header is None else CUSTOM_KERNELS:
         for suffix in _DTYPES[base]:
             fn = getattr(lib, f"dpilqr_{base}_{suffix}")
-            fn.argtypes = argtypes
+            fn.argtypes = _SIGNATURES[base]
             fn.restype = ctypes.c_int
-    for plan in (lib.dpilqr_riccati_plan, lib.dpilqr_sweep_plan):
-        plan.argtypes = [_I] * 4 + [ctypes.POINTER(_L)] * 2
-        plan.restype = ctypes.c_int
-    lib.dpilqr_forward_smem_bytes.argtypes = [_I] * 6
-    lib.dpilqr_forward_smem_bytes.restype = ctypes.c_longlong
+    if header is None:  # the plans: the default library's alone are called
+        for plan in (lib.dpilqr_riccati_plan, lib.dpilqr_sweep_plan):
+            plan.argtypes = [_I] * 4 + [ctypes.POINTER(_L)] * 2
+            plan.restype = ctypes.c_int
+        lib.dpilqr_forward_smem_bytes.argtypes = [_I] * 6
+        lib.dpilqr_forward_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -194,17 +259,27 @@ def dtype_suffix(dtype) -> str:
     raise ValueError(f"kernels take float32 or float64, got {dtype}")
 
 
-def require_kernel_models(fleet):
-    """Raise ``NotImplementedError`` unless every model of ``fleet`` is one
-    of the nine whose right-hand sides ``csrc/dynamics.cuh`` compiles: the
-    kernels that integrate (K2, K4, K5) switch on the model id and would
-    hold any other model still.  A custom model runs on the CPU."""
-    for spec in fleet.unique_specs:
-        if not spec.builtin:
+def require_kernel_models(fleet) -> str | None:
+    """The library that runs ``fleet``'s models in the kernels that
+    integrate or differentiate them (K2, K4, K5), as ``launch`` takes it:
+    None for the default library (the nine built-ins, compiled into
+    ``csrc/dynamics.cuh``), else the header ``ops.codegen`` generates for
+    the fleet's custom models, which keys their library.  Pure Python: it
+    builds nothing.  Raises ``NotImplementedError``, naming the reason, for
+    a model that is not kernel-ready (``codegen.not_kernel_ready``): such a
+    model runs on the CPU, never in a plain version on the card."""
+    custom = [s for s in fleet.unique_specs if not s.builtin]
+    if not custom:
+        return None
+    from . import codegen
+
+    for spec in custom:
+        reason = codegen.not_kernel_ready(spec)
+        if reason:
             raise NotImplementedError(
-                f"model {spec.name!r} (id {spec.model_id}) is not one of the "
-                "nine models compiled into the CUDA kernels "
-                '(csrc/dynamics.cuh); solve it with device="cpu"')
+                f"model {spec.name!r} (id {spec.model_id}) cannot run in the "
+                f"CUDA kernels: {reason}; solve it with device=\"cpu\"")
+    return codegen.generate_header(fleet.unique_specs)
 
 
 def require_cuda(name: str, t):
@@ -261,13 +336,17 @@ def ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else None
 
 
-def launch(kernel: str, dtype, device, *args):
+def launch(kernel: str, dtype, device, *args, library: str | None = None):
     """Call ``dpilqr_<kernel>_<f32|f64>(*args, stream)`` on the current
-    stream of ``device``; tensors among ``args`` pass as pointers."""
+    stream of ``device``; tensors among ``args`` pass as pointers.
+    ``library``: what ``require_kernel_models`` returned (None: the default
+    library)."""
     suffix = dtype_suffix(dtype)
     if suffix not in _DTYPES[kernel]:
         raise ValueError(f"{kernel} takes {_DTYPES[kernel]}, got {dtype}")
-    fn = getattr(load_library(), f"dpilqr_{kernel}_{suffix}")
+    if library is not None and kernel not in CUSTOM_KERNELS:
+        raise ValueError(f"{kernel} holds no model: it has no custom-model build")
+    fn = getattr(load_library(library), f"dpilqr_{kernel}_{suffix}")
     stream = torch.cuda.current_stream(device)
     if _timed is not None:
         start = torch.cuda.Event(enable_timing=True)
@@ -282,3 +361,5 @@ def launch(kernel: str, dtype, device, *args):
     if err != 0:
         raise RuntimeError(f"{kernel} kernel failed: cudaError {err}")
     launch_counts[kernel] += 1
+    if library is not None:
+        custom_launch_counts[kernel] += 1

@@ -69,7 +69,7 @@ def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
     and Hessian blocks) computed inside the one launch of
     ``csrc/backward_sweep.cu``; returns ``K (N, nuf, nxf)``, ``d (N,
     nuf)``."""
-    require_kernel_models(fleet)
+    library = require_kernel_models(fleet)
     require_cuda("backward_sweep", X)
     N, n, nu_p = U.shape
     nx_p = X.shape[-1]
@@ -94,7 +94,7 @@ def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
     K = X.new_empty((N, nuf, nxf))
     d = X.new_empty((N, nuf))
     launch("backward_sweep", dtype, dev, *ins.values(), K, d, work, n_work,
-           N, n, nx_p, nu_p)
+           N, n, nx_p, nu_p, library=library)
     return K, d
 
 
@@ -104,10 +104,16 @@ def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
 ROLLOUT_COST_PARTS = 32
 
 
-@lru_cache(maxsize=64)
 def _agent_tables(fleet: Fleet, dtype, device):
-    """Per-agent ``(model id, RK4 substeps, dh)`` of ``fleet`` on ``device``,
-    built once per fleet, type and device."""
+    """Per-agent ``(model id, RK4 substeps, dh)`` of ``fleet`` on ``device``
+    (the ids of the library that runs it), built once per fleet, its
+    models' sympy forms, type and device."""
+    forms = tuple(s.expr for s in fleet.unique_specs)
+    return _agent_tables_cached(fleet, forms, dtype, device)
+
+
+@lru_cache(maxsize=64)
+def _agent_tables_cached(fleet: Fleet, _forms, dtype, device):
     tables = _slot_tables(fleet, _branch_indices(fleet, device), dtype)
     return tuple(t.contiguous() for t in tables)
 
@@ -116,7 +122,7 @@ def _launch_forward_sweep(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
     """Check the inputs of ``csrc/forward_sweep.cu`` and launch it: with
     gains ``X (N+1, n, nx_p)`` is the nominal trajectory, without
     ``X (n, nx_p)`` the initial state and ``alphas`` is None (one column)."""
-    require_kernel_models(fleet)
+    library = require_kernel_models(fleet)
     require_cuda("forward_sweep", X)
     gains = K is not None
     N, n, nu_p = U.shape
@@ -146,7 +152,8 @@ def _launch_forward_sweep(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
     J_c = X.new_empty((n_alpha,))
     work = None if gains else X.new_empty(((N + 1) * ROLLOUT_COST_PARTS,))
     launch("forward_sweep", dtype, dev, *ins.values(), X_c, U_c, J_c, work,
-           n, N, nx_p, nu_p, n_alpha, 0 if gains else work.numel())
+           n, N, nx_p, nu_p, n_alpha, 0 if gains else work.numel(),
+           library=library)
     return X_c, U_c, J_c
 
 

@@ -10,4 +10,4 @@ from .subproblems import (
 from .deadline import solve_distributed_steppable
 from .distributed import DistributedResult, auto_subproblem_width, solve_distributed
 from .rhc import RhcResult, RhcStepInfo, selfish_warmstart, solve_rhc
-from .mesh import make_mesh, solve_trials_sharded, stack_costs
+from .mesh import make_mesh, solve_distributed_sharded, solve_trials_sharded, stack_costs

@@ -96,10 +96,13 @@ def solve_distributed(
 
 
 def _solve_decomposed(fleet, cost, X, U, radius, ignore_mask, K, graph_n_d,
-                      config, device, t_kill=None, t0=None, verbose=False):
-    """The decomposed solve behind ``solve_distributed`` and
-    ``solve_distributed_steppable``: the same five steps, with the batched
-    solve's deadline ``(t_kill, t0)`` when there is one."""
+                      config, device, t_kill=None, t0=None, verbose=False,
+                      solve_batch=None):
+    """The decomposed solve behind ``solve_distributed``,
+    ``solve_distributed_steppable`` and ``solve_distributed_sharded``: the
+    same five steps, with the batched solve's deadline ``(t_kill, t0)`` when
+    there is one.  ``solve_batch(sub_cost, x0_s, U_s, mids_s, enabled)``,
+    when given, takes step 3's place (the sharded solve's chunks)."""
     X = torch.as_tensor(X, device=resolve_device(device, X))
     if X.ndim == 2:
         X = X[None]
@@ -130,10 +133,13 @@ def _solve_decomposed(fleet, cost, X, U, radius, ignore_mask, K, graph_n_d,
     mids_s = branch[batch.member_idx]
 
     # 3. One batched solve for all subproblems.
-    res = solve_subproblems_batched(
-        fleet, config, sub_cost, x0_s, U_s, mids_s, ~ignore_mask,
-        t_kill=t_kill, t0=t0, verbose=verbose,
-    )
+    if solve_batch is None:
+        res = solve_subproblems_batched(
+            fleet, config, sub_cost, x0_s, U_s, mids_s, ~ignore_mask,
+            t_kill=t_kill, t0=t0, verbose=verbose,
+        )
+    else:
+        res = solve_batch(sub_cost, x0_s, U_s, mids_s, ~ignore_mask)
 
     # 4. Owner extraction + scatter (ignored agents stay zero, matching the
     #    reference's skip-and-leave-zeros, distributed.py:59-63).

@@ -1,17 +1,22 @@
-"""Monte-Carlo trials as one kernel batch, split over the visible cards.
+"""The subproblem batch split over the visible cards: one decomposed solve,
+or Monte-Carlo trials as one kernel batch.
 
-Counterpart of the one-device half of ``dpilqr_tpu/parallel/mesh.py``
-(``make_mesh``, ``solve_trials_sharded``).  The reference runs trials as a
-host loop (cluster/sim.sbatch); here T independent trials of the decomposed
-solve flatten their (trial, subproblem) lanes into ONE batch for
-``solve_subproblems_batched``: a trial axis is just more independent
-subproblems, which is what the batched kernels (K1 or K3, and K2) want.  On
-a mesh of d devices the flat batch splits into d contiguous chunks, one
-``solve_subproblems_batched`` per device, one after the other; one card
-takes the whole batch in one solve.
+Counterpart of ``dpilqr_tpu/parallel/mesh.py`` (``make_mesh``,
+``solve_distributed_sharded``, ``solve_trials_sharded``).  A mesh is a list
+of devices; a batch of subproblems splits into one contiguous chunk per
+device (``_solve_chunks``), each solved by ``solve_subproblems_batched`` on
+its device, one chunk after the other; one card takes the whole batch in
+one solve.  Subproblems are independent lanes, so the split changes no
+result.
 
-The subproblem axis sharded across cards inside ONE decomposed solve
-(``solve_distributed_sharded``) is not ported yet.
+- ``solve_distributed_sharded``: ``solve_distributed`` with its batch of n
+  subproblems split so; the graph, the gather, the stitch and the joint
+  cost run on the mesh's first device.
+- ``solve_trials_sharded``: the reference runs trials as a host loop
+  (cluster/sim.sbatch); here T independent trials of the decomposed solve
+  flatten their (trial, subproblem) lanes into ONE batch: a trial axis is
+  just more independent subproblems, which is what the batched kernels (K1
+  or K3, and K2) want.
 """
 
 from __future__ import annotations
@@ -22,8 +27,8 @@ from ..config import DEFAULT_CONFIG, SolverConfig, default_device
 from ..models.fleet import Fleet
 from ..ops.batched import solve_subproblems_batched
 from ..ops.costs import GameCost, cast_cost
-from ..ops.ilqr import rollout
-from .distributed import DistributedResult
+from ..ops.ilqr import SolveResult, rollout
+from .distributed import DistributedResult, _solve_decomposed
 from .graph import interaction_graph
 from .subproblems import (
     extract_owner,
@@ -55,6 +60,48 @@ def _chunks(S: int, d: int) -> list[slice]:
     one shorter; none empty)."""
     per = -(-S // d)
     return [slice(i, min(i + per, S)) for i in range(0, S, per)]
+
+
+def _solve_chunks(fleet: Fleet, config: SolverConfig, mesh, home, sub_cost: GameCost,
+                  x0_s, U_s, mids_s, enabled) -> SolveResult:
+    """A flat batch of subproblems in one contiguous chunk per device of
+    ``mesh`` (``_chunks``), each solved by ``solve_subproblems_batched`` on
+    its device, one after the other; the results concatenated on ``home``."""
+    results = []
+    for dev, sl in zip(mesh, _chunks(x0_s.shape[0], len(mesh))):
+        res = solve_subproblems_batched(
+            fleet, config, GameCost(*(a[sl].to(dev) for a in sub_cost)),
+            x0_s[sl].to(dev), U_s[sl].to(dev), mids_s[sl].to(dev),
+            enabled[sl].to(dev))
+        results.append([a.to(home) for a in res])
+    return SolveResult(*(torch.cat(f) for f in zip(*results)))
+
+
+def solve_distributed_sharded(
+    fleet: Fleet,
+    cost: GameCost,
+    X,
+    U,
+    radius,
+    mesh,
+    ignore_mask=None,
+    K: int | None = None,
+    graph_n_d: int | None = None,
+    config: SolverConfig = DEFAULT_CONFIG,
+) -> DistributedResult:
+    """``solve_distributed`` with its subproblem batch split over ``mesh``
+    (a ``make_mesh`` list): the interaction graph and the gather on
+    ``mesh[0]``, the batch in one contiguous chunk per device, the owners'
+    rows stitched, the ignored agents zeroed and the joint cost rolled out
+    on ``mesh[0]``.  Arguments and result as ``solve_distributed``'s
+    (``K=None``: the maximum neighbourhood size rounded up to a power of
+    two, as ``auto_subproblem_width``); the result equals its, bit for
+    bit."""
+    home = mesh[0]
+    return _solve_decomposed(
+        fleet, cost, torch.as_tensor(X, device=home), U, radius, ignore_mask, K,
+        graph_n_d, config, home,
+        solve_batch=lambda *batch: _solve_chunks(fleet, config, mesh, home, *batch))
 
 
 def solve_trials_sharded(
@@ -113,14 +160,8 @@ def solve_trials_sharded(
     sub_cost = GameCost(*(torch.cat(f) for f in zip(*(p[0] for p in parts))))
     x0_s, U_s, mids_s = (torch.cat([p[i] for p in parts]) for i in (1, 2, 3))
     enabled = (~ignore_mask).repeat(T)
-    results = []
-    for dev, sl in zip(mesh, _chunks(T * n, len(mesh))):
-        res = solve_subproblems_batched(
-            fleet, config, GameCost(*(a[sl].to(dev) for a in sub_cost)),
-            x0_s[sl].to(dev), U_s[sl].to(dev), mids_s[sl].to(dev),
-            enabled[sl].to(dev))
-        results.append([a.to(home) for a in res])
-    X_s, U_sol, _, iters, converged, _ = (torch.cat(f) for f in zip(*results))
+    X_s, U_sol, _, iters, converged, _ = _solve_chunks(
+        fleet, config, mesh, home, sub_cost, x0_s, U_s, mids_s, enabled)
 
     # 3. Per trial: owner rows, ignored agents zeroed, the stitched plan's cost.
     keep = (~ignore_mask).to(dtype)

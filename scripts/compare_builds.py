@@ -17,9 +17,12 @@ twice, once under ``t_kill`` = 0.1 s, the quad6d_64 loop at K=16 twice),
 ``ilqr_solve`` twice and the centralized MPC step.
 
 ``bits`` saves the outputs of the three backward kernels (K1 and K3 on the
-same narrow batches, K3 at Quad6D K=16, K5 at 10 agents; float64 and float32)
-to OUT.pt; given OTHER.pt from another tree it says for every output whether
-the two builds agree bit for bit, and whether K1 agrees with K3.
+same narrow batches, K3 at Quad6D K=16, K5 at 10 agents) and of the two
+forward ones at the smoke's phase 3a and 3c shapes (K2 at 100 Unicycle4D,
+K=8, 2 and 10 alphas, with and without gains; K4 with gains at 10 agents
+over 10 alphas and without at 100), float64 and float32, to OUT.pt; given
+OTHER.pt from another tree it says for every output whether the two builds
+agree bit for bit, and whether K1 agrees with K3.
 """
 
 import os
@@ -115,6 +118,24 @@ def bits(out_path, other_path, dev):
         mu = torch.tensor(1.0, dtype=dtype, device=dev)
         out[f"K5 {str(dtype)[6:]}"] = [
             t.cpu() for t in sweeps.backward_pass_cuda(fleet, cost, X, U0, mu)]
+        K, d = ilqr._backward_pass(fleet.linearize, cost, X, U0, mu)
+        alphas = dtt.ops.line_search_alphas(10, dtype, dev)
+        out[f"K4 10 alphas {str(dtype)[6:]}"] = [
+            t.cpu() for t in sweeps.forward_pass_cuda(fleet, cost, X, U0, K, d, alphas)]
+        fleet, cost, x0 = cs.unicycle_problem(cs.N_AGENTS, 0.55, dtype, dev)
+        args, sub_cost, mids, carry = cs.sweep_inputs(fleet, cost, x0, 8, dev)
+        Kg, d = bt.backward_pass_batched_torch(*args)
+        for n_alpha in (2, 10):
+            alphas = dtt.ops.line_search_alphas(n_alpha, dtype, dev)
+            for gains in (True, False):
+                out[f"K2 {n_alpha} alphas gains={gains} {str(dtype)[6:]}"] = [
+                    t.cpu() for t in bt.forward_pass_batched_cuda(
+                        fleet, sub_cost, mids, carry.X, carry.U, Kg if gains else None,
+                        d if gains else None, alphas)]
+        U = torch.as_tensor(np.random.default_rng(5).uniform(size=(cs.HORIZON, cs.N_AGENTS, 2))
+                            * 0.01, dtype=dtype, device=dev)
+        out[f"K4 rollout 100 {str(dtype)[6:]}"] = [t.cpu() for t in sweeps.rollout_cuda(
+            fleet, cost, torch.as_tensor(x0, dtype=dtype, device=dev), U)]
     torch.save(out, out_path)
     for key, val in out.items():
         if key.startswith("K1"):

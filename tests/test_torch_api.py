@@ -3,8 +3,9 @@
 The cases of ``tests/test_api.py`` run against the port with
 ``device="cpu"``; then the facade is held against ``dpilqr_tpu.api`` on
 identical numpy input in float64 (equal iterations and converged flags; X,
-U and J within 1e-9 of the largest value), and the guard that keeps a custom
-model out of the CUDA kernels is checked.
+U and J within 1e-9 of the largest value), and the router that sends a
+custom model to the kernels' custom-model build (a ``SymbolicModel``) or
+refuses it (a spec with only ``f``) is checked.
 """
 
 import numpy as np
@@ -658,3 +659,61 @@ def test_kernel_wrappers_refuse_a_custom_model_before_any_launch():
         with pytest.raises(NotImplementedError, match="MyUnicycle"):
             call()
     assert dict(launch_counts) == before
+
+
+def _user_unicycle(m, device=None):
+    """A second custom field: the unicycle as a user would write it."""
+    import sympy as sym
+
+    kw = {} if device is None else {"device": device}
+
+    class UserUnicycle(m.SymbolicModel):
+        def __init__(self, dt, id=None):
+            super().__init__(4, 2, dt, id, **kw)
+            x = sym.Matrix(sym.symbols("p_x p_y v theta"))
+            u = sym.Matrix(sym.symbols("a omega"))
+            self._build(x, u, sym.Matrix([x[2] * sym.cos(x[3]), x[2] * sym.sin(x[3]),
+                                          u[0], u[1]]))
+
+    return UserUnicycle(0.1)
+
+
+def test_a_symbolic_model_is_kernel_ready():
+    """The facade's custom models carry their sympy form: the router sends
+    their fleet to the custom-model library (keyed by the generated
+    header), where a spec with only ``f`` is refused."""
+    pytest.importorskip("sympy")
+    bike = _user_bike(api, CPU)
+    assert bike.spec.expr is not None and not bike.spec.builtin
+    header = require_kernel_models(bike._fleet)
+    assert isinstance(header, str) and "case 1000: custom_rhs_1000" in header
+    assert require_kernel_models(dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 2, 0.1)) is None
+
+
+def test_mixed_custom_fleet_gets_library_local_ids():
+    pytest.importorskip("sympy")
+    from dpilqr_tpu_torch.ops import codegen
+
+    bike, uni = _user_bike(api, CPU), _user_unicycle(api, CPU)
+    fleet = dtt.Fleet((bike.spec, dtt.UNICYCLE_4D, uni.spec), 0.1)
+    assert [s.model_id for s in fleet.unique_specs] == [bike.spec.model_id, 3,
+                                                        uni.spec.model_id]
+    assert codegen.library_ids(fleet.unique_specs) == (1000, 3, 1001)
+    header = require_kernel_models(fleet)
+    assert header.count("void custom_rhs_") == 2
+    model = sweeps._agent_tables(fleet, torch.float64, torch.device("cpu"))[0]
+    assert model.tolist() == [1000, 3, 1001]
+
+
+def test_symbolic_model_solves_run_on_the_card_unless_told():
+    """Given no device, a SymbolicModel's solve resolves to the card, as the
+    built-ins' do; with none it raises rather than moving to the CPU."""
+    pytest.importorskip("sympy")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    bike = _user_bike(api)
+    x = np.array([1.0, 2.0, 0.5, 0.3, 0.1])
+    rc = api.ReferenceCost(np.zeros(5), np.eye(5), 0.1 * np.eye(2), id=bike.id)
+    prob = api.ilqrProblem(api.MultiDynamicalModel([bike]), api.GameCost([rc]))
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        api.ilqrSolver(prob, 20).solve(x, verbose=False)
