@@ -11,21 +11,26 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 2. Build: compiles the hand-written kernels in ``dpilqr_tpu_torch/csrc``
    with nvcc, one process per source, and beside it the custom-model build
-   of phase 8 (K2, K4 and K5 with the right-hand side ``ops.codegen``
-   generates from a user bicycle's sympy field), both timed; prints K2's
+   of phase 8 (K1 to K5 with the right-hand side ``ops.codegen`` generates
+   from a user bicycle's sympy field), both timed; prints K2's and K1's
    registers and spills in both builds.
-3. Kernel vs plain PyTorch twin, each timed with CUDA events:
-   a. K1 and K2 at the 100-agent main path's shape (S=100 subproblems,
-      K=8 slots, nx_p=4, nu_p=2, N=50), float64 and float32, forward with 2
-      and 10 alphas, with and without gains; a mixed DoubleInt4D+Car3D+
-      Bike5D batch in float64; K1 against K3 on the same float32 batches at
-      nxf 4, 8, 16, 24 and 32 (K = 1, 2, 4, 6, 8: the narrow/wide routing
-      datum) and K1 at batch widths S = 16, 32, 64 and 128;
+3. Kernel vs plain PyTorch version, each timed with CUDA events (K1 and
+   K3, the whole backward pass with its inputs computed in the kernel,
+   against the torch prep plus the twin; float64 within 1e-11):
+   a. K1, K3 and K2 at the 100-agent main path's shape (S=100
+      subproblems, K=8 slots, nx_p=4, nu_p=2, N=50), float64 and float32
+      (whether K1 and K3 agree bit for bit printed), forward with 2 and 10
+      alphas, with and without gains; K1, K3 and K2 on a mixed
+      DoubleInt4D+Car3D+Bike5D batch at K=4; K1 against K3 on the same
+      float32 batches at nxf 4, 8, 16, 24 and 32 (K = 1, 2, 4, 6, 8: the
+      narrow/wide routing datum) and K1 at batch widths S = 16, 32, 64 and
+      128;
    b. K3 and the widened K2 on wide subproblems: Quad6D at K=8 (nxf 48)
       and at K=16 (nxf 96, nuf 48) and Quad12D at K=8 (nxf 96) from the
       64-agent quadrotor swarm (S=64), and Quad6D at K=32 (nxf 192, nuf 96:
       the width phase 4b's loop reaches; S=16), float64 and float32, 2 and 10
-      alphas; every timed shape is printed beside its bound by the published
+      alphas, each with K3's memory tier with copied inputs and computing
+      them; every timed shape is printed beside its bound by the published
       peaks;
    c. K5 (the whole backward pass, its inputs computed in the kernel) on
       10 Unicycle4D at N=50 and N=200, one agent of each of the nine models,
@@ -44,13 +49,17 @@ Phases (any failure exits non-zero and prints no result line):
       and once more with every launch timed: K1's, K2's and K4's launches
       and milliseconds per step by batch width S (the widths the retirement
       schedule really runs; K4, each solve's stitched-plan rollout, by its
-      agents);
-   b. the 64-agent Quad6D swarm closed loop at auto K (it reaches K=32, nxf
-      192; a truncated step fails the run), 5 MPC steps on the kernels, with
-      K3's, K2's and K4's launches by batch width; once more at K=16 (nxf
-      96), 2 steps at K=16 on the twins, and the auto-K loop in float64 on
-      the kernels beside the float32 one (``noise_limited`` where float64
-      iterates a third more);
+      agents); the torch prep's calls and milliseconds a step on the kernel
+      path (it must be 0) and on the twins; the CUDA kernels of one batched
+      iteration counted by ``torch.profiler`` in a process of its own (K1
+      once, K2 once or twice, no matrix product);
+   b. the 64-agent Quad6D swarm closed loop at auto K (a truncated step
+      fails the run), 5 MPC steps on the kernels, with K3's, K2's and K4's
+      launches by batch width; once more at K=16 (nxf 96), 2 steps at K=16
+      on the twins, and the auto-K loop in float64 on the kernels beside the
+      float32 one (``noise_limited`` where float64 iterates a third more),
+      which must reach K=32 (nxf 192: its neighbourhoods reach 17; float32's
+      reach 15 to 17 with its rounding, and its K is printed);
    c. one cold ``solve_distributed`` of 64 Quad12D agents at K=8, float32,
       on the kernels; fails if it is not a solve (mean iterations <= 1);
       again in float64 and in float32 with ``mu_floor``, each beside the
@@ -95,7 +104,9 @@ Phases (any failure exits non-zero and prints no result line):
       on phase 5's 10 unicycles: K5 and K4 must launch, each result
       bit-equal to ``ilqr_solve`` on the same input;
    c. ``solve_trials_sharded``: 8 trials of 100 Unicycle4D (seeds 0-7) at
-      K=8 as one batch of S=800 on a one-card mesh, float64 and float32;
+      K=8 as one batch of S=800 on a one-card mesh, float64 and float32
+      (first K1 on the trials' gathered batch of 800 against its plain
+      version, timed in float32);
       trials 0, 3 and 7 against their own ``solve_distributed`` (float64:
       equal iterations and flags, X within the float64 tolerance; float32:
       J within its tolerance), the wall time beside 8 sequential solves, and
@@ -107,13 +118,15 @@ Phases (any failure exits non-zero and prints no result line):
 8. Custom (sympy) models on the card and the sharded solve, every failure
    fatal, each path driven with the launch counts set to 0 just before and
    read just after:
-   a. K2 (2 and 10 alphas, with and without gains) at the main path's shape,
-      K4 without gains at 100 agents, K4 with gains and K5 at 10 agents, on
-      fleets of the user bicycle (a ``SymbolicModel``, the custom-model
-      build) against their plain versions, float64 and float32, each timed
-      beside the same launch on ``Bike5D`` (whether the bits agree printed);
+   a. K1 at K=6 (nxf 30) and K3 at K=8, K2 (2 and 10 alphas, with and
+      without gains) at the main path's shape, K4 without gains at 100
+      agents, K4 with gains and K5 at 10 agents, on fleets of the user
+      bicycle (a ``SymbolicModel``, the custom-model build) against their
+      plain versions, float64 and float32, each timed beside the same launch
+      on ``Bike5D`` (whether the bits agree printed);
    b. the decomposed MPC loop of 100 user bicycles (one spec) at the main
-      path's scenario, float32, 5 steps, K2 and K4 from the custom build:
+      path's scenario, float32, 5 steps, K1, K2 and K4 (and K3 where it
+      runs) from the custom build:
       equal K, mean iterations and converged fraction within 2% of the same
       loop on ``Bike5D``; then 2 steps in float64, equal iterations and
       flags, X within 1e-9;
@@ -125,8 +138,8 @@ Phases (any failure exits non-zero and prints no result line):
       build;
    d. one decomposed solve of 30 user bicycles, 40 Unicycle4D and 30 Car3D
       (K=8, packed at 0.55), float64: bit-equal to the same fleet with
-      ``Bike5D`` for the bicycles; one iteration's K3 and K2 against their
-      twins; the twins' whole solve beside it, and beside itself from a warm
+      ``Bike5D`` for the bicycles, K3 from the custom build; one
+      iteration's K3 and K2 against their plain versions; the twins' whole solve beside it, and beside itself from a warm
       start changed by 1e-13 (this packing's conditioning, printed);
    e. ``solve_distributed_sharded`` of 100 Unicycle4D packed at 0.55 (K=8,
       float64) on ``make_mesh()`` and in two chunks on the one card: bit-equal
@@ -137,7 +150,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the eight kernels with their launch counts, errors, times and bounds
 (the least time by the published peaks, computed from the timed shapes;
 K1-K5 also list every other shape they were timed at under ``shapes``, the
-custom-model build's K2, K4 and K5 among them, bound by ``Bike5D``'s work;
+custom-model build's K1 to K5 among them, bound by ``Bike5D``'s work;
 K4's launches are summed over the decomposed and the centralized paths),
 and the line before that the card's name and power limit.
 """
@@ -145,6 +158,7 @@ and the line before that the card's name and power limit.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -323,9 +337,9 @@ def batch_inputs(fleet, cost, x0, U0, K, radius, dev):
 
 
 def sweep_inputs(fleet, cost, x0, K, dev, seed=0, u_scale=0.01, u_trim=0.0):
-    """A batch's backward-kernel arguments and nominal trajectory: the
-    rollout of a small random warm start (``u_trim`` plus uniform in [0,
-    u_scale)), mu spread over [0.5, 1.5]."""
+    """A batch's backward-kernel arguments ``(fleet, sub_cost, mids, X, U,
+    mu)`` and nominal trajectory: the rollout of a small random warm start
+    (``u_trim`` plus uniform in [0, u_scale)), mu spread over [0.5, 1.5]."""
     import dpilqr_tpu_torch as dtt
     from dpilqr_tpu_torch.ops import batched as bt
 
@@ -338,10 +352,35 @@ def sweep_inputs(fleet, cost, x0, K, dev, seed=0, u_scale=0.01, u_trim=0.0):
     carry = bt.init_batch_carry(fleet, dtt.SolverConfig(), sub_cost, x0_s, U_s, mids,
                                 torch.ones(S, dtype=torch.bool, device=dev), "torch")
     mu = torch.linspace(0.5, 1.5, S, dtype=dtype, device=dev)
-    q = bt._quadraticize_batch(sub_cost, carry.X, carry.U)
-    A, B = bt._linearize_batch(fleet, sub_cost, mids, carry.X, carry.U)
-    args = (A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"], mu, q["p0"], q["P0"])
-    return args, sub_cost, mids, carry
+    return (fleet, sub_cost, mids, carry.X, carry.U, mu), sub_cost, mids, carry
+
+
+def plain_backward(args):
+    """The plain version of K1 and K3 on a batch's arguments: the torch prep
+    (``_quadraticize_batch``, ``_linearize_batch``) and the twin."""
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    return bt.backward_pass_batched(*args, "torch")
+
+
+def cut_args(args, sl):
+    """The backward arguments of the subproblems ``sl`` of a batch."""
+    fleet, sub_cost, mids, X, U, mu = args
+    return (fleet, type(sub_cost)(*(a[sl].contiguous() for a in sub_cost)),
+            *(a[sl].contiguous() for a in (mids, X, U, mu)))
+
+
+def batch_width(args):
+    return args[3].shape[0]
+
+
+# K1 and K3 against their plain version in float64 (relative to max|plain|):
+# the kernels compute the same inputs in another order of products only.
+TOL_BACKWARD_F64 = {"Kg": 1e-11, "d": 1e-11}
+
+
+def backward_tol(dtype):
+    return TOL_BACKWARD_F64 if dtype == torch.float64 else TOL[dtype]
 
 
 def work_shape(family, fleet, K, S, n_alpha=0, model=None):
@@ -360,6 +399,17 @@ def bound_ms(work):
     flops, trig, nbytes = sol.sweep_work(**work) if isinstance(work, dict) else work
     bound_s, bound_by = sol.published_bound(flops, nbytes, trig)
     return bound_s * 1e3, bound_by
+
+
+def print_result(checks, results, label):
+    """One timed launch: the kernel's ms, its plain version's and its bound."""
+    ms, plain = results[label]
+    plain_s = "not timed" if plain is None else f"{plain:.3f}"
+    bound_s = ""
+    if label in checks.shapes:
+        b_ms, by = bound_ms(checks.shapes[label])
+        bound_s = f", bound {b_ms:.5f} by {by} (share {b_ms / ms:.5f})"
+    print(f"{label} ms/launch: kernel {ms:.4f}, twin {plain_s}{bound_s}", flush=True)
 
 
 def forward_checks(checks, results, tag, fleet, sub_cost, mids, carry, Kg, d,
@@ -400,20 +450,23 @@ def narrow_checks(checks, results, dev):
         # packings amplify a 1e-15 gain perturbation past 1e-9).
         fleet, cost, x0 = unicycle_problem(N_AGENTS, 0.55, dtype, dev)
         args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, 8, dev)
-        Kg_t, d_t = bt.backward_pass_batched_torch(*args)
+        Kg_t, d_t = plain_backward(args)
+        k1 = bt.backward_pass_batched_cuda(*args)
         checks.compare("backward_batched", f"K1 {str(dtype)[6:]}", ("Kg", "d"),
-                       bt.backward_pass_batched_cuda(*args), (Kg_t, d_t), TOL[dtype])
+                       k1, (Kg_t, d_t), backward_tol(dtype))
+        k3 = bt.backward_pass_batched_wide_cuda(*args)
         checks.compare("backward_batched_wide", f"K3 at nxf 32 {str(dtype)[6:]}",
-                       ("Kg", "d"), bt.backward_pass_batched_wide_cuda(*args),
-                       (Kg_t, d_t), TOL[dtype])
+                       ("Kg", "d"), k3, (Kg_t, d_t), backward_tol(dtype))
+        print(f"K1 and K3 at nxf 32 {str(dtype)[6:]}: bit-equal {bits_agree(k1, k3)}",
+              flush=True)
         if dtype == torch.float32:
             results["K1"] = (timed(lambda: bt.backward_pass_batched_cuda(*args), 20),
-                             timed(lambda: bt.backward_pass_batched_torch(*args), 3))
-            checks.shapes["K1"] = work_shape("backward", fleet, 8, args[0].shape[0])
+                             timed(lambda: plain_backward(args), 3))
+            checks.shapes["K1"] = work_shape("backward", fleet, 8, batch_width(args))
             results["K3 at nxf 32"] = (
                 timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 20), None)
             checks.shapes["K3 at nxf 32"] = work_shape("backward_wide", fleet, 8,
-                                                       args[0].shape[0])
+                                                       batch_width(args))
         forward_checks(checks, results, "nxf 32", fleet, sub_cost, mids, carry,
                        Kg_t, d_t, dtype, dev)
 
@@ -422,7 +475,7 @@ def narrow_checks(checks, results, dev):
     fleet, cost, x0 = unicycle_problem(N_AGENTS, 0.55, torch.float32, dev)
     for K in (1, 2, 4, 6, 8):
         args = sweep_inputs(fleet, cost, x0, K, dev)[0]
-        twin = bt.backward_pass_batched_torch(*args)
+        twin = plain_backward(args)
         fns = {"K1": bt.backward_pass_batched_cuda, "K3": bt.backward_pass_batched_wide_cuda}
         for name, fn in fns.items():
             checks.compare("backward_batched" if name == "K1" else "backward_batched_wide",
@@ -434,38 +487,49 @@ def narrow_checks(checks, results, dev):
         for name in fns:
             results[f"{name} routing nxf {4 * K}"] = (min(ms[name]), None)
             checks.shapes[f"{name} routing nxf {4 * K}"] = work_shape(
-                "backward", fleet, K, args[0].shape[0])
+                "backward", fleet, K, batch_width(args))
 
     # K1 at the batch widths the retirement schedule runs, cut from one
     # 128-agent batch: a launch should cost the same at each.
     fleet, cost, x0 = unicycle_problem(128, 0.55, torch.float32, dev)
     args = sweep_inputs(fleet, cost, x0, 8, dev)[0]
     for S in (16, 32, 64, 128):
-        cut = tuple(a[:S].contiguous() for a in args)
+        cut = cut_args(args, slice(0, S))
         checks.compare("backward_batched", f"K1 S={S}", ("Kg", "d"),
-                       bt.backward_pass_batched_cuda(*cut),
-                       bt.backward_pass_batched_torch(*cut), TOL[torch.float32])
+                       bt.backward_pass_batched_cuda(*cut), plain_backward(cut),
+                       TOL[torch.float32])
         results[f"K1 S={S}"] = (timed(lambda: bt.backward_pass_batched_cuda(*cut), 20),
                                 None)
         checks.shapes[f"K1 S={S}"] = work_shape("backward", fleet, 8, S)
 
     # Mixed RK4 substeps (Bike5D takes 1, the others 5); timed in float32
-    # beside its bound (the slots' models averaged).
+    # beside its bound (the slots' models averaged).  K1 at nxf 20 computes
+    # the three models' Jacobians, K3 the same batch.
     fleet = dtt.Fleet.from_names(["DoubleInt4D", "Car3D", "Bike5D"] * 4, DT)
     x4, xf4 = swap_scenario(fleet.n_agents, 0.55)
     for dtype in (torch.float64, torch.float32):
         cost, x0 = problem(fleet, x4, xf4, dtype, dev)
         args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, 4, dev, seed=1)
-        Kg, d = bt.backward_pass_batched_torch(*args)
+        Kg, d = plain_backward(args)
+        checks.compare("backward_batched", f"K1 {str(dtype)[6:]} mixed K=4", ("Kg", "d"),
+                       bt.backward_pass_batched_cuda(*args), (Kg, d), backward_tol(dtype))
+        checks.compare("backward_batched_wide", f"K3 {str(dtype)[6:]} mixed K=4",
+                       ("Kg", "d"), bt.backward_pass_batched_wide_cuda(*args), (Kg, d),
+                       backward_tol(dtype))
         alphas = dtt.ops.line_search_alphas(10, dtype, dev)
         fa = (fleet, sub_cost, mids, carry.X, carry.U, Kg, d, alphas)
         checks.compare("forward_batched", f"K2 {str(dtype)[6:]} mixed-substeps",
                        ("X5", "U5", "J"), bt.forward_pass_batched_cuda(*fa),
                        bt.forward_pass_batched_torch(*fa), TOL[dtype])
+    mixed = ("DoubleInt4D", "Car3D", "Bike5D", "DoubleInt4D")
     label = "K2 mixed DoubleInt4D+Car3D+Bike5D K=4 10 alphas"
     results[label] = (timed(lambda: bt.forward_pass_batched_cuda(*fa), 10), None)
-    checks.shapes[label] = dict(work_shape("forward", fleet, 4, args[0].shape[0], 10),
-                                model=("DoubleInt4D", "Car3D", "Bike5D", "DoubleInt4D"))
+    checks.shapes[label] = dict(work_shape("forward", fleet, 4, batch_width(args), 10),
+                                model=mixed)
+    label = "K1 mixed DoubleInt4D+Car3D+Bike5D K=4"
+    results[label] = (timed(lambda: bt.backward_pass_batched_cuda(*args), 10), None)
+    checks.shapes[label] = dict(work_shape("backward", fleet, 4, batch_width(args)),
+                                model=mixed)
 
 
 def wide_checks(checks, results, dev):
@@ -494,22 +558,23 @@ def wide_checks(checks, results, dev):
             args, sub_cost, mids, carry = sweep_inputs(
                 fleet, cost, x0, K, dev, u_scale=u_scale, u_trim=np.array(trim))
             tag = f"{model.name} K={K} nxf {K * fleet.nx_p}"
-            Kg_t, d_t = bt.backward_pass_batched_torch(*args)
+            Kg_t, d_t = plain_backward(args)
             checks.compare("backward_batched_wide", f"K3 {tag} {str(dtype)[6:]}",
                            ("Kg", "d"), bt.backward_pass_batched_wide_cuda(*args),
-                           (Kg_t, d_t), TOL[dtype])
+                           (Kg_t, d_t), backward_tol(dtype))
             if dtype == torch.float32:
                 results[f"K3 {tag}"] = (
                     timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 10),
-                    timed(lambda: bt.backward_pass_batched_torch(*args), 2))
+                    timed(lambda: plain_backward(args), 2))
                 checks.shapes[f"K3 {tag}"] = work_shape("backward_wide", fleet, K,
-                                                 args[0].shape[0])
+                                                        batch_width(args))
             elif K == 16:  # the gain blocks in device memory
                 results[f"K3 {tag} float64"] = (
                     timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 10), None)
             forward_checks(checks, results, tag, fleet, sub_cost, mids, carry,
                            Kg_t, d_t, dtype, dev, gains_off=False)
-            print(f"{tag}: S={args[0].shape[0]}, nuf={K * fleet.nu_p}", flush=True)
+            print(f"{tag}: S={batch_width(args)}, nuf={K * fleet.nu_p}, "
+                  f"{wide_tiers(K, fleet, dtype)}", flush=True)
 
     # Past nxf 96: Quad6D at K=32 (nxf 192, nuf 96), the width the quad6d_64
     # loop's auto K reaches.  Every fourth of the 64 subproblems (S = 16: the
@@ -520,23 +585,36 @@ def wide_checks(checks, results, dev):
         fleet, cost, x0 = quad_problem(dtt.QUAD_6D, 64, 0.7, dtype, dev)
         args, sub_cost, mids, carry = sweep_inputs(
             fleet, cost, x0, 32, dev, u_scale=0.01, u_trim=np.array([g, 0, 0]))
-        args = tuple(a[::4].contiguous() for a in args)
+        args = cut_args(args, slice(None, None, 4))
         sub_cost = type(sub_cost)(*(a[::4].contiguous() for a in sub_cost))
         carry = type(carry)(*(a[::4].contiguous() for a in carry))
         mids = mids[::4].contiguous()
-        tag = f"Quad6D K=32 nxf 192 S={args[0].shape[0]}"
-        Kg_t, d_t = bt.backward_pass_batched_torch(*args)
+        tag = f"Quad6D K=32 nxf 192 S={batch_width(args)}"
+        print(f"{tag}: {wide_tiers(32, fleet, dtype)}", flush=True)
+        Kg_t, d_t = plain_backward(args)
         checks.compare("backward_batched_wide", f"K3 {tag} {str(dtype)[6:]}",
                        ("Kg", "d"), bt.backward_pass_batched_wide_cuda(*args),
-                       (Kg_t, d_t), TOL[dtype])
+                       (Kg_t, d_t), backward_tol(dtype))
         suffix = "" if dtype == torch.float32 else " float64"
         results[f"K3 {tag}{suffix}"] = (
             timed(lambda: bt.backward_pass_batched_wide_cuda(*args), 3), None)
         if dtype == torch.float32:
             checks.shapes[f"K3 {tag}"] = work_shape("backward_wide", fleet, 32,
-                                                    args[0].shape[0])
+                                                    batch_width(args))
         forward_checks(checks, results, tag, fleet, sub_cost, mids, carry,
                        Kg_t, d_t, dtype, dev, gains_off=False)
+
+
+def wide_tiers(K, fleet, dtype):
+    """Where K3 places a subproblem: the tier of its working set with the
+    inputs copied in (the plan before they were computed in the kernel) and
+    with the input source's buffers (now)."""
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    item = torch.empty((), dtype=dtype).element_size()
+    before = bt.riccati_smem_bytes(K, fleet.nx_p, fleet.nu_p, item)[0]
+    now = bt.sweep_smem_bytes(K, fleet.nx_p, fleet.nu_p, item)[0]
+    return f"K3 tier {str(dtype)[6:]}: {before} with copied inputs, {now} computing them"
 
 
 def centralized_inputs(dtype, dev):
@@ -606,6 +684,7 @@ def centralized_checks(checks, results, dev):
     """Phase 3c: K5 on its fleets (``k5_problems``) and K4 with gains at the
     10-agent centralized shape."""
     import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
     from dpilqr_tpu_torch.ops import cuda_build, ilqr, sweeps
 
     for dtype in (torch.float64, torch.float32):
@@ -613,8 +692,8 @@ def centralized_checks(checks, results, dev):
         for name, (fleet, cost, X, U) in k5_problems(dtype, dev).items():
             bw = (fleet, cost, X, U, mu)
             K_t, d_t = ilqr._backward_pass(fleet.linearize, cost, X, U, mu)
-            tier = sweeps.sweep_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p,
-                                           X.element_size())[0]
+            tier = bt.sweep_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p,
+                                       X.element_size())[0]
             checks.compare("backward_sweep", f"K5 {name} {str(dtype)[6:]} (tier {tier})",
                            ("Kg", "d"), sweeps.backward_pass_cuda(*bw), (K_t, d_t),
                            TOL[dtype])
@@ -836,6 +915,79 @@ def no_sweep_kernel(counts):
         fail("the twins' run did not roll its stitched plans out on K4")
 
 
+def torch_prep_per_step(run):
+    """``run()`` (an MPC run) with the decomposed path's torch prep
+    (``_quadraticize_batch``, ``_linearize_batch``) counted and timed (the
+    device synchronized around each call): its calls and milliseconds a
+    step."""
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    names = ("_quadraticize_batch", "_linearize_batch")
+    originals = {name: getattr(bt, name) for name in names}
+    total = {"calls": 0, "ms": 0.0}
+
+    def timed_call(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            total["calls"] += 1
+            total["ms"] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    try:
+        for name, fn in originals.items():
+            setattr(bt, name, timed_call(fn))
+        out = run()
+    finally:
+        for name, fn in originals.items():
+            setattr(bt, name, fn)
+    return {"prep_calls_per_step": total["calls"] / out["steps"],
+            "prep_ms_per_step": total["ms"] / out["steps"],
+            "ms_per_step_with_prep_synchronized": out["ms_per_step"]}
+
+
+def batched_iteration_kernels(dev):
+    """The CUDA kernels of one iteration of the batched solve (the main
+    path's, S=100 at K=8, float32), counted by ``torch.profiler``: fails
+    unless K1 runs once, K2 once or twice, and no matrix product (the torch
+    prep's einsums) runs."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    fleet, cost, x0 = unicycle_problem(N_AGENTS, 0.55, torch.float32, dev)
+    args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, 8, dev)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3)
+    x0_s = carry.X[:, 0].contiguous()
+    bt.batched_iteration(fleet, cfg, sub_cost, mids, x0_s, carry, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bt.batched_iteration(fleet, cfg, sub_cost, mids, x0_s, carry, "cuda")
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower()
+        and "memset" not in e.name.lower())
+    k1 = sum(n for k, n in names.items() if "backward_batched_kernel" in k)
+    k2 = sum(n for k, n in names.items() if "forward_batched_kernel" in k)
+    products = {k: n for k, n in names.items()
+                if any(w in k.lower() for w in ("gemm", "gemv", "bmm", "matmul", "dot"))}
+    out = {"kernels": sum(names.values()), "K1": k1, "K2": k2,
+           "others": sum(names.values()) - k1 - k2, "matrix_products": products}
+    print(f"one batched iteration (S={batch_width(args)}, K=8), CUDA kernels "
+          "(torch.profiler): " + json.dumps(out), flush=True)
+    if not names:
+        fail("torch.profiler saw no CUDA kernel in a batched iteration")
+    if k1 != 1 or k2 not in (1, 2) or products:
+        fail("a batched iteration runs more than K1, K2 and the accept step")
+
+
 def main_path(dev, launches):
     """Phase 4a: the 100-agent decomposed MPC loop."""
     fleet, cost, x0 = unicycle_problem(N_AGENTS, 1.25, torch.float32, dev)
@@ -849,17 +1001,39 @@ def main_path(dev, launches):
     print("main path (kernels): " + json.dumps(kern), flush=True)
     print_by_width("main path", launches_by_width(
         lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS), MPC_STEPS, path))
+    # The torch prep is gone from the kernel path; on the twins it runs.
+    prep = {backend: torch_prep_per_step(
+        lambda backend=backend: rhc_run(fleet, cost, x0, backend, MPC_STEPS))
+        for backend in ("cuda", "torch")}
+    print("main path, the torch prep a step (kernels, twins): " + json.dumps(prep),
+          flush=True)
+    if prep["cuda"]["prep_calls_per_step"] != 0:
+        fail("the kernel path still runs the torch prep")
+    # In a process of its own: a second torch.profiler session in one process
+    # (phase 4d's) misses the kernels of the ctypes-loaded library.
+    child = subprocess.run(
+        [sys.executable, "-c", "import torch, chip_smoke as cs; "
+         f"cs.batched_iteration_kernels(torch.device('cuda', {dev.index or 0}))"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    print(child.stdout.strip(), flush=True)
+    if child.returncode != 0:
+        fail(f"the batched iteration's kernel count failed:\n{child.stderr[-2000:]}")
     twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", MPC_STEPS))
     no_sweep_kernel(counts)
     print("main path (torch twins): " + json.dumps(twin), flush=True)
 
 
 def quad6d_loop(dev, launches):
-    """Phase 4b: the quad6d_64 closed loop (bench.py:716) at auto K, which
-    reaches 32 (nxf 192, nuf 96) once the planned trajectories' neighbourhoods
-    outgrow 16; a truncated step fails the run.  One more timed run pins
-    K=16 (nxf 96), where two of the five steps drop coupling partners: the
-    shape earlier measurements of this loop were taken at."""
+    """Phase 4b: the quad6d_64 closed loop (bench.py:716) at auto K; a
+    truncated step fails the run.  Auto K reaches 32 (nxf 192, nuf 96) once
+    the planned trajectories' neighbourhoods outgrow 16: in float64 they
+    reach 17 from the second step on, and the float64 loop must reach K=32;
+    in float32 they end at 15 to 17 by the rounding of the Jacobians and
+    cost derivatives (the plain version's prep: 15), so the float32 loop's K
+    is printed, not held.  One more timed run pins K=16 (nxf 96), where steps
+    with 17-agent neighbourhoods drop coupling partners: the shape earlier
+    measurements of this loop were taken at."""
     import dpilqr_tpu_torch as dtt
 
     fleet, cost, x0 = quad_problem(dtt.QUAD_6D, 64, 0.85, torch.float32, dev)
@@ -867,8 +1041,6 @@ def quad6d_loop(dev, launches):
     rhc_run(fleet, cost, x0, "cuda", MPC_STEPS)  # warm-up (the allocator at nxf 192)
     kern, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS))
     require(counts, path, "the quad6d_64 loop", solves=kern["steps"])
-    if max(kern["K"]) <= 16:
-        fail("the quad6d_64 loop did not reach K=32")
     launches["backward_batched_wide"] = counts["backward_batched_wide"]
     launches["forward_sweep"] += counts["forward_sweep"]
     launches["per MPC step (64 Quad6D, auto K)"] = {
@@ -891,7 +1063,11 @@ def quad6d_loop(dev, launches):
     # materially more (a third more iterations a step), float32 stops on
     # noise: its J is ~1e6 and a float32 accept resolves 1e-1.
     fleet64, cost64, x064 = quad_problem(dtt.QUAD_6D, 64, 0.85, torch.float64, dev)
-    f64 = rhc_run(fleet64, cost64, x064, "cuda", MPC_STEPS, dtype=np.float64)
+    f64, counts = run_counted(
+        lambda: rhc_run(fleet64, cost64, x064, "cuda", MPC_STEPS, dtype=np.float64))
+    require(counts, path, "the quad6d_64 loop in float64", solves=f64["steps"])
+    if max(f64["K"]) <= 16:
+        fail("the quad6d_64 loop did not reach K=32 in float64")
     noise = f64["mean_iters"] > 4 / 3 * kern["mean_iters"]
     print("quad6d_64 loop float32 vs float64 (kernels, auto K): " + json.dumps({
         "noise_limited": bool(noise), "float32": kern, "float64": f64}), flush=True)
@@ -1313,13 +1489,14 @@ def bit_equal(tag, got, want):
     print(f"{tag}: X, U and J bit-equal to the tensor API", flush=True)
 
 
-def facade_phase(dev, launches):
+def facade_phase(checks, results, dev, launches):
     """Phase 7: the facade (``api``), Monte-Carlo trials and the model guard."""
     import importlib.util
 
     import dpilqr_tpu_torch as dtt
     from dpilqr_tpu_torch import api
     from dpilqr_tpu_torch.models.specs import ModelSpec
+    from dpilqr_tpu_torch.ops import batched as bt
     from dpilqr_tpu_torch.ops import cuda_build
     from dpilqr_tpu_torch.parallel.mesh import stack_costs
 
@@ -1407,6 +1584,23 @@ def facade_phase(dev, launches):
             U_T.append(np.random.default_rng(t).uniform(size=(HORIZON, N_AGENTS, 2))
                        * 0.01)
         X_T, U_T = np.stack(X_T).astype(npd), np.stack(U_T).astype(npd)
+
+        # K1 at the trials' batch width: each trial's gathered batch at K,
+        # joined into one of T * 100 subproblems, against its plain version.
+        parts = [sweep_inputs(fleet, costs[t], X_T[t][0], K, dev, seed=t)[0]
+                 for t in range(T)]
+        big = (fleet, type(parts[0][1])(*(torch.cat(f) for f in zip(*(p[1] for p in parts)))),
+               *(torch.cat([p[i] for p in parts]) for i in (2, 3, 4, 5)))
+        tag = f"K1 trials S={batch_width(big)}"
+        checks.compare("backward_batched", f"{tag} {str(dtype)[6:]}", ("Kg", "d"),
+                       bt.backward_pass_batched_cuda(*big), plain_backward(big),
+                       backward_tol(dtype))
+        if dtype == torch.float32:
+            results[tag] = (timed(lambda: bt.backward_pass_batched_cuda(*big), 10),
+                            timed(lambda: plain_backward(big), 1))
+            checks.shapes[tag] = work_shape("backward", fleet, K, batch_width(big))
+            print_result(checks, results, tag)
+        del parts, big
 
         def trials():
             t0 = time.perf_counter()
@@ -1539,8 +1733,11 @@ def print_registers(tag, lib, source, kernel):
         fail(f"{tag}: no {kernel} entry in the ptxas report of {source}")
     rows = {}
     for name, (regs, st, ld) in sorted(report.items()):
-        m = re.search(r"kernelI([fd])Li(\d+)E", name)
-        key = f"{'float' if m.group(1) == 'f' else 'double'} NXC {m.group(2)}" if m else name
+        # The type and the integer template arguments (K2: NXC; K1: NR, NCB,
+        # NXC, NXS, NUS, KS).
+        m = re.search(r"kernelI([fd])((?:Li\d+E)+)", name)
+        key = (f"{'float' if m.group(1) == 'f' else 'double'} <"
+               + ",".join(re.findall(r"\d+", m.group(2))) + ">") if m else name
         rows[key] = {"registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld}
     print(f"{tag} {kernel} registers: " + json.dumps(rows), flush=True)
     return rows
@@ -1568,10 +1765,10 @@ def bits_agree(got, want):
 
 
 def custom_checks(checks, results, dev, UserBike):
-    """Phase 8a: K2, K4 and K5 of the custom-model build on fleets of the
-    user bicycle against their plain versions, each timed beside the same
-    launch of the default build on ``Bike5D`` fleets of the same shape and
-    the same inputs."""
+    """Phase 8a: K1, K2, K3, K4 and K5 of the custom-model build on fleets
+    of the user bicycle against their plain versions, each timed beside the
+    same launch of the default build on ``Bike5D`` fleets of the same shape
+    and the same inputs."""
     import dpilqr_tpu_torch as dtt
     from dpilqr_tpu_torch.ops import batched as bt
     from dpilqr_tpu_torch.ops import cuda_build, ilqr, sweeps
@@ -1586,7 +1783,29 @@ def custom_checks(checks, results, dev, UserBike):
         # once on the Bike5D fleet.
         cost, x0 = problem(fl["Bike5D"], x0p, xfp, dtype, dev)
         args, sub_cost, mids, carry = sweep_inputs(fl["Bike5D"], cost, x0, 8, dev)
-        Kg, d = bt.backward_pass_batched_torch(*args)
+        Kg, d = plain_backward(args)
+        # K1 at K = 6 (nxf 30) and K3 at K = 8 (nxf 40), the widths the
+        # bicycles' loop runs at, on the same batches of the two fleets.
+        for K_, kernel, fn, family in (
+                (6, "backward_batched", bt.backward_pass_batched_cuda, "backward"),
+                (8, "backward_batched_wide", bt.backward_pass_batched_wide_cuda,
+                 "backward_wide")):
+            base = sweep_inputs(fl["Bike5D"], cost, x0, K_, dev)[0]
+            outs = []
+            for name, fleet in fl.items():
+                bargs = (fleet, *base[1:])
+                label = f"{'K1' if K_ == 6 else 'K3'} {name} K={K_}"
+                outs.append(fn(*bargs))
+                checks.compare(kernel, f"{label} {str(dtype)[6:]}", ("Kg", "d"),
+                               outs[-1], plain_backward(bargs), backward_tol(dtype))
+                if dtype == torch.float32:
+                    results[label] = (timed(lambda: fn(*bargs), 10),
+                                      timed(lambda: plain_backward(bargs), 2))
+                    checks.shapes[label] = work_shape(family, fleet, K_,
+                                                      batch_width(bargs), model="Bike5D")
+                    print_result(checks, results, label)
+            print(f"{'K1' if K_ == 6 else 'K3'} K={K_} {str(dtype)[6:]}: custom bicycle "
+                  f"and Bike5D bit-equal: {bits_agree(*outs)}", flush=True)
         for name, fleet in fl.items():
             forward_checks(checks, results, f"{name} K=8", fleet, sub_cost, mids, carry,
                            Kg, d, dtype, dev, model="Bike5D")
@@ -1705,7 +1924,10 @@ def custom_main_path(dev, launches, UserBike):
         runs[name], counts = run_counted(lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS))
         require(counts, path, f"the {name} loop", solves=runs[name]["steps"])
         if name == "custom bicycle":
-            require_custom(counts, ("forward_batched", "forward_sweep"), "the custom loop")
+            require_custom(counts, ("backward_batched", "forward_batched", "forward_sweep")
+                           + (("backward_batched_wide",)
+                              if counts["backward_batched_wide"] else ()),
+                           "the custom loop")
             for k in (*path, "backward_batched_wide"):
                 launches[k] += counts[k]
             print_by_width("custom bicycle loop", launches_by_width(
@@ -1870,8 +2092,8 @@ def custom_mixed(checks, dev, launches, UserBike):
         if backend == "cuda":
             require(counts, path, "the mixed solve", solves=1)
             if fleet is custom:
-                require_custom(counts, ("forward_batched", "forward_sweep"),
-                               "the mixed custom solve")
+                require_custom(counts, ("backward_batched_wide", "forward_batched",
+                                        "forward_sweep"), "the mixed custom solve")
                 for k in path:
                     launches[k] += counts[k]
             elif any(custom_counts().values()):
@@ -1893,9 +2115,10 @@ def custom_mixed(checks, dev, launches, UserBike):
 
     # One iteration's kernels on the gathered batch, against their twins.
     args, sub_cost, mids, carry = sweep_inputs(custom, cost, x0, 8, dev)
-    Kg, d = bt.backward_pass_batched_torch(*args)
+    Kg, d = plain_backward(args)
     checks.compare("backward_batched_wide", "K3 mixed custom float64", ("Kg", "d"),
-                   bt.backward_pass_batched_wide_cuda(*args), (Kg, d), TOL[torch.float64])
+                   bt.backward_pass_batched_wide_cuda(*args), (Kg, d),
+                   backward_tol(torch.float64))
     forward_checks(checks, {}, "mixed custom", custom, sub_cost, mids, carry, Kg, d,
                    torch.float64, dev)
 
@@ -1968,8 +2191,8 @@ def custom_phase(checks, results, dev, launches, UserBike):
 
 
 def build_phase():
-    """Phase 2: the default library and the custom-model one of phase 8 (K2,
-    K4 and K5 with the user bicycle's generated right-hand side), built
+    """Phase 2: the default library and the custom-model one of phase 8 (K1
+    to K5 with the user bicycle's generated right-hand side), built
     together; returns the user bicycle's class."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1985,15 +2208,17 @@ def build_phase():
     both_s = time.perf_counter() - t0
     cuda_build.load_library()
     cuda_build.load_library(header)
-    print(f"build: {build_s:.1f} s; custom-model build (K2, K4, K5 with the user "
+    print(f"build: {build_s:.1f} s; custom-model build (K1 to K5 with the user "
           f"bicycle's generated right-hand side, {cuda_build.build_dir(header).name}): "
           f"{custom_s:.1f} s; both together {both_s:.1f} s", flush=True)
-    regs = {tag: print_registers(tag, path, "forward_batched", "forward_batched_kernel")
-            for tag, path in (("default build", lib), ("custom build", custom_lib))}
-    if all(regs.values()):
-        print("K2 registers, custom build against default: " + json.dumps(
-            {k: [regs["custom build"][k]["registers"], regs["default build"][k]["registers"]]
-             for k in regs["custom build"]}), flush=True)
+    for source in ("forward_batched", "backward_batched"):
+        regs = {tag: print_registers(tag, path, source, f"{source}_kernel")
+                for tag, path in (("default build", lib), ("custom build", custom_lib))}
+        if all(regs.values()):
+            print(f"{source} registers, custom build against default: " + json.dumps(
+                {k: [regs["custom build"][k]["registers"],
+                     regs["default build"][k]["registers"]]
+                 for k in regs["custom build"]}), flush=True)
     return UserBike
 
 
@@ -2020,13 +2245,8 @@ def main():
     centralized_checks(checks, results, dev)
     rollout_checks(checks, results, dev)
     probe_plain_ms = probe_checks(checks, dev)
-    for label, (ms, plain) in results.items():
-        plain_s = "not timed" if plain is None else f"{plain:.3f}"
-        bound_s = ""
-        if label in checks.shapes:
-            b_ms, by = bound_ms(checks.shapes[label])
-            bound_s = f", bound {b_ms:.5f} by {by} (share {b_ms / ms:.5f})"
-        print(f"{label} ms/launch: kernel {ms:.4f}, twin {plain_s}{bound_s}", flush=True)
+    for label in results:
+        print_result(checks, results, label)
 
     launches = {"forward_sweep": 0}  # K4 runs on every path: summed over them
     main_path(dev, launches)
@@ -2036,7 +2256,7 @@ def main():
     solve_parity(dev)
     sol_phase(checks, results, probe_plain_ms, dev, launches)
     deadline_phase(dev)
-    facade_phase(dev, launches)
+    facade_phase(checks, results, dev, launches)
     custom_phase(checks, results, dev, launches, UserBike)
 
     timing = {"backward_batched": "K1", "forward_batched": "K2 nxf 32 2 alphas",

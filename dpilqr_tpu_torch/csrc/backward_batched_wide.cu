@@ -1,8 +1,11 @@
-// Batched Riccati backward recursion for WIDE decomposed subproblems.
+// Batched Riccati backward pass for WIDE decomposed subproblems, its inputs
+// computed inside the kernel.
 //
 // Replaces the TPU kernel dpilqr_tpu/ops/pallas_batched_wide.py ::
-// backward_pass_batched_wide (the Pallas program at :156-293): the same
-// contract and per-element arithmetic as backward_batched.cu (the Riccati
+// backward_pass_batched_wide, the whole function: its XLA phase (:137-138,
+// _quadraticize_batch and _linearize_batch) and its Pallas program
+// (:156-293): the same contract and per-element arithmetic as
+// backward_batched.cu (the inputs of computed_inputs.cuh, the Riccati
 // recursion of riccati.cuh, reference dpilqr/control.py:116-148) for
 // subproblems wider than the narrow kernel takes: Quad6D at K=8 and K=16
 // (nxf 48, 96), Quad12D at K=4 and K=8 (48, 96), mixed DoubleInt4D + Car3D
@@ -21,23 +24,27 @@
 // register tiles fed by vector loads in those products, a Gauss-Jordan that
 // keeps the tableau in registers with one barrier per pivot and no update
 // left of the pivot, shared-memory pointers the compiler can prove shared,
-// the step's inputs copied in asynchronously, conflict-free transposed
-// reads, coalesced gains.  One thread per tile of the nxf^2 outputs (576 at
-// nxf 96), at most 640.
+// conflict-free transposed reads, coalesced gains.  One thread per tile of
+// the nxf^2 outputs (576 at nxf 96), at most 640.  The next step's inputs
+// (computed_inputs.cuh, on this subproblem's view of the batch) are computed
+// by the warps the register elimination leaves idle (up to 160 tableau
+// columns); past that the elimination is in place on every warp and the
+// prep runs after it, on the chain.
 //
 // Where the working set lives is chosen at launch from the type and the
-// widths (riccati_plan), and is a template argument of the kernel: all of
-// it in shared memory where it fits (float32 up to nxf 96, nuf 48: 228,544
-// bytes of the 232,448 a block may use); else the three nxf^2 matrices in a
+// widths (riccati_plan, with the input source's buffers in the gain group:
+// computed_plan), and is a template argument of the kernel: all of it in
+// shared memory where it fits; else the three nxf^2 matrices in a
 // per-subproblem workspace in device memory (L2-resident: 14 MB in float64
-// at S = 64) with the gain blocks, the tableau and the vectors in shared
-// memory (float64 at nxf 96, nuf 32); else the gain blocks in the workspace
-// too (float64 at nuf 48).  The wrapper sizes the workspace with
+// at S = 64) with the gain blocks, the source's buffers, the tableau and the
+// vectors in shared memory; else the gain blocks and the source's buffers in
+// the workspace too.  The wrapper sizes the workspace with
 // dpilqr_riccati_plan.
 //
 // Layouts: as backward_batched.cu, plus
 //   work (S, plan.work values)        scratch from the wrapper.
 
+#include "computed_inputs.cuh"
 #include "riccati.cuh"
 
 namespace {
@@ -46,31 +53,39 @@ constexpr int MIN_THREADS = 128, MAX_THREADS = 640;
 
 template <typename T, int TIER, int TILE>
 __global__ void __launch_bounds__(MAX_THREADS) backward_batched_wide_kernel(
-    const T* __restrict__ A, const T* __restrict__ B,
-    const T* __restrict__ Luu, const T* __restrict__ Lxx,
-    const T* __restrict__ Lx, const T* __restrict__ Lu,
-    const T* __restrict__ mu_s, const T* __restrict__ p0,
-    const T* __restrict__ P0, T* __restrict__ Kg, T* __restrict__ dg,
+    const T* __restrict__ X, const T* __restrict__ U, const T* __restrict__ xf,
+    const T* __restrict__ Q, const T* __restrict__ R, const T* __restrict__ Qf,
+    const T* __restrict__ mask, const T* __restrict__ refw,
+    const T* __restrict__ radius, const T* __restrict__ pw,
+    const int* __restrict__ npos, const int* __restrict__ mids,
+    const int* __restrict__ ids, const T* __restrict__ dt,
+    const T* __restrict__ mu_s, T* __restrict__ Kg, T* __restrict__ dg,
     T* __restrict__ work, long long work_each, int N, int K, int nx, int nu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int s = blockIdx.x;
+  T* extra = nullptr;
   const RiccatiWork<T> ws =
-      riccati_place<TIER>(sm, work + (size_t)s * work_each, K, nx, nu);
+      riccati_place<TIER>(sm, work + (size_t)s * work_each, K, nx, nu,
+                          sweep_extra_values(K, nx, nu), &extra);
+  ComputedInputs<false, MAX_NX, T, SlotProblem<T>, 6> src;
+  src.pb = slot_problem(X, U, xf, Q, R, Qf, mask, refw, radius, pw, npos, mids, ids,
+                        dt[0], s, N, K, nx, nu);
+  src.carve(extra, K, nx, nu);
   const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu, sN = (size_t)s * N;
-  riccati_sweep<TILE, TIER>(A + sN * K * nx * nx, B + sN * K * nx * nu,
-                      Luu + sN * nuf * nuf, Lxx + sN * nxf * nxf, Lx + sN * nxf,
-                      Lu + sN * nuf, mu_s[s], p0 + s * nxf, P0 + s * nxf * nxf,
-                      Kg + sN * nuf * nxf, dg + sN * nuf, N, K, nx, nu, ws);
+  riccati_sweep_from<TILE>(src, mu_s[s], Kg + sN * nuf * nxf, dg + sN * nuf, N, K, nx,
+                           nu, ws);
 }
 
 template <typename T>
-int launch(const T* A, const T* B, const T* Luu, const T* Lxx, const T* Lx,
-           const T* Lu, const T* mu, const T* p0, const T* P0, T* Kg, T* d,
-           T* work, long long work_size, int S, int N, int K, int nx, int nu,
-           void* stream) {
-  if (K < 1 || nx < 1 || nu < 1) return (int)cudaErrorInvalidValue;
-  const RiccatiPlan plan = riccati_plan(K, nx, nu, sizeof(T), max_shared_optin());
+int launch(const T* X, const T* U, const T* xf, const T* Q, const T* R,
+           const T* Qf, const T* mask, const T* refw, const T* radius,
+           const T* pw, const int* npos, const int* mids, const int* ids,
+           const T* dt, const T* mu, T* Kg, T* d, T* work, long long work_size,
+           int S, int N, int K, int nx, int nu, void* stream) {
+  if (K < 1 || nx < 1 || nu < 1 || nx > MAX_NX || nu > MAX_NU)
+    return (int)cudaErrorInvalidValue;
+  const RiccatiPlan plan = computed_plan(K, nx, nu, sizeof(T));
   if (plan.tier < 0 || (size_t)work_size < S * plan.work)
     return (int)cudaErrorInvalidValue;
   if (S == 0 || N == 0) return 0;
@@ -80,36 +95,40 @@ int launch(const T* A, const T* B, const T* Luu, const T* Lxx, const T* Lx,
                       : plan.tier == 1 ? backward_batched_wide_kernel<T, 1, 4>
                       : tile == 4      ? backward_batched_wide_kernel<T, 0, 4>
                                        : backward_batched_wide_kernel<T, 0, 2>;
-  return launch_with_smem(kernel, S, threads, plan.smem * sizeof(T), stream, A,
-                          B, Luu, Lxx, Lx, Lu, mu, p0, P0, Kg, d, work,
-                          (long long)plan.work, N, K, nx, nu);
+  return launch_with_smem(kernel, S, threads, plan.smem * sizeof(T), stream, X, U,
+                          xf, Q, R, Qf, mask, refw, radius, pw, npos, mids, ids,
+                          dt, mu, Kg, d, work, (long long)plan.work, N, K, nx, nu);
 }
 
 }  // namespace
 
 #define DPILQR_BACKWARD_WIDE(NAME, T)                                          \
-  extern "C" int NAME(const T* A, const T* B, const T* Luu, const T* Lxx,      \
-                      const T* Lx, const T* Lu, const T* mu, const T* p0,      \
-                      const T* P0, T* Kg, T* d, T* work,                       \
-                      long long work_size, int S, int N, int K, int nx,        \
-                      int nu, void* stream) {                                  \
-    return launch<T>(A, B, Luu, Lxx, Lx, Lu, mu, p0, P0, Kg, d, work,          \
-                     work_size, S, N, K, nx, nu, stream);                      \
+  extern "C" int NAME(const T* X, const T* U, const T* xf, const T* Q,        \
+                      const T* R, const T* Qf, const T* mask, const T* refw,  \
+                      const T* radius, const T* pw, const int* npos,          \
+                      const int* mids, const int* ids, const T* dt,           \
+                      const T* mu, T* Kg, T* d, T* work, long long work_size, \
+                      int S, int N, int K, int nx, int nu, void* stream) {    \
+    return launch<T>(X, U, xf, Q, R, Qf, mask, refw, radius, pw, npos, mids,  \
+                     ids, dt, mu, Kg, d, work, work_size, S, N, K, nx, nu,    \
+                     stream);                                                 \
   }
 
 DPILQR_BACKWARD_WIDE(dpilqr_backward_batched_wide_f32, float)
 DPILQR_BACKWARD_WIDE(dpilqr_backward_batched_wide_f64, double)
 
-// Where one problem's working set goes on the current device (riccati_plan):
-// returns the tier (0 all in shared memory, 1 the value group in the
-// workspace, 2 the gain group too, -1 no fit) and writes the shared-memory
-// bytes of a CTA and the workspace values of one problem.  The Python
-// wrappers of this kernel and of backward_sweep.cu size their workspace
-// through it, so the layout is defined once, in riccati.cuh.
+// Where one problem's working set goes on the current device (computed_plan:
+// riccati_plan with the input source's buffers, the plan of all three
+// backward kernels): returns the tier (0 all in shared memory, 1 the value
+// group in the workspace, 2 the gain group too, -1 no fit) and writes the
+// shared-memory bytes of a CTA and the workspace values of one problem.  The
+// Python wrappers of this kernel and of backward_sweep.cu size their
+// workspace through it, so the layout is defined once, in riccati.cuh and
+// computed_inputs.cuh.
 extern "C" int dpilqr_riccati_plan(int K, int nx, int nu, int itemsize,
                                    long long* smem_bytes,
                                    long long* work_values) {
-  const RiccatiPlan plan = riccati_plan(K, nx, nu, itemsize, max_shared_optin());
+  const RiccatiPlan plan = computed_plan(K, nx, nu, itemsize);
   *smem_bytes = (long long)(plan.smem * itemsize);
   *work_values = (long long)plan.work;
   return plan.tier;

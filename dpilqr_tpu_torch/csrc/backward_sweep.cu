@@ -11,8 +11,9 @@
 // with nxf = n nx, nuf = n nu.  The Pallas kernel took dense A_f and B_f and
 // a dense L_xx assembled outside it (a Mosaic constraint on the
 // (n,k,n,k) -> (nxf,nxf) reshape); this kernel computes every input itself
-// (derivatives.cuh: the Jacobians by dual numbers through dynamics.cuh's
-// right-hand sides, the cost's gradient and Hessian blocks in closed form)
+// (computed_inputs.cuh over derivatives.cuh: the Jacobians by dual numbers
+// through dynamics.cuh's right-hand sides, the cost's gradient and Hessian
+// blocks in closed form)
 // and runs the algebra of riccati.cuh on block-diagonal A and B.  Its sums
 // group differently from the torch version's (ops/ilqr.py _backward_pass),
 // so results agree to rounding.  The Q_uu solve is the unpivoted
@@ -36,7 +37,7 @@
 // of 145,000 for the nine-model fleet; scripts/riccati_phase_clocks.py
 // --kernel sweep).  The 10-agent
 // Unicycle4D problem users run (nxf 40, nuf 20) has its slot widths, slot
-// count and a one-warp register elimination compiled in (riccati_sweep's
+// count and a one-warp register elimination compiled in (riccati_sweep_from's
 // NXS, NUS, KS, GJ_NR); other shapes run the run-time path.  When the working
 // set (~108 n^2 values for unicycles) fits the 227 KB of shared memory (up
 // to 15 unicycles in float64, 22 in float32) all of it lives there; past that
@@ -47,9 +48,9 @@
 // Layouts (contiguous): X (N+1, n, nx), U (N, n, nu), xf (n, nx), Q, Qf
 // (n, nx, nx), R (n, nu, nu), mask (n), refw, radius, pw (1), npos, model
 // (n) int32, dt (1), mu (1) -> K (N, nuf, nxf), d (N, nuf); work holds the
-// values dpilqr_sweep_plan asks for.
+// values dpilqr_riccati_plan asks for.
 
-#include "derivatives.cuh"
+#include "computed_inputs.cuh"
 #include "riccati.cuh"
 
 namespace {
@@ -60,143 +61,6 @@ namespace {
 #define DPILQR_SWEEP_THREADS 512
 #endif
 constexpr int THREADS = DPILQR_SWEEP_THREADS;
-
-// K5's own buffers after the gain group (riccati_plan's `extra`): per agent
-// QQ = Q + Q^T (Qf + Qf^T until the terminal step is done), RR = R + R^T,
-// Ld = w QQ and Lu = w RR + 2 (1 - m) I (derivatives.cuh constant_blocks), and
-// one step's proximity blocks Lblk (n, n, k, k) and pair gradient terms G
-// (n, n, 3).
-__host__ __device__ inline size_t sweep_extra_values(int n, int nx, int nu) {
-  const size_t k = nx < 3 ? nx : 3;
-  return 2 * pad4((size_t)n * nx * nx) + 2 * pad4((size_t)n * nu * nu) +
-         pad4((size_t)n * n * k * k) + pad4((size_t)n * n * 3);
-}
-
-// What a step's inputs are computed from.
-template <typename T>
-struct SweepProblem {
-  const T *X, *U, *xf, *Q, *R, *Qf, *mask;
-  const int *npos, *model;
-  T refw, radius, pw, dt;
-  int N;
-};
-
-// Step t's inputs, by threads ft of fn, in two stages of work items apart by
-// a named barrier among those threads: first every Jacobian column (one dual
-// evaluation of the model) and every ordered pair's Hessian block and
-// gradient term (one geometry each), then every agent's L_x, L_u and
-// diagonal block from its row of pair results (derivatives.cuh).  At the
-// terminal step (t = N) no controls and no Jacobians: lx is p.
-template <int NXC, typename T>
-__device__ __forceinline__ void sweep_prep_items_inline(
-    const SweepProblem<T>& pb, const CostTerms<T>& c, int t, T* lx, T* lu, T* At,
-    T* Bt, T* Lblk, T* G, int ft, int fn) {
-  const int n = c.n, nx = c.nx, nu = c.nu, k = c.k, kk = k * k;
-  const bool terminal = t == pb.N;
-  const T* x = pb.X + (size_t)t * n * nx;
-  const T* u = terminal ? nullptr : pb.U + (size_t)t * n * nu;
-  const int n_jac = terminal ? 0 : n * (nx + nu);
-  for (int it = ft; it < n_jac + n * (n - 1); it += fn) {
-    if (it < n_jac) {
-      const int i = it / (nx + nu), q = it % (nx + nu);
-      jacobian_column<NXC>(pb.model[i], x + i * nx, u + i * nu, nx, nu, q, pb.dt,
-                           c.mask[i], At + i * nx * nx, nx, Bt + i * nx * nu, nu);
-    } else {
-      const int p = it - n_jac, i = p / (n - 1), jj = p % (n - 1);
-      const int j = jj + (jj >= i);
-      pair_terms_block(c, i, j, x, Lblk + (i * n + j) * kk, G + (i * n + j) * 3);
-    }
-  }
-  asm volatile("bar.sync 2, %0;" ::"r"(fn) : "memory");
-  for (int i = ft; i < n; i += fn)
-    agent_terms(c, i, x, u, Lblk, G, lx + i * nx, terminal ? nullptr : lu + i * nu,
-                Lblk + (i * n + i) * kk);
-}
-
-// The same, not inlined: the nine models' derivatives compile once per type
-// and width for the run-time path, not once per instantiation of the sweep
-// (the compiled-in main shape inlines them: its shared-memory pointers stay
-// shared-memory accesses).
-template <int NXC, typename T>
-__device__ __noinline__ void sweep_prep_items(const SweepProblem<T> pb,
-                                              const CostTerms<T> c, int t, T* lx,
-                                              T* lu, T* At, T* Bt, T* Lblk, T* G,
-                                              int ft, int fn) {
-  sweep_prep_items_inline<NXC>(pb, c, t, lx, lu, At, Bt, Lblk, G, ft, fn);
-}
-
-template <bool INLINE, int NXC, typename T>
-__device__ __forceinline__ void prep_items(const SweepProblem<T>& pb,
-                                           const CostTerms<T>& c, int t, T* lx, T* lu,
-                                           T* At, T* Bt, T* Lblk, T* G, int ft, int fn) {
-  if constexpr (INLINE)
-    sweep_prep_items_inline<NXC>(pb, c, t, lx, lu, At, Bt, Lblk, G, ft, fn);
-  else
-    sweep_prep_items<NXC, T>(pb, c, t, lx, lu, At, Bt, Lblk, G, ft, fn);
-}
-
-// The input source of riccati_sweep_from that computes a step's inputs in
-// place (riccati.cuh CopiedInputs copies them); INLINE: the prep inlined.
-template <bool INLINE, int NXC, typename T>
-struct ComputedInputs {
-  static constexpr bool kComputes = true;
-  SweepProblem<T> pb;
-  T *QQ, *RR, *Ld, *Lu, *Lblk, *G;
-
-  __device__ __forceinline__ CostTerms<T> terms(int n, int nx, int nu) const {
-    return {pb.xf, QQ, RR, pb.mask, pb.npos, pb.refw, pb.radius, pb.pw,
-            n, nx, nu, nx < 3 ? nx : 3};
-  }
-
-  // Sums W + W^T of n blocks of w x w into S.
-  static __device__ __forceinline__ void symmetrize(const T* W, T* S, int n, int w) {
-    for (int e = threadIdx.x; e < n * w * w; e += blockDim.x) {
-      const int i = e / (w * w), a = e % (w * w) / w, b = e % w;
-      S[e] = W[e] + W[(i * w + b) * w + a];
-    }
-  }
-
-  // The terminal step's P and p (Qf, proximity included), then the stage
-  // blocks (the sweep's first fetch follows and synchronizes); three
-  // barriers, once a sweep.
-  __device__ __forceinline__ void init(const RiccatiWork<T>& ws, int n, int nx,
-                                       int nu) const {
-    const int nxf = n * nx, k = nx < 3 ? nx : 3;
-    const int tid = threadIdx.x, nth = blockDim.x;
-    symmetrize(pb.Qf, QQ, n, nx);
-    symmetrize(pb.R, RR, n, nu);
-    __syncthreads();
-    const CostTerms<T> c = terms(n, nx, nu);
-    constant_blocks(c, Ld, Lu, tid, nth);
-    prep_items<INLINE, NXC, T>(pb, c, pb.N, ws.p, nullptr, nullptr, nullptr, Lblk, G,
-                               tid, nth);
-    __syncthreads();
-    for (int e = tid; e < nxf * nxf; e += nth)
-      ws.P[e] = lxx_entry(e / nxf, e % nxf, n, nx, k, Ld, Lblk);
-    symmetrize(pb.Q, QQ, n, nx);
-    __syncthreads();
-    constant_blocks(c, Ld, Lu, tid, nth);
-  }
-
-  __device__ __forceinline__ void fetch(int t, const RiccatiWork<T>& ws, int n,
-                                        int nx, int nu, int ft, int fn) const {
-    prep_items<INLINE, NXC, T>(pb, terms(n, nx, nu), t, ws.lx, ws.lu, ws.At, ws.Bt,
-                               Lblk, G, ft, fn);
-  }
-
-  // L_xx and L_uu are not staged: phase 2 reads each entry from the blocks
-  // where it adds it.
-  __device__ __forceinline__ void hessians(int, const RiccatiWork<T>&, int, int,
-                                           int) const {}
-  __device__ __forceinline__ T lxx(const RiccatiWork<T>&, int, int r, int c, int n,
-                                   int nx) const {
-    return lxx_entry(r, c, n, nx, nx < 3 ? nx : 3, Ld, Lblk);
-  }
-  __device__ __forceinline__ T luu(const RiccatiWork<T>&, int, int r, int c,
-                                   int nu) const {
-    return luu_entry(r, c, nu, Lu);
-  }
-};
 
 // NXC: the state width the models are compiled for (the right-hand sides
 // of wider models compile to nothing); GJ_NR, GJ_NCB, NXS, NUS, KS as
@@ -218,20 +82,9 @@ __global__ void __launch_bounds__(THREADS) backward_sweep_kernel(
       sm, work, n, nx, nu, sweep_extra_values(n, nx, nu), &extra);
   ComputedInputs<NXS != 0, NXC, T> src;
   src.pb = {X, U, xf, Q, R, Qf, mask, npos, model, refw[0], radius[0], pw[0], dt[0], N};
-  src.QQ = extra;
-  src.RR = src.QQ + pad4((size_t)n * nx * nx);
-  src.Ld = src.RR + pad4((size_t)n * nu * nu);
-  src.Lu = src.Ld + pad4((size_t)n * nx * nx);
-  src.Lblk = src.Lu + pad4((size_t)n * nu * nu);
-  src.G = src.Lblk + pad4((size_t)n * n * (nx < 3 ? nx : 3) * (nx < 3 ? nx : 3));
-  riccati_sweep_from<TILE, TIER, GJ_NR, GJ_NCB, NXS, NUS, KS>(src, mu[0], Kg, dg, N,
-                                                              n, nx, nu, ws);
-}
-
-// riccati_plan with K5's own buffers in the gain group.
-inline RiccatiPlan sweep_plan(int n, int nx, int nu, size_t itemsize) {
-  return riccati_plan(n, nx, nu, itemsize, max_shared_optin(),
-                      sweep_extra_values(n, nx, nu));
+  src.carve(extra, n, nx, nu);
+  riccati_sweep_from<TILE, GJ_NR, GJ_NCB, NXS, NUS, KS>(src, mu[0], Kg, dg, N, n, nx,
+                                                        nu, ws);
 }
 
 template <typename T>
@@ -242,7 +95,7 @@ int launch(const T* X, const T* U, const T* xf, const T* Q, const T* R,
            int nx, int nu, void* stream) {
   if (n < 1 || nx < 1 || nu < 1 || nx > MAX_NX || nu > MAX_NU)
     return (int)cudaErrorInvalidValue;
-  const RiccatiPlan plan = sweep_plan(n, nx, nu, sizeof(T));
+  const RiccatiPlan plan = computed_plan(n, nx, nu, sizeof(T));
   if (plan.tier < 0 || (size_t)work_size < plan.work)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
@@ -275,18 +128,6 @@ int launch(const T* X, const T* U, const T* xf, const T* Q, const T* R,
 
 DPILQR_BACKWARD_SWEEP(dpilqr_backward_sweep_f32, float)
 DPILQR_BACKWARD_SWEEP(dpilqr_backward_sweep_f64, double)
-
-// Where K5's working set goes on the current device: riccati_plan with K5's
-// own buffers added to the gain group (the tier, or -1, and the shared-memory
-// bytes and workspace values).  ops/sweeps.py sizes the workspace through it
-// and mirrors it in Python (sweep_smem_bytes).
-extern "C" int dpilqr_sweep_plan(int n, int nx, int nu, int itemsize,
-                                 long long* smem_bytes, long long* work_values) {
-  const RiccatiPlan plan = sweep_plan(n, nx, nu, itemsize);
-  *smem_bytes = (long long)(plan.smem * itemsize);
-  *work_values = (long long)plan.work;
-  return plan.tier;
-}
 
 #ifdef DPILQR_PHASE_CLOCKS
 // This kernel's cycles by phase (riccati.cuh, RICCATI_CLOCK), read and reset.

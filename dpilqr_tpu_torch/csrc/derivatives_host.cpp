@@ -1,7 +1,8 @@
-// Host build of derivatives.cuh, for the CPU tests: the functions K5
-// (backward_sweep.cu) computes its inputs with, compiled by a host C++
-// compiler into a small shared library with a plain C interface and called
-// through ctypes (tests/test_torch_derivatives.py).  float64 only.
+// Host build of derivatives.cuh and computed_inputs.cuh, for the CPU tests:
+// the functions K1, K3 and K5 compute their inputs with, compiled by a host
+// C++ compiler into a small shared library with a plain C interface and
+// called through ctypes (tests/test_torch_derivatives.py,
+// tests/test_torch_batched_prep.py).  float64 only.
 //
 //   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I csrc -o lib.so csrc/derivatives_host.cpp
 //
@@ -11,7 +12,7 @@
 
 #include <vector>
 
-#include "derivatives.cuh"
+#include "computed_inputs.cuh"
 
 extern "C" {
 
@@ -75,6 +76,68 @@ int dpilqr_host_cost_terms(int n, int nx, int nu, const double* x, const double*
   for (int r = 0; r < nuf; ++r)
     for (int col = 0; col < nuf; ++col)
       Luu[r * nuf + col] = luu_entry(r, col, nu, Lu.data());
+  return 0;
+}
+
+// The inputs K1 and K3 compute for a batch of S subproblems of K slots, by
+// the same per-subproblem view (slot_problem) and work items
+// (sweep_prep_items_inline, run by one thread) and the same assembly of the
+// dense Hessians from their blocks (ComputedInputs::init and lxx_entry,
+// luu_entry), laid out as ops/batched.py's _quadraticize_batch and
+// _linearize_batch return them: A (S, N, K, nx, nx), B (S, N, K, nx, nu),
+// Lx (S, N, K nx), Lu (S, N, K nu), Lxx (S, N, K nx, K nx), Luu (S, N,
+// K nu, K nu), p0 (S, K nx), P0 (S, K nx, K nx).  Inputs as the kernels take
+// them (computed_inputs.cuh slot_problem).  Returns 1 for widths past the
+// models'.
+int dpilqr_host_batched_prep(int S, int N, int K, int nx, int nu, const double* X,
+                             const double* U, const double* xf, const double* Q,
+                             const double* R, const double* Qf, const double* mask,
+                             const double* refw, const double* radius,
+                             const double* pw, const int* npos, const int* mids,
+                             const int* ids, double dt, double* A, double* B,
+                             double* Lx, double* Lu, double* Lxx, double* Luu,
+                             double* p0, double* P0) {
+  if (nx > MAX_NX || nu > MAX_NU) return 1;
+  const int k = nx < 3 ? nx : 3, nxf = K * nx, nuf = K * nu;
+  std::vector<double> QQ(K * nx * nx), RR(K * nu * nu), Ld(K * nx * nx),
+      Lud(K * nu * nu), Lblk(K * K * k * k), G(K * K * 3);
+  const auto symmetrize = [](const double* W, double* out, int n, int w) {
+    for (int e = 0; e < n * w * w; ++e) {
+      const int i = e / (w * w), a = e % (w * w) / w, b = e % w;
+      out[e] = W[e] + W[(i * w + b) * w + a];
+    }
+  };
+  const auto hessians = [&](double* lxx, double* luu) {
+    for (int r = 0; r < nxf; ++r)
+      for (int c = 0; c < nxf; ++c)
+        lxx[r * nxf + c] = lxx_entry(r, c, K, nx, k, Ld.data(), Lblk.data());
+    if (luu != nullptr)
+      for (int r = 0; r < nuf; ++r)
+        for (int c = 0; c < nuf; ++c) luu[r * nuf + c] = luu_entry(r, c, nu, Lud.data());
+  };
+  for (int s = 0; s < S; ++s) {
+    const SlotProblem<double> pb = slot_problem(X, U, xf, Q, R, Qf, mask, refw, radius,
+                                                pw, npos, mids, ids, dt, s, N, K, nx, nu);
+    const CostTerms<double> c{pb.xf, QQ.data(), RR.data(), pb.mask, pb.npos, pb.refw,
+                              pb.radius, pb.pw, K, nx, nu, k};
+    // The terminal step, with Qf.
+    symmetrize(pb.Qf, QQ.data(), K, nx);
+    symmetrize(pb.R, RR.data(), K, nu);
+    constant_blocks(c, Ld.data(), Lud.data(), 0, 1);
+    sweep_prep_items_inline<MAX_NX, double>(pb, c, N, p0 + (size_t)s * nxf, nullptr, nullptr,
+                                    nullptr, Lblk.data(), G.data(), 0, 1);
+    hessians(P0 + (size_t)s * nxf * nxf, nullptr);
+    // The stage steps, with Q.
+    symmetrize(pb.Q, QQ.data(), K, nx);
+    constant_blocks(c, Ld.data(), Lud.data(), 0, 1);
+    for (int t = 0; t < N; ++t) {
+      const size_t st = (size_t)s * N + t;
+      sweep_prep_items_inline<MAX_NX>(pb, c, t, Lx + st * nxf, Lu + st * nuf,
+                                      A + st * K * nx * nx, B + st * K * nx * nu,
+                                      Lblk.data(), G.data(), 0, 1);
+      hessians(Lxx + st * nxf * nxf, Luu + st * nuf * nuf);
+    }
+  }
   return 0;
 }
 

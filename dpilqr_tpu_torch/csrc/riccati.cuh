@@ -46,19 +46,16 @@
 // - where a kernel compiles the slot widths nx, nu (and the slot count K)
 //   in, the index divisions and the loops over a block cost nothing on the
 //   chain: at nxf 32 they were more than half of phases 1 and 2
-//   (riccati_sweep's NXS, NUS, KS);
+//   (riccati_sweep_from's NXS, NUS, KS);
 // - the transposed reads of the value update (K^T Q_ux's transpose, the
 //   symmetrization) go tile by tile, a row segment per load, instead of one
 //   column-strided value per thread (a 32-way bank conflict at nxf 32, 96);
 // - the gains leave coalesced: a step's block is contiguous in memory;
-// - no phase waits for device memory: a step's L_xx and L_uu are copied
-//   asynchronously (cp.async) into the buffers that will hold Q_xx and Q_uu
-//   while phase 1 runs, and the next step's A, B, L_x and L_u while the
-//   Gauss-Jordan runs (a group that lives in the workspace is copied with
-//   plain loads instead).  Where a step's inputs come from is the sweep's
-//   input source (CopiedInputs below: device memory, for K1 and K3); K5
-//   computes them in place instead, the next step's on the warps the
-//   elimination leaves idle (backward_sweep.cu).
+// - no phase waits for device memory: the sweep's input source
+//   (computed_inputs.cuh, for all three kernels) computes a step's inputs
+//   into the working set, the next step's on the warps the elimination
+//   leaves idle, and phase 2 reads each entry of L_xx and L_uu from their
+//   blocks where it adds it.
 //
 // Working memory comes in three groups, each carved from its own base
 // pointer, so a kernel can place each group in shared or in device memory
@@ -73,10 +70,9 @@
 // riccati_plan places them: all in shared memory where that fits, else the
 // value group in a device-memory workspace, else the gain group too.
 //
-// Per-problem layouts (contiguous, time-major):
-//   A (N, K, nx, nx), B (N, K, nx, nu), Luu (N, nuf, nuf), Lxx (N, nxf, nxf),
-//   Lx (N, nxf), Lu (N, nuf), p0 (nxf), P0 (nxf, nxf)
-//   -> Kg (N, nuf, nxf), d (N, nuf) of this problem.
+// A step's inputs, as the source leaves them in the working set: A_t (K, nx,
+// nx), B_t (K, nx, nu), the L_x and L_u rows; L_xx and L_uu entries on
+// request (lxx, luu) -> Kg (N, nuf, nxf), d (N, nuf) of this problem.
 
 #pragma once
 
@@ -110,8 +106,8 @@ struct RiccatiPlan {
   size_t smem, work;
 };
 
-// `extra`: values a kernel adds to the gain group for itself (K5's input
-// buffers; 0 for K1 and K3).
+// `extra`: values a kernel adds to the gain group for itself (the input
+// source's buffers, computed_inputs.cuh computed_plan).
 inline RiccatiPlan riccati_plan(int K, int nx, int nu, size_t itemsize,
                                 long long optin, size_t extra = 0) {
   RiccatiSizes z = riccati_sizes(K, nx, nu);
@@ -307,25 +303,6 @@ __device__ __forceinline__ void atb_tile(const T* L, int ldl, int m, const T* R,
         for (int j = 0; j < TILE; ++j) acc[i][j] = acc[i][j] + a[i] * b[j];
     }
   }
-}
-
-// n values copied into a working buffer by `nth` threads of which this is
-// number `tid` (default: the whole CTA): asynchronously where the buffer lies
-// in shared memory (the caller commits and waits), with plain loads and
-// stores where it lies in the workspace.
-template <bool SHARED, typename T>
-__device__ __forceinline__ void stage_copy(T* dst, const T* src, int n, int tid,
-                                           int nth) {
-  if constexpr (SHARED) {
-    copy_async(dst, src, n, tid, nth);
-  } else {
-    for (int i = tid; i < n; i += nth) dst[i] = src[i];
-  }
-}
-
-template <bool SHARED, typename T>
-__device__ __forceinline__ void stage_copy(T* dst, const T* src, int n) {
-  stage_copy<SHARED>(dst, src, n, (int)threadIdx.x, (int)blockDim.x);
 }
 
 // The CTA's threads as nxt columns by nyt rows for a phase whose outputs
@@ -636,53 +613,11 @@ inline int riccati_read_phase_clocks(unsigned long long* out) {
 //     synchronize the CTA;
 //   fetch(t, ws, ..., ft, fn): step t's A, B, L_x and L_u into At, Bt, lx
 //     and lu, by threads ft of fn, while the CTA's other work goes on (the
-//     next step's, during the elimination); done by the barrier that ends
-//     the step;
-//   hessians(t, ws, ...): step t's L_xx and L_uu into Qxx and Quu, by every
-//     thread at the step's top; done by the barrier that ends phase 1;
+//     next step's, on the warps the elimination leaves idle); done by the
+//     barrier that ends the step;
 //   lxx(ws, e, r, c, ...), luu(...): entry (r, c) of the step's L_xx and
-//     L_uu where phase 2 adds it (e: its index in Qxx, Quu).  CopiedInputs
-//     reads what hessians staged; a source may compute it there instead.
-// kComputes says the source computes instead of copying: then the next
-// step's fetch runs on the warps the elimination leaves idle.
-// CopiedInputs reads them from device memory, as the decomposed path's prep
-// (ops/batched.py) lays them out (K1, K3).
-template <int TIER, typename T>
-struct CopiedInputs {
-  static constexpr bool kComputes = false;
-  const T *A, *B, *Luu, *Lxx, *Lx, *Lu, *p0, *P0;
-
-  __device__ __forceinline__ void init(const RiccatiWork<T>& ws, int K, int nx,
-                                       int nu) const {
-    const int nxf = K * nx, tid = threadIdx.x, nth = blockDim.x;
-    for (int i = tid; i < nxf * nxf; i += nth) ws.P[i] = P0[i];
-    for (int i = tid; i < nxf; i += nth) ws.p[i] = p0[i];
-  }
-  __device__ __forceinline__ void fetch(int t, const RiccatiWork<T>& ws, int K,
-                                        int nx, int nu, int ft, int fn) const {
-    const int nxf = K * nx, nuf = K * nu;
-    stage_copy<TIER <= 1>(ws.At, A + (size_t)t * K * nx * nx, K * nx * nx, ft, fn);
-    stage_copy<TIER <= 1>(ws.Bt, B + (size_t)t * K * nx * nu, K * nx * nu, ft, fn);
-    stage_copy<true>(ws.lx, Lx + (size_t)t * nxf, nxf, ft, fn);
-    stage_copy<true>(ws.lu, Lu + (size_t)t * nuf, nuf, ft, fn);
-    __pipeline_commit();
-  }
-  __device__ __forceinline__ void hessians(int t, const RiccatiWork<T>& ws, int K,
-                                           int nx, int nu) const {
-    const int nxf = K * nx, nuf = K * nu;
-    stage_copy<TIER == 0>(ws.Qxx, Lxx + (size_t)t * nxf * nxf, nxf * nxf);
-    stage_copy<TIER <= 1>(ws.Quu, Luu + (size_t)t * nuf * nuf, nuf * nuf);
-    __pipeline_commit();
-  }
-  __device__ __forceinline__ T lxx(const RiccatiWork<T>& ws, int e, int, int, int,
-                                   int) const {
-    return ws.Qxx[e];
-  }
-  __device__ __forceinline__ T luu(const RiccatiWork<T>& ws, int e, int, int,
-                                   int) const {
-    return ws.Quu[e];
-  }
-};
+//     L_uu where phase 2 adds it (e: its index in Qxx, Quu).
+// The one source is computed_inputs.cuh's ComputedInputs (K1, K3 and K5).
 
 // The first warp the register elimination (gauss_jordan) leaves idle, or
 // 0 where it takes the whole CTA (every warp, or the in-place path).
@@ -691,18 +626,16 @@ __device__ __forceinline__ int gauss_jordan_idle_warp(int nuf, int ncol) {
   return gw < nw && ncol <= 32 * GJ_COLS ? gw : 0;
 }
 
-// TILE: the register tile of the nuf-deep products; TIER: where the groups
-// live (riccati_plan), which decides what can be copied asynchronously;
-// GJ_NR, GJ_NCB: where GJ_NR > 0 the elimination runs in one warp's
+// TILE: the register tile of the nuf-deep products; GJ_NR, GJ_NCB: where GJ_NR > 0 the elimination runs in one warp's
 // registers (gauss_jordan_warp: nuf <= GJ_NR, ncol <= 32 GJ_NCB) and writes
 // the gains itself, so phases 3 and 4 are one; NXS, NUS, KS: where not 0, the
 // slot widths nx and nu and the slot count K as compile-time constants (the
 // index divisions become shifts or multiplications and the loops over a
 // block unroll: at nxf 32 more than half of phases 1 and 2 was index
 // arithmetic on the dependent chain).
-// src: the input source (CopiedInputs, or K5's).
-template <int TILE, int TIER, int GJ_NR = 0, int GJ_NCB = 0, int NXS = 0,
-          int NUS = 0, int KS = 0, typename Src, typename T>
+// src: the input source (computed_inputs.cuh).
+template <int TILE, int GJ_NR = 0, int GJ_NCB = 0, int NXS = 0, int NUS = 0,
+          int KS = 0, typename Src, typename T>
 __device__ __forceinline__ void riccati_sweep_from(
     const Src& src, const T mu, T* __restrict__ Kg, T* __restrict__ dg, int N,
     int K_arg, int nx_arg, int nu_arg, const RiccatiWork<T>& ws) {
@@ -735,20 +668,15 @@ __device__ __forceinline__ void riccati_sweep_from(
   long long phase_start_ = clock64();
 #endif
 
-  // Step t's A, B, L_x and L_u rows, by threads ft of fn.  Where one warp
-  // eliminates alone, the others fetch meanwhile.
-  const bool warp_gj = GJ_NR > 0 && nth > 32;
+  // Step t's A, B, L_x and L_u rows, by threads ft of fn.  Where the
+  // elimination leaves warps idle, they fetch meanwhile.
   auto fetch_step = [&](int t, int ft, int fn) { src.fetch(t, ws, K, nx, nu, ft, fn); };
   if (N > 0) fetch_step(N - 1, tid, nth);
-  __pipeline_wait_prior(0);
   __syncthreads();  // P, p and the last step's A, B, L_x, L_u are in place
 
   for (int t = N - 1; t >= 0; --t) {
-    // The step's L_xx and L_uu, into the buffers of Q_xx and Q_uu (free
-    // since the last step's phases 7 and 5); they land during phase 1.  The
-    // step's A, B, L_x and L_u landed before the barrier that ended the
-    // step before (or the one above), so phase 1 starts at once.
-    src.hessians(t, ws, K, nx, nu);
+    // The step's A, B, L_x and L_u are in place since the barrier that
+    // ended the step before (or the one above), so phase 1 starts at once.
     RICCATI_CLOCK(0)
 
     // Phase 1: Q_x, Q_u, A^T P, B^T (P + mu I).
@@ -766,7 +694,6 @@ __device__ __forceinline__ void riccati_sweep_from(
     }
     bd_left<false>(At, nx, nxf, P, mu, AtP, nx, nxf);
     bd_left<true>(Bt, nu, nuf, P, mu, W1, nx, nxf);
-    __pipeline_wait_prior(0);  // L_xx, L_uu
     __syncthreads();
     RICCATI_CLOCK(1)
 
@@ -821,7 +748,6 @@ __device__ __forceinline__ void riccati_sweep_from(
     __syncthreads();
     RICCATI_CLOCK(2)
     // A_t, B_t and the staged rows are done with.
-    if (!Src::kComputes && t > 0 && !warp_gj) fetch_step(t - 1, tid, nth);
 
     // Phases 3 and 4: the solve [K | d] = -Quu^-1 [Qux | Qu] and the gains
     // K = -X, d = -x; a step's block is contiguous.
@@ -835,7 +761,7 @@ __device__ __forceinline__ void riccati_sweep_from(
       RICCATI_CLOCK(3)
     } else {
       gauss_jordan(M, ws.prow, ws.colv, nuf, ncol);
-      if (Src::kComputes && t > 0) {
+      if (t > 0) {
         // The warps the elimination leaves idle compute the next step's
         // inputs while it runs; where it takes them all, all of them do
         // after it.
@@ -945,26 +871,10 @@ __device__ __forceinline__ void riccati_sweep_from(
           store_row<TILE>(P + (r0 + i) * nxf + c0, nxf - c0, full, q);
         }
     }
-    __pipeline_wait_prior(0);  // the next step's A, B, L_x, L_u
-    __syncthreads();
+    __syncthreads();  // the next step's A, B, L_x, L_u are in place
     RICCATI_CLOCK(7)
   }
 }
 
-
-// The sweep over inputs in device memory (CopiedInputs): K1 and K3.
-template <int TILE, int TIER, int GJ_NR = 0, int GJ_NCB = 0, int NXS = 0,
-          int NUS = 0, int KS = 0, typename T>
-__device__ __forceinline__ void riccati_sweep(
-    const T* __restrict__ A, const T* __restrict__ B,
-    const T* __restrict__ Luu, const T* __restrict__ Lxx,
-    const T* __restrict__ Lx, const T* __restrict__ Lu, const T mu,
-    const T* __restrict__ p0, const T* __restrict__ P0, T* __restrict__ Kg,
-    T* __restrict__ dg, int N, int K_arg, int nx_arg, int nu_arg,
-    const RiccatiWork<T>& ws) {
-  const CopiedInputs<TIER, T> src{A, B, Luu, Lxx, Lx, Lu, p0, P0};
-  riccati_sweep_from<TILE, TIER, GJ_NR, GJ_NCB, NXS, NUS, KS>(
-      src, mu, Kg, dg, N, K_arg, nx_arg, nu_arg, ws);
-}
 
 }  // namespace

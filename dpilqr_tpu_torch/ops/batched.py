@@ -6,9 +6,11 @@ into one batch of S subproblems with K slots each, and every iteration runs
 two batched sweeps over all of them:
 
 - ``backward_pass_batched``: the Riccati recursion (reference
-  control.py:116-148), kernel ``csrc/backward_batched.cu`` for flat states
-  up to 32 wide and ``csrc/backward_batched_wide.cu`` for every wider one
-  whose working set the card can place (``riccati_smem_bytes``);
+  control.py:116-148) with its inputs, as ONE launch of kernel
+  ``csrc/backward_batched.cu`` for flat states up to 32 wide or
+  ``csrc/backward_batched_wide.cu`` for every wider one whose working set
+  the card can place (``sweep_smem_bytes``); each kernel computes a step's
+  Jacobians and cost derivatives itself (``csrc/computed_inputs.cuh``);
 - ``forward_pass_batched``: the closed-loop line-search rollout over all
   alphas (control.py:95-114,162), kernel ``csrc/forward_batched.cu``.
 
@@ -21,14 +23,15 @@ nx_p)``, and hand the tensors out as permuted views (``GAIN_ORDER``,
 forward kernel stages a step's gain block with one contiguous copy and
 ``select_alpha`` gathers whole rows.
 
-Each kernel has a plain PyTorch twin beside it (``*_torch``): a Python loop
-over time with the same block algebra as batched einsums.  ``backend``
-"auto" takes the kernel for CUDA tensors and the twin for CPU tensors;
-"cuda" and "torch" force one.  The kernels raise rather than fall back.
-
-The quadraticization and linearization (``_quadraticize_batch``,
-``_linearize_batch``) run in torch outside the kernels, as in the JAX
-package.  The batch loop (``solve_subproblems_batched``) runs on the host:
+Each kernel has a plain PyTorch version beside it: for the backward kernels
+the time-batched quadraticization and linearization (``_quadraticize_batch``,
+``_linearize_batch``, the JAX package's XLA phase) and the twin of the
+recursion (``backward_pass_batched_torch``), for the forward kernel
+``forward_pass_batched_torch``; the twins are Python loops over time with
+the same block algebra as batched einsums.  ``backend`` "auto" takes the
+kernel for CUDA tensors and the plain version for CPU tensors; "cuda" and
+"torch" force one.  The kernels raise rather than fall back.  The batch
+loop (``solve_subproblems_batched``) runs on the host:
 one sync per iteration for the loop condition and one for the two-stage
 line search, with finished subproblems retired by halving compaction.
 """
@@ -123,7 +126,7 @@ def riccati_smem_bytes(K: int, nx: int, nu: int, itemsize: int,
     bytes of a CTA, workspace values of one problem)``: tier 0 has all three
     groups in shared memory, 1 the value group in the device-memory
     workspace, 2 the gain group too; ``extra`` values join the gain group
-    (K5's own buffers, ``sweeps.sweep_extra_values``).  Raises where not
+    (the kernels' input buffers, ``sweep_extra_values``).  Raises where not
     even the vectors fit ``limit`` bytes."""
     value, gain, vec = riccati_sizes(K, nx, nu)
     gain += extra
@@ -139,6 +142,26 @@ def riccati_smem_bytes(K: int, nx: int, nu: int, itemsize: int,
         f"K*nx={K * nx}, K*nu={K * nu}: its vectors alone take "
         f"{vec * itemsize} bytes of shared memory, over the {limit} a block "
         "may use")
+
+
+def sweep_extra_values(n: int, nx: int, nu: int) -> int:
+    """Values the backward kernels' input source adds to the Riccati working
+    set's gain group (per agent Q + Q^T, R + R^T and their weighted blocks,
+    a step's (n, n, k, k) proximity blocks and (n, n, 3) pair gradient
+    terms): the mirror of ``sweep_extra_values`` in
+    csrc/computed_inputs.cuh."""
+    k = min(3, nx)
+    return (2 * _pad4(n * nx * nx) + 2 * _pad4(n * nu * nu) + _pad4(n * n * k * k)
+            + _pad4(n * n * 3))
+
+
+def sweep_smem_bytes(n: int, nx: int, nu: int, itemsize: int) -> tuple[int, int, int]:
+    """Where a backward kernel (K1, K3, K5) places one problem of ``n``
+    slots: ``(tier, shared-memory bytes, workspace values)``, the mirror of
+    ``dpilqr_riccati_plan`` (``riccati_smem_bytes`` with the input source's
+    buffers); raises where no tier fits."""
+    return riccati_smem_bytes(n, nx, nu, itemsize,
+                              extra=sweep_extra_values(n, nx, nu))
 
 
 def forward_smem_bytes(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
@@ -165,7 +188,8 @@ def forward_smem_bytes(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
 
 
 # ---------------------------------------------------------------------------
-# Batched prep (torch, outside the kernels).
+# Batched prep: the backward kernels' inputs in torch, for their plain
+# version (the kernels compute them themselves).
 # ---------------------------------------------------------------------------
 
 
@@ -299,65 +323,92 @@ def backward_pass_batched_torch(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
 def _check_width(name: str, K: int, nx_p: int, nu_p: int, itemsize: int,
                  narrow: bool = False):
     """Raise unless backward kernel ``name`` takes subproblems of ``K``
-    slots: the narrow kernel up to ``MAX_NXF`` flat states and controls, the
-    wide one whatever ``riccati_smem_bytes`` places (it raises, naming the
-    plan, where no tier fits)."""
+    slots: the narrow kernel up to ``MAX_NXF`` flat states and controls, its
+    working set all in shared memory, the wide one whatever
+    ``sweep_smem_bytes`` places (it raises, naming the plan, where no tier
+    fits)."""
     nxf, nuf = K * nx_p, K * nu_p
     if narrow and max(nxf, nuf) > MAX_NXF:
         raise ValueError(
             f"{name} takes K*nx_p, K*nu_p <= {MAX_NXF}, got {nxf}, {nuf}: "
             "wider subproblems take backward_pass_batched_wide_cuda"
         )
-    riccati_smem_bytes(K, nx_p, nu_p, itemsize)
+    tier = sweep_smem_bytes(K, nx_p, nu_p, itemsize)[0]
+    if narrow and tier != 0:
+        raise ValueError(f"{name}: a subproblem of K={K} does not fit shared memory")
 
 
-def _launch_backward(kernel, narrow, A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0,
-                     workspace=False):
+@lru_cache(maxsize=64)
+def _dt_tensor(dt: float, dtype, device):
+    """The fleet's step as a one-value tensor on ``device``, made once."""
+    return torch.tensor([dt], dtype=torch.float64).to(dtype).to(device)
+
+
+def _launch_backward(kernel, narrow, fleet: Fleet, cost_b: GameCost, mids_s, X, U,
+                     mu, workspace=False):
     """Check the backward inputs and launch ``kernel`` (with the
     per-subproblem device-memory ``workspace`` its plan asks for); returns
     ``Kg (N, nuf, nxf, S)``, ``d (N, nuf, S)``, views of ``(S, N, nuf,
     nxf)`` and ``(S, N, nuf)`` memory."""
-    S, N, K, nx_p, _ = A.shape
-    nu_p = B.shape[-1]
+    S, Np1, K, nx_p = X.shape
+    N = Np1 - 1
+    nu_p = U.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
-    _check_width(kernel, K, nx_p, nu_p, A.element_size(), narrow)
-    require_cuda(kernel, A)
-    ins = dict(A=A, B=B, L_uu=L_uu, L_xx=L_xx, L_x=L_x, L_u=L_u, mu=mu, p0=p0,
-               P0=P0)
-    check_tensors(kernel, ins, {
-        "A": (S, N, K, nx_p, nx_p), "B": (S, N, K, nx_p, nu_p),
-        "L_uu": (S, N, nuf, nuf), "L_xx": (S, N, nxf, nxf),
-        "L_x": (S, N, nxf), "L_u": (S, N, nuf), "mu": (S,),
-        "p0": (S, nxf), "P0": (S, nxf, nxf),
-    }, A.dtype, A.device)
-    Kg = A.new_empty((S, N, nuf, nxf))
-    d = A.new_empty((S, N, nuf))
+    library = require_kernel_models(fleet)
+    _check_width(kernel, K, nx_p, nu_p, X.element_size(), narrow)
+    require_cuda(kernel, X)
+    if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
+        raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
+    dtype, dev = X.dtype, X.device
+    cost_b = cast_cost(cost_b, dtype)
+    specs = fleet.unique_specs
+    ids = _model_tables(specs, fleet.dt, dtype, dev, tuple(s.expr for s in specs))[0]
+    ins = dict(X=X, U=U, xf=cost_b.xf, Q=cost_b.Q, R=cost_b.R, Qf=cost_b.Qf,
+               mask=cost_b.agent_mask, refw=cost_b.ref_weight,
+               radius=cost_b.radius, proxw=cost_b.prox_weight, npos=cost_b.n_pos,
+               mids=mids_s.to(torch.int32), ids=ids,
+               dt=_dt_tensor(fleet.dt, dtype, dev), mu=mu)
+    check_tensors(kernel, ins, dict(
+        X=(S, N + 1, K, nx_p), U=(S, N, K, nu_p), xf=(S, K, nx_p),
+        Q=(S, K, nx_p, nx_p), R=(S, K, nu_p, nu_p), Qf=(S, K, nx_p, nx_p),
+        mask=(S, K), refw=(S,), radius=(S,), proxw=(S,), npos=(S, K),
+        mids=(S, K), ids=(len(specs),), dt=(1,), mu=(S,)),
+        dtype, dev, ints=("npos", "mids", "ids"))
+    Kg = X.new_empty((S, N, nuf, nxf))
+    d = X.new_empty((S, N, nuf))
     work = ()
     if workspace:
-        w = A.new_empty((S, riccati_plan(K, nx_p, nu_p, A.element_size())[2]))
+        w = X.new_empty((S, riccati_plan(K, nx_p, nu_p, X.element_size())[2]))
         work = (w, w.numel())
-    launch(kernel, A.dtype, A.device, *ins.values(), Kg, d, *work,
-           S, N, K, nx_p, nu_p)
+    launch(kernel, dtype, dev, *ins.values(), Kg, d, *work, S, N, K, nx_p, nu_p,
+           library=library)
     return Kg.permute(_inverse(GAIN_ORDER)), d.permute(_inverse(D_ORDER))
 
 
-def backward_pass_batched_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
-    """Launch ``csrc/backward_batched.cu`` (K * nx_p <= 32): the Riccati
-    recursion for all subproblems, one CTA each.  Inputs as
-    ``_quadraticize_batch`` / ``_linearize_batch`` produce them; returns
-    ``Kg (N, nuf, nxf, S)``, ``d (N, nuf, S)``."""
-    return _launch_backward("backward_batched", True, A, B, L_uu, L_xx,
-                            L_x, L_u, mu, p0, P0)
+def backward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U, mu):
+    """Launch ``csrc/backward_batched.cu`` (K * nx_p <= 32): the whole
+    backward pass of every subproblem, one CTA each, its inputs (the
+    Euler-discretized Jacobians of each slot's model, the cost's gradients
+    and Hessian blocks) computed in the kernel from the trajectory ``X (S,
+    N+1, K, nx_p)``, ``U (S, N, K, nu_p)``, the per-subproblem cost
+    ``cost_b`` and the slots' branch indices ``mids_s (S, K)``, with
+    regularization ``mu (S,)``.  Returns ``Kg (N, nuf, nxf, S)``, ``d (N,
+    nuf, S)``.  Its plain version: ``backward_pass_batched`` with backend
+    "torch"."""
+    return _launch_backward("backward_batched", True, fleet, cost_b, mids_s, X, U,
+                            mu)
 
 
-def backward_pass_batched_wide_cuda(A, B, L_uu, L_xx, L_x, L_u, mu, p0, P0):
+def backward_pass_batched_wide_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
+                                    mu):
     """Launch ``csrc/backward_batched_wide.cu`` (any width the card places):
     the same contract as ``backward_pass_batched_cuda``.  Each subproblem's
-    working set lies in shared memory where it fits (``riccati_smem_bytes``),
-    else its three nxf^2 matrices (and then its gain blocks) in a
-    device-memory workspace; it raises where not even the vectors fit."""
-    return _launch_backward("backward_batched_wide", False, A, B, L_uu,
-                            L_xx, L_x, L_u, mu, p0, P0, workspace=True)
+    working set lies in shared memory where it fits (``sweep_smem_bytes``),
+    else its three nxf^2 matrices (and then its gain blocks and input
+    buffers) in a device-memory workspace; it raises where not even the
+    vectors fit."""
+    return _launch_backward("backward_batched_wide", False, fleet, cost_b, mids_s,
+                            X, U, mu, workspace=True)
 
 
 def backward_pass_batched(
@@ -368,20 +419,22 @@ def backward_pass_batched(
     ``X (S, N+1, K, nx_p)``, ``U (S, N, K, nu_p)``, ``mu (S,)``,
     ``mids_s (S, K)`` per-slot branch indices.  Returns ``Kg (N, nuf, nxf,
     S)`` and ``d (N, nuf, S)``, the JAX package's layout.  On the kernels
-    flat states up to 32 wide take the narrow kernel and wider ones the wide
-    one (the JAX package's routing, pallas_batched.py:989-1001, which past
-    96 falls to its XLA scans; here the wide kernel goes on).
+    it is one launch (the kernel computes its inputs), flat states up to 32
+    wide on the narrow kernel and wider ones on the wide one (the JAX
+    package's routing, pallas_batched.py:989-1001, which past 96 falls to
+    its XLA scans; here the wide kernel goes on).  The plain version
+    computes the inputs in torch (``_quadraticize_batch``,
+    ``_linearize_batch``) and runs ``backward_pass_batched_torch``.
     """
-    q = _quadraticize_batch(cost_b, X, U)
-    A, B = _linearize_batch(fleet, cost_b, mids_s, X, U)
+    mu = mu.to(X.dtype).contiguous()
     if resolve_backend(backend, X) == "torch":
-        fn = backward_pass_batched_torch
-    elif X.shape[2] * X.shape[3] <= MAX_NXF:
-        fn = backward_pass_batched_cuda
-    else:
-        fn = backward_pass_batched_wide_cuda
-    return fn(A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"],
-              mu.to(X.dtype).contiguous(), q["p0"], q["P0"])
+        q = _quadraticize_batch(cost_b, X, U)
+        A, B = _linearize_batch(fleet, cost_b, mids_s, X, U)
+        return backward_pass_batched_torch(A, B, q["L_uu"], q["L_xx"], q["L_x"],
+                                           q["L_u"], mu, q["p0"], q["P0"])
+    fn = (backward_pass_batched_cuda if X.shape[2] * X.shape[3] <= MAX_NXF
+          else backward_pass_batched_wide_cuda)
+    return fn(fleet, cost_b, mids_s, X, U, mu)
 
 
 # ---------------------------------------------------------------------------

@@ -8,11 +8,11 @@ hash of the sources and the compiler flags, so an edited kernel rebuilds
 and an unchanged one loads.
 
 Fleets of custom models (``ops.codegen``) run on a second library: the
-three kernels that integrate or differentiate a fleet (K2, K4, K5) compiled
+five kernels that integrate or differentiate a fleet (K1 to K5) compiled
 once more with ``-DDPILQR_CUSTOM_MODELS`` and the generated header on the
 include path, into ``_build/custom/<hash of sources, flags and header>/``.
 ``require_kernel_models`` routes a fleet to its library (or refuses it);
-K1, K3 and the probes hold no model and always come from the default one.
+the probes hold no model and always come from the default one.
 
 ``launch`` is the one way a wrapper calls a kernel: it raises on a failed
 launch and counts the launch in ``launch_counts`` (and, from a custom
@@ -58,8 +58,8 @@ _F = ctypes.c_float
 # Argument lists of the C entry points (pointers, then sizes and scalars,
 # then stream).
 _SIGNATURES = {
-    "backward_batched": [_P] * 11 + [_I] * 5 + [_P],
-    "backward_batched_wide": [_P] * 12 + [_L] + [_I] * 5 + [_P],
+    "backward_batched": [_P] * 17 + [_I] * 5 + [_P],
+    "backward_batched_wide": [_P] * 18 + [_L] + [_I] * 5 + [_P],
     "backward_sweep": [_P] * 17 + [_L] + [_I] * 4 + [_P],
     "forward_batched": [_P] * 20 + [_I] * 6 + [_P],
     "forward_sweep": [_P] * 21 + [_I] * 6 + [_P],
@@ -81,7 +81,8 @@ _DTYPES = {
 
 # The sources (and so the kernels) of a custom-model library: those whose
 # kernels run a fleet's right-hand sides.
-CUSTOM_KERNELS = ("backward_sweep", "forward_batched", "forward_sweep")
+CUSTOM_KERNELS = ("backward_batched", "backward_batched_wide", "backward_sweep",
+                  "forward_batched", "forward_sweep")
 
 # Launches of each kernel since the last reset, and of those the launches
 # from a custom-model library.
@@ -243,9 +244,8 @@ def load_library(header: str | None = None) -> ctypes.CDLL:
             fn.argtypes = _SIGNATURES[base]
             fn.restype = ctypes.c_int
     if header is None:  # the plans: the default library's alone are called
-        for plan in (lib.dpilqr_riccati_plan, lib.dpilqr_sweep_plan):
-            plan.argtypes = [_I] * 4 + [ctypes.POINTER(_L)] * 2
-            plan.restype = ctypes.c_int
+        lib.dpilqr_riccati_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_L)] * 2
+        lib.dpilqr_riccati_plan.restype = ctypes.c_int
         lib.dpilqr_forward_smem_bytes.argtypes = [_I] * 6
         lib.dpilqr_forward_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -261,7 +261,7 @@ def dtype_suffix(dtype) -> str:
 
 def require_kernel_models(fleet) -> str | None:
     """The library that runs ``fleet``'s models in the kernels that
-    integrate or differentiate them (K2, K4, K5), as ``launch`` takes it:
+    integrate or differentiate them (K1 to K5), as ``launch`` takes it:
     None for the default library (the nine built-ins, compiled into
     ``csrc/dynamics.cuh``), else the header ``ops.codegen`` generates for
     the fleet's custom models, which keys their library.  Pure Python: it
@@ -312,20 +312,20 @@ def check_tensors(name: str, tensors: dict, shapes: dict, dtype, device,
 
 
 @cache
-def riccati_plan(K: int, nx: int, nu: int, itemsize: int,
-                 sweep: bool = False) -> tuple[int, int, int]:
-    """Where the library places one problem's Riccati working set on the
-    current device (``riccati_plan`` in csrc/riccati.cuh, exported by
-    csrc/backward_batched_wide.cu; with ``sweep`` K5's, which adds its own
-    buffers, exported by csrc/backward_sweep.cu): ``(tier, shared-memory
-    bytes of a CTA, workspace values of one problem)``.  Tier 0 keeps
-    everything in shared memory, 1 the three nxf^2 matrices in a
-    device-memory workspace, 2 the gain blocks too; a working set whose
-    vectors alone exceed shared memory raises."""
+def riccati_plan(K: int, nx: int, nu: int, itemsize: int) -> tuple[int, int, int]:
+    """Where the library places one problem's working set of a backward
+    kernel (K1, K3, K5) on the current device (``computed_plan`` in
+    csrc/computed_inputs.cuh: ``riccati_plan`` of csrc/riccati.cuh with the
+    input source's buffers, exported by csrc/backward_batched_wide.cu):
+    ``(tier, shared-memory bytes of a CTA, workspace values of one
+    problem)``.  Tier 0 keeps everything in shared memory, 1 the three
+    nxf^2 matrices in a device-memory workspace, 2 the gain blocks and the
+    input buffers too; a working set whose vectors alone exceed shared
+    memory raises."""
     smem, work = _L(), _L()
     lib = load_library()
-    plan = lib.dpilqr_sweep_plan if sweep else lib.dpilqr_riccati_plan
-    tier = plan(K, nx, nu, itemsize, ctypes.byref(smem), ctypes.byref(work))
+    tier = lib.dpilqr_riccati_plan(K, nx, nu, itemsize, ctypes.byref(smem),
+                                   ctypes.byref(work))
     if tier < 0:
         raise ValueError(f"a Riccati problem of K={K}, nx={nx}, nu={nu} does "
                          "not fit the device's shared memory")

@@ -237,7 +237,7 @@ def resolve_sweep_backend(cfg: SolverConfig, x, fleet: Fleet) -> str:
     """``cfg.sweep_backend`` for a solve of ``fleet`` on ``x``'s device and
     dtype.  "auto" is the plain PyTorch sweeps for CPU tensors and the
     kernels for CUDA tensors -- unless K5 finds no tier for the problem
-    (``sweeps.sweep_smem_bytes``: its vectors alone exceed a block's shared
+    (``batched.sweep_smem_bytes``: its vectors alone exceed a block's shared
     memory), and then "pscan": the JAX package's rule (the fused kernel
     where it fits, the scan where it does not) without its TPU crossover at
     N >= 100, since on the card K5 beats the scan at every horizon.  An
@@ -246,7 +246,7 @@ def resolve_sweep_backend(cfg: SolverConfig, x, fleet: Fleet) -> str:
         return "pscan"
     backend = resolve_backend(cfg.sweep_backend, x)
     if backend == "cuda":
-        from .sweeps import sweep_smem_bytes
+        from .batched import sweep_smem_bytes
 
         try:
             sweep_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p,

@@ -26,7 +26,7 @@ from functools import lru_cache
 import torch
 
 from ..models.fleet import Fleet
-from .batched import _pad4, _slot_tables, forward_smem_bytes, riccati_smem_bytes
+from .batched import _dt_tensor, _slot_tables, forward_smem_bytes
 from .costs import GameCost, cast_cost
 from .cuda_build import (check_tensors, launch, require_cuda,
                          require_kernel_models, riccati_plan)
@@ -37,30 +37,6 @@ def _branch_indices(fleet: Fleet, device):
     """``fleet.branch_index_array`` on ``device``, copied once: it is a host
     array, and a copy from pageable memory waits for the stream."""
     return torch.as_tensor(fleet.branch_index_array, device=device)
-
-
-def sweep_extra_values(n: int, nx: int, nu: int) -> int:
-    """Values K5 adds to the Riccati working set's gain group (per agent Q +
-    Q^T, R + R^T and their weighted blocks, a step's (n, n, k, k) proximity
-    blocks and (n, n, 3) pair gradient terms): the mirror of
-    ``sweep_extra_values`` in csrc/backward_sweep.cu."""
-    k = min(3, nx)
-    return (2 * _pad4(n * nx * nx) + 2 * _pad4(n * nu * nu) + _pad4(n * n * k * k)
-            + _pad4(n * n * 3))
-
-
-def sweep_smem_bytes(n: int, nx: int, nu: int, itemsize: int) -> tuple[int, int, int]:
-    """Where K5 places its working set: ``(tier, shared-memory bytes,
-    workspace values)``, the mirror of ``dpilqr_sweep_plan``; raises where
-    no tier fits (``batched.riccati_smem_bytes``)."""
-    return riccati_smem_bytes(n, nx, nu, itemsize,
-                              extra=sweep_extra_values(n, nx, nu))
-
-
-@lru_cache(maxsize=64)
-def _dt_tensor(dt: float, dtype, device):
-    """The fleet's step as a one-value tensor on ``device``, made once."""
-    return torch.tensor([dt], dtype=torch.float64).to(dtype).to(device)
 
 
 def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
@@ -89,7 +65,7 @@ def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
         R=(n, nu_p, nu_p), Qf=(n, nx_p, nx_p), mask=(n,), refw=(1,), radius=(1,),
         proxw=(1,), npos=(n,), model=(n,), dt=(1,), mu=(1,)),
         dtype, dev, ints=("npos", "model"))
-    n_work = riccati_plan(n, nx_p, nu_p, X.element_size(), sweep=True)[2]
+    n_work = riccati_plan(n, nx_p, nu_p, X.element_size())[2]
     work = X.new_empty((n_work,))
     K = X.new_empty((N, nuf, nxf))
     d = X.new_empty((N, nuf))

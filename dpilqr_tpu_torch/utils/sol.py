@@ -142,8 +142,9 @@ def pair_flops(k: int) -> int:
 
 def sweep_prep_flops(K: int, nx_p: int, nu_p: int, model="Unicycle4D",
                      terminal: bool = False) -> tuple[int, int]:
-    """``(flops, sin/cos/tan evaluations)`` of K5's inputs at one step of a
-    problem of ``K`` agents (``model``: a name or one per agent): the
+    """``(flops, sin/cos/tan evaluations)`` of a backward kernel's inputs at
+    one step of a problem of ``K`` agents or slots (K5's problem, a
+    subproblem of K1 or K3; ``model``: a name or one per agent): the
     Euler-discretized Jacobians (the model's partials, ``I + dt A_c``,
     ``dt B_c m``), the cost gradients (``w (Q + Q^T)^T e`` and the
     proximity sum; ``w (R + R^T)^T u + 2 (1 - m) u``), every pair's terms and
@@ -162,8 +163,8 @@ def sweep_prep_flops(K: int, nx_p: int, nu_p: int, model="Unicycle4D",
 
 def backward_step_flops(K: int, nx_p: int, nu_p: int) -> int:
     """FLOPs of ONE time step of the Riccati sweep for ONE (sub)problem of
-    ``K`` slots (``riccati_sweep`` in csrc/riccati.cuh; K1, K3, and K5 with
-    K = n).  nxf = K*nx_p, nuf = K*nu_p."""
+    ``K`` slots (``riccati_sweep_from`` in csrc/riccati.cuh; K1, K3, and K5
+    with K = n).  nxf = K*nx_p, nuf = K*nu_p."""
     nxf, nuf = K * nx_p, K * nu_p
     fl = 0
     fl += nxf  # P + mu I: mu on the diagonal
@@ -185,26 +186,6 @@ def backward_step_flops(K: int, nx_p: int, nu_p: int) -> int:
     fl += 2 * (2 * nuf * nxf * nxf)
     fl += 3 * nxf * nxf  # adds + symmetrization
     return fl
-
-
-def backward_step_hbm_bytes(K: int, nx_p: int, nu_p: int,
-                            dtype_bytes: int = 4) -> int:
-    """Device-memory bytes per time step per (sub)problem of the backward
-    kernels: A, B, L_uu, L_xx, L_x, L_u read, Kg and d written.  The value
-    function lives in shared memory (or K3's workspace, which is scratch,
-    not input or output)."""
-    nxf, nuf = K * nx_p, K * nu_p
-    n_in = (K * nx_p * nx_p + K * nx_p * nu_p + nuf * nuf + nxf * nxf
-            + nxf + nuf)
-    n_out = nuf * nxf + nuf
-    return (n_in + n_out) * dtype_bytes
-
-
-def backward_fixed_hbm_bytes(K: int, nx_p: int, dtype_bytes: int = 4) -> int:
-    """Bytes per (sub)problem that do not grow with the horizon: mu, p0,
-    P0."""
-    nxf = K * nx_p
-    return (1 + nxf + nxf * nxf) * dtype_bytes
 
 
 def forward_step_trig_ops(K: int, nx_p: int, nu_p: int, n_alpha: int,
@@ -271,16 +252,17 @@ def forward_fixed_hbm_bytes(K: int, nx_p: int, nu_p: int, n_alpha: int,
 
 
 def sweep_fixed_flops(K: int, nx_p: int, nu_p: int) -> int:
-    """K5's work once a sweep: Q + Q^T, Qf + Qf^T and R + R^T, and the
+    """A backward kernel's work once a (sub)problem's sweep: Q + Q^T, Qf + Qf^T and R + R^T, and the
     weighted blocks w (Q + Q^T), w (Qf + Qf^T) (two products an entry) and
     w (R + R^T) + 2 (1 - m) I (three)."""
     return K * (2 * nx_p * nx_p + nu_p * nu_p) + K * (4 * nx_p * nx_p + 3 * nu_p * nu_p)
 
 
 def sweep_hbm_bytes(N: int, K: int, nx_p: int, nu_p: int, dtype_bytes: int = 4) -> int:
-    """Device-memory bytes of one launch of K5, which computes its inputs:
-    X and U read, the cost (xf, Q, R, Qf, mask, three scalars; n_pos and
-    the model ids int32), dt and mu read, K and d written."""
+    """Device-memory bytes of one problem of a backward kernel, which
+    computes its inputs (K5's problem, one subproblem of K1 or K3): X and U
+    read, the cost (xf, Q, R, Qf, mask, three scalars; n_pos and the model
+    ids or branch indices int32), dt and mu read, K and d written."""
     nxf, nuf = K * nx_p, K * nu_p
     n_in = ((N + 1) * nxf + N * nuf + nxf + 2 * K * nx_p * nx_p
             + K * nu_p * nu_p + K + 3 + 2)
@@ -551,26 +533,26 @@ def sweep_work(family: str, N: int, K: int, nx_p: int, nu_p: int, S: int,
                n_alpha: int, model="Unicycle4D",
                dtype_bytes: int = 4) -> tuple[int, int, int]:
     """``(flops, sin/cos/tan evaluations, device-memory bytes)`` of one
-    launch of a kernel family: ``backward`` (K1) and ``backward_wide`` (K3)
-    share the recursion's count, and ``backward_sweep`` (K5: K = n agents,
-    S = 1) adds its inputs' (``sweep_prep_flops`` at each step and the
-    terminal one, ``sweep_fixed_flops``) and reads the trajectory and the
-    cost instead of them (``sweep_hbm_bytes``); ``forward`` (K2) and
-    ``forward_sweep`` (K4: S = 1) share the other; ``rollout_sweep`` is K4
-    without gains (S = 1, one column: ``n_alpha`` is read as 1).  ``model``
-    is a ModelSpec name or one per slot (a mixed batch: the forward count
-    is the mean over them)."""
-    if family == "backward_sweep":
+    launch of a kernel family.  The three backward families compute their
+    inputs: ``backward`` (K1) and ``backward_wide`` (K3) over S subproblems
+    of K slots and ``backward_sweep`` (K5: K = n agents, S = 1) each count
+    the recursion (``backward_step_flops``) and its inputs
+    (``sweep_prep_flops`` at each step and the terminal one,
+    ``sweep_fixed_flops``) a problem, and read the trajectory and the cost
+    (``sweep_hbm_bytes`` a problem; a batch reads dt once and its unique
+    models' ids, int32, once); ``forward`` (K2) and ``forward_sweep`` (K4:
+    S = 1) share the other; ``rollout_sweep`` is K4 without gains (S = 1, one
+    column: ``n_alpha`` is read as 1).  ``model`` is a ModelSpec name or one
+    per slot (a mixed batch: the forward count is the mean over them)."""
+    if family in BACKWARD_FAMILIES:
         prep, trig = sweep_prep_flops(K, nx_p, nu_p, model)
         fl = ((backward_step_flops(K, nx_p, nu_p) + prep) * N
               + sweep_prep_flops(K, nx_p, nu_p, model, terminal=True)[0]
               + sweep_fixed_flops(K, nx_p, nu_p))
-        return fl * S, trig * N * S, sweep_hbm_bytes(N, K, nx_p, nu_p, dtype_bytes) * S
-    if family in BACKWARD_FAMILIES:
-        fl = backward_step_flops(K, nx_p, nu_p) * N * S
-        by = (backward_step_hbm_bytes(K, nx_p, nu_p, dtype_bytes) * N
-              + backward_fixed_hbm_bytes(K, nx_p, dtype_bytes)) * S
-        return fl, 0, by
+        by = sweep_hbm_bytes(N, K, nx_p, nu_p, dtype_bytes) * S
+        if family != "backward_sweep":
+            by += 4 * len(set(_models(model, K))) - (S - 1) * dtype_bytes
+        return fl * S, trig * N * S, by
     if family in FORWARD_FAMILIES:
         gains = family != "rollout_sweep"
         if not gains:

@@ -8,15 +8,19 @@ step of each phase, with the launch's milliseconds beside them.  Needs one
 CUDA device; run from the repository root:
 
     python3 scripts/riccati_phase_clocks.py                  # K3, the wide shapes
-    python3 scripts/riccati_phase_clocks.py --kernel narrow  # K1: S=100 at K=8, 4, 2, 1
+    python3 scripts/riccati_phase_clocks.py --kernel narrow  # K1: S=100 at K=8, 4, 2, 1,
+                                                             # and two run-time-width fleets
     python3 scripts/riccati_phase_clocks.py --kernel sweep   # K5: chip_smoke.py's fleets
 
 ``--threads N`` builds K1 (or K5) with N threads a CTA
 (``-DDPILQR_NARROW_THREADS``, ``-DDPILQR_SWEEP_THREADS``; 256 and 512 ship).
-K1's elimination stores the gains itself, so its phase 4 reads as the wait
-at the barrier that follows; so does K5's at 10 Unicycle4D, where that wait
-is the part of the next step's input computation that the elimination does
-not hide (K5's phase 0 writes L_xx and L_uu from their blocks).
+All three kernels compute each step's inputs (csrc/computed_inputs.cuh),
+the next step's on the warps the elimination leaves idle.  K1's
+elimination (one warp) stores the gains itself, so its phase 4 reads as the
+wait at the barrier that follows: the part of the next step's input
+computation that the elimination does not hide; so does K5's at 10
+Unicycle4D.  Where K3's elimination is in place (past 160 tableau
+columns) the prep runs after it, inside phase 3.
 """
 
 import argparse
@@ -26,7 +30,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PHASES = ("issue Lxx, Luu", "1 Qx Qu AtP W1", "2 Qxx Qux Quu", "3 Gauss-Jordan",
+PHASES = ("0 step top", "1 Qx Qu AtP W1", "2 Qxx Qux Quu", "3 Gauss-Jordan",
           "4 gains", "5 QuuK KtQux", "6 value update", "7 symmetrize")
 
 
@@ -74,25 +78,40 @@ def main():
                    f"K5 {name}", ms, cs.HORIZON)
         return
     g = 9.80665
+
+    def unicycles(K):
+        fleet, cost, x0 = cs.unicycle_problem(cs.N_AGENTS, 0.55, torch.float32, dev)
+        return cs.sweep_inputs(fleet, cost, x0, K, dev)[0]
+
+    def quads(model, K, u_scale, trim):
+        fleet, cost, x0 = cs.quad_problem(model, 64, 0.7, torch.float32, dev)
+        return cs.sweep_inputs(fleet, cost, x0, K, dev, u_scale=u_scale,
+                               u_trim=np.array(trim))[0]
+
+    def named(names, K):
+        # Slots past 4 states and 2 controls: the run-time widths' path.
+        fleet = dtt.Fleet.from_names(names, cs.DT)
+        x0, xf = cs.swap_scenario(fleet.n_agents, 0.55)
+        cost, x0 = cs.problem(fleet, x0, xf, torch.float32, dev)
+        return cs.sweep_inputs(fleet, cost, x0, K, dev, seed=1)[0]
+
     if narrow:
-        cases = [(f"Unicycle4D K={K} nxf {4 * K}", K) for K in (8, 4, 2, 1)]
+        cases = [(f"Unicycle4D K={K} nxf {4 * K}", lambda K=K: unicycles(K))
+                 for K in (8, 4, 2, 1)] + [
+            ("DoubleInt4D+Car3D+Bike5D K=4 nxf 20",
+             lambda: named(["DoubleInt4D", "Car3D", "Bike5D"] * 4, 4)),
+            ("Bike5D K=6 nxf 30", lambda: named(["Bike5D"] * cs.N_AGENTS, 6))]
     else:
-        cases = [("Unicycle4D K=8 nxf 32", 8)] + [
-            (f"{m.name} K={K} nxf {K * m.n_x}", (m, K, us, trim)) for m, K, us, trim in (
+        cases = [("Unicycle4D K=8 nxf 32", lambda: unicycles(8))] + [
+            (f"{m.name} K={K} nxf {K * m.n_x}", lambda c=(m, K, us, trim): quads(*c))
+            for m, K, us, trim in (
                 (dtt.QUAD_6D, 8, 0.01, [g, 0, 0]),
                 (dtt.QUAD_12D, 8, 1e-7, [0, 0, 0, g * 63 / 2000]),
                 (dtt.QUAD_6D, 16, 0.01, [g, 0, 0]))]
-    for tag, case in cases:
-        if isinstance(case, int):
-            fleet, cost, x0 = cs.unicycle_problem(cs.N_AGENTS, 0.55, torch.float32, dev)
-            args = cs.sweep_inputs(fleet, cost, x0, case, dev)[0]
-        else:
-            model, K, u_scale, trim = case
-            fleet, cost, x0 = cs.quad_problem(model, 64, 0.7, torch.float32, dev)
-            args = cs.sweep_inputs(fleet, cost, x0, K, dev, u_scale=u_scale,
-                                   u_trim=np.array(trim))[0]
+    for tag, make in cases:
+        args = make()
         ms = cs.timed(lambda: launch(*args), 20)
-        report(read, buf, lambda: launch(*args), f"{tag} S={args[0].shape[0]}", ms,
+        report(read, buf, lambda: launch(*args), f"{tag} S={cs.batch_width(args)}", ms,
                cs.HORIZON)
 
 

@@ -2,13 +2,15 @@
 """Where an MPC step of the PyTorch/CUDA port spends its time, by section.
 
 Wraps the sections of the decomposed solve (graph, gather, the batched
-solve loop with its torch preparation, the three batched kernels' wrappers,
+solve loop, the torch prep of the backward pass -- on the card none since
+K1 and K3 compute their inputs, but the script also runs in a tree where
+they took them from torch --, the three batched kernels' wrappers,
 ``select_alpha``, the stitched plan's joint-cost rollout, which on the card
 is K4's wrapper ``rollout_cuda``) in wall-clock timers that synchronize the
 device before and after, then drives ``chip_smoke.py``'s closed loops (100
 Unicycle4D agents at auto K; 64 Quad6D agents at K=16 and at auto K), 5 MPC
 steps each after a warm-up run, and prints the milliseconds per step of
-every section and K4's share of the timed step.  The synchronizations
+every section, the torch prep's share and K4's share of the timed step.  The synchronizations
 serialize host and device, so the step itself runs slower here than in
 ``chip_smoke.py``; the shares are what this script is for.  Sections nest:
 the solve loop contains the preparation, the kernels and ``select_alpha``;
@@ -85,9 +87,14 @@ def main():
         run = cs.rhc_run(fleet, cost, x0, "cuda", cs.MPC_STEPS, K=K)
         per_step = {name: {"ms_per_step": ms / run["steps"], "calls_per_step": n / run["steps"]}
                     for name, (ms, n) in totals.items()}
-        k4 = per_step.get("rollout_cuda", {"ms_per_step": 0.0})["ms_per_step"]
+        def ms(name):
+            return per_step.get(name, {"ms_per_step": 0.0})["ms_per_step"]
+
+        k4 = ms("rollout_cuda")
+        prep = ms("_quadraticize_batch") + ms("_linearize_batch")
         print(f"{tag}: {run['ms_per_step']:.1f} ms a step with the timers on, of which "
-              f"K4's rollouts {k4:.3f} ms ({k4 / run['ms_per_step']:.4f}); "
+              f"the torch prep {prep:.3f} ms ({prep / run['ms_per_step']:.4f}), K4's "
+              f"rollouts {k4:.3f} ms ({k4 / run['ms_per_step']:.4f}); "
               + json.dumps(per_step), flush=True)
 
 

@@ -632,9 +632,11 @@ def test_custom_spec_matches_the_builtin_on_the_twins():
 
 
 def test_kernel_wrappers_refuse_a_custom_model_before_any_launch():
-    """Every wrapper of K2, K4 and K5 raises NotImplementedError for a fleet
+    """Every wrapper of K1 to K5 raises NotImplementedError for a fleet
     holding a model the kernels do not compile, before it looks at the
-    tensors' device (so here too, on CPU tensors) and before any launch."""
+    tensors' device (so here too, on CPU tensors) and before any launch:
+    without the guard such a model would linearize in K1, K3 and K5 as
+    A = I, B = 0 with no error."""
     n, N = 2, 4
     fleet = dtt.Fleet((dtt.UNICYCLE_4D, CUSTOM_UNI), 0.1)
     cost = dtt.make_game_cost(np.zeros((n, 4)), np.tile(np.eye(4), (n, 1, 1)),
@@ -645,15 +647,21 @@ def test_kernel_wrappers_refuse_a_custom_model_before_any_launch():
     K = torch.zeros((N, 2 * n, 4 * n), dtype=torch.float64)
     d = torch.zeros((N, 2 * n), dtype=torch.float64)
     alphas = torch.ones(2, dtype=torch.float64)
+    cost_b = dtt.GameCost(*(a[None] if a.ndim else a.expand(1) for a in cost))
+    mids = torch.tensor([[0, 1]], dtype=torch.int32)
+    mu = torch.ones(1, dtype=torch.float64)
     before = dict(launch_counts)
     calls = [
+        lambda: bt.backward_pass_batched_cuda(fleet, cost_b, mids, X[None], U[None], mu),
+        lambda: bt.backward_pass_batched_wide_cuda(fleet, cost_b, mids, X[None], U[None],
+                                                   mu),
+        lambda: bt.backward_pass_batched(fleet, cost_b, mids, X[None], U[None], mu,
+                                         "cuda"),
         lambda: sweeps.backward_pass_cuda(fleet, cost, X, U, 1.0),
         lambda: sweeps.forward_pass_cuda(fleet, cost, X, U, K, d, alphas),
         lambda: sweeps.rollout_cuda(fleet, cost, X[0], U),
-        lambda: bt.forward_pass_batched_cuda(
-            fleet, dtt.GameCost(*(a[None] if a.ndim else a.expand(1) for a in cost)),
-            torch.tensor([[0, 1]], dtype=torch.int32), X[None], U[None], None, None,
-            alphas),
+        lambda: bt.forward_pass_batched_cuda(fleet, cost_b, mids, X[None], U[None], None,
+                                             None, alphas),
     ]
     for call in calls:
         with pytest.raises(NotImplementedError, match="MyUnicycle"):

@@ -207,40 +207,38 @@ def test_compaction_schedule():
 def test_cuda_wrappers_reject_what_they_cannot_take():
     fleet_t, fields, mids, X, U, mu = _batch(["Unicycle4D"])
     cost_t, mids_t = _port(fields, mids)
-    Xt, Ut = torch.as_tensor(X), torch.as_tensor(U)
-    q = bt._quadraticize_batch(cost_t, Xt, Ut)
-    A, B = bt._linearize_batch(fleet_t, cost_t, mids_t, Xt, Ut)
-    args = (A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"],
-            torch.as_tensor(mu), q["p0"], q["P0"])
+    Xt, Ut, mut = torch.as_tensor(X), torch.as_tensor(U), torch.as_tensor(mu)
     with pytest.raises(ValueError, match="CUDA"):
-        bt.backward_pass_batched_cuda(*args)
+        bt.backward_pass_batched_cuda(fleet_t, cost_t, mids_t, Xt, Ut, mut)
     alphas = line_search_alphas(2, torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         bt.forward_pass_batched_cuda(fleet_t, cost_t, mids_t, Xt, Ut, None,
                                      None, alphas)
+
+    def trajectory(K_, nx=4, nu=2, dtype=torch.float64):
+        return (torch.zeros((1, 2, K_, nx), dtype=dtype),
+                torch.zeros((1, 1, K_, nu), dtype=dtype))
+
     # Flat states past 32 take the wide kernel, whose wrapper reaches its
     # CUDA check at nxf 48, at nxf 100 and at Quad6D's K=32 (nxf 192, nuf 96)
-    # alike: no literal width stops it.  The first width riccati_plan cannot
-    # place (not even the vectors fit a block's shared memory) raises, naming
-    # the plan.
-    wide = torch.zeros((S, N, 12, 4, 4), dtype=torch.float64)
+    # alike: no literal width stops it.  The first width the kernels' plan
+    # cannot place (not even the vectors fit a block's shared memory) raises,
+    # naming the plan.
     with pytest.raises(ValueError, match="wide"):
-        bt.backward_pass_batched_cuda(wide, *args[1:])
-    with pytest.raises(ValueError, match="CUDA"):
-        bt.backward_pass_batched_wide_cuda(wide, *args[1:])
-    with pytest.raises(ValueError, match="CUDA"):
-        bt.backward_pass_batched_wide_cuda(
-            torch.zeros((S, N, 25, 4, 4), dtype=torch.float64), *args[1:])
-    for itemsize, dtype in ((4, torch.float32), (8, torch.float64)):
-        assert bt.riccati_smem_bytes(32, 6, 3, itemsize)[0] == 2
+        bt.backward_pass_batched_cuda(fleet_t, cost_t, mids_t, *trajectory(12), mut)
+    for K_ in (12, 25):
         with pytest.raises(ValueError, match="CUDA"):
-            bt.backward_pass_batched_wide_cuda(
-                torch.zeros((1, 1, 32, 6, 6), dtype=dtype),
-                torch.zeros((1, 1, 32, 6, 3), dtype=dtype), *args[2:])
+            bt.backward_pass_batched_wide_cuda(fleet_t, cost_t, mids_t,
+                                               *trajectory(K_), mut)
+    for itemsize, dtype in ((4, torch.float32), (8, torch.float64)):
+        assert bt.sweep_smem_bytes(32, 6, 3, itemsize)[0] == 2
+        with pytest.raises(ValueError, match="CUDA"):
+            bt.backward_pass_batched_wide_cuda(fleet_t, cost_t, mids_t,
+                                               *trajectory(32, 6, 3, dtype), mut)
 
     def placed(K_):
         try:
-            bt.riccati_smem_bytes(K_, 4, 2, 8)
+            bt.sweep_smem_bytes(K_, 4, 2, 8)
         except ValueError:
             return False
         return True
@@ -248,8 +246,8 @@ def test_cuda_wrappers_reject_what_they_cannot_take():
     first = next(K_ for K_ in range(1, 4000) if not placed(K_))
     assert first > 192 and placed(first - 1)
     with pytest.raises(ValueError, match="riccati_plan"):
-        bt.backward_pass_batched_wide_cuda(
-            torch.zeros((1, 1, first, 4, 4), dtype=torch.float64), *args[1:])
+        bt.backward_pass_batched_wide_cuda(fleet_t, cost_t, mids_t, *trajectory(first),
+                                           mut)
     # The forward kernel: Quad12D at K=9 (nxf 108) reaches the CUDA check;
     # the first K whose one stage (a step's gain block and rows) does not fit
     # raises, saying that it is the stage.

@@ -13,7 +13,7 @@ The host build: ``csrc/derivatives_host.cpp`` compiled by g++ with
 ``-DDPILQR_CUSTOM_MODELS -ffp-contract=off`` and the generated header on its
 include path (the same ``dynamics.cuh`` and ``derivatives.cuh`` the kernels
 compile, so the generated templates are instantiated on ``double`` and
-``Dual<double>`` as in K2, K4 and K5).  The generated bicycle is held at
+``Dual<double>`` as in K1 to K5).  The generated bicycle is held at
 seeded points to 1e-12 relative against four references: its torch
 ``spec.f``, ``padded_jacobians`` (Euler-discretized), the built-in ``Bike5D``
 case of the same build, and the JAX package's ``SymbolicModel``.  A second
@@ -48,7 +48,8 @@ torch.set_num_threads(1)
 RTOL = 1e-12
 DT = 0.1
 _SRC = CSRC_DIR / "derivatives_host.cpp"
-_HEADERS = (CSRC_DIR / "derivatives.cuh", CSRC_DIR / "dynamics.cuh")
+_HEADERS = (CSRC_DIR / "computed_inputs.cuh", CSRC_DIR / "derivatives.cuh",
+            CSRC_DIR / "dynamics.cuh")
 _FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
           "-DDPILQR_CUSTOM_MODELS"]
 
@@ -292,10 +293,13 @@ def test_custom_library_is_keyed_by_its_header_and_holds_k2_k4_k5():
     dirs = {cb.build_dir(None), cb.build_dir(one), cb.build_dir(two)}
     assert len(dirs) == 3 and cb.build_dir(one) == cb.build_dir(one)
     assert cb.build_dir(one).parent == cb.BUILD_DIR / "custom"
-    assert set(cb.CUSTOM_KERNELS) == {"forward_batched", "forward_sweep", "backward_sweep"}
-    # K1 and K3 hold no model: asking for their custom build raises first.
+    # Every kernel that differentiates or integrates a fleet: K1 and K3 now
+    # compute their Jacobians too.
+    assert set(cb.CUSTOM_KERNELS) == {"backward_batched", "backward_batched_wide",
+                                      "backward_sweep", "forward_batched", "forward_sweep"}
+    # The probes hold no model: asking for their custom build raises first.
     with pytest.raises(ValueError, match="holds no model"):
-        cb.launch("backward_batched", torch.float64, torch.device("cpu"), library=one)
+        cb.launch("probe_fma", torch.float32, torch.device("cpu"), library=one)
 
 
 def test_ptxas_report_reads_registers_and_spills(tmp_path):

@@ -34,7 +34,8 @@ torch.set_num_threads(1)
 
 RTOL = 1e-12
 _SRC = CSRC_DIR / "derivatives_host.cpp"
-_HEADERS = (CSRC_DIR / "derivatives.cuh", CSRC_DIR / "dynamics.cuh")
+_HEADERS = (CSRC_DIR / "computed_inputs.cuh", CSRC_DIR / "derivatives.cuh",
+            CSRC_DIR / "dynamics.cuh")
 _FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
 
 

@@ -85,7 +85,9 @@ KERNEL_SOURCES = {
 
 # The headers the sources share, and which source must include which.
 KERNEL_HEADERS = {
-    "derivatives.cuh": ("backward_sweep.cu", "derivatives_host.cpp"),
+    "computed_inputs.cuh": ("backward_batched.cu", "backward_batched_wide.cu",
+                            "backward_sweep.cu", "derivatives_host.cpp"),
+    "derivatives.cuh": ("computed_inputs.cuh",),
     "dynamics.cuh": ("rollout.cuh", "derivatives.cuh"),
     "launch.cuh": ("riccati.cuh", "rollout.cuh"),
     "riccati.cuh": ("backward_batched.cu", "backward_batched_wide.cu", "backward_sweep.cu"),

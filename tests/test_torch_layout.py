@@ -21,7 +21,6 @@ import torch
 import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops import cuda_build
-from dpilqr_tpu_torch.ops import sweeps
 from dpilqr_tpu_torch.ops.costs import game_cost_from_numpy
 from dpilqr_tpu_torch.ops.ilqr import line_search_alphas
 
@@ -75,6 +74,26 @@ def _tensors(fields, mids, X, U, mu, dtype=torch.float64, device="cpu"):
     cost = game_cost_from_numpy(fields, device, dtype)
     return (cost, torch.as_tensor(mids, device=device),
             *(torch.as_tensor(a, dtype=dtype, device=device) for a in (X, U, mu)))
+
+
+def _rounded_inputs_gains(fleet, fields, mids_t, Xt, Ut, mut):
+    """The plain version's gains with its inputs computed in float64 and
+    rounded to the batch's type once: a second sample, beside the twin's own
+    prep, of the rounding the type alone leaves in the gains (K1 and K3
+    round their inputs in their own order)."""
+    dev = Xt.device
+    cost = game_cost_from_numpy(fields, dev, torch.float64)
+    X, U = Xt.double(), Ut.double()
+    q = bt._quadraticize_batch(cost, X, U)
+    A, B = bt._linearize_batch(fleet, cost, mids_t, X, U)
+    return bt.backward_pass_batched_torch(*(a.to(Xt.dtype) for a in (
+        A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"], mut, q["p0"], q["P0"])))
+
+
+def _rounding(refs, *samples):
+    """Per output, the largest distance of the samples from the float64 refs."""
+    return [max(float((s.double() - r).abs().max()) for s in outs)
+            for r, *outs in zip(refs, *samples)]
 
 
 @pytest.fixture(scope="module")
@@ -199,8 +218,10 @@ def test_slot_tables_are_built_once_per_fleet(names):
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "K{}nx{}nu{}".format(*s))
 def test_every_routed_shape_fits_shared_memory(shape, itemsize):
     K, nx, nu = shape
-    tier, smem, work = bt.riccati_smem_bytes(K, nx, nu, itemsize)
+    # The backward kernels' plan: their input buffers join the gain group.
+    tier, smem, work = bt.sweep_smem_bytes(K, nx, nu, itemsize)
     value, gain, vec = bt.riccati_sizes(K, nx, nu)
+    gain += bt.sweep_extra_values(K, nx, nu)
     assert tier in (0, 1, 2) and 0 < smem <= bt.SMEM_LIMIT
     assert (smem // itemsize, work) == {
         0: (value + gain + vec, 0), 1: (gain + vec, value), 2: (vec, value + gain)}[tier]
@@ -221,6 +242,12 @@ def test_working_set_placement_follows_type_and_width():
     assert bt.riccati_smem_bytes(16, 6, 3, 4)[0] == 0
     assert bt.riccati_smem_bytes(16, 6, 3, 8)[0] == 2
     assert bt.riccati_smem_bytes(8, 12, 4, 8)[0] == 1
+    # The backward kernels add their input buffers (per-slot blocks, a
+    # step's pair blocks) to the gain group: that moves Quad6D at K=16 in
+    # float32 to the workspace tier, and nothing narrow out of tier 0.
+    assert bt.sweep_smem_bytes(16, 6, 3, 4)[0] == 1
+    assert bt.sweep_smem_bytes(8, 12, 4, 8)[0] == 1
+    assert bt.sweep_smem_bytes(8, 4, 2, 8)[0] == 0
     # Twice the widest routed width (nxf 192, nuf 96) is answered, not
     # refused: the matrices move to the workspace, the forward kernel keeps
     # two stages in float32 and one in float64.
@@ -253,11 +280,10 @@ def test_cuda_library_sizes_equal_the_python_mirrors(cuda_device):
     lib = cuda_build.load_library()
     for K, nx, nu in SHAPES:
         for itemsize in (4, 8):
-            assert cuda_build.riccati_plan(K, nx, nu, itemsize) == bt.riccati_smem_bytes(
+            # The plan of all three backward kernels: the input source's
+            # buffers join the gain group.
+            assert cuda_build.riccati_plan(K, nx, nu, itemsize) == bt.sweep_smem_bytes(
                 K, nx, nu, itemsize)
-            # K5's plan: its own buffers join the gain group.
-            assert cuda_build.riccati_plan(K, nx, nu, itemsize, sweep=True) == (
-                sweeps.sweep_smem_bytes(K, nx, nu, itemsize))
             for n_alpha in (1, 2, 10):
                 for gains in (1, 0):
                     two_stages = lib.dpilqr_forward_smem_bytes(K, nx, nu, n_alpha, gains,
@@ -285,14 +311,18 @@ def test_cuda_kernels_match_twins_at_compacted_widths(cuda_device, names, K, S, 
     # These random batches pack their slots inside the radius, so Q_uu is
     # ill conditioned and float32 rounding alone moves the gains by more
     # than 2e-3 in some of the 48 subproblems: there the kernel is held to
-    # the float32 twin's own distance from the float64 twin.
+    # the float32 plain versions' own distance from the float64 one.  The
+    # kernel computes its inputs itself, rounding its own float32 products,
+    # so its distance is taken from the float64 plain version, and the
+    # rounding is that of the twin and of the float64 inputs rounded once.
     Kg_64, d_64 = bt.backward_pass_batched(
         fleet, game_cost_from_numpy(fields, cuda_device, torch.float64), mids_t,
         Xt.double(), Ut.double(), mut.double(), "torch")
-    for a, b, ref in ((Kg_c, Kg_t, Kg_64), (d_c, d_t, d_64)):
-        rounding = float((b.double() - ref).abs().max())
-        assert float((a - b).abs().max()) <= max(tol[0] * float(b.abs().max()),
-                                                 4.0 * rounding)
+    rounding = _rounding((Kg_64, d_64), (Kg_t, d_t),
+                         _rounded_inputs_gains(fleet, fields, mids_t, Xt, Ut, mut))
+    for a, ref, rnd in zip((Kg_c, d_c), (Kg_64, d_64), rounding):
+        assert float((a.double() - ref).abs().max()) <= max(
+            tol[0] * float(ref.abs().max()), 4.0 * rnd)
     # Gains scaled to max|Kg| = 0.1, so that the closed loop of these random
     # batches stays well conditioned (see tests/test_torch_wide.py).
     s = 0.1 / float(Kg_t.abs().max())
@@ -338,24 +368,28 @@ def test_cuda_narrow_kernel_matches_twin(cuda_device, case, S, dtype):
     mu = np.geomspace(0.25, 4.0, S)
     cost, mids_t, Xt, Ut, mut = _tensors(fields, mids, X, U, mu, dtype, cuda_device)
     assert K * fleet.nx_p <= bt.MAX_NXF
-    q = bt._quadraticize_batch(cost, Xt, Ut)
-    A, B = bt._linearize_batch(fleet, cost, mids_t, Xt, Ut)
-    args = (A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"], mut, q["p0"], q["P0"])
+    args = (fleet, cost, mids_t, Xt, Ut, mut)
     got = bt.backward_pass_batched_cuda(*args)
-    want = bt.backward_pass_batched_torch(*args)
+    want = bt.backward_pass_batched(*args, "torch")
     wide = bt.backward_pass_batched_wide_cuda(*args)
-    ref = bt.backward_pass_batched_torch(*(a.double() for a in args))
-    for a, b, w, r in zip(got, want, wide, ref):
+    ref = bt.backward_pass_batched(
+        fleet, game_cost_from_numpy(fields, cuda_device, torch.float64), mids_t,
+        Xt.double(), Ut.double(), mut.double(), "torch")
+    rounding = _rounding(ref, want,
+                         _rounded_inputs_gains(fleet, fields, mids_t, Xt, Ut, mut))
+    for a, b, w, r, rnd in zip(got, want, wide, ref, rounding):
         assert a.shape == b.shape and bool(torch.isfinite(a).all())
         # The two kernels share every entry's arithmetic: the same bits.
         assert torch.equal(a, w)
         # Float32: these packed random batches are ill conditioned (rounding
         # alone moves the twin's gains by far more than 2e-3 in some
         # subproblems), so there the kernel is held to a multiple of the
-        # float32 twin's own distance from the float64 twin.
-        rounding = float((b.double() - r).abs().max())
+        # float32 plain versions' own distance from the float64 one; the
+        # kernel rounds its own float32 inputs, so its distance is taken from
+        # the float64 plain version too.
         tol = 1e-9 if dtype == torch.float64 else 2e-3
-        assert float((a - b).abs().max()) <= max(tol * float(b.abs().max()), 16.0 * rounding)
+        assert float((a.double() - r).abs().max()) <= max(tol * float(r.abs().max()),
+                                                          16.0 * rnd)
 
 
 # Past nxf 96: Quad6D at K = 32 (nxf 192, nuf 96), where the wide backward
@@ -374,10 +408,11 @@ def test_cuda_kernels_match_twins_at_nxf_192(cuda_device, dtype):
         fleet, game_cost_from_numpy(fields, cuda_device, torch.float64), mids_t,
         Xt.double(), Ut.double(), mut.double(), "torch")
     assert float(Kg_t.abs().max()) > 0 and not torch.equal(Kg_c, torch.zeros_like(Kg_c))
-    for a, b, ref in ((Kg_c, Kg_t, Kg_64), (d_c, d_t, d_64)):
-        rounding = float((b.double() - ref).abs().max())
-        assert float((a - b).abs().max()) <= max(tol[0] * float(b.abs().max()),
-                                                 4.0 * rounding)
+    rounding = _rounding((Kg_64, d_64), (Kg_t, d_t),
+                         _rounded_inputs_gains(fleet, fields, mids_t, Xt, Ut, mut))
+    for a, ref, rnd in zip((Kg_c, d_c), (Kg_64, d_64), rounding):
+        assert float((a.double() - ref).abs().max()) <= max(
+            tol[0] * float(ref.abs().max()), 4.0 * rnd)
     s = 0.1 / float(Kg_t.abs().max())
     for n_alpha in (2, 10):
         alphas = line_search_alphas(n_alpha, dtype, cuda_device)

@@ -59,10 +59,6 @@ def test_work_counts_are_the_jax_counts_less_the_tpu_only_terms(jsol, shape):
     one_hot_blends = nuf * 4 * (nuf + nxf + 1)
     assert sol.backward_step_flops(K, nx_p, nu_p) == (
         jsol.backward_step_flops(K, nx_p, nu_p) - dense_mu_pass - one_hot_blends)
-    # The streamed bytes are the same tensors on both machines.
-    for nbytes in (4, 8):
-        assert sol.backward_step_hbm_bytes(K, nx_p, nu_p, nbytes) == (
-            jsol.backward_step_hbm_bytes(K, nx_p, nu_p, nbytes))
 
     # Forward.  TPU only: the 0/1 matmul that extracts each slot's rows of
     # du; and, in the bytes, the nominal X and U rows and d tiled once per
@@ -132,17 +128,25 @@ def test_byte_counts_equal_the_wrappers_tensors(dtype):
     fleet, cost, cost_b, mids, X, U = _batched_problem(dtype, S, K, N)
     mu = torch.ones((S,), dtype=dtype)
 
-    # K1 / K3: the arguments backward_pass_batched hands its kernel, and the
-    # kernel's outputs (the twin returns the same two tensors).
-    q = bt._quadraticize_batch(cost_b, X, U)
-    A, B = bt._linearize_batch(fleet, cost_b, mids, X, U)
-    ins = (A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"], mu, q["p0"], q["P0"])
-    Kg, d = bt.backward_pass_batched_torch(*ins)
+    # K1 / K3: the arguments the wrapper hands its kernel (the trajectory,
+    # the per-slot cost, the slots' branch indices, the unique models' ids,
+    # dt and mu; no Jacobian or Hessian), and the kernel's outputs (the
+    # plain version returns the same two tensors).  Their work: each
+    # subproblem's recursion and inputs, as K5's.
+    Kg, d = bt.backward_pass_batched(fleet, cost_b, mids, X, U, mu, "torch")
+    c = cost_b
+    ids = torch.zeros((1,), dtype=torch.int32)
+    ins = (X, U, c.xf, c.Q, c.R, c.Qf, c.agent_mask, c.ref_weight, c.radius,
+           c.prox_weight, c.n_pos, mids, ids, torch.ones((1,), dtype=dtype), mu)
+    prep, prep_trig = sol.sweep_prep_flops(K, 4, 2)
     for family in ("backward", "backward_wide"):
         fl, trig, by = sol.sweep_work(family, N, K, 4, 2, S, n_alpha,
                                       dtype_bytes=nbytes)
         assert by == _nbytes(*ins, Kg, d)
-        assert trig == 0 and fl == sol.backward_step_flops(K, 4, 2) * N * S
+        assert trig == N * S * prep_trig
+        assert fl == S * ((sol.backward_step_flops(K, 4, 2) + prep) * N
+                          + sol.sweep_prep_flops(K, 4, 2, terminal=True)[0]
+                          + sol.sweep_fixed_flops(K, 4, 2))
 
     # K2: forward_pass_batched_cuda's ``ins`` and its three outputs.
     alphas = It.line_search_alphas(n_alpha, dtype)
@@ -231,8 +235,9 @@ def test_kernel_sol_report_backward(monkeypatch, family):
     assert rep["bound_published_s"] == pytest.approx(t_pub, rel=1e-3)
     assert rep["bound_published_by"] in ("operations", "bytes")
     assert rep["published_frac"] == pytest.approx(t_pub / 5e-3, rel=1e-3)
-    # K5 computes its Jacobians: their sines and cosines are its only ones.
-    assert ("trig_gops" in rep) == (family == "backward_sweep")
+    # All three compute their Jacobians: the sines and cosines of the
+    # unicycles' are theirs.
+    assert "trig_gops" in rep
 
 
 def test_kernel_sol_rejects_unknown_family():

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import dpilqr_tpu_torch as dtt
+from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops import ilqr as It
 from dpilqr_tpu_torch.ops import sweeps
 from dpilqr_tpu_torch.ops.costs import cast_cost
@@ -146,8 +147,8 @@ def test_auto_routes_to_pscan_only_past_k5s_widest_tier(dtype):
     huge = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 2000, 0.1)
     card, cpu = _OnCard(dtype), torch.empty((), dtype=dtype)
     with pytest.raises(ValueError, match="no tier"):
-        sweeps.sweep_smem_bytes(2000, 4, 2, card.element_size())
-    assert sweeps.sweep_smem_bytes(10, 4, 2, card.element_size())[0] == 0
+        bt.sweep_smem_bytes(2000, 4, 2, card.element_size())
+    assert bt.sweep_smem_bytes(10, 4, 2, card.element_size())[0] == 0
     assert It.resolve_sweep_backend(auto, card, small) == "cuda"
     assert It.resolve_sweep_backend(auto, card, huge) == "pscan"
     assert It.resolve_sweep_backend(auto, cpu, small) == "torch"
