@@ -145,12 +145,35 @@ Phases (any failure exits non-zero and prints no result line):
       float64) on ``make_mesh()`` and in two chunks on the one card: bit-equal
       to ``solve_distributed``, compaction firing in every chunk (K1's and
       K2's widths printed by chunk).
+9. The forward kernels past one stage: where a step's whole gain block does
+   not fit a CTA beside its columns, K2 and K4 take it in tiles of rows
+   (``column_launch`` in ``csrc/rollout.cuh``); every failure fatal, about a
+   minute:
+   a. K4 with gains on 100 Unicycle4D (swap scenario, spacing 1.25, N=50,
+      10 alphas), float64 and float32, against ``_forward_pass``, timed (the
+      launch alone) with its bound and its placement printed;
+   b. K2 on Quad12D at K=32 (nxf 384, nuf 128), S=16, float64 (tiles) and
+      float32 (one whole block), 2 and 10 alphas, against
+      ``forward_pass_batched_torch``, timed with its bound;
+   c. tiles forced (``max_rows``) where a whole block fits: K2 at the main
+      path's shape (S=100, K=8, 10 alphas) and on Quad6D at K=16 (S=64), K4
+      on 10 Unicycle4D, both types: the whole block's bits;
+   d. ``ilqr_solve`` of a's 100 unicycles in float64 (``n_lqr_iter=5``: K5
+      in tier 2, K4 in tiles) on the kernels beside the twins: K5 and K4
+      launch and nothing else, iterations and flags equal, J within 1e-9
+      relative, more than one iteration; then 2 steps of
+      ``solve_rhc(centralized=True)`` in float32 on the kernels, ms a step;
+   e. the library's forward plan (``cuda_build.forward_plan``) equal to the
+      mirror's (``batched.forward_smem_bytes``) at every shape of a-c and on
+      each side of the one-column limit (1,709 and 1,710 Unicycle4D in
+      float32, 854 and 855 in float64).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the eight kernels with their launch counts, errors, times and bounds
 (the least time by the published peaks, computed from the timed shapes;
 K1-K5 also list every other shape they were timed at under ``shapes``, the
-custom-model build's K1 to K5 among them, bound by ``Bike5D``'s work;
+custom-model build's K1 to K5 among them, bound by ``Bike5D``'s work, and
+K2's and K4's tiled shapes of phase 9;
 K4's launches are summed over the decomposed and the centralized paths),
 and the line before that the card's name and power limit.
 """
@@ -1733,9 +1756,9 @@ def print_registers(tag, lib, source, kernel):
         fail(f"{tag}: no {kernel} entry in the ptxas report of {source}")
     rows = {}
     for name, (regs, st, ld) in sorted(report.items()):
-        # The type and the integer template arguments (K2: NXC; K1: NR, NCB,
-        # NXC, NXS, NUS, KS).
-        m = re.search(r"kernelI([fd])((?:Li\d+E)+)", name)
+        # The type and the integer template arguments (K2: NXC, TILES; K1:
+        # NR, NCB, NXC, NXS, NUS, KS).
+        m = re.search(r"kernelI([fd])((?:L[ib]\d+E)+)", name)
         key = (f"{'float' if m.group(1) == 'f' else 'double'} <"
                + ",".join(re.findall(r"\d+", m.group(2))) + ">") if m else name
         rows[key] = {"registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld}
@@ -2190,6 +2213,218 @@ def custom_phase(checks, results, dev, launches, UserBike):
     sharded_phase(dev, launches)
 
 
+def checked_plan(K, fleet, n_alpha, dtype, max_rows=0):
+    """Phase 9e at one shape: the library's forward plan (K2, K4) must equal
+    the mirror's; returns it as a line."""
+    from dpilqr_tpu_torch.ops import batched as bt
+    from dpilqr_tpu_torch.ops import cuda_build
+
+    item = torch.empty((), dtype=dtype).element_size()
+    plan = bt.forward_smem_bytes(K, fleet.nx_p, fleet.nu_p, n_alpha, item,
+                                 max_rows=max_rows)
+    lib = cuda_build.forward_plan(K, fleet.nx_p, fleet.nu_p, n_alpha, item, True,
+                                  max_rows)
+    if lib != tuple(plan):
+        fail(f"forward plan at K={K} {fleet.specs[0].name} {n_alpha} alphas "
+             f"{str(dtype)[6:]}: library {lib}, mirror {tuple(plan)}")
+    return (f"{plan.placement(K * fleet.nu_p)}: {plan.buffers} buffers of "
+            f"{plan.rows} gain rows, {plan.warps} warps x {plan.chunks} CTAs, "
+            f"{plan.nbytes} B")
+
+
+def k4_tiles(checks, results, dev):
+    """Phase 9a: K4 with gains on 100 Unicycle4D (the block in tiles)."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import cuda_build, ilqr, sweeps
+
+    for dtype in (torch.float64, torch.float32):
+        fleet, cost, x0 = unicycle_problem(100, 1.25, dtype, dev)
+        rng = np.random.default_rng(4)
+        U = torch.as_tensor(rng.uniform(size=(HORIZON, 100, 2)) * 0.1, dtype=dtype,
+                            device=dev)
+        X = ilqr._rollout_fn(fleet.step, cost, torch.as_tensor(x0, dtype=dtype,
+                                                                device=dev), U)[0]
+        mu = torch.tensor(1.0, dtype=dtype, device=dev)
+        Kb, db = ilqr._backward_pass(fleet.linearize, cost, X, U, mu)
+        alphas = dtt.ops.line_search_alphas(10, dtype, dev)
+        fw = (cost, X, U, Kb, db, alphas)
+        tag = f"K4 100 Unicycle4D tiles 10 alphas{'' if dtype == torch.float32 else ' float64'}"
+        print(f"{tag}: {checked_plan(100, fleet, 10, dtype)}", flush=True)
+        checks.compare("forward_sweep", tag, ("X5", "U5", "J"),
+                       sweeps.forward_pass_cuda(fleet, *fw),
+                       ilqr._forward_pass(fleet.step, *fw), TOL[dtype])
+        with cuda_build.timed_launches() as record:
+            for _ in range(5):
+                sweeps.forward_pass_cuda(fleet, *fw)
+        results[tag] = (min(cuda_build.launch_ms(record, "forward_sweep")),
+                        timed(lambda: ilqr._forward_pass(fleet.step, *fw), 2))
+        checks.shapes[tag] = work_shape("forward_sweep", fleet, 100, 1, 10)
+        print_result(checks, results, tag)
+
+
+def k2_tiles(checks, results, dev):
+    """Phase 9b: K2 on Quad12D at K=32 (nxf 384, nuf 128), S=16: a whole
+    block in float32, tiles in float64."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+    from dpilqr_tpu_torch.ops import cuda_build
+
+    for dtype in (torch.float64, torch.float32):
+        fleet, cost, x0 = quad_problem(dtt.QUAD_12D, 64, 0.7, dtype, dev)
+        args, sub_cost, mids, carry = sweep_inputs(
+            fleet, cost, x0, 32, dev, u_scale=1e-7, u_trim=np.array([0, 0, 0, HOVER["Quad12D"][1]]))
+        args = cut_args(args, slice(None, None, 4))
+        sub_cost = type(sub_cost)(*(a[::4].contiguous() for a in sub_cost))
+        carry = type(carry)(*(a[::4].contiguous() for a in carry))
+        mids = mids[::4].contiguous()
+        Kg, d = plain_backward(args)
+        for n_alpha in (2, 10):
+            tag = (f"K2 Quad12D K=32 nxf 384 S={batch_width(args)} {n_alpha} alphas"
+                   + ("" if dtype == torch.float32 else " float64"))
+            print(f"{tag}: {checked_plan(32, fleet, n_alpha, dtype)}", flush=True)
+            fa = (fleet, sub_cost, mids, carry.X, carry.U, Kg, d,
+                  dtt.ops.line_search_alphas(n_alpha, dtype, dev))
+            checks.compare("forward_batched", tag, ("X5", "U5", "J"),
+                           bt.forward_pass_batched_cuda(*fa),
+                           bt.forward_pass_batched_torch(*fa), TOL[dtype])
+            with cuda_build.timed_launches() as record:
+                for _ in range(5):
+                    bt.forward_pass_batched_cuda(*fa)
+            results[tag] = (min(cuda_build.launch_ms(record, "forward_batched")),
+                            timed(lambda: bt.forward_pass_batched_torch(*fa), 1))
+            checks.shapes[tag] = work_shape("forward", fleet, 32, batch_width(args), n_alpha)
+            print_result(checks, results, tag)
+
+
+def forced_tiles(dev):
+    """Phase 9c: tiles forced where a whole block fits must give its bits:
+    K2 at the main path's shape (S=100, K=8) and on Quad6D at K=16 (S=64),
+    K4 at the 10-agent centralized shape."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+    from dpilqr_tpu_torch.ops import ilqr, sweeps
+
+    for dtype in (torch.float64, torch.float32):
+        cases = (
+            ("main path S=100 K=8", unicycle_problem(N_AGENTS, 0.55, dtype, dev), 8,
+             {}, (4, 8)),
+            ("Quad6D K=16 S=64", quad_problem(dtt.QUAD_6D, 64, 0.7, dtype, dev), 16,
+             dict(u_scale=0.01, u_trim=np.array([G, 0, 0])), (4, 16, 28)),
+        )
+        for name, (fleet, cost, x0), K, kw, rows_list in cases:
+            args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, K, dev, **kw)
+            Kg, d = bt.backward_pass_batched(*args, "cuda")
+            fa = (fleet, sub_cost, mids, carry.X, carry.U, Kg, d,
+                  dtt.ops.line_search_alphas(10, dtype, dev))
+            whole = bt.forward_pass_batched_cuda(*fa)
+            for rows in rows_list:
+                plan = checked_plan(K, fleet, 10, dtype, rows)
+                same = bits_agree(bt.forward_pass_batched_cuda(*fa, max_rows=rows), whole)
+                print(f"K2 {name} {str(dtype)[6:]} forced {plan}: the whole block's "
+                      f"bits {same}", flush=True)
+                if not same:
+                    fail(f"K2 {name} {dtype}: tiles of {rows} rows change the bits")
+        fleet, cost, X, U = k5_problems(dtype, dev)["10 Unicycle4D"]
+        mu = torch.tensor(1.0, dtype=dtype, device=dev)
+        Kb, db = ilqr._backward_pass(fleet.linearize, cost, X, U, mu)
+        fw = (cost, X, U, Kb, db, dtt.ops.line_search_alphas(10, dtype, dev))
+        whole = sweeps.forward_pass_cuda(fleet, *fw)
+        for rows in (4, 8):
+            plan = checked_plan(10, fleet, 10, dtype, rows)
+            same = bits_agree(sweeps.forward_pass_cuda(fleet, *fw, max_rows=rows), whole)
+            print(f"K4 10 Unicycle4D {str(dtype)[6:]} forced {plan}: the whole "
+                  f"block's bits {same}", flush=True)
+            if not same:
+                fail(f"K4 {dtype}: tiles of {rows} rows change the bits")
+
+
+def wide_centralized(dev, launches):
+    """Phase 9d: ``ilqr_solve`` of 100 Unicycle4D (float64, K5 in tier 2 and
+    K4 in tiles) on the kernels beside the twins, then 2 steps of
+    ``solve_rhc(centralized=True)`` in float32."""
+    import dpilqr_tpu_torch as dtt
+
+    fleet, cost, x0 = unicycle_problem(100, 1.25, torch.float64, dev)
+    x0_t = torch.as_tensor(x0, device=dev)
+    res, ms = {}, {}
+    for backend in ("cuda", "torch"):
+        cfg = dtt.SolverConfig(n_lqr_iter=5, tol=1e-3, sweep_backend=backend)
+
+        def run(cfg=cfg, x0_t=x0_t):
+            t0 = time.perf_counter()
+            r = dtt.ilqr_solve(fleet, cost, x0_t, N=HORIZON, config=cfg)
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t0) * 1e3
+
+        (res[backend], ms[backend]), counts = run_counted(run)
+        if backend == "cuda":
+            require(counts, ("backward_sweep", "forward_sweep"), "ilqr_solve (100 unicycles)")
+            if any(counts[k] for k in counts if k not in ("backward_sweep", "forward_sweep")):
+                fail(f"ilqr_solve (100 unicycles) launched other kernels: {counts}")
+            launches["forward_sweep"] += counts["forward_sweep"]
+            launches[f"per centralized solve (100 unicycles, {int(res[backend].iters)} "
+                     "iterations)"] = {k: counts[k] for k in ("backward_sweep", "forward_sweep")}
+        elif any(counts.values()):
+            fail("the torch backend launched a kernel")
+    a, b = res["cuda"], res["torch"]
+    summary = {k: {"ms": ms[k], "iters": int(res[k].iters), "converged": bool(res[k].converged),
+                   "failed_line_search": bool(res[k].failed_line_search), "J": float(res[k].J)}
+               for k in res}
+    print("ilqr_solve 100 Unicycle4D float64: " + json.dumps(summary), flush=True)
+    if not int(a.iters) > 1:
+        fail("ilqr_solve (100 unicycles) is no solve: one iteration or none")
+    dJ = abs(float(a.J) - float(b.J)) / abs(float(b.J))
+    if (int(a.iters) != int(b.iters) or bool(a.converged) != bool(b.converged)
+            or bool(a.failed_line_search) != bool(b.failed_line_search) or not dJ <= 1e-9):
+        # Whether the scenario's conditioning alone moves the twins that far.
+        moved = dtt.ilqr_solve(fleet, cost, x0_t + 1e-13, N=HORIZON,
+                               config=dtt.SolverConfig(n_lqr_iter=5, tol=1e-3,
+                                                       sweep_backend="torch"))
+        print(f"twins against twins with x0 + 1e-13: iters {int(moved.iters)} vs "
+              f"{int(b.iters)}, rel J {abs(float(moved.J) - float(b.J)) / abs(float(b.J)):.3e}")
+        fail(f"ilqr_solve (100 unicycles) float64: kernels and twins part (rel J {dJ:.3e})")
+    print(f"ilqr_solve 100 Unicycle4D float64: kernels and twins equal in iterations "
+          f"and flags, rel J {dJ:.3e}", flush=True)
+    fleet, cost, x0 = unicycle_problem(100, 1.25, torch.float32, dev)
+    kern, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "cuda", 2, centralized=True))
+    require(counts, ("backward_sweep", "forward_sweep"), "solve_rhc(centralized=True), 100 agents")
+    launches["forward_sweep"] += counts["forward_sweep"]
+    print(f"centralized loop 100 Unicycle4D float32 (kernels, launches {counts}): "
+          + json.dumps(kern), flush=True)
+
+
+def plan_limits():
+    """Phase 9e, the one-column limit: the last Unicycle4D fleet the forward
+    plan places and the first it does not, in both types."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+    from dpilqr_tpu_torch.ops import cuda_build
+
+    for dtype, last in ((torch.float32, 1709), (torch.float64, 854)):
+        item = torch.empty((), dtype=dtype).element_size()
+        print(f"forward plan at {last} Unicycle4D {str(dtype)[6:]}: "
+              f"{checked_plan(last, dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 1, DT), 10, dtype)}")
+        try:
+            bt.forward_smem_bytes(last + 1, 4, 2, 10, item)
+            fail(f"the mirror places {last + 1} Unicycle4D in {dtype}")
+        except ValueError:
+            pass
+        if cuda_build.forward_plan(last + 1, 4, 2, 10, item) is not None:
+            fail(f"the library places {last + 1} Unicycle4D in {dtype}")
+    print("forward plans: library and mirror agree at every shape of phase 9", flush=True)
+
+
+def forward_tiles_phase(checks, results, dev, launches):
+    """Phase 9: the forward kernels past one stage."""
+    t0 = time.perf_counter()
+    k4_tiles(checks, results, dev)
+    k2_tiles(checks, results, dev)
+    forced_tiles(dev)
+    wide_centralized(dev, launches)
+    plan_limits()
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def build_phase():
     """Phase 2: the default library and the custom-model one of phase 8 (K1
     to K5 with the user bicycle's generated right-hand side), built
@@ -2258,6 +2493,7 @@ def main():
     deadline_phase(dev)
     facade_phase(checks, results, dev, launches)
     custom_phase(checks, results, dev, launches, UserBike)
+    forward_tiles_phase(checks, results, dev, launches)
 
     timing = {"backward_batched": "K1", "forward_batched": "K2 nxf 32 2 alphas",
               "backward_batched_wide": "K3 Quad6D K=16 nxf 96",

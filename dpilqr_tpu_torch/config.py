@@ -49,7 +49,8 @@ class SolverConfig:
     # ops/pscan.py (forward sweep as under "auto"); the centralized "auto"
     # takes it on the card where K5 finds no tier for the problem
     # (ops/ilqr.py resolve_sweep_backend); the decomposed solve has no scan
-    # and reads it as "auto".
+    # and reads it as "auto".  The environment variable DPILQR_SWEEP_BACKEND
+    # (the same names) overrides it for every solve.
     sweep_backend: str = "auto"
 
     # Two-stage batched line search: evaluate the first ``ls_probe`` alphas
@@ -102,9 +103,15 @@ def resolve_device(device, *args) -> torch.device:
 
 
 def resolve_backend(backend: str, t) -> str:
-    """A batched sweep backend for tensors like ``t``: "auto" (and "pscan",
-    which only the centralized solve has) -> "cuda" for CUDA tensors,
-    "torch" for CPU tensors; "cuda" and "torch" as given."""
+    """A batched sweep backend for tensors like ``t``: the
+    ``DPILQR_SWEEP_BACKEND`` override if set (``ops.ilqr.env_sweep_backend``;
+    it overrides an explicit ``backend`` too, as the JAX package's does),
+    else ``backend``; "auto" (and "pscan", which only the centralized solve
+    has) -> "cuda" for CUDA tensors, "torch" for CPU tensors; "cuda" and
+    "torch" as given."""
+    from .ops.ilqr import env_sweep_backend
+
+    backend = env_sweep_backend() or backend
     if backend in ("auto", "pscan"):
         return "cuda" if t.is_cuda else "torch"
     if backend not in ("cuda", "torch"):

@@ -23,9 +23,11 @@
 // WARPS_PER_CTA warps; further alphas take further CTAs along grid.y), so
 // 2 alphas x 100 subproblems are 200 warps on 100 SMs; the column itself is
 // rollout_column of rollout.cuh, shared with the centralized forward kernel
-// (forward_sweep.cu): state in shared memory, the step's gain block staged
-// once per subproblem by cp.async, lanes over gain rows, slots and pairs,
-// RK4 in registers.  The kernel is instantiated for nx <= 4, 6 and 12; the
+// (forward_sweep.cu): state in shared memory, the step's gain block fetched
+// once per subproblem by cp.async (whole, or in tiles of rows where a
+// whole block does not fit beside the columns: Quad12D at K=32 in float64,
+// Unicycle4D at K=64), lanes over gain rows, slots and pairs, RK4 in
+// registers.  The kernel is instantiated for nx <= 4, 6 and 12; the
 // outputs are column-major in memory, (n_alpha, S, N, K nx) and
 // (n_alpha, S, N, K nu), so a column's row is contiguous.
 //
@@ -43,7 +45,7 @@
 
 namespace {
 
-template <typename T, int NXC>
+template <typename T, int NXC, bool TILES>
 __global__ void __launch_bounds__(WARPS_PER_CTA * 32) forward_batched_kernel(
     const T* __restrict__ X, const T* __restrict__ U,
     const T* __restrict__ Kg, const T* __restrict__ dg,
@@ -55,7 +57,7 @@ __global__ void __launch_bounds__(WARPS_PER_CTA * 32) forward_batched_kernel(
     const T* __restrict__ radius, const T* __restrict__ proxw,
     const int* __restrict__ npos_eval, T* __restrict__ X5,
     T* __restrict__ U5, T* __restrict__ J, int S, int N, int K, int nx,
-    int nu, int n_alpha, int n_stage) {
+    int nu, int n_alpha, int n_buf, int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nxf = K * nx, nuf = K * nu;
@@ -84,8 +86,9 @@ __global__ void __launch_bounds__(WARPS_PER_CTA * 32) forward_batched_kernel(
       proxw[s],
       N, K, nx, nu};
   const size_t col = (size_t)(live ? a : 0) * S + s;
-  rollout_column<NXC>(sm, n_stage, pb, live, live ? alphas[a] : T(0),
-                      X5 + col * N * nxf, U5 + col * N * nuf, J + col);
+  rollout_column<TILES, NXC>(sm, n_buf, rows, pb, live,
+                             live ? alphas[a] : T(0), X5 + col * N * nxf,
+                             U5 + col * N * nuf, J + col);
 }
 
 template <typename T, int NXC>
@@ -94,17 +97,22 @@ int launch_nxc(const T* X, const T* U, const T* Kg, const T* d,
                const T* slot_dh, const T* xf, const T* Q, const T* R,
                const T* Qf, const T* mask, const T* refw, const T* radius,
                const T* proxw, const int* npos_eval, T* X5, T* U5, T* J, int S,
-               int N, int K, int nx, int nu, int n_alpha, void* stream) {
+               int N, int K, int nx, int nu, int n_alpha, int max_rows,
+               void* stream) {
   const long long optin = max_shared_optin();
   if (optin < 0) return (int)cudaErrorInvalidDevice;
-  const ColumnLaunch cl =
-      column_launch(K * nx, K * nu, n_alpha, Kg != nullptr, sizeof(T), optin);
-  if (cl.n_stage == 0) return (int)cudaErrorInvalidValue;
-  return launch_with_smem(forward_batched_kernel<T, NXC>, dim3(S, cl.chunks),
-                          cl.warps * 32, cl.bytes, stream, X, U, Kg, d, alphas,
-                          slot_model, slot_nsub, slot_dh, xf, Q, R, Qf, mask,
-                          refw, radius, proxw, npos_eval, X5, U5, J, S, N, K, nx,
-                          nu, n_alpha, cl.n_stage);
+  const ColumnLaunch cl = column_launch(K * nx, K * nu, n_alpha, Kg != nullptr,
+                                        sizeof(T), optin, max_rows);
+  if (cl.n_buf == 0) return (int)cudaErrorInvalidValue;
+  // Tiles where a buffer holds fewer rows than the block; no gains run the
+  // whole-block walk (its fetches never run).
+  auto kernel = cl.rows && cl.rows < K * nu ? forward_batched_kernel<T, NXC, true>
+                                           : forward_batched_kernel<T, NXC, false>;
+  return launch_with_smem(kernel, dim3(S, cl.chunks), cl.warps * 32, cl.bytes,
+                          stream, X, U, Kg, d, alphas, slot_model, slot_nsub,
+                          slot_dh, xf, Q, R, Qf, mask, refw, radius, proxw,
+                          npos_eval, X5, U5, J, S, N, K, nx, nu, n_alpha,
+                          cl.n_buf, cl.rows);
 }
 
 template <typename T>
@@ -113,7 +121,7 @@ int launch(const T* X, const T* U, const T* Kg, const T* d, const T* alphas,
            const T* xf, const T* Q, const T* R, const T* Qf, const T* mask,
            const T* refw, const T* radius, const T* proxw,
            const int* npos_eval, T* X5, T* U5, T* J, int S, int N, int K,
-           int nx, int nu, int n_alpha, void* stream) {
+           int nx, int nu, int n_alpha, int max_rows, void* stream) {
   if (nx > MAX_NX || nu > MAX_NU || nx < 1 || nu < 1 || K < 1 ||
       (Kg == nullptr) != (d == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -122,7 +130,7 @@ int launch(const T* X, const T* U, const T* Kg, const T* d, const T* alphas,
   return launch_nxc<T, NXC>(X, U, Kg, d, alphas, slot_model, slot_nsub,       \
                             slot_dh, xf, Q, R, Qf, mask, refw, radius, proxw, \
                             npos_eval, X5, U5, J, S, N, K, nx, nu, n_alpha,   \
-                            stream)
+                            max_rows, stream)
   if (nx <= 4) DPILQR_FORWARD_NXC(4);
   if (nx <= 6) DPILQR_FORWARD_NXC(6);
   DPILQR_FORWARD_NXC(MAX_NX);
@@ -138,20 +146,29 @@ int launch(const T* X, const T* U, const T* Kg, const T* d, const T* alphas,
       const T* xf, const T* Q, const T* R, const T* Qf, const T* mask,        \
       const T* refw, const T* radius, const T* proxw, const int* npos_eval,   \
       T* X5, T* U5, T* J, int S, int N, int K, int nx, int nu, int n_alpha,   \
-      void* stream) {                                                         \
+      int max_rows, void* stream) {                                           \
     return launch<T>(X, U, Kg, d, alphas, slot_model, slot_nsub, slot_dh, xf, \
                      Q, R, Qf, mask, refw, radius, proxw, npos_eval, X5, U5,  \
-                     J, S, N, K, nx, nu, n_alpha, stream);                    \
+                     J, S, N, K, nx, nu, n_alpha, max_rows, stream);          \
   }
 
 DPILQR_FORWARD(dpilqr_forward_batched_f32, float)
 DPILQR_FORWARD(dpilqr_forward_batched_f64, double)
 
-// The dynamic shared memory one CTA of the forward kernel takes with two
-// stages (bytes), for the Python mirror's test on the card.
+// The forward kernels' plan (column_launch) for the Python mirror's test
+// and the smoke: fills plan = {chunks, warps, n_buf, rows} and returns the
+// dynamic shared memory of a CTA in bytes, or -1 where nothing fits `limit`
+// bytes (limit < 0: the current device's opt-in maximum).
 extern "C" long long dpilqr_forward_smem_bytes(int K, int nx, int nu,
                                                int n_alpha, int gains,
-                                               int itemsize) {
-  return (long long)column_launch(K * nx, K * nu, n_alpha, gains != 0, itemsize,
-                                  1LL << 40).bytes;
+                                               int itemsize, int max_rows,
+                                               long long limit, int* plan) {
+  const long long optin = limit < 0 ? max_shared_optin() : limit;
+  const ColumnLaunch cl = column_launch(K * nx, K * nu, n_alpha, gains != 0,
+                                        itemsize, optin, max_rows);
+  plan[0] = cl.chunks;
+  plan[1] = cl.warps;
+  plan[2] = cl.n_buf;
+  plan[3] = cl.rows;
+  return cl.n_buf == 0 ? -1 : (long long)cl.bytes;
 }

@@ -20,11 +20,13 @@
 //   step couples every agent through the gain matvec, so a column is one
 //   serial chain of N steps.  It is rollout_column of rollout.cuh, the routine
 //   the batched kernel walks, at one problem with K = n slots: a warp per
-//   alpha, the step's gain block, d row and nominal rows staged by cp.async
+//   alpha, the step's gain block, d row and nominal rows fetched by cp.async
 //   for all the CTA's alphas, lanes over gain rows, agents and pairs, RK4 in
-//   registers, one CTA barrier a step.  The gain block of a step must fit a
-//   block's shared memory (about 80 Unicycle4D agents in float32); wider
-//   problems return cudaErrorInvalidValue.
+//   registers, one CTA barrier a tile.  Past about 80 Unicycle4D agents in
+//   float32 (56 in float64) a step's gain block no longer fits a block's
+//   shared memory and comes in tiles of rows (column_launch); past one
+//   warp's column beside a 4-row tile (about 1,700 unicycles in float32,
+//   850 in float64) the launch returns cudaErrorInvalidValue.
 // - WITHOUT gains (the stitched plan's joint cost, the executed trajectory's
 //   cost, the public rollout: 10 to 500 agents and more) nothing couples the
 //   agents but the cost.  Agent i's trajectory depends on U[:, i] alone, and
@@ -58,7 +60,7 @@ namespace {
 constexpr int STATE_THREADS = 32;
 constexpr int COST_THREADS = 256, COST_TILE = 16, COST_PARTS_MAX = 32;
 
-template <typename T, int NXC>
+template <typename T, int NXC, bool TILES>
 __global__ void __launch_bounds__(WARPS_PER_CTA * 32) forward_sweep_kernel(
     const T* __restrict__ X, const T* __restrict__ U,
     const T* __restrict__ Kg, const T* __restrict__ dg,
@@ -70,7 +72,7 @@ __global__ void __launch_bounds__(WARPS_PER_CTA * 32) forward_sweep_kernel(
     const T* __restrict__ radius, const T* __restrict__ proxw,
     const int* __restrict__ npos_eval, T* __restrict__ Xc,
     T* __restrict__ Uc, T* __restrict__ Jc, int n, int N, int nx, int nu,
-    int n_alpha, int n_stage) {
+    int n_alpha, int n_buf, int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nxf = n * nx, nuf = n * nu;
@@ -85,8 +87,10 @@ __global__ void __launch_bounds__(WARPS_PER_CTA * 32) forward_sweep_kernel(
   T* Xa = Xc + (size_t)(live ? a : 0) * (N + 1) * nxf;
   if (live)
     for (int i = lane; i < nxf; i += 32) Xa[i] = X[i];
-  rollout_column<NXC>(sm, n_stage, pb, live, live ? alphas[a] : T(0), Xa + nxf,
-                      Uc + (size_t)(live ? a : 0) * N * nuf, Jc + (live ? a : 0));
+  rollout_column<TILES, NXC>(sm, n_buf, rows, pb, live,
+                             live ? alphas[a] : T(0), Xa + nxf,
+                             Uc + (size_t)(live ? a : 0) * N * nuf,
+                             Jc + (live ? a : 0));
 }
 
 // The trajectories of a plain rollout, a thread per agent.
@@ -235,19 +239,21 @@ int launch_nxc(const T* X, const T* U, const T* Kg, const T* d,
                const T* Qf, const T* mask, const T* refw, const T* radius,
                const T* proxw, const int* npos_eval, T* Xc, T* Uc, T* Jc,
                T* work, int n, int N, int nx, int nu, int n_alpha,
-               int work_size, void* stream) {
+               int work_size, int max_rows, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (Kg != nullptr) {
     const long long optin = max_shared_optin();
     if (optin < 0) return (int)cudaErrorInvalidDevice;
     const ColumnLaunch cl =
-        column_launch(n * nx, n * nu, n_alpha, true, sizeof(T), optin);
-    if (cl.n_stage == 0 || Uc == nullptr) return (int)cudaErrorInvalidValue;
-    return launch_with_smem(forward_sweep_kernel<T, NXC>, dim3(cl.chunks),
-                            cl.warps * 32, cl.bytes, stream, X, U, Kg, d, alphas,
-                            agent_model, agent_nsub, agent_dh, xf, Q, R, Qf,
-                            mask, refw, radius, proxw, npos_eval, Xc, Uc, Jc, n,
-                            N, nx, nu, n_alpha, cl.n_stage);
+        column_launch(n * nx, n * nu, n_alpha, true, sizeof(T), optin, max_rows);
+    if (cl.n_buf == 0 || Uc == nullptr) return (int)cudaErrorInvalidValue;
+    auto kernel = cl.rows < n * nu ? forward_sweep_kernel<T, NXC, true>
+                                   : forward_sweep_kernel<T, NXC, false>;
+    return launch_with_smem(kernel, dim3(cl.chunks), cl.warps * 32, cl.bytes,
+                            stream, X, U, Kg, d, alphas, agent_model, agent_nsub,
+                            agent_dh, xf, Q, R, Qf, mask, refw, radius, proxw,
+                            npos_eval, Xc, Uc, Jc, n, N, nx, nu, n_alpha,
+                            cl.n_buf, cl.rows);
   }
   const int parts = cost_parts(n);
   if (n_alpha != 1 || work == nullptr || work_size < (N + 1) * parts)
@@ -272,7 +278,8 @@ int launch(const T* X, const T* U, const T* Kg, const T* d, const T* alphas,
            const T* xf, const T* Q, const T* R, const T* Qf, const T* mask,
            const T* refw, const T* radius, const T* proxw,
            const int* npos_eval, T* Xc, T* Uc, T* Jc, T* work, int n, int N,
-           int nx, int nu, int n_alpha, int work_size, void* stream) {
+           int nx, int nu, int n_alpha, int work_size, int max_rows,
+           void* stream) {
   if (nx > MAX_NX || nu > MAX_NU || nx < 1 || nu < 1 || n < 1 || N < 0 ||
       (Kg == nullptr) != (d == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -281,7 +288,7 @@ int launch(const T* X, const T* U, const T* Kg, const T* d, const T* alphas,
   return launch_nxc<T, NXC>(X, U, Kg, d, alphas, agent_model, agent_nsub,      \
                             agent_dh, xf, Q, R, Qf, mask, refw, radius, proxw, \
                             npos_eval, Xc, Uc, Jc, work, n, N, nx, nu,         \
-                            n_alpha, work_size, stream)
+                            n_alpha, work_size, max_rows, stream)
   if (nx <= 4) DPILQR_SWEEP_NXC(4);
   if (nx <= 6) DPILQR_SWEEP_NXC(6);
   DPILQR_SWEEP_NXC(MAX_NX);
@@ -297,10 +304,11 @@ int launch(const T* X, const T* U, const T* Kg, const T* d, const T* alphas,
       const T* xf, const T* Q, const T* R, const T* Qf, const T* mask,         \
       const T* refw, const T* radius, const T* proxw, const int* npos_eval,    \
       T* Xc, T* Uc, T* Jc, T* work, int n, int N, int nx, int nu, int n_alpha, \
-      int work_size, void* stream) {                                           \
+      int work_size, int max_rows, void* stream) {                             \
     return launch<T>(X, U, K, d, alphas, agent_model, agent_nsub, agent_dh,    \
                      xf, Q, R, Qf, mask, refw, radius, proxw, npos_eval, Xc,   \
-                     Uc, Jc, work, n, N, nx, nu, n_alpha, work_size, stream);  \
+                     Uc, Jc, work, n, N, nx, nu, n_alpha, work_size, max_rows, \
+                     stream);                                                  \
   }
 
 DPILQR_FORWARD_SWEEP(dpilqr_forward_sweep_f32, float)

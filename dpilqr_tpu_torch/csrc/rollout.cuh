@@ -11,12 +11,20 @@
 //
 // - the column's x, dx = x - X and u live in shared memory, sized at launch
 //   from K, nx, nu and the warps of the CTA (column_values): no per-thread
-//   array has a flat width, so the only width limit is the shared memory a
-//   block may use;
-// - a step's gain block, d row and nominal X and U rows are staged once per
-//   CTA with 16-byte asynchronous copies (cp.async) and shared by all its
-//   warps; step t+1 is in flight while step t computes (two stages; one
-//   where two do not fit).  One __syncthreads() a step;
+//   array has a flat width.  Where the columns of all the CTA's warps do
+//   not fit beside a 4-row tile of gains (below), a CTA takes fewer warps;
+//   the only width limit is one warp's column beside one such tile in the
+//   shared memory a block may use;
+// - a step's gain block, d row and nominal X and U rows are fetched into
+//   shared memory with 16-byte asynchronous copies (cp.async) and shared by
+//   all the CTA's warps.  The block comes in tiles of `rows` consecutive
+//   rows, each one contiguous range of the (.., nuf, nxf) layout: a tile of
+//   all nuf rows (a "stage", the whole block) where one fits, else tiles of
+//   a multiple of 4 rows.  Tile g + 1 is in flight while tile g computes
+//   (two buffers, one __syncthreads() a tile; one buffer and two barriers
+//   where two do not fit).  A step's d, U and X rows come with its first
+//   tile.  Reading the block straight from L2 instead would have each of a
+//   CTA's alpha warps fetch all of it;
 // - lanes split a step's work: the gain rows' dot products run over lanes
 //   (dx element i on lane i mod 32, a butterfly of shuffles per row, four
 //   rows in flight), slots run over lanes for RK4 and the quadratic forms,
@@ -50,35 +58,65 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// The values of one stage (gain block, d row, nominal U row, nominal X row)
-// and of one column's x, dx, u.  Mirrored by forward_smem_bytes in
-// dpilqr_tpu_torch/ops/batched.py.
-__host__ __device__ inline size_t stage_values(int nxf, int nuf) {
-  return pad4((size_t)nuf * nxf) + 2 * pad4(nuf) + pad4(nxf);
+// The values of a step's rows beside its gains (d row, nominal U row,
+// nominal X row), of a tile of `rows` gain rows, and of one column's x, dx,
+// u.  Mirrored by forward_smem_bytes in dpilqr_tpu_torch/ops/batched.py.
+__host__ __device__ inline size_t row_values(int nxf, int nuf) {
+  return 2 * pad4(nuf) + pad4(nxf);
+}
+__host__ __device__ inline size_t tile_values(int rows, int nxf) {
+  return pad4((size_t)rows * nxf);
 }
 __host__ __device__ inline size_t column_values(int nxf, int nuf) {
   return 2 * pad4(nxf) + pad4(nuf);
 }
 
 // How n_alpha columns of one problem are laid over CTAs: `chunks` CTAs of
-// `warps` warps each, `n_stage` stages of `bytes` dynamic shared memory in
-// all; n_stage 0 where not even one stage fits `optin` bytes.
+// `warps` warps each; with gains `n_buf` buffers (2 or 1) of a tile of
+// `rows` gain rows and a step's rows; `bytes` of dynamic shared memory in
+// all.  n_buf 0 where nothing fits `optin` bytes.
 struct ColumnLaunch {
-  int chunks, warps, n_stage;
+  int chunks, warps, n_buf, rows;
   size_t bytes;
 };
 
+// The placement, in order of preference: a whole block a buffer (two, then
+// one); tiles of as many rows as fit, a multiple of 4 (two buffers, then
+// one), evened out over the block; then the same with fewer warps a CTA.
+// `max_rows` > 0 forces tiles of at most that many rows (rounded down to a
+// multiple of 4, at least 4) where it is below nuf: the tests and the smoke
+// hold the tiled walk to the staged one's bits with it.
 inline ColumnLaunch column_launch(int nxf, int nuf, int n_alpha, bool gains,
-                                  size_t itemsize, long long optin) {
-  const int chunks = (n_alpha + WARPS_PER_CTA - 1) / WARPS_PER_CTA;
-  const int warps = chunks ? (n_alpha + chunks - 1) / chunks : 0;
-  const size_t stage = gains ? stage_values(nxf, nuf) : 0;
-  const size_t cols = warps * column_values(nxf, nuf);
-  for (int n_stage = 2; n_stage >= 1; --n_stage) {
-    const size_t bytes = (n_stage * stage + cols) * itemsize;
-    if (optin >= 0 && bytes <= (size_t)optin) return {chunks, warps, n_stage, bytes};
+                                  size_t itemsize, long long optin,
+                                  int max_rows = 0) {
+  if (optin < 0 || n_alpha < 1) return {0, 0, 0, 0, 0};
+  const size_t room = (size_t)optin / itemsize;
+  const size_t col = column_values(nxf, nuf), rowv = row_values(nxf, nuf);
+  const bool whole = max_rows <= 0 || max_rows >= nuf;
+  const int cap_rows = whole ? nuf : (max_rows < 4 ? 4 : max_rows / 4 * 4);
+  for (int cap = WARPS_PER_CTA; cap >= 1; --cap) {
+    const int chunks = (n_alpha + cap - 1) / cap;
+    const int warps = (n_alpha + chunks - 1) / chunks;
+    const size_t cols = warps * col;
+    if (cols > room) continue;
+    if (!gains) return {chunks, warps, 1, 0, cols * itemsize};
+    for (int nb = 2; whole && nb >= 1; --nb) {
+      const size_t v = cols + nb * (tile_values(nuf, nxf) + rowv);
+      if (v <= room) return {chunks, warps, nb, nuf, v * itemsize};
+    }
+    for (int nb = 2; nb >= 1; --nb) {
+      if (cols + nb * (tile_values(4, nxf) + rowv) > room) continue;
+      const size_t per = ((room - cols) / nb - rowv) / 4 * 4;
+      size_t fit = per / nxf;
+      if (fit > (size_t)cap_rows) fit = cap_rows;
+      const int rmax = (int)(fit / 4 * 4);
+      const int n_tiles = (nuf + rmax - 1) / rmax;
+      const int rows = (int)pad4((nuf + n_tiles - 1) / n_tiles);
+      return {chunks, warps, nb, rows,
+              (cols + nb * (tile_values(rows, nxf) + rowv)) * itemsize};
+    }
   }
-  return {chunks, warps, 0, 0};
+  return {0, 0, 0, 0, 0};
 }
 
 // This lane's share of the cost at state x (and control u, or nullptr at
@@ -132,77 +170,98 @@ struct ColumnProblem {
   int N, K, nx, nu;
 };
 
-// Walk one column: `sm` is the CTA's dynamic shared memory (n_stage stages,
-// then a column_values block per warp), `live` whether this warp has a
-// column, Xo (N, K, nx) its states 1..N, Uo (N, K, nu) its controls, Jo its
-// cost.
-template <int NXC, typename T>
+// Walk one column: `sm` is the CTA's dynamic shared memory (with gains
+// n_buf tile buffers of `rows` gain rows, then n_buf buffers of a step's
+// rows; then a column_values block per warp), `live` whether this warp has
+// a column, Xo (N, K, nx) its states 1..N, Uo (N, K, nu) its controls, Jo
+// its cost.  A tile adds in the order of the whole block: rows start at
+// multiples of 4, so the same four rows are in flight together and every
+// row's sum runs over the same lanes; the placement changes no bit.
+// TILES false is the whole block a buffer (rows = nuf), compiled without
+// the tile loop.
+template <bool TILES, int NXC, typename T>
 __device__ __forceinline__ void rollout_column(
-    T* sm, int n_stage, const ColumnProblem<T>& pb, bool live, T alpha,
-    T* __restrict__ Xo, T* __restrict__ Uo, T* __restrict__ Jo) {
+    T* sm, int n_buf, int rows, const ColumnProblem<T>& pb, bool live,
+    T alpha, T* __restrict__ Xo, T* __restrict__ Uo, T* __restrict__ Jo) {
   const int N = pb.N, K = pb.K, nx = pb.nx, nu = pb.nu;
   const int nxf = K * nx, nuf = K * nu;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool gains = pb.Kg != nullptr;
 
-  const size_t stage_sz = gains ? stage_values(nxf, nuf) : 0;
-  const size_t g_off = pad4((size_t)nuf * nxf), v_off = pad4(nuf);
-  T* x = sm + n_stage * stage_sz + warp * column_values(nxf, nuf);
+  const size_t tile_sz = gains ? tile_values(rows, nxf) : 0;
+  const size_t rows_sz = gains ? row_values(nxf, nuf) : 0;
+  const size_t v_off = pad4(nuf);
+  const int n_tiles = TILES ? (nuf + rows - 1) / rows : 1;
+  const int mask = n_buf - 1;  // buffer of tile g: g & mask (n_buf 1 or 2)
+  T* rowbuf = sm + n_buf * tile_sz;
+  T* x = rowbuf + n_buf * rows_sz + warp * column_values(nxf, nuf);
   T* dx = x + pad4(nxf);
   T* u = dx + pad4(nxf);
 
-  // Stage t: [gain block | d row | nominal U row | nominal X row].
-  auto fetch = [&](int t, T* st) {
-    copy_async(st, pb.Kg + (size_t)t * nuf * nxf, nuf * nxf);
-    copy_async(st + g_off, pb.d + (size_t)t * nuf, nuf);
-    copy_async(st + g_off + v_off, pb.U + (size_t)t * nuf, nuf);
-    copy_async(st + g_off + 2 * v_off, pb.X + (size_t)t * nxf, nxf);
+  // Tile j of step t (tile g = t n_tiles + j of the walk): rows j rows ..
+  // of step t's gain block, into buffer g & mask; a step's first tile
+  // brings its [d | U | X] rows into row buffer t & mask.
+  auto fetch = [&](int t, int j) {
+    const int r0 = TILES ? j * rows : 0, nr = TILES ? min(rows, nuf - r0) : nuf;
+    copy_async(sm + ((TILES ? t * n_tiles + j : t) & mask) * tile_sz,
+               pb.Kg + ((size_t)t * nuf + r0) * nxf, nr * nxf);
+    if (j == 0) {
+      T* rb = rowbuf + (t & mask) * rows_sz;
+      copy_async(rb, pb.d + (size_t)t * nuf, nuf);
+      copy_async(rb + v_off, pb.U + (size_t)t * nuf, nuf);
+      copy_async(rb + 2 * v_off, pb.X + (size_t)t * nxf, nxf);
+    }
     __pipeline_commit();
   };
 
   for (int i = lane; i < nxf; i += 32) x[i] = pb.X[i];
-  if (gains && n_stage == 2 && N > 0) fetch(0, sm);
+  if (gains && n_buf == 2 && N > 0) fetch(0, 0);
   __syncwarp();
 
   T Jacc = T(0);
   for (int t = 0; t < N; ++t) {
     if (gains) {
-      T* st;
-      if (n_stage == 2) {
-        // Stage t has landed for every thread, and every warp is done with
-        // the buffer step t - 1 read: refill it with step t + 1.
-        __pipeline_wait_prior(0);
-        __syncthreads();
-        st = sm + (t & 1) * stage_sz;
-        if (t + 1 < N) fetch(t + 1, sm + ((t + 1) & 1) * stage_sz);
-      } else {
-        __syncthreads();
-        st = sm;
-        fetch(t, st);
-        __pipeline_wait_prior(0);
-        __syncthreads();
-      }
-      if (live) {
-        const T* G = st;
-        const T* dt = st + g_off;
-        const T* Un = st + g_off + v_off;
-        const T* Xn = st + g_off + 2 * v_off;
-        for (int i = lane; i < nxf; i += 32) dx[i] = x[i] - Xn[i];
-        __syncwarp();
+      const T* dt = rowbuf + (t & mask) * rows_sz;
+      const T* Un = dt + v_off;
+      const T* Xn = dt + 2 * v_off;
+      for (int j = 0; j < n_tiles; ++j) {
+        if (n_buf == 2) {
+          // Tile g has landed for every thread, and every warp is done
+          // with the buffers tile g - 1 and step t - 1 read: refill them.
+          __pipeline_wait_prior(0);
+          __syncthreads();
+          if (TILES && j + 1 < n_tiles)
+            fetch(t, j + 1);
+          else if (t + 1 < N)
+            fetch(t + 1, 0);
+        } else {
+          __syncthreads();
+          fetch(t, j);
+          __pipeline_wait_prior(0);
+          __syncthreads();
+        }
+        if (!live) continue;
+        const T* G = sm + ((TILES ? t * n_tiles + j : t) & mask) * tile_sz;
+        const int r0 = TILES ? j * rows : 0;  // G holds rows r0 .. r1 - 1
+        const int r1 = TILES ? min(r0 + rows, nuf) : nuf;
+        if (j == 0) {
+          for (int i = lane; i < nxf; i += 32) dx[i] = x[i] - Xn[i];
+          __syncwarp();
+        }
         // Closed-loop controls, four gain rows in flight.
-        for (int r0 = 0; r0 < nuf; r0 += 4) {
+        for (int rr = r0; rr < r1; rr += 4) {
           T p[4] = {T(0), T(0), T(0), T(0)};
           for (int i = lane; i < nxf; i += 32) {
             const T dxi = dx[i];
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              if (r0 + q < nuf) p[q] += G[(size_t)(r0 + q) * nxf + i] * dxi;
+              if (rr + q < r1) p[q] += G[(size_t)(rr - r0 + q) * nxf + i] * dxi;
           }
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const T du = warp_sum(p[q]);
-            const int r = r0 + q;
-            if (r < nuf && lane == q) u[r] = Un[r] + du + alpha * dt[r];
+            const int r = rr + q;
+            if (r < r1 && lane == q) u[r] = Un[r] + du + alpha * dt[r];
           }
         }
       }

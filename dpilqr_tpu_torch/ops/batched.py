@@ -164,27 +164,72 @@ def sweep_smem_bytes(n: int, nx: int, nu: int, itemsize: int) -> tuple[int, int,
                               extra=sweep_extra_values(n, nx, nu))
 
 
+class ForwardPlan(NamedTuple):
+    """Where the forward kernels (K2, K4) place one problem's columns:
+    ``chunks`` CTAs of ``warps`` warps (alphas) each; with gains ``buffers``
+    (2 or 1) buffers of a tile of ``rows`` gain rows and of a step's rows;
+    ``nbytes`` of dynamic shared memory a CTA."""
+
+    chunks: int
+    warps: int
+    buffers: int
+    rows: int
+    nbytes: int
+
+    def placement(self, nuf: int) -> str:
+        """"stages" (a step's whole gain block a buffer), "tiles" or
+        "columns" (no gains)."""
+        return "columns" if not self.rows else "stages" if self.rows >= nuf else "tiles"
+
+
 def forward_smem_bytes(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
-                       gains: bool = True,
-                       limit: int = SMEM_LIMIT) -> tuple[int, int]:
-    """Shared memory of one CTA of the forward kernel: the mirror of
-    ``launch_nxc`` in csrc/forward_batched.cu.  A CTA holds x, dx and u of
-    each of its alphas and, with gains, stages of one step's gain block, d
-    row and nominal X and U rows: two where they fit ``limit`` bytes, else
-    one.  Returns ``(stages, bytes)``; raises where one stage does not fit."""
+                       gains: bool = True, limit: int = SMEM_LIMIT,
+                       max_rows: int = 0) -> ForwardPlan:
+    """The forward kernels' plan: the mirror of ``column_launch`` in
+    csrc/rollout.cuh.  A CTA holds x, dx and u of each of its alphas and,
+    with gains, buffers of one step's gain block, d row and nominal X and U
+    rows; in order of preference two whole blocks, one, tiles of as many
+    rows as fit (a multiple of 4, evened out over the block) in two buffers,
+    then in one; the same with fewer warps a CTA where the columns of all
+    its alphas leave no room for a 4-row tile.  ``max_rows`` > 0 forces
+    tiles of at most that many rows where it is below nuf.  Raises a
+    ``ValueError`` where not even one warp's column beside a 4-row tile
+    fits ``limit`` bytes."""
     nxf, nuf = K * nx, K * nu
-    chunks = -(-n_alpha // FORWARD_WARPS_PER_CTA)
-    warps = -(-n_alpha // chunks) if chunks else 0
-    stage = (_pad4(nuf * nxf) + 2 * _pad4(nuf) + _pad4(nxf)) if gains else 0
-    cols = warps * (2 * _pad4(nxf) + _pad4(nuf))
-    for n_stage in (2, 1):
-        nbytes = (n_stage * stage + cols) * itemsize
-        if nbytes <= limit:
-            return n_stage, nbytes
+    if n_alpha < 1:
+        return ForwardPlan(0, 0, 0, 0, 0)
+    room = limit // itemsize
+    col = 2 * _pad4(nxf) + _pad4(nuf)
+    rowv = 2 * _pad4(nuf) + _pad4(nxf)
+    whole = max_rows <= 0 or max_rows >= nuf
+    cap_rows = nuf if whole else max(4, max_rows // 4 * 4)
+    for cap in range(FORWARD_WARPS_PER_CTA, 0, -1):
+        chunks = -(-n_alpha // cap)
+        warps = -(-n_alpha // chunks)
+        cols = warps * col
+        if cols > room:
+            continue
+        if not gains:
+            return ForwardPlan(chunks, warps, 1, 0, cols * itemsize)
+        for nb in (2, 1) if whole else ():
+            v = cols + nb * (_pad4(nuf * nxf) + rowv)
+            if v <= room:
+                return ForwardPlan(chunks, warps, nb, nuf, v * itemsize)
+        for nb in (2, 1):
+            if cols + nb * (_pad4(4 * nxf) + rowv) > room:
+                continue
+            per = ((room - cols) // nb - rowv) // 4 * 4
+            rmax = min(per // nxf, cap_rows) // 4 * 4
+            n_tiles = -(-nuf // rmax)
+            rows = _pad4(-(-nuf // n_tiles))
+            return ForwardPlan(chunks, warps, nb, rows,
+                               (cols + nb * (_pad4(rows * nxf) + rowv)) * itemsize)
+    need = (col + (_pad4(4 * nxf) + rowv if gains else 0)) * itemsize
     raise ValueError(
-        f"forward kernels: one stage (a step's gain block and rows) of a "
-        f"problem with K*nx={nxf}, K*nu={nuf} and {warps} alphas a CTA takes "
-        f"{nbytes} bytes of shared memory, over the {limit} a block may use")
+        f"forward kernels: their plan (column_launch) places no CTA for a problem with "
+        f"K*nx={nxf}, K*nu={nuf}: one warp's column"
+        + (" beside a 4-row tile of its gain block" if gains else "")
+        + f" takes {need} bytes of shared memory, over the {limit} a block may use")
 
 
 # ---------------------------------------------------------------------------
@@ -520,12 +565,14 @@ def forward_pass_batched_torch(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
 
 
 def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
-                              Kg, d, alphas):
+                              Kg, d, alphas, max_rows: int = 0):
     """Launch ``csrc/forward_batched.cu``: a CTA per subproblem, a warp per
     alpha.  Same arguments and outputs as ``forward_pass_batched``.  Gains
     that do not lie in the kernel's memory order (``GAIN_ORDER``,
     ``D_ORDER``: what the backward wrappers and twins return) are copied
-    into it once."""
+    into it once.  ``max_rows`` > 0 forces the gain block into tiles of at
+    most that many rows (``forward_smem_bytes``), which must give the bits
+    of the whole block: for the tests and the smoke."""
     S, Np1, K, nx_p = X.shape
     N = Np1 - 1
     nu_p = U.shape[-1]
@@ -533,7 +580,7 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     n_alpha = alphas.shape[0]
     library = require_kernel_models(fleet)
     forward_smem_bytes(K, nx_p, nu_p, n_alpha, X.element_size(),
-                       gains=Kg is not None)  # raises on no fit
+                       gains=Kg is not None)  # raises where nothing fits
     require_cuda("forward_batched", X)
     if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
         raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
@@ -560,7 +607,7 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     U5 = X.new_empty((n_alpha, S, N, K, nu_p))
     J = X.new_empty((n_alpha, S))
     launch("forward_batched", dtype, dev, *ins.values(), X5, U5, J,
-           S, N, K, nx_p, nu_p, n_alpha, library=library)
+           S, N, K, nx_p, nu_p, n_alpha, max_rows, library=library)
     return (X5.permute(_inverse(COLUMN_ORDER)),
             U5.permute(_inverse(COLUMN_ORDER)), J)
 
@@ -760,7 +807,9 @@ def solve_subproblems_batched(
 
     ``x0_s (S, K, nx_p)``, ``U0_s (S, N, K, nu_p)``, ``mids_s (S, K)`` branch
     indices, ``enabled (S,)`` bool; ``backend`` defaults to
-    ``cfg.sweep_backend``.
+    ``cfg.sweep_backend``.  On the kernels a width that K1's or K3's plan
+    (``sweep_smem_bytes``) or K2's (``forward_smem_bytes``) does not place
+    raises that plan's ``ValueError`` before any launch.
 
     ``t_kill`` (seconds) is the wall-clock deadline of the whole batch,
     counted from ``t0`` (a ``perf_counter`` reading; default: entry).  The
@@ -774,6 +823,12 @@ def solve_subproblems_batched(
         t0 = perf_counter()
     dtype = x0_s.dtype
     backend = resolve_backend(backend or cfg.sweep_backend, x0_s)
+    if backend == "cuda":
+        # A width the backward kernels' plan (K1, K3) or K2's does not place
+        # raises its ValueError here, before any launch.
+        K, item = x0_s.shape[1], x0_s.element_size()
+        sweep_smem_bytes(K, fleet.nx_p, fleet.nu_p, item)
+        forward_smem_bytes(K, fleet.nx_p, fleet.nu_p, cfg.n_ls_iter, item)
     sub_cost = cast_cost(sub_cost, dtype)
     S = x0_s.shape[0]
     c = init_batch_carry(fleet, cfg, sub_cost, x0_s, U0_s, mids_s, enabled, backend)

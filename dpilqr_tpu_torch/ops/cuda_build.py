@@ -61,8 +61,8 @@ _SIGNATURES = {
     "backward_batched": [_P] * 17 + [_I] * 5 + [_P],
     "backward_batched_wide": [_P] * 18 + [_L] + [_I] * 5 + [_P],
     "backward_sweep": [_P] * 17 + [_L] + [_I] * 4 + [_P],
-    "forward_batched": [_P] * 20 + [_I] * 6 + [_P],
-    "forward_sweep": [_P] * 21 + [_I] * 6 + [_P],
+    "forward_batched": [_P] * 20 + [_I] * 7 + [_P],
+    "forward_sweep": [_P] * 21 + [_I] * 7 + [_P],
     "probe_fma": [_P] * 2 + [_L, _I] + [_F] * 8 + [_P],
     "probe_hbm": [_P] * 2 + [_I, _L] + [_P],
     "probe_sin": [_P] * 2 + [_L, _I] + [_P],
@@ -246,7 +246,7 @@ def load_library(header: str | None = None) -> ctypes.CDLL:
     if header is None:  # the plans: the default library's alone are called
         lib.dpilqr_riccati_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_L)] * 2
         lib.dpilqr_riccati_plan.restype = ctypes.c_int
-        lib.dpilqr_forward_smem_bytes.argtypes = [_I] * 6
+        lib.dpilqr_forward_smem_bytes.argtypes = [_I] * 7 + [_L, ctypes.POINTER(_I)]
         lib.dpilqr_forward_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -330,6 +330,20 @@ def riccati_plan(K: int, nx: int, nu: int, itemsize: int) -> tuple[int, int, int
         raise ValueError(f"a Riccati problem of K={K}, nx={nx}, nu={nu} does "
                          "not fit the device's shared memory")
     return tier, smem.value, work.value
+
+
+def forward_plan(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
+                 gains: bool = True, max_rows: int = 0,
+                 limit: int = -1) -> tuple[int, int, int, int, int] | None:
+    """The library's plan for the forward kernels (K2, K4: ``column_launch``
+    in csrc/rollout.cuh, exported by csrc/forward_batched.cu): ``(chunks,
+    warps, buffers, rows, bytes)`` as ``batched.forward_smem_bytes`` gives
+    it, or None where nothing fits ``limit`` bytes (-1: the current
+    device's opt-in maximum)."""
+    plan = (ctypes.c_int * 4)()
+    nbytes = load_library().dpilqr_forward_smem_bytes(
+        K, nx, nu, n_alpha, int(gains), itemsize, max_rows, limit, plan)
+    return None if nbytes < 0 else (*plan, nbytes)
 
 
 def ptr(t):

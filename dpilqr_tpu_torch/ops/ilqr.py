@@ -27,13 +27,15 @@ Entry points given numpy input and no ``device`` run on the card
 
 from __future__ import annotations
 
+import os
 from time import perf_counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, SolverConfig, resolve_backend, resolve_device
+from ..config import (DEFAULT_CONFIG, SWEEP_BACKENDS, SolverConfig, resolve_backend,
+                      resolve_device)
 from ..models.fleet import Fleet
 from .costs import (
     GameCost,
@@ -233,28 +235,52 @@ class IlqrCarry(NamedTuple):
     failed: torch.Tensor
 
 
-def resolve_sweep_backend(cfg: SolverConfig, x, fleet: Fleet) -> str:
-    """``cfg.sweep_backend`` for a solve of ``fleet`` on ``x``'s device and
-    dtype.  "auto" is the plain PyTorch sweeps for CPU tensors and the
-    kernels for CUDA tensors -- unless K5 finds no tier for the problem
-    (``batched.sweep_smem_bytes``: its vectors alone exceed a block's shared
-    memory), and then "pscan": the JAX package's rule (the fused kernel
-    where it fits, the scan where it does not) without its TPU crossover at
-    N >= 100, since on the card K5 beats the scan at every horizon.  An
-    explicit "cuda" raises there; "pscan" stays "pscan"."""
-    if cfg.sweep_backend == "pscan":
-        return "pscan"
-    backend = resolve_backend(cfg.sweep_backend, x)
-    if backend == "cuda":
-        from .batched import sweep_smem_bytes
+def env_sweep_backend() -> str | None:
+    """The validated ``DPILQR_SWEEP_BACKEND`` override of every sweep
+    backend (None if unset or "auto"), read first by both resolvers
+    (``resolve_sweep_backend``, ``config.resolve_backend``): an operator's
+    switch, as in the JAX package (dpilqr_tpu/ops/ilqr.py:281), with the
+    port's names.  A typo raises here instead of surfacing as an unrelated
+    dispatch error downstream."""
+    env = os.environ.get("DPILQR_SWEEP_BACKEND")
+    if env and env not in SWEEP_BACKENDS:
+        raise ValueError(
+            f"DPILQR_SWEEP_BACKEND={env!r} is not one of {SWEEP_BACKENDS}")
+    return env if env and env != "auto" else None
 
-        try:
-            sweep_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p,
-                             x.element_size())
-        except ValueError:
-            if cfg.sweep_backend != "auto":
-                raise
-            return "pscan"
+
+def resolve_sweep_backend(cfg: SolverConfig, x, fleet: Fleet) -> str:
+    """The sweep backend of a centralized solve of ``fleet`` on ``x``'s
+    device and dtype: ``DPILQR_SWEEP_BACKEND`` if set, else
+    ``cfg.sweep_backend``.  "auto" is the plain PyTorch sweeps for CPU
+    tensors and the kernels for CUDA tensors -- unless K5 finds no tier for
+    the problem (``batched.sweep_smem_bytes``: its vectors alone exceed a
+    block's shared memory), and then "pscan": the JAX package's rule (the
+    fused kernel where it fits, the scan where it does not) without its TPU
+    crossover at N >= 100, since on the card K5 beats the scan at every
+    horizon.  An explicit "cuda" raises there; "pscan" stays "pscan".
+    Wherever the forward sweep is to run on K4, K4's plan must place the
+    problem too (``batched.forward_smem_bytes``: one warp's column beside a
+    4-row tile of gains), or this raises its ``ValueError`` before any
+    launch: no backend solves such a fleet on the card."""
+    from .batched import forward_smem_bytes, sweep_smem_bytes
+
+    requested = env_sweep_backend() or cfg.sweep_backend
+    item = x.element_size()
+    if requested == "pscan":
+        backend = "pscan"
+    else:
+        backend = resolve_backend(requested, x)
+        if backend == "cuda":
+            try:
+                sweep_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p, item)
+            except ValueError:
+                if requested != "auto":
+                    raise
+                backend = "pscan"
+    if backend == "cuda" or (backend == "pscan" and x.is_cuda):
+        forward_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p, cfg.n_ls_iter,
+                           item)
     return backend
 
 

@@ -94,7 +94,8 @@ def _agent_tables_cached(fleet: Fleet, _forms, dtype, device):
     return tuple(t.contiguous() for t in tables)
 
 
-def _launch_forward_sweep(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
+def _launch_forward_sweep(fleet: Fleet, cost: GameCost, X, U, K, d, alphas,
+                          max_rows: int = 0):
     """Check the inputs of ``csrc/forward_sweep.cu`` and launch it: with
     gains ``X (N+1, n, nx_p)`` is the nominal trajectory, without
     ``X (n, nx_p)`` the initial state and ``alphas`` is None (one column)."""
@@ -128,24 +129,27 @@ def _launch_forward_sweep(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
     J_c = X.new_empty((n_alpha,))
     work = None if gains else X.new_empty(((N + 1) * ROLLOUT_COST_PARTS,))
     launch("forward_sweep", dtype, dev, *ins.values(), X_c, U_c, J_c, work,
-           n, N, nx_p, nu_p, n_alpha, 0 if gains else work.numel(),
+           n, N, nx_p, nu_p, n_alpha, 0 if gains else work.numel(), max_rows,
            library=library)
     return X_c, U_c, J_c
 
 
-def forward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, K, d, alphas):
+def forward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, K, d, alphas,
+                      max_rows: int = 0):
     """Launch ``csrc/forward_sweep.cu`` with gains: the closed-loop rollouts
     ``u = U + K (x - X) + alpha d`` for all ``alphas (n_alpha,)`` in one
     launch, a warp per alpha.  Returns ``X_c (n_alpha, N+1, n, nx_p)``,
     ``U_c (n_alpha, N, n, nu_p)``, ``J_c (n_alpha,)``.  A step's gain block
-    must fit a block's shared memory (``forward_smem_bytes`` with K = n
-    raises where it does not)."""
+    comes whole or in tiles of rows (``forward_smem_bytes`` with K = n, which
+    raises past one warp's column beside a 4-row tile); ``max_rows`` > 0
+    forces tiles of at most that many rows, as in
+    ``batched.forward_pass_batched_cuda``."""
     if K is None or d is None:
         raise ValueError("forward_pass_cuda takes gains K and d; the plain "
                          "rollout of U is rollout_cuda")
     N, n, nu_p = U.shape
     forward_smem_bytes(n, X.shape[-1], nu_p, alphas.shape[0], X.element_size())
-    return _launch_forward_sweep(fleet, cost, X, U, K, d, alphas)
+    return _launch_forward_sweep(fleet, cost, X, U, K, d, alphas, max_rows)
 
 
 def rollout_cuda(fleet: Fleet, cost: GameCost, x0, U):

@@ -5,6 +5,8 @@ same ``.npz`` layout, so a checkpoint written by either package loads in
 the other).  The RHC loop state -- current state, warm-start trajectory and
 controls, simulated time, executed history -- is a checkpoint, so a run can
 be stopped and resumed (``solve_rhc(checkpoint_path=, resume_state=)``).
+``StepDumper`` writes one ``.npz`` per MPC step for offline analysis, in the
+JAX package's layout too.
 """
 
 from __future__ import annotations
@@ -58,3 +60,32 @@ def load_rhc_state(path) -> tuple[RhcState, dict]:
     )
     return state, json.loads(str(z["extra"]))
 
+
+
+def _host(a) -> np.ndarray:
+    """A tensor (on any device) or array as a numpy array."""
+    if hasattr(a, "detach"):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+class StepDumper:
+    """Per-MPC-step (X, U, J, graph) dumps for offline analysis: the JAX
+    package's ``StepDumper``, taking tensors or arrays.  Step i goes to
+    ``step_{i:05d}.npz`` in ``directory`` with ``X``, ``U``, ``J`` and the
+    graph as JSON."""
+
+    def __init__(self, directory):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.i = 0
+
+    def dump(self, X, U, J, graph=None):
+        np.savez(
+            self.dir / f"step_{self.i:05d}.npz",
+            X=_host(X),
+            U=_host(U),
+            J=float(J),
+            graph=json.dumps(graph or {}),
+        )
+        self.i += 1

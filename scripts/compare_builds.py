@@ -8,6 +8,7 @@ tree it runs in, so it also runs in an older tree it is copied into:
 
     python3 scripts/compare_builds.py times TAG
     python3 scripts/compare_builds.py backward TAG
+    python3 scripts/compare_builds.py forward TAG
     python3 scripts/compare_builds.py bits OUT.pt [OTHER.pt]
 
 Each mode first prints the seconds the tree's default library took to
@@ -27,6 +28,12 @@ says float64, at the shapes phases 3a, 3b and 7c of ``chip_smoke.py`` time:
 ``backward_pass_batched`` on CUDA tensors as a whole (in a tree whose K1 and
 K3 take their inputs from the torch prep, the prep and the launch) and the
 launch alone (CUDA events around the kernel), K3 forced at nxf 32 too.
+
+``forward`` times the forward kernels' launches alone (CUDA events, the
+least of 20), with gains, at the shapes where a step's whole gain block
+fits a CTA: K2 at 100 Unicycle4D K=8 (2 and 10 alphas), Quad6D at K=16,
+Quad12D at K=8 (2 alphas), Quad6D at K=32 S=16 (2 and 10 alphas, float32
+and float64); K4 at the 10-agent centralized shape (10 alphas, both types).
 
 ``bits`` saves the outputs of the three backward kernels (K1 and K3 on the
 same narrow batches, K3 at Quad6D K=16, K5 at 10 agents) and of the two
@@ -224,6 +231,59 @@ def times(tag, dev):
     loop("centralized MPC", fleet, cost, x0, 1, centralized=True)
 
 
+def forward(tag, dev):
+    def k2_shapes():
+        for dtype in (torch.float32,):
+            fleet, cost, x0 = cs.unicycle_problem(cs.N_AGENTS, 0.55, dtype, dev)
+            yield "Unicycle4D K=8 S=100", fleet, cost, x0, 8, {}, None, (2, 10)
+        for model, K, u_scale, trim in (
+                (dtt.QUAD_6D, 16, 0.01, [G, 0, 0]),
+                (dtt.QUAD_12D, 8, 1e-7, [0, 0, 0, G * 63 / 2000])):
+            fleet, cost, x0 = cs.quad_problem(model, 64, 0.7, torch.float32, dev)
+            yield (f"{model.name} K={K} S=64", fleet, cost, x0, K,
+                   dict(u_scale=u_scale, u_trim=np.array(trim)), None, (2,))
+        for dtype in (torch.float32, torch.float64):
+            fleet, cost, x0 = cs.quad_problem(dtt.QUAD_6D, 64, 0.7, dtype, dev)
+            yield (f"Quad6D K=32 S=16 {str(dtype)[6:]}", fleet, cost, x0, 32,
+                   dict(u_scale=0.01, u_trim=np.array([G, 0, 0])), slice(None, None, 4),
+                   (2, 10))
+
+    def least(fn, kernel):
+        with cuda_build.timed_launches() as record:
+            for _ in range(20):
+                fn()
+        return min(cuda_build.launch_ms(record, kernel))
+
+    for label, fleet, cost, x0, K, kw, cut, alphas_n in k2_shapes():
+        _, sub_cost, mids, carry = cs.sweep_inputs(fleet, cost, x0, K, dev, **kw)
+        args = backward_args(fleet, cost, x0, K, dev, **kw)
+        if cut is not None:
+            sub_cost = type(sub_cost)(*(a[cut].contiguous() for a in sub_cost))
+            carry = type(carry)(*(a[cut].contiguous() for a in carry))
+            mids = mids[cut].contiguous()
+            args = (args[0], sub_cost, mids, carry.X, carry.U, args[5][cut].contiguous())
+        Kg, d = bt.backward_pass_batched(*args, "cuda")
+        for n_alpha in alphas_n:
+            alphas = dtt.ops.line_search_alphas(n_alpha, carry.X.dtype, dev)
+            ms = least(lambda: bt.forward_pass_batched_cuda(
+                fleet, sub_cost, mids, carry.X, carry.U, Kg, d, alphas), "forward_batched")
+            print(f"{tag} forward K2 {label} {n_alpha} alphas: the launch alone "
+                  f"{ms:.4f} ms", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        fleet, cost, x0 = cs.centralized_inputs(dtype, dev)
+        x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
+        U0 = torch.as_tensor(np.random.default_rng(2).uniform(size=(cs.HORIZON, 10, 2)) * 0.1,
+                             dtype=dtype, device=dev)
+        X = ilqr._rollout_fn(fleet.step, cost, x0, U0)[0]
+        K, d = ilqr._backward_pass(fleet.linearize, cost, X, U0,
+                                   torch.tensor(1.0, dtype=dtype, device=dev))
+        alphas = dtt.ops.line_search_alphas(10, dtype, dev)
+        ms = least(lambda: sweeps.forward_pass_cuda(fleet, cost, X, U0, K, d, alphas),
+                   "forward_sweep")
+        print(f"{tag} forward K4 10 Unicycle4D 10 alphas {str(dtype)[6:]}: the launch "
+              f"alone {ms:.4f} ms", flush=True)
+
+
 def bits(out_path, other_path, dev):
     out = {}
     for names, K in ((["Unicycle4D"], 8), (["Unicycle4D"], 4), (["Unicycle4D"], 1),
@@ -285,17 +345,18 @@ def bits(out_path, other_path, dev):
 def main():
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
-    if len(sys.argv) < 3 or sys.argv[1] not in ("times", "backward", "bits"):
+    if len(sys.argv) < 3 or sys.argv[1] not in ("times", "backward", "forward", "bits"):
         sys.exit(__doc__)
     dev = torch.device("cuda", 0)
     lib, build_s = cuda_build.build(verbose=True)
     print(f"{sys.argv[2]} build: {build_s:.1f} s", flush=True)
-    for source in ("backward_batched", "backward_batched_wide"):
+    for source in ("backward_batched", "backward_batched_wide", "forward_batched",
+                   "forward_sweep"):
         if (lib.parent / f"{source}.log").exists():
             regs = cuda_build.ptxas_report(lib, source, f"{source}_kernel")
             rows = []
             for name, value in sorted(regs.items()):
-                args = ",".join(re.findall(r"Li(\d+)E", name))
+                args = ",".join(re.findall(r"L[ib](\d+)E", name))
                 rows.append(f"{'f' if 'kernelIf' in name else 'd'}<{args}> {value}")
             print(f"{sys.argv[2]} {source} registers and spill bytes: " + ", ".join(rows),
                   flush=True)
@@ -304,6 +365,8 @@ def main():
         times(sys.argv[2], dev)
     elif sys.argv[1] == "backward":
         backward(sys.argv[2], dev)
+    elif sys.argv[1] == "forward":
+        forward(sys.argv[2], dev)
     else:
         bits(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None, dev)
 

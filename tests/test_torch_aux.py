@@ -1,7 +1,8 @@
 """The port's host utilities: the reference CSV schema and JSON-lines sink
 (``utils/metrics.py``), the Riccati block-nnz counter, the fixed-rate loop
-(``utils/rate.py``) and the plots (``utils/viz.py``), against the JAX
-package's copies where they compute something."""
+(``utils/rate.py``), the plots (``utils/viz.py``) and the per-step dumps
+(``utils/checkpoint.py`` ``StepDumper``), against the JAX package's copies
+where they compute or write something."""
 
 import json
 import time
@@ -11,8 +12,10 @@ import pytest
 import torch
 
 from dpilqr_tpu.utils import metrics as jmetrics
+from dpilqr_tpu.utils.checkpoint import StepDumper as JaxStepDumper
 import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.utils import metrics, viz
+from dpilqr_tpu_torch.utils.checkpoint import StepDumper
 from dpilqr_tpu_torch.utils.metrics import (
     CSV_SCHEMA,
     JsonlWriter,
@@ -126,3 +129,33 @@ def test_metrics_and_viz_import_no_plotting_library():
     assert metrics.__name__ in sys.modules and viz.__name__ in sys.modules
     src = open(viz.__file__).read()
     assert "\nimport matplotlib" not in src and "\nimport networkx" not in src
+
+
+def test_step_dumper(tmp_path):
+    """The JAX package's test (tests/test_aux.py::test_step_dumper), with
+    tensors in place of arrays."""
+    d = StepDumper(tmp_path / "dumps")
+    d.dump(torch.ones((3, 2, 4)), torch.zeros((2, 2, 2)), torch.tensor(1.25), {0: [0, 1]})
+    d.dump(np.ones((3, 2, 4)), np.zeros((2, 2, 2)), 0.5)
+    files = sorted((tmp_path / "dumps").glob("*.npz"))
+    assert len(files) == 2
+    z = np.load(files[0])
+    assert float(z["J"]) == 1.25
+
+
+def test_step_dumper_writes_the_jax_layout(tmp_path):
+    """A step the port dumps and the same step the JAX package's
+    ``StepDumper`` dumps from the same arrays load to equal arrays."""
+    rng = np.random.default_rng(3)
+    X, U = rng.normal(size=(6, 3, 4)), rng.normal(size=(5, 3, 2))
+    graph = {0: [0, 2], 1: [1], 2: [0, 2]}
+    ours, theirs = StepDumper(tmp_path / "port"), JaxStepDumper(tmp_path / "jax")
+    for i in range(2):
+        ours.dump(torch.as_tensor(X + i), torch.as_tensor(U), torch.tensor(float(i) + 0.5), graph)
+        theirs.dump(X + i, U, float(i) + 0.5, graph)
+    for name in ("step_00000.npz", "step_00001.npz"):
+        a, b = np.load(tmp_path / "port" / name), np.load(tmp_path / "jax" / name)
+        assert sorted(a.files) == sorted(b.files) == ["J", "U", "X", "graph"]
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype
+            np.testing.assert_array_equal(a[key], b[key])

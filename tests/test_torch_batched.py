@@ -249,8 +249,9 @@ def test_cuda_wrappers_reject_what_they_cannot_take():
         bt.backward_pass_batched_wide_cuda(fleet_t, cost_t, mids_t, *trajectory(first),
                                            mut)
     # The forward kernel: Quad12D at K=9 (nxf 108) reaches the CUDA check;
-    # the first K whose one stage (a step's gain block and rows) does not fit
-    # raises, saying that it is the stage.
+    # past one stage (a step's whole gain block) it takes the block in tiles
+    # of rows, and the first K whose one warp's column beside a 4-row tile
+    # does not fit raises, naming the plan, before any check of the inputs.
     fleet_q = dtt.homogeneous_fleet(dtt.QUAD_12D, 9, 0.1)
     Xq = torch.zeros((S, N + 1, 9, 12), dtype=torch.float64)
     Uq = torch.zeros((S, N, 9, 4), dtype=torch.float64)
@@ -265,21 +266,21 @@ def test_cuda_wrappers_reject_what_they_cannot_take():
             return False
         return True
 
-    first = next(K_ for K_ in range(1, 200) if not staged(K_))
-    assert first > 16 and staged(first - 1)
-    with pytest.raises(ValueError, match="one stage"):
+    first = next(K_ for K_ in range(1, 1000) if not staged(K_))
+    assert first > 300 and staged(first - 1)
+    assert bt.forward_smem_bytes(first - 1, 12, 4, 2, 8).placement(
+        4 * (first - 1)) == "tiles"
+    one = torch.zeros((1,), dtype=torch.float64)
+    with pytest.raises(ValueError, match="column_launch"):
         bt.forward_pass_batched_cuda(
             fleet_q, cost_t, mids_t,
             torch.zeros((1, 2, first, 12), dtype=torch.float64),
-            torch.zeros((1, 1, first, 4), dtype=torch.float64),
-            torch.zeros((1, 4 * first, 12 * first, 1), dtype=torch.float64),
-            torch.zeros((1, 4 * first, 1), dtype=torch.float64), alphas)
+            torch.zeros((1, 1, first, 4), dtype=torch.float64), one, one, alphas)
     # Past the routing limit the kernels' own guard is the shared memory a
     # block may use: the sizing the wrappers consult answers any width and
     # raises only where nothing fits.
-    assert bt.forward_smem_bytes(32, 6, 3, 10, 4)[0] == 2
-    with pytest.raises(ValueError, match="shared memory"):
-        bt.forward_smem_bytes(64, 6, 3, 10, 8)
+    assert bt.forward_smem_bytes(32, 6, 3, 10, 4).buffers == 2
+    assert bt.forward_smem_bytes(64, 6, 3, 10, 8).placement(192) == "tiles"
     with pytest.raises(ValueError, match="shared memory"):
         bt.riccati_smem_bytes(4000, 6, 3, 8)
     # Gains must lie in the kernels' memory order (or be copied into it).

@@ -229,10 +229,14 @@ def test_every_routed_shape_fits_shared_memory(shape, itemsize):
         assert tier == 0
     for n_alpha in (1, 2, 10):
         for gains in (True, False):
-            stages, nbytes = bt.forward_smem_bytes(K, nx, nu, n_alpha, itemsize, gains)
-            # Only nxf 192 in float64 is down to one stage of gains.
+            plan = bt.forward_smem_bytes(K, nx, nu, n_alpha, itemsize, gains)
+            # A step's whole gain block a buffer (no tiles at a routed
+            # width); only nxf 192 in float64 is down to one such stage.
             one = gains and (K * nx, itemsize) == (192, 8)
-            assert stages == (1 if one else 2) and 0 < nbytes <= bt.SMEM_LIMIT
+            assert plan.rows == (K * nu if gains else 0)
+            assert plan.buffers == (1 if one or not gains else 2)
+            assert plan.chunks * plan.warps >= n_alpha and plan.warps <= 8
+            assert 0 < plan.nbytes <= bt.SMEM_LIMIT
 
 
 def test_working_set_placement_follows_type_and_width():
@@ -253,14 +257,17 @@ def test_working_set_placement_follows_type_and_width():
     # two stages in float32 and one in float64.
     tier, smem, work = bt.riccati_smem_bytes(32, 6, 3, 4)
     assert tier == 2 and smem <= bt.SMEM_LIMIT and work == sum(bt.riccati_sizes(32, 6, 3)[:2])
-    assert bt.forward_smem_bytes(32, 6, 3, 10, 4)[0] == 2
-    assert bt.forward_smem_bytes(32, 6, 3, 10, 8)[0] == 1
-    # The only limit is the memory itself.
+    assert bt.forward_smem_bytes(32, 6, 3, 10, 4).buffers == 2
+    assert bt.forward_smem_bytes(32, 6, 3, 10, 8).buffers == 1
+    # Twice that again, the forward kernel takes the gain block in tiles of
+    # rows; the only limit is the memory itself.
+    assert bt.forward_smem_bytes(64, 6, 3, 10, 8).placement(192) == "tiles"
     with pytest.raises(ValueError, match="shared memory"):
-        bt.forward_smem_bytes(64, 6, 3, 10, 8)
+        bt.forward_smem_bytes(4000, 6, 3, 10, 8)
     with pytest.raises(ValueError, match="shared memory"):
         bt.riccati_smem_bytes(4000, 6, 3, 8)
-    assert bt.forward_smem_bytes(64, 6, 3, 10, 8, limit=8 * bt.SMEM_LIMIT)[0] == 2
+    plan = bt.forward_smem_bytes(64, 6, 3, 10, 8, limit=8 * bt.SMEM_LIMIT)
+    assert plan.buffers == 2 and plan.placement(192) == "stages"
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +284,6 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_library_sizes_equal_the_python_mirrors(cuda_device):
-    lib = cuda_build.load_library()
     for K, nx, nu in SHAPES:
         for itemsize in (4, 8):
             # The plan of all three backward kernels: the input source's
@@ -285,11 +291,17 @@ def test_cuda_library_sizes_equal_the_python_mirrors(cuda_device):
             assert cuda_build.riccati_plan(K, nx, nu, itemsize) == bt.sweep_smem_bytes(
                 K, nx, nu, itemsize)
             for n_alpha in (1, 2, 10):
-                for gains in (1, 0):
-                    two_stages = lib.dpilqr_forward_smem_bytes(K, nx, nu, n_alpha, gains,
-                                                               itemsize)
-                    assert two_stages == bt.forward_smem_bytes(
-                        K, nx, nu, n_alpha, itemsize, bool(gains), limit=1 << 40)[1]
+                for gains in (True, False):
+                    for limit in (bt.SMEM_LIMIT, 1 << 40):
+                        for max_rows in (0, 4):
+                            assert cuda_build.forward_plan(
+                                K, nx, nu, n_alpha, itemsize, gains, max_rows,
+                                limit) == tuple(bt.forward_smem_bytes(
+                                    K, nx, nu, n_alpha, itemsize, gains, limit,
+                                    max_rows))
+    # The card's own limit is the mirror's.
+    assert cuda_build.forward_plan(100, 4, 2, 10, 8) == cuda_build.forward_plan(
+        100, 4, 2, 10, 8, limit=bt.SMEM_LIMIT)
 
 
 # The widths the retirement schedule compacts a batch to, a mixed fleet with

@@ -177,16 +177,19 @@ def test_forward_sweep_shapes_fit_the_shared_memory_mirror():
     for n in (3, 10, 24):
         for n_alpha in (1, 2, 10):
             for itemsize in (4, 8):
-                stages, nbytes = bt.forward_smem_bytes(n, 4, 2, n_alpha, itemsize)
-                assert stages == 2 and 0 < nbytes <= bt.SMEM_LIMIT
+                plan = bt.forward_smem_bytes(n, 4, 2, n_alpha, itemsize)
+                assert plan.buffers == 2 and plan.placement(2 * n) == "stages"
+                assert 0 < plan.nbytes <= bt.SMEM_LIMIT
     # A step's gain block of 100 unicycles (200 x 400 values) fits no block:
-    # the wrapper says so before it asks for a card; the plain rollout of the
-    # same fleet has no gains and no such limit.
-    with pytest.raises(ValueError, match="one stage"):
-        bt.forward_smem_bytes(100, 4, 2, 10, 4)
+    # it comes in tiles of rows; past one warp's column beside a 4-row tile
+    # the wrapper says so before it asks for a card.  The plain rollout of
+    # the same fleet has no gains and no such limit.
+    assert bt.forward_smem_bytes(100, 4, 2, 10, 4).placement(200) == "tiles"
+    with pytest.raises(ValueError, match="column_launch"):
+        bt.forward_smem_bytes(2000, 4, 2, 10, 4)
     fleet, _, cost, x0, U = _fleet_problem("unicycles", 100, 2, torch.float32)
     X = x0[None].expand(3, -1, -1).contiguous()
-    with pytest.raises(ValueError, match="one stage"):
+    with pytest.raises(ValueError, match="CUDA"):
         sweeps.forward_pass_cuda(fleet, cost, X, U, torch.zeros((2, 200, 400)),
                                  torch.zeros((2, 200)), torch.ones((10,)))
     with pytest.raises(ValueError, match="rollout_cuda"):

@@ -144,10 +144,14 @@ def test_auto_routes_to_pscan_only_past_k5s_widest_tier(dtype):
     twins on both sides of that line."""
     auto = dtt.SolverConfig()
     small = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 10, 0.1)
-    huge = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 2000, 0.1)
+    # Past K5's widest tier (1,613 unicycles in float32, 806 in float64) and
+    # within K4's plan (1,710 and 855): the forward sweep stays on the card.
+    n_huge = 1650 if dtype == torch.float32 else 830
+    huge = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, n_huge, 0.1)
     card, cpu = _OnCard(dtype), torch.empty((), dtype=dtype)
     with pytest.raises(ValueError, match="no tier"):
-        bt.sweep_smem_bytes(2000, 4, 2, card.element_size())
+        bt.sweep_smem_bytes(n_huge, 4, 2, card.element_size())
+    assert bt.forward_smem_bytes(n_huge, 4, 2, 10, card.element_size()).warps >= 1
     assert bt.sweep_smem_bytes(10, 4, 2, card.element_size())[0] == 0
     assert It.resolve_sweep_backend(auto, card, small) == "cuda"
     assert It.resolve_sweep_backend(auto, card, huge) == "pscan"
