@@ -167,6 +167,17 @@ Phases (any failure exits non-zero and prints no result line):
       mirror's (``batched.forward_smem_bytes``) at every shape of a-c and on
       each side of the one-column limit (1,709 and 1,710 Unicycle4D in
       float32, 854 and 855 in float64).
+10. ``bench_torch.py``: every point of the port's bench (``python3
+    bench_torch.py --list``) through its ``main`` at full width, one timed
+    repeat, closed loops of 3 MPC steps instead of 20 (15 at 500 agents),
+    with the launch counts set to 0 just before and read just after: every
+    kernel K1-K8 must launch, each point's line must hold its time with its
+    minimum and maximum and its quality keys (``bench_torch.expected_keys``),
+    each point's own launches must show its kernels (a ``cuda`` backend, no
+    plain backward pass, K2 and K4 in every decomposed point, K4 and K5 in
+    ``centralized_10``: ``bench_torch.card_faults``), no point may record an
+    ``_error`` and the record's ``incomplete`` must be empty; prints each
+    point's line, the launches and the phase's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the eight kernels with their launch counts, errors, times and bounds
@@ -189,8 +200,14 @@ import time
 import numpy as np
 import torch
 
+# The scenarios, the sympy bicycle and the host-sync timer are the bench's
+# (one copy in the port).
+import bench_torch
+from bench_torch import grid3d_scenario, host_sync_us, swap_scenario, user_bike_class
+
 N_AGENTS, HORIZON, DT, RADIUS = 100, 50, 0.1, 0.5
 MPC_STEPS = 5
+BENCH_MPC_STEPS = 3  # phase 10's closed loops (the bench's own: 20, 15 at 500 agents)
 # Tolerances, relative to max|twin|.
 TOL = {
     torch.float64: {"Kg": 1e-9, "d": 1e-9, "X5": 1e-9, "U5": 1e-9, "J": 1e-9},
@@ -214,53 +231,6 @@ PEAK_OVERSHOOT = 1.05  # a rate above this share of a published peak is a miscou
 def fail(msg: str):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
-
-
-def swap_scenario(n, spacing, seed=0):
-    """Constant-density start/goal sets with local crossings: adjacent grid
-    columns swap positions (the closed-loop benchmark scenario)."""
-    rng = np.random.default_rng(seed)
-    side = int(np.ceil(np.sqrt(n)))
-    ii, jj = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
-    pts = np.stack([ii, jj], -1).reshape(-1, 2)[:n] * spacing
-    pts = pts + rng.uniform(-0.05, 0.05, pts.shape)
-    col = np.arange(n) % side
-    partner = np.where(
-        (col % 2 == 0) & (col + 1 < side),
-        np.arange(n) + 1,
-        np.where(col % 2 == 1, np.arange(n) - 1, np.arange(n)),
-    )
-    partner = np.where(partner < n, partner, np.arange(n))
-    goals = pts[partner] + rng.uniform(-0.05, 0.05, pts.shape)
-    x0 = np.zeros((n, 4))
-    x0[:, :2] = pts
-    xf = np.zeros((n, 4))
-    xf[:, :2] = goals
-    return x0, xf
-
-
-def grid3d_scenario(n, spacing, nx, seed=0):
-    """The quadrotor swarm scenario (``bench.py`` ``_grid3d_scenario``):
-    agents on a jittered 3D grid swap with their lateral neighbour."""
-    rng = np.random.default_rng(seed)
-    side = int(np.ceil(n ** (1.0 / 3.0)))
-    ii, jj, kk = np.meshgrid(np.arange(side), np.arange(side), np.arange(side),
-                             indexing="ij")
-    pts = np.stack([ii, jj, kk], -1).reshape(-1, 3)[:n] * spacing
-    pts = pts + rng.uniform(-0.05, 0.05, pts.shape)
-    col = np.arange(n) % side
-    partner = np.where(
-        (col % 2 == 0) & (col + 1 < side),
-        np.arange(n) + 1,
-        np.where(col % 2 == 1, np.arange(n) - 1, np.arange(n)),
-    )
-    partner = np.where(partner < n, partner, np.arange(n))
-    goals = pts[partner] + rng.uniform(-0.05, 0.05, pts.shape)
-    x0 = np.zeros((n, nx))
-    x0[:, :3] = pts
-    xf = np.zeros((n, nx))
-    xf[:, :3] = goals
-    return x0, xf
 
 
 def problem(fleet, x0_pos, xf_pos, dtype, dev, n_pos=2, pos=2):
@@ -1413,18 +1383,6 @@ def sol_phase(checks, results, probe_plain_ms, dev, launches):
     print(f"launches per sol_report: {json.dumps(counts)}", flush=True)
 
 
-def host_sync_us(dev, n=200):
-    """Microseconds of the per-iteration host sync of the batched solve on
-    an idle device: the fetch of an active count, ``int(active.sum())``."""
-    active = torch.ones(128, dtype=torch.bool, device=dev)
-    int(active.sum())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        int(active.sum())
-    return (time.perf_counter() - t0) / n * 1e6
-
-
 def deadline_phase(dev):
     """Phase 6c: the solves under ``t_kill = dt``."""
     import dpilqr_tpu_torch as dtt
@@ -1719,25 +1677,6 @@ def facade_phase(checks, results, dev, launches):
             fail(f"{name} launched a kernel before refusing a custom model: {counts}")
         print(f"guard: {name} on a custom model raised before any launch: {msg}")
     cuda_build.reset_launch_counts()
-
-
-def user_bike_class():
-    """The user bicycle of ``tests/test_torch_api.py``: a facade
-    ``SymbolicModel`` whose sympy field is ``Bike5D``'s."""
-    import sympy as sym
-
-    from dpilqr_tpu_torch import api
-
-    class UserBike(api.SymbolicModel):
-        def __init__(self, dt, id=None, device=None):
-            super().__init__(5, 2, dt, id, device=device)
-            x = sym.Matrix(sym.symbols("p_x p_y v theta phi"))
-            u = sym.Matrix(sym.symbols("a rho"))
-            x_dot = sym.Matrix([x[2] * sym.cos(x[3]), x[2] * sym.sin(x[3]), u[0],
-                                x[2] * sym.tan(x[4]), u[1]])
-            self._build(x, u, x_dot)
-
-    return UserBike
 
 
 def print_registers(tag, lib, source, kernel):
@@ -2425,6 +2364,44 @@ def forward_tiles_phase(checks, results, dev, launches):
     print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def bench_phase(dev):
+    """Phase 10: every point of ``bench_torch.py`` on the card at full width,
+    one timed repeat, closed loops cut to ``BENCH_MPC_STEPS`` steps; every
+    kernel must launch, every point must hold its time, spread and quality
+    keys, each point's own run must have gone through its kernels
+    (``bench_torch.card_faults``), and no point may fail or leave a
+    canonical key missing."""
+    t0 = time.perf_counter()
+    lines = []
+
+    def emit(line):
+        print(line, flush=True)
+        lines.append(line)
+
+    rc, counts = run_counted(lambda: bench_torch.main(
+        ["--reps", "1"], mpc_steps=BENCH_MPC_STEPS, emit=emit))
+    print(f"bench_torch launches (every point): {json.dumps(counts)}", flush=True)
+    require(counts, KERNELS, "bench_torch.py")
+    rec = json.loads(lines[-1])
+    setting = bench_torch.Setting(device=dev)
+    for line in lines[:-1]:
+        point = json.loads(line)
+        name = point["point"]
+        errors = [k for k in point if k.endswith("_error")]
+        if errors:
+            fail(f"bench_torch point {name} failed: {point[errors[0]]}")
+        missing = [k for k in bench_torch.expected_keys(name, setting) if point.get(k) is None]
+        if missing:
+            fail(f"bench_torch point {name} lacks {missing}")
+        faults = bench_torch.card_faults(name, point)
+        if faults:
+            fail(f"bench_torch point {name} left its kernels: {faults}")
+    if rec["extra"].get("incomplete") or rc != 0:
+        fail(f"bench_torch.py exits {rc}, incomplete: {rec['extra'].get('incomplete')}")
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s, {len(lines) - 1} points, "
+          f"ms_100_distributed {rec['value']}, vs_baseline {rec['vs_baseline']}", flush=True)
+
+
 def build_phase():
     """Phase 2: the default library and the custom-model one of phase 8 (K1
     to K5 with the user bicycle's generated right-hand side), built
@@ -2494,6 +2471,7 @@ def main():
     facade_phase(checks, results, dev, launches)
     custom_phase(checks, results, dev, launches, UserBike)
     forward_tiles_phase(checks, results, dev, launches)
+    bench_phase(dev)
 
     timing = {"backward_batched": "K1", "forward_batched": "K2 nxf 32 2 alphas",
               "backward_batched_wide": "K3 Quad6D K=16 nxf 96",

@@ -35,6 +35,8 @@ import dpilqr_tpu_torch.utils.profiling
 import dpilqr_tpu_torch.utils.rate
 import dpilqr_tpu_torch.utils.sol
 import dpilqr_tpu_torch.utils.viz
+import bench_torch
+import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "dpilqr_tpu", "sympy", "matplotlib",
                                        "networkx"))
@@ -59,15 +61,23 @@ def test_import_leaves_jax_out_and_needs_no_nvcc(tmp_path):
     assert out.stdout.strip() == "ok"
 
 
+# The port's programs outside the package: its bench, its smoke and its
+# scripts (the bench's two CLIs among them).
+PROGRAMS = (REPO / "bench_torch.py", REPO / "chip_smoke.py",
+            *sorted((REPO / "scripts").glob("torch_*.py")))
+
+
 def test_sources_import_no_jax():
     pat = re.compile(r"^\s*(import|from) (jax|dpilqr_tpu)\b")
     offenders = [
         f"{p.relative_to(REPO)}:{i}"
-        for p in sorted(PKG.rglob("*.py"))
+        for p in (*sorted(PKG.rglob("*.py")), *PROGRAMS)
         for i, line in enumerate(p.read_text().splitlines(), 1)
         if pat.match(line)
     ]
     assert not offenders, offenders
+    names = {p.name for p in PROGRAMS}
+    assert {"torch_bench_rhc.py", "torch_bench_warmstart.py"} <= names
 
 
 KERNEL_SOURCES = {
