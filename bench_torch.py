@@ -109,7 +109,7 @@ MEASURED_OVER_PROJECTED = 0.455  # bench.py: the measured baseline run over its 
 KERNEL_IDS = {"backward_batched": "K1", "forward_batched": "K2",
               "backward_batched_wide": "K3", "forward_sweep": "K4",
               "backward_sweep": "K5", "probe_fma": "K6", "probe_hbm": "K7",
-              "probe_sin": "K8"}
+              "probe_sin": "K8", "accept_batched": "accept"}
 
 
 # The suffixes of a point's keys under its tag: what ``quality``,

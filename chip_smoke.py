@@ -46,13 +46,16 @@ Phases (any failure exits non-zero and prints no result line):
    and read just after:
    a. main path: ``solve_rhc(centralized=False)`` for 100 Unicycle4D
       agents, float32, 5 MPC steps, on the kernels and again on the twins,
-      and once more with every launch timed: K1's, K2's and K4's launches
+      and once more with every launch timed (the graph's launches then run
+      one by one): K1's, K2's, the accept kernel's and K4's launches
       and milliseconds per step by batch width S (the widths the retirement
       schedule really runs; K4, each solve's stitched-plan rollout, by its
       agents); the torch prep's calls and milliseconds a step on the kernel
-      path (it must be 0) and on the twins; the CUDA kernels of one batched
-      iteration counted by ``torch.profiler`` in a process of its own (K1
-      once, K2 once or twice, no matrix product);
+      path (it must be 0) and on the twins; the CUDA kernels of one replayed
+      batched iteration (its CUDA graph) counted by ``torch.profiler`` in a
+      process of its own, at ``ls_probe`` 2 and 0: K1 once, K2 twice (probe
+      and tail; once unsplit), the accept kernel once, nothing else, and one
+      device-to-host copy, the host's one sync an iteration;
    b. the 64-agent Quad6D swarm closed loop at auto K (a truncated step
       fails the run), 5 MPC steps on the kernels, with K3's, K2's and K4's
       launches by batch width; once more at K=16 (nxf 96), 2 steps at K=16
@@ -179,8 +182,27 @@ Phases (any failure exits non-zero and prints no result line):
     ``_error`` and the record's ``incomplete`` must be empty; prints each
     point's line, the launches and the phase's seconds.
 
+11. The batched solve's device-side loop (runs last):
+   a. the accept kernel (``csrc/accept_batched.cu``) against
+      ``accept_batched_torch`` on random carries at the main path's shape
+      (N=50, K=8, 10 alphas) at S = 100 and 800, float32 and float64, with
+      and without the tail (its costs +inf), ``on_failed_ls`` "bail" and
+      "increase" (with ``mu_floor``): the carry and the active count
+      bit-equal; timed at S = 100 in float32 (50 launches replayed as one
+      graph; the wrapper's call and the plain version's beside), with a
+      bound by the bytes these inputs need;
+   b. K2's tail under its predicate against the unpredicated launch at the
+      main path's batch: bit-equal where an active subproblem needs the
+      tail, J = +inf where none does, both types;
+   c. the 100-agent main path, 5 MPC steps, on the graphs against the eager
+      kernel path (``batched_iteration`` a width), float32 and float64: X,
+      U, J, iterations and converged flags bit-equal and the same launches;
+      ms a step both ways in turns (median, min-max of 3 runs each); the
+      graph cache's entries and bytes; the device's busy share of a traced
+      5-step loop (``bench_torch.device_busy``).
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the eight kernels with their launch counts, errors, times and bounds
+lists the nine kernels with their launch counts, errors, times and bounds
 (the least time by the published peaks, computed from the timed shapes;
 K1-K5 also list every other shape they were timed at under ``shapes``, the
 custom-model build's K1 to K5 among them, bound by ``Bike5D``'s work, and
@@ -224,6 +246,8 @@ KERNELS = {
     "probe_fma": ("measure_vpu_peak_gflops", "dpilqr_tpu/utils/sol.py:186"),
     "probe_hbm": ("measure_hbm_stream_gbps", "dpilqr_tpu/utils/sol.py:245"),
     "probe_sin": ("measure_vpu_transcendental_ops", "dpilqr_tpu/utils/sol.py:301"),
+    # No Pallas kernel: the accept step XLA fuses into the batched iteration.
+    "accept_batched": ("accept_batched", "dpilqr_tpu/ops/pallas_batched.py:1055-1097"),
 }
 PEAK_OVERSHOOT = 1.05  # a rate above this share of a published peak is a miscount
 
@@ -790,7 +814,7 @@ def run_counted(fn):
 
 # Where a launch's integer arguments hold its batch width S (K4: its agents n).
 SIZE_OF_S = {"backward_batched": 0, "forward_batched": 0, "backward_batched_wide": 1,
-             "forward_sweep": 0}
+             "forward_sweep": 0, "accept_batched": 0}
 
 
 def launches_by_width(fn, steps, kernels):
@@ -942,43 +966,54 @@ def torch_prep_per_step(run):
             "ms_per_step_with_prep_synchronized": out["ms_per_step"]}
 
 
-def batched_iteration_kernels(dev):
-    """The CUDA kernels of one iteration of the batched solve (the main
-    path's, S=100 at K=8, float32), counted by ``torch.profiler``: fails
-    unless K1 runs once, K2 once or twice, and no matrix product (the torch
-    prep's einsums) runs."""
+def batched_iteration_kernels(dev, ls_probe=2):
+    """The CUDA kernels of one replayed iteration of the batched solve (the
+    main path's, S=100 at K=8, float32, 10 alphas), counted by
+    ``torch.profiler``, and its device-to-host copies (the host syncs):
+    fails unless the replay runs K1 once, K2 twice (probe and tail; once
+    where ``ls_probe`` does not split the alphas), the accept kernel once,
+    nothing else, and one copy."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
 
     import dpilqr_tpu_torch as dtt
     from dpilqr_tpu_torch.ops import batched as bt
+    from dpilqr_tpu_torch.ops.cuda_build import require_kernel_models
 
     fleet, cost, x0 = unicycle_problem(N_AGENTS, 0.55, torch.float32, dev)
     args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, 8, dev)
-    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3, ls_probe=ls_probe)
     x0_s = carry.X[:, 0].contiguous()
-    bt.batched_iteration(fleet, cfg, sub_cost, mids, x0_s, carry, "cuda")  # warm-up
+    S, Np1, K, nx_p = carry.X.shape
+    g = bt.iteration_graph(fleet, cfg, require_kernel_models(fleet), S, Np1 - 1, K, nx_p,
+                           fleet.nu_p, torch.float32, dev)
+    g.load(fleet, carry, (sub_cost, mids, x0_s))
+    g.step()  # the first iteration: launched eagerly, then captured
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        bt.batched_iteration(fleet, cfg, sub_cost, mids, x0_s, carry, "cuda")
+        g.step()
         torch.cuda.synchronize()
-    names = collections.Counter(
-        e.name for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower()
-        and "memset" not in e.name.lower())
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum("memcpy" in e.name.lower() and "dtoh" in e.name.lower() for e in events)
+    names = collections.Counter(e.name for e in events if "memcpy" not in e.name.lower()
+                                and "memset" not in e.name.lower())
     k1 = sum(n for k, n in names.items() if "backward_batched_kernel" in k)
     k2 = sum(n for k, n in names.items() if "forward_batched_kernel" in k)
-    products = {k: n for k, n in names.items()
-                if any(w in k.lower() for w in ("gemm", "gemv", "bmm", "matmul", "dot"))}
-    out = {"kernels": sum(names.values()), "K1": k1, "K2": k2,
-           "others": sum(names.values()) - k1 - k2, "matrix_products": products}
-    print(f"one batched iteration (S={batch_width(args)}, K=8), CUDA kernels "
+    acc = sum(n for k, n in names.items() if "accept_batched_kernel" in k)
+    split = 0 < ls_probe < cfg.n_ls_iter
+    out = {"ls_probe": ls_probe, "kernels": sum(names.values()), "K1": k1, "K2": k2,
+           "accept": acc, "others": sum(names.values()) - k1 - k2 - acc,
+           "device_to_host_copies": copies}
+    print(f"one replayed batched iteration (S={S}, K=8), CUDA kernels "
           "(torch.profiler): " + json.dumps(out), flush=True)
     if not names:
-        fail("torch.profiler saw no CUDA kernel in a batched iteration")
-    if k1 != 1 or k2 not in (1, 2) or products:
-        fail("a batched iteration runs more than K1, K2 and the accept step")
+        fail("torch.profiler saw no CUDA kernel in a replayed batched iteration")
+    if (k1, k2, acc, out["others"]) != (1, 2 if split else 1, 1, 0):
+        fail(f"a replayed batched iteration is not K1, K2 x{2 if split else 1} and "
+             f"the accept kernel: {dict(names)}")
+    if copies != 1:
+        fail(f"a replayed batched iteration makes {copies} device-to-host copies, not 1")
 
 
 def main_path(dev, launches):
@@ -986,7 +1021,7 @@ def main_path(dev, launches):
     fleet, cost, x0 = unicycle_problem(N_AGENTS, 1.25, torch.float32, dev)
     rhc_run(fleet, cost, x0, "cuda", MPC_STEPS)  # warm-up (allocator, cuBLAS)
     kern, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "cuda", MPC_STEPS))
-    path = ("backward_batched", "forward_batched", "forward_sweep")
+    path = ("backward_batched", "forward_batched", "accept_batched", "forward_sweep")
     require(counts, path, "the main path", solves=kern["steps"])
     for k in path:
         launches[k] = launches.get(k, 0) + counts[k]
@@ -1002,16 +1037,18 @@ def main_path(dev, launches):
           flush=True)
     if prep["cuda"]["prep_calls_per_step"] != 0:
         fail("the kernel path still runs the torch prep")
-    # In a process of its own: a second torch.profiler session in one process
-    # (phase 4d's) misses the kernels of the ctypes-loaded library.
-    child = subprocess.run(
-        [sys.executable, "-c", "import torch, chip_smoke as cs; "
-         f"cs.batched_iteration_kernels(torch.device('cuda', {dev.index or 0}))"],
-        capture_output=True, text=True, timeout=600,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    print(child.stdout.strip(), flush=True)
-    if child.returncode != 0:
-        fail(f"the batched iteration's kernel count failed:\n{child.stderr[-2000:]}")
+    # In processes of their own: a second torch.profiler session in one
+    # process (phase 4d's) misses the kernels of the ctypes-loaded library.
+    for ls_probe in (2, 0):
+        child = subprocess.run(
+            [sys.executable, "-c", "import torch, chip_smoke as cs; "
+             f"cs.batched_iteration_kernels(torch.device('cuda', {dev.index or 0}), "
+             f"{ls_probe})"],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        print(child.stdout.strip(), flush=True)
+        if child.returncode != 0:
+            fail(f"the batched iteration's kernel count failed:\n{child.stderr[-2000:]}")
     twin, counts = run_counted(lambda: rhc_run(fleet, cost, x0, "torch", MPC_STEPS))
     no_sweep_kernel(counts)
     print("main path (torch twins): " + json.dumps(twin), flush=True)
@@ -1321,7 +1358,8 @@ def sol_phase(checks, results, probe_plain_ms, dev, launches):
     from dpilqr_tpu_torch.utils import sol
 
     rep, counts = run_counted(lambda: sol.sol_report(dev))
-    require(counts, KERNELS, "sol_report")
+    # The report times K1-K8; the accept kernel is timed in phase 11a.
+    require(counts, [k for k in KERNELS if k != "accept_batched"], "sol_report")
     launches.update({k: counts[k] for k in ("probe_fma", "probe_hbm", "probe_sin")})
     print(f"sol_report: allow_tf32={rep['allow_tf32']}, ceilings "
           + json.dumps(rep["ceilings"]))
@@ -2402,6 +2440,238 @@ def bench_phase(dev):
           f"ms_100_distributed {rec['value']}, vs_baseline {rec['vs_baseline']}", flush=True)
 
 
+def random_accept_inputs(S, dtype, dev, rng, tail):
+    """A random accept step at the main path's shape (N=50, K=8, Unicycle4D,
+    10 alphas) and width ``S``: candidates, their costs (the tail's +inf
+    where ``tail`` is False, as its skipped launch leaves them), the start
+    states and a carry with some lanes inactive or converged."""
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    n_alpha, K, nx, nu = 10, 8, 4, 2
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a).to(dt).to(dev)
+
+    X5 = t(rng.standard_normal((n_alpha, S, HORIZON, K, nx)))
+    U5 = t(rng.standard_normal((n_alpha, S, HORIZON, K, nu)))
+    J_c = t(rng.uniform(0.5, 1.5, (n_alpha, S)))
+    if not tail:
+        J_c[2:] = float("inf")
+    carry = bt.BatchCarry(
+        X=t(rng.standard_normal((S, HORIZON + 1, K, nx))),
+        U=t(rng.standard_normal((S, HORIZON, K, nu))), J=t(rng.uniform(0.52, 1.2, S)),
+        mu=t(rng.choice([1e-7, 1e-6, 0.5, 1.5, 700.0], S)),
+        delta=t(rng.choice([0.25, 1.0, 4.0], S)), i=t(rng.integers(0, 15, S), torch.int32),
+        converged=t(rng.uniform(size=S) < 0.1, torch.bool),
+        failed=torch.zeros(S, dtype=torch.bool, device=dev),
+        active=t(rng.uniform(size=S) < 0.85, torch.bool))
+    inv = bt._inverse(bt.COLUMN_ORDER)
+    return X5.permute(inv), U5.permute(inv), J_c, t(rng.standard_normal((S, K, nx))), carry
+
+
+def accept_bytes(X5, U5, J_c, carry):
+    """The bytes one accept launch must move on these inputs: the J_c entries
+    each subproblem reads (up to its first improving alpha), its scalars
+    read and written, and for each updated subproblem its candidate rows
+    read, its start state read and its X and U rows written."""
+    n_alpha, S = J_c.shape
+    item = J_c.element_size()
+    improved = J_c < carry.J[None]
+    accept = improved.any(0)
+    first = torch.argmax(improved.to(torch.int32), 0)
+    reads = int(torch.where(accept, first + 1, n_alpha).sum())
+    upd = int((accept & carry.active).sum())
+    N, nx_p, K = X5.shape[0], X5.shape[1], X5.shape[2]
+    row = N * K * (nx_p + U5.shape[1])
+    return (reads * item + S * 2 * (3 * item + 4 + 3)
+            + upd * (2 * row + 2 * K * nx_p) * item + 8)
+
+
+def accept_checks(checks, results, dev):
+    """Phase 11a: the accept kernel against ``accept_batched_torch``, bit for
+    bit, at S = 100 and 800, both types, with and without the tail, both
+    ``on_failed_ls`` modes (``mu_floor`` with "increase"); timed at the main
+    path's S = 100 in float32: 50 launches on fresh carries replayed as one
+    graph an event pair, the wrapper's and the plain version's calls
+    beside."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    rng = np.random.default_rng(11)
+    for S in (100, 800):
+        for dtype in (torch.float32, torch.float64):
+            for tail in (True, False):
+                for mode in ("bail", "increase"):
+                    X5, U5, J_c, x0, carry = random_accept_inputs(S, dtype, dev,
+                                                                  rng, tail)
+                    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-2, on_failed_ls=mode,
+                                 mu_floor=mode == "increase")
+                    outs = []
+                    for fn in (bt.accept_batched_cuda, bt.accept_batched_torch):
+                        c = bt.BatchCarry(*(a.clone() for a in carry))
+                        counter = torch.zeros(2, dtype=torch.int32, device=dev)
+                        fn(cfg, X5, U5, J_c, x0, c, counter)
+                        outs.append((c, counter))
+                    torch.cuda.synchronize()
+                    (got, n_got), (want, n_want) = outs
+                    err = max(float((a.double() - b.double()).abs().max())
+                              for a, b in zip((*got, n_got), (*want, n_want)))
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    tag = f"accept S={S} {str(dtype)[6:]} tail={tail} {mode}"
+                    print(f"{tag}: bit-equal {same}, max abs err {err}, active "
+                          f"{int(n_got[0])}/{S}", flush=True)
+                    if not (same and torch.equal(n_got, n_want)):
+                        fail(f"the accept kernel disagrees with its plain version ({tag})")
+                    checks.worst["accept_batched"] = max(
+                        checks.worst.get("accept_batched", 0.0), err)
+    X5, U5, J_c, x0, carry = random_accept_inputs(100, torch.float32, dev, rng, True)
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3)
+    label = "accept S=100 K=8 10 alphas"
+    times = {}
+    counter = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def fresh(reps):
+        return [bt.BatchCarry(*(a.clone() for a in carry)) for _ in range(reps)]
+
+    def event_ms(fn, reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    # The kernel: 50 launches on 50 fresh carries, captured as one graph (as
+    # the solve replays it), so that the time is the device's, not the
+    # wrapper's; the wrapper's (accept_batched_cuda, its checks and binding
+    # each call) and the plain version's on fresh carries beside it.
+    for fn in (bt.accept_batched_cuda, bt.accept_batched_torch):
+        fn(cfg, X5, U5, J_c, x0, fresh(1)[0], counter)  # warm-up
+    order = bt.COLUMN_ORDER
+    bound = [bt._bind_accept(cfg, X5.permute(order), U5.permute(order), J_c, x0, c,
+                             counter) for c in fresh(50)]  # each holds its carry
+    graph, _ = bt._capture(bound, dev)
+    times["kernel"] = event_ms(graph.replay, 50)
+    for name, fn, reps in (("wrapper", bt.accept_batched_cuda, 50),
+                           ("plain", bt.accept_batched_torch, 10)):
+        carries = fresh(reps)
+        times[name] = event_ms(lambda: [fn(cfg, X5, U5, J_c, x0, c, counter)
+                                        for c in carries], reps)
+    results[label] = (times["kernel"], times["plain"])
+    checks.shapes[label] = (0.0, 0.0, accept_bytes(X5, U5, J_c, carry))
+    print_result(checks, results, label)
+    print(f"{label}: the wrapper a call (checks, binding, launch) {times['wrapper']:.4f} ms",
+          flush=True)
+
+
+def tail_checks(dev):
+    """Phase 11b: K2's tail under its predicate against the unpredicated
+    launch at the main path's shape (S=100, K=8, alphas 3-10 after a probe
+    of 2): the same bits where an active subproblem improved at no probe
+    alpha, J = +inf where none needs the tail; both types."""
+    import dpilqr_tpu_torch as dtt
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    for dtype in (torch.float32, torch.float64):
+        fleet, cost, x0 = unicycle_problem(N_AGENTS, 0.55, dtype, dev)
+        args, sub_cost, mids, carry = sweep_inputs(fleet, cost, x0, 8, dev)
+        Kg, d = bt.backward_pass_batched(*args, "cuda")
+        alphas = dtt.ops.line_search_alphas(10, dtype, dev)
+        fa = (fleet, sub_cost, mids, carry.X, carry.U, Kg, d)
+        J_probe = bt.forward_pass_batched_cuda(*fa, alphas[:2])[2]
+        plain = bt.forward_pass_batched_cuda(*fa, alphas[2:])
+        active = carry.active.clone()
+        need = J_probe.min(0).values  # no subproblem improves at a probe alpha
+        got = bt.forward_pass_batched_cuda(*fa, alphas[2:], tail=(J_probe, need, active))
+        skip = torch.full_like(need, float("inf"))
+        skipped = bt.forward_pass_batched_cuda(*fa, alphas[2:],
+                                               tail=(J_probe, skip, active))[2]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, plain))
+        inf = bool(torch.isinf(skipped).all()) and bool((skipped > 0).all())
+        print(f"K2 tail {str(dtype)[6:]}: predicate true bit-equal to the unpredicated "
+              f"launch {same}; false: J = +inf {inf}", flush=True)
+        if not (same and inf):
+            fail(f"K2's predicated tail is wrong ({str(dtype)[6:]})")
+
+
+def mpc_result(fleet, cost, x0, dtype, steps=MPC_STEPS):
+    """The main path's closed loop (``rhc_run``'s settings) and its wall ms
+    a step."""
+    import dpilqr_tpu_torch as dtt
+
+    cfg = dtt.SolverConfig(n_lqr_iter=15, tol=1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = dtt.solve_rhc(fleet, cost, x0.astype(dtype), HORIZON, radius=RADIUS,
+                        centralized=False, step_size=1, J_converge=1e-3,
+                        t_diverge=(steps - 1) * DT, config=cfg,
+                        rng=np.random.default_rng(0), device=cost.xf.device)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3 / len(res.steps)
+
+
+def graph_path(dev):
+    """Phase 11c: the 100-agent main path, 5 MPC steps, on the graphs against
+    the eager kernel path (``batched_iteration`` a width, the module's own
+    stage), float32 and float64: X, U, J, iterations and converged flags
+    bit-equal; ms a step both ways in turns (median, min-max over 3 runs
+    each); the graphs cached and their bytes; the device's busy share of a
+    traced loop (``bench_torch.device_busy``)."""
+    from dpilqr_tpu_torch.ops import batched as bt
+
+    for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        fleet, cost, x0 = unicycle_problem(N_AGENTS, 1.25, dtype, dev)
+        graph_stage = bt._graph_stage
+
+        def eager(fn):
+            bt._graph_stage = bt._eager_stage
+            try:
+                return fn()
+            finally:
+                bt._graph_stage = graph_stage
+
+        run = lambda: mpc_result(fleet, cost, x0, np_dtype)  # noqa: E731
+        ms = {"graph": [], "eager": []}
+        out = {}
+        for mode in ("graph", "eager", "eager", "graph", "graph", "eager"):
+            (res, step_ms), counts = run_counted(
+                run if mode == "graph" else lambda: eager(run))
+            ms[mode].append(step_ms)
+            out[mode] = (res, counts)
+        (g, gc), (e, ec) = out["graph"], out["eager"]
+        same = (np.array_equal(g.X, e.X) and np.array_equal(g.U, e.U) and g.J == e.J
+                and all(a.iters == b.iters and a.converged == b.converged and a.J == b.J
+                        for a, b in zip(g.steps, e.steps)))
+        tag = str(dtype)[6:]
+        summary = {m: {"ms_per_step_median": float(np.median(v)), "min": min(v),
+                       "max": max(v)} for m, v in ms.items()}
+        print(f"main path on the graphs against the eager kernel path, {tag}: "
+              f"bit-equal {same}; " + json.dumps(summary) + "; launches (graph) "
+              + json.dumps({k: v for k, v in gc.items() if v})
+              + " (eager) " + json.dumps({k: v for k, v in ec.items() if v}), flush=True)
+        if not same:
+            fail(f"the graph path's main path differs from the eager kernel path ({tag})")
+        for k in ("backward_batched", "forward_batched", "accept_batched"):
+            if gc[k] != ec[k]:
+                fail(f"{k}: {gc[k]} launches on the graphs, {ec[k]} eagerly ({tag})")
+    print("graph cache: " + json.dumps(bt.graph_cache_info()), flush=True)
+    s = bench_torch.Setting(device=dev, horizon=HORIZON)
+    busy = bench_torch.device_busy(s, N_AGENTS, MPC_STEPS)
+    print(f"main path ({MPC_STEPS} steps, float32) under the profiler: "
+          + json.dumps(busy), flush=True)
+
+
+def graph_phase(checks, results, dev, launches):
+    """Phase 11: the batched solve's device-side loop."""
+    t0 = time.perf_counter()
+    accept_checks(checks, results, dev)
+    tail_checks(dev)
+    graph_path(dev)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def build_phase():
     """Phase 2: the default library and the custom-model one of phase 8 (K1
     to K5 with the user bicycle's generated right-hand side), built
@@ -2472,12 +2742,13 @@ def main():
     custom_phase(checks, results, dev, launches, UserBike)
     forward_tiles_phase(checks, results, dev, launches)
     bench_phase(dev)
+    graph_phase(checks, results, dev, launches)
 
     timing = {"backward_batched": "K1", "forward_batched": "K2 nxf 32 2 alphas",
               "backward_batched_wide": "K3 Quad6D K=16 nxf 96",
               "forward_sweep": "K4 10 alphas",
               "backward_sweep": "K5", "probe_fma": "K6", "probe_hbm": "K7",
-              "probe_sin": "K8"}
+              "probe_sin": "K8", "accept_batched": "accept S=100 K=8 10 alphas"}
     # The other shapes the redesigned kernels were timed at.
     others = {"backward_batched": "K1 ", "forward_batched": "K2 ",
               "backward_batched_wide": "K3 ", "forward_sweep": "K4 ",

@@ -31,15 +31,32 @@
 // outputs are column-major in memory, (n_alpha, S, N, K nx) and
 // (n_alpha, S, N, K nu), so a column's row is contiguous.
 //
+// The tail's predicate (the counterpart of the lax.cond at
+// pallas_batched.py:1045): the two-stage line search launches the first
+// alphas (the probe), then always the rest (the tail) with the probe's
+// costs J_probe (n_probe, S), the carry's J (S) and active (S).  Each CTA
+// of the tail first evaluates need_tail = any(active & ~any(J_probe < J))
+// over all S subproblems; where it is false, no active subproblem needs
+// the tail, and each CTA writes J = +inf for its alphas and returns (the
+// JAX skip branch, :1035-1043: never selected, since the accept takes the
+// first improving alpha; its X5 and U5 rows are left unwritten and never
+// read).  Where it is true the walk runs as without a predicate, to the
+// same bits.  So the host needs no sync to decide, and the iteration
+// replays as one graph.
+//
 // Layouts (contiguous):
 //   X (S, N+1, K, nx), U (S, N, K, nu), Kg (S, N, nuf, nxf), d (S, N, nuf),
 //   alphas (n_alpha), slot_model / slot_nsub (S, K) int32, slot_dh (S, K),
 //   xf (S, K, nx), Q / Qf (S, K, nx, nx), R (S, K, nu, nu), mask (S, K),
-//   refw / radius / proxw (S), npos_eval (S, K) int32
+//   refw / radius / proxw (S), npos_eval (S, K) int32; with a predicate
+//   J_probe (n_probe, S), J_carry (S), active (S) bool (one byte), else all
+//   three nullptr
 //   -> X5 (n_alpha, S, N, K, nx) states 1..N, U5 (n_alpha, S, N, K, nu),
 //      J (n_alpha, S).
 // The Python wrapper hands Kg, d, X5 and U5 out as permuted views in the
 // JAX package's shapes (N, nuf, nxf, S), (N, nuf, S), (N, nx, K, n_alpha, S).
+
+#include <cmath>
 
 #include "rollout.cuh"
 
@@ -56,8 +73,10 @@ __global__ void __launch_bounds__(WARPS_PER_CTA * 32) forward_batched_kernel(
     const T* __restrict__ mask, const T* __restrict__ refw,
     const T* __restrict__ radius, const T* __restrict__ proxw,
     const int* __restrict__ npos_eval, T* __restrict__ X5,
-    T* __restrict__ U5, T* __restrict__ J, int S, int N, int K, int nx,
-    int nu, int n_alpha, int n_buf, int rows) {
+    T* __restrict__ U5, T* __restrict__ J, const T* __restrict__ J_probe,
+    const T* __restrict__ J_carry, const unsigned char* __restrict__ active,
+    int S, int N, int K, int nx, int nu, int n_alpha, int n_probe, int n_buf,
+    int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nxf = K * nx, nuf = K * nu;
@@ -65,6 +84,21 @@ __global__ void __launch_bounds__(WARPS_PER_CTA * 32) forward_batched_kernel(
   const int a = blockIdx.y * (blockDim.x >> 5) + (threadIdx.x >> 5);
   // A warp past the last alpha still copies and meets the barriers.
   const bool live = a < n_alpha;
+  if (J_probe != nullptr) {
+    // The tail's predicate, the same on every CTA (block-uniform return).
+    int need = 0;
+    for (int k = threadIdx.x; k < S; k += blockDim.x) {
+      if (!active[k]) continue;
+      bool improved = false;
+      for (int p = 0; p < n_probe; ++p)
+        improved |= J_probe[(size_t)p * S + k] < J_carry[k];
+      need |= !improved;
+    }
+    if (!__syncthreads_or(need)) {
+      if (live && (threadIdx.x & 31) == 0) J[(size_t)a * S + s] = T(INFINITY);
+      return;
+    }
+  }
   const bool gains = Kg != nullptr;
   const size_t sK = (size_t)s * K;
   const ColumnProblem<T> pb = {
@@ -96,9 +130,10 @@ int launch_nxc(const T* X, const T* U, const T* Kg, const T* d,
                const T* alphas, const int* slot_model, const int* slot_nsub,
                const T* slot_dh, const T* xf, const T* Q, const T* R,
                const T* Qf, const T* mask, const T* refw, const T* radius,
-               const T* proxw, const int* npos_eval, T* X5, T* U5, T* J, int S,
-               int N, int K, int nx, int nu, int n_alpha, int max_rows,
-               void* stream) {
+               const T* proxw, const int* npos_eval, T* X5, T* U5, T* J,
+               const T* J_probe, const T* J_carry, const unsigned char* active,
+               int S, int N, int K, int nx, int nu, int n_alpha, int max_rows,
+               int n_probe, void* stream) {
   const long long optin = max_shared_optin();
   if (optin < 0) return (int)cudaErrorInvalidDevice;
   const ColumnLaunch cl = column_launch(K * nx, K * nu, n_alpha, Kg != nullptr,
@@ -111,8 +146,8 @@ int launch_nxc(const T* X, const T* U, const T* Kg, const T* d,
   return launch_with_smem(kernel, dim3(S, cl.chunks), cl.warps * 32, cl.bytes,
                           stream, X, U, Kg, d, alphas, slot_model, slot_nsub,
                           slot_dh, xf, Q, R, Qf, mask, refw, radius, proxw,
-                          npos_eval, X5, U5, J, S, N, K, nx, nu, n_alpha,
-                          cl.n_buf, cl.rows);
+                          npos_eval, X5, U5, J, J_probe, J_carry, active, S, N,
+                          K, nx, nu, n_alpha, n_probe, cl.n_buf, cl.rows);
 }
 
 template <typename T>
@@ -120,17 +155,21 @@ int launch(const T* X, const T* U, const T* Kg, const T* d, const T* alphas,
            const int* slot_model, const int* slot_nsub, const T* slot_dh,
            const T* xf, const T* Q, const T* R, const T* Qf, const T* mask,
            const T* refw, const T* radius, const T* proxw,
-           const int* npos_eval, T* X5, T* U5, T* J, int S, int N, int K,
-           int nx, int nu, int n_alpha, int max_rows, void* stream) {
+           const int* npos_eval, T* X5, T* U5, T* J, const T* J_probe,
+           const T* J_carry, const unsigned char* active, int S, int N, int K,
+           int nx, int nu, int n_alpha, int max_rows, int n_probe,
+           void* stream) {
   if (nx > MAX_NX || nu > MAX_NU || nx < 1 || nu < 1 || K < 1 ||
-      (Kg == nullptr) != (d == nullptr))
+      (Kg == nullptr) != (d == nullptr) ||
+      (J_probe != nullptr &&
+       (J_carry == nullptr || active == nullptr || n_probe < 1)))
     return (int)cudaErrorInvalidValue;
   if (S == 0 || n_alpha == 0) return 0;
 #define DPILQR_FORWARD_NXC(NXC)                                               \
   return launch_nxc<T, NXC>(X, U, Kg, d, alphas, slot_model, slot_nsub,       \
                             slot_dh, xf, Q, R, Qf, mask, refw, radius, proxw, \
-                            npos_eval, X5, U5, J, S, N, K, nx, nu, n_alpha,   \
-                            max_rows, stream)
+                            npos_eval, X5, U5, J, J_probe, J_carry, active,   \
+                            S, N, K, nx, nu, n_alpha, max_rows, n_probe, stream)
   if (nx <= 4) DPILQR_FORWARD_NXC(4);
   if (nx <= 6) DPILQR_FORWARD_NXC(6);
   DPILQR_FORWARD_NXC(MAX_NX);
@@ -145,11 +184,13 @@ int launch(const T* X, const T* U, const T* Kg, const T* d, const T* alphas,
       const int* slot_model, const int* slot_nsub, const T* slot_dh,          \
       const T* xf, const T* Q, const T* R, const T* Qf, const T* mask,        \
       const T* refw, const T* radius, const T* proxw, const int* npos_eval,   \
-      T* X5, T* U5, T* J, int S, int N, int K, int nx, int nu, int n_alpha,   \
-      int max_rows, void* stream) {                                           \
+      T* X5, T* U5, T* J, const T* J_probe, const T* J_carry,                 \
+      const unsigned char* active, int S, int N, int K, int nx, int nu,       \
+      int n_alpha, int max_rows, int n_probe, void* stream) {                 \
     return launch<T>(X, U, Kg, d, alphas, slot_model, slot_nsub, slot_dh, xf, \
                      Q, R, Qf, mask, refw, radius, proxw, npos_eval, X5, U5,  \
-                     J, S, N, K, nx, nu, n_alpha, max_rows, stream);          \
+                     J, J_probe, J_carry, active, S, N, K, nx, nu, n_alpha,   \
+                     max_rows, n_probe, stream);                              \
   }
 
 DPILQR_FORWARD(dpilqr_forward_batched_f32, float)

@@ -30,14 +30,23 @@ recursion (``backward_pass_batched_torch``), for the forward kernel
 ``forward_pass_batched_torch``; the twins are Python loops over time with
 the same block algebra as batched einsums.  ``backend`` "auto" takes the
 kernel for CUDA tensors and the plain version for CPU tensors; "cuda" and
-"torch" force one.  The kernels raise rather than fall back.  The batch
-loop (``solve_subproblems_batched``) runs on the host:
-one sync per iteration for the loop condition and one for the two-stage
-line search, with finished subproblems retired by halving compaction.
+"torch" force one.  The kernels raise rather than fall back.
+
+An iteration's line search runs its first alphas (the probe) and then the
+rest (the tail) under a predicate the tail's kernel evaluates itself, and
+its accept step is one more kernel, ``csrc/accept_batched.cu`` (plain
+version ``accept_batched_torch``), which updates the carry in place and
+writes the active count.  The batch loop (``solve_subproblems_batched``)
+retires finished subproblems by halving compaction; on the card each
+width's iteration is a CUDA graph of those four launches
+(``IterationGraph``, the counterpart of the JAX package's
+``lax.while_loop``), cached across calls, and the host reads one value an
+iteration.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from functools import lru_cache
 from time import perf_counter
 from typing import NamedTuple
@@ -58,8 +67,8 @@ from .costs import (
     terminal_cost,
 )
 from .codegen import library_ids
-from .cuda_build import (check_tensors, launch, require_cuda,
-                         require_kernel_models, riccati_plan)
+from .cuda_build import (bind, call, check_tensors, count, require_cuda,
+                         require_kernel_models, riccati_plan, run, timing)
 from .ilqr import SolveResult, line_search_alphas
 
 # Widest flat state (K * nx_p, and K * nu_p) of the narrow backward kernel,
@@ -389,44 +398,69 @@ def _dt_tensor(dt: float, dtype, device):
     return torch.tensor([dt], dtype=torch.float64).to(dtype).to(device)
 
 
+def _backward_checks(kernel, narrow, fleet: Fleet, X, U):
+    """The checks a backward launch makes before it allocates (each raises):
+    the fleet's models, the kernel's width, the device; returns the library
+    that runs the fleet (``require_kernel_models``)."""
+    K, nx_p = X.shape[2], X.shape[3]
+    nu_p = U.shape[-1]
+    library = require_kernel_models(fleet)
+    _check_width(kernel, K, nx_p, nu_p, X.element_size(), narrow)
+    require_cuda(kernel, X)
+    if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
+        raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
+    return library
+
+
+def _bind_backward(kernel, fleet: Fleet, cost_b: GameCost, mids_s, ids, dt, X, U,
+                   mu, Kg, d, work, library):
+    """Check a backward kernel's tensors, the outputs ``Kg (S, N, nuf,
+    nxf)`` and ``d (S, N, nuf)`` in memory order and the ``work (S,
+    values)`` its plan asks for (None for K1) among them, and bind its
+    launch; ``ids`` and ``dt`` are the fleet's model ids and step on the
+    device (``_model_tables``, ``_dt_tensor``)."""
+    S, Np1, K, nx_p = X.shape
+    N = Np1 - 1
+    nu_p = U.shape[-1]
+    nxf, nuf = K * nx_p, K * nu_p
+    dtype, dev = X.dtype, X.device
+    cost_b = cast_cost(cost_b, dtype)
+    ins = dict(X=X, U=U, xf=cost_b.xf, Q=cost_b.Q, R=cost_b.R, Qf=cost_b.Qf,
+               mask=cost_b.agent_mask, refw=cost_b.ref_weight,
+               radius=cost_b.radius, proxw=cost_b.prox_weight, npos=cost_b.n_pos,
+               mids=mids_s.to(torch.int32), ids=ids, dt=dt, mu=mu)
+    check_tensors(kernel, {**ins, "Kg": Kg, "d": d}, dict(
+        X=(S, N + 1, K, nx_p), U=(S, N, K, nu_p), xf=(S, K, nx_p),
+        Q=(S, K, nx_p, nx_p), R=(S, K, nu_p, nu_p), Qf=(S, K, nx_p, nx_p),
+        mask=(S, K), refw=(S,), radius=(S,), proxw=(S,), npos=(S, K),
+        mids=(S, K), ids=(len(fleet.unique_specs),), dt=(1,), mu=(S,),
+        Kg=(S, N, nuf, nxf), d=(S, N, nuf)),
+        dtype, dev, ints=("npos", "mids", "ids"))
+    extra = () if work is None else (work, work.numel())
+    return bind(kernel, dtype, *ins.values(), Kg, d, *extra, S, N, K, nx_p, nu_p,
+                library=library)
+
+
 def _launch_backward(kernel, narrow, fleet: Fleet, cost_b: GameCost, mids_s, X, U,
                      mu, workspace=False):
     """Check the backward inputs and launch ``kernel`` (with the
     per-subproblem device-memory ``workspace`` its plan asks for); returns
     ``Kg (N, nuf, nxf, S)``, ``d (N, nuf, S)``, views of ``(S, N, nuf,
     nxf)`` and ``(S, N, nuf)`` memory."""
+    library = _backward_checks(kernel, narrow, fleet, X, U)
     S, Np1, K, nx_p = X.shape
-    N = Np1 - 1
     nu_p = U.shape[-1]
     nxf, nuf = K * nx_p, K * nu_p
-    library = require_kernel_models(fleet)
-    _check_width(kernel, K, nx_p, nu_p, X.element_size(), narrow)
-    require_cuda(kernel, X)
-    if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
-        raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
     dtype, dev = X.dtype, X.device
-    cost_b = cast_cost(cost_b, dtype)
     specs = fleet.unique_specs
     ids = _model_tables(specs, fleet.dt, dtype, dev, tuple(s.expr for s in specs))[0]
-    ins = dict(X=X, U=U, xf=cost_b.xf, Q=cost_b.Q, R=cost_b.R, Qf=cost_b.Qf,
-               mask=cost_b.agent_mask, refw=cost_b.ref_weight,
-               radius=cost_b.radius, proxw=cost_b.prox_weight, npos=cost_b.n_pos,
-               mids=mids_s.to(torch.int32), ids=ids,
-               dt=_dt_tensor(fleet.dt, dtype, dev), mu=mu)
-    check_tensors(kernel, ins, dict(
-        X=(S, N + 1, K, nx_p), U=(S, N, K, nu_p), xf=(S, K, nx_p),
-        Q=(S, K, nx_p, nx_p), R=(S, K, nu_p, nu_p), Qf=(S, K, nx_p, nx_p),
-        mask=(S, K), refw=(S,), radius=(S,), proxw=(S,), npos=(S, K),
-        mids=(S, K), ids=(len(specs),), dt=(1,), mu=(S,)),
-        dtype, dev, ints=("npos", "mids", "ids"))
-    Kg = X.new_empty((S, N, nuf, nxf))
-    d = X.new_empty((S, N, nuf))
-    work = ()
-    if workspace:
-        w = X.new_empty((S, riccati_plan(K, nx_p, nu_p, X.element_size())[2]))
-        work = (w, w.numel())
-    launch(kernel, dtype, dev, *ins.values(), Kg, d, *work, S, N, K, nx_p, nu_p,
-           library=library)
+    Kg = X.new_empty((S, Np1 - 1, nuf, nxf))
+    d = X.new_empty((S, Np1 - 1, nuf))
+    work = (X.new_empty((S, riccati_plan(K, nx_p, nu_p, X.element_size())[2]))
+            if workspace else None)
+    run(_bind_backward(kernel, fleet, cost_b, mids_s, ids,
+                       _dt_tensor(fleet.dt, dtype, dev), X, U, mu, Kg, d, work,
+                       library), dev)
     return Kg.permute(_inverse(GAIN_ORDER)), d.permute(_inverse(D_ORDER))
 
 
@@ -513,14 +547,31 @@ def _slot_tables(fleet: Fleet, mids_s, dtype):
     return ids[m], nsub[m], dh[m]
 
 
+def _skip_tail(tail) -> bool:
+    """The tail's predicate turned round: True where no active subproblem
+    needs the tail alphas (every one improved at a probe alpha).  ``tail``
+    is ``(J_probe (p, S), J (S), active (S))``."""
+    J_probe, J, active = tail
+    return not bool(torch.any(active & ~torch.any(J_probe < J[None, :], dim=0)))
+
+
 def forward_pass_batched_torch(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
-                               Kg, d, alphas):
+                               Kg, d, alphas, tail=None):
     """Plain PyTorch twin of the forward kernel (same arguments, outputs and
-    memory layout as ``forward_pass_batched``)."""
+    memory layout as ``forward_pass_batched``).  With ``tail`` (the probe's
+    ``J_probe (p, S)``, the carry's ``J (S)`` and ``active (S)``) it is the
+    twin of the tail launch: where no active subproblem needs the tail
+    (``_skip_tail``) it returns the JAX package's skip branch
+    (pallas_batched.py:1035-1043): zero candidates and J = +inf."""
     S, Np1, K, nx_p = X.shape
     N = Np1 - 1
     nu_p = U.shape[-1]
     n_alpha = alphas.shape[0]
+    if tail is not None and _skip_tail(tail):
+        inv = _inverse(COLUMN_ORDER)
+        return (X.new_zeros((n_alpha, S, N, K, nx_p)).permute(inv),
+                X.new_zeros((n_alpha, S, N, K, nu_p)).permute(inv),
+                X.new_full((n_alpha, S), float("inf")))
     _, nsub, dh_slot = _slot_tables(fleet, mids_s, X.dtype)
     n_steps = int(max(s.rk4_substeps for s in fleet.unique_specs))
     # dh_table[i] = dh for substep i < the slot's own count, else exactly 0
@@ -564,19 +615,64 @@ def forward_pass_batched_torch(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     return X5, U5, J
 
 
+def _bind_forward(fleet: Fleet, cost_b: GameCost, tables, X, U, Kg, d, alphas, X5,
+                  U5, J, library, max_rows: int = 0, tail=None):
+    """Check K2's tensors and bind its launch: ``tables`` the per-slot
+    ``(model id, RK4 substeps, dh)`` (``_slot_tables``), ``Kg (N, nuf, nxf,
+    S)`` and ``d (N, nuf, S)`` views of the kernel's memory order (or None),
+    the outputs ``X5 (n_alpha, S, N, K, nx_p)``, ``U5 (n_alpha, S, N, K,
+    nu_p)`` and ``J (n_alpha, S)`` contiguous, and with ``tail`` the
+    predicate's ``(J_probe (p, S), J (S), active (S))``."""
+    S, Np1, K, nx_p = X.shape
+    N = Np1 - 1
+    nu_p = U.shape[-1]
+    nxf, nuf = K * nx_p, K * nu_p
+    n_alpha = alphas.shape[0]
+    dtype, dev = X.dtype, X.device
+    model, nsub, dh = tables
+    ins = dict(X=X, U=U, Kg=Kg, d=d, alphas=alphas, model=model, nsub=nsub,
+               dh=dh, xf=cost_b.xf, Q=cost_b.Q, R=cost_b.R, Qf=cost_b.Qf,
+               mask=cost_b.agent_mask, refw=cost_b.ref_weight,
+               radius=cost_b.radius, proxw=cost_b.prox_weight,
+               npos_eval=cost_b.n_pos_eval)
+    outs = dict(X5=X5, U5=U5, J=J)
+    pred = dict(zip(("J_probe", "J_carry", "active"), tail or (None,) * 3))
+    n_probe = 0 if tail is None else tail[0].shape[0]
+    shapes = dict(X=(S, N + 1, K, nx_p), U=(S, N, K, nu_p),
+                  Kg=(N, nuf, nxf, S), d=(N, nuf, S), alphas=(n_alpha,),
+                  model=(S, K), nsub=(S, K), dh=(S, K), xf=(S, K, nx_p),
+                  Q=(S, K, nx_p, nx_p), R=(S, K, nu_p, nu_p),
+                  Qf=(S, K, nx_p, nx_p), mask=(S, K), refw=(S,), radius=(S,),
+                  proxw=(S,), npos_eval=(S, K), X5=(n_alpha, S, N, K, nx_p),
+                  U5=(n_alpha, S, N, K, nu_p), J=(n_alpha, S),
+                  J_probe=(n_probe, S), J_carry=(S,), active=(S,))
+    check_tensors("forward_batched",
+                  {k: v for k, v in {**ins, **outs, **pred}.items() if v is not None},
+                  shapes, dtype, dev, ints=("model", "nsub", "npos_eval"),
+                  bools=("active",), layouts={"Kg": GAIN_ORDER, "d": D_ORDER})
+    return bind("forward_batched", dtype, *ins.values(), *outs.values(),
+                *pred.values(), S, N, K, nx_p, nu_p, n_alpha, max_rows, n_probe,
+                library=library)
+
+
 def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
-                              Kg, d, alphas, max_rows: int = 0):
+                              Kg, d, alphas, max_rows: int = 0, out=None,
+                              tail=None):
     """Launch ``csrc/forward_batched.cu``: a CTA per subproblem, a warp per
     alpha.  Same arguments and outputs as ``forward_pass_batched``.  Gains
     that do not lie in the kernel's memory order (``GAIN_ORDER``,
     ``D_ORDER``: what the backward wrappers and twins return) are copied
     into it once.  ``max_rows`` > 0 forces the gain block into tiles of at
     most that many rows (``forward_smem_bytes``), which must give the bits
-    of the whole block: for the tests and the smoke."""
+    of the whole block: for the tests and the smoke.  ``out``: the
+    ``(X5, U5, J)`` buffers to write, contiguous ``(n_alpha, S, N, K,
+    nx_p)``, ``(n_alpha, S, N, K, nu_p)`` and ``(n_alpha, S)``; ``tail``:
+    the predicate's ``(J_probe, J, active)`` (``forward_pass_batched_torch``),
+    under which the launch writes J = +inf and nothing else where no active
+    subproblem needs these alphas."""
     S, Np1, K, nx_p = X.shape
     N = Np1 - 1
     nu_p = U.shape[-1]
-    nxf, nuf = K * nx_p, K * nu_p
     n_alpha = alphas.shape[0]
     library = require_kernel_models(fleet)
     forward_smem_bytes(K, nx_p, nu_p, n_alpha, X.element_size(),
@@ -585,29 +681,15 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
         raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
     dtype, dev = X.dtype, X.device
-    model, nsub, dh = _slot_tables(fleet, mids_s, dtype)
+    tables = _slot_tables(fleet, mids_s, dtype)
     if Kg is not None:
         Kg, d = as_layout(Kg, GAIN_ORDER), as_layout(d, D_ORDER)
-    ins = dict(X=X, U=U, Kg=Kg, d=d, alphas=alphas, model=model, nsub=nsub,
-               dh=dh, xf=cost_b.xf, Q=cost_b.Q, R=cost_b.R, Qf=cost_b.Qf,
-               mask=cost_b.agent_mask, refw=cost_b.ref_weight,
-               radius=cost_b.radius, proxw=cost_b.prox_weight,
-               npos_eval=cost_b.n_pos_eval)
-    shapes = dict(X=(S, N + 1, K, nx_p), U=(S, N, K, nu_p),
-                  Kg=(N, nuf, nxf, S), d=(N, nuf, S), alphas=(n_alpha,),
-                  model=(S, K), nsub=(S, K), dh=(S, K), xf=(S, K, nx_p),
-                  Q=(S, K, nx_p, nx_p), R=(S, K, nu_p, nu_p),
-                  Qf=(S, K, nx_p, nx_p), mask=(S, K), refw=(S,), radius=(S,),
-                  proxw=(S,), npos_eval=(S, K))
-    check_tensors("forward_batched",
-                  {k: v for k, v in ins.items() if v is not None}, shapes,
-                  dtype, dev, ints=("model", "nsub", "npos_eval"),
-                  layouts={"Kg": GAIN_ORDER, "d": D_ORDER})
-    X5 = X.new_empty((n_alpha, S, N, K, nx_p))
-    U5 = X.new_empty((n_alpha, S, N, K, nu_p))
-    J = X.new_empty((n_alpha, S))
-    launch("forward_batched", dtype, dev, *ins.values(), X5, U5, J,
-           S, N, K, nx_p, nu_p, n_alpha, max_rows, library=library)
+    if out is None:
+        out = (X.new_empty((n_alpha, S, N, K, nx_p)),
+               X.new_empty((n_alpha, S, N, K, nu_p)), X.new_empty((n_alpha, S)))
+    X5, U5, J = out
+    run(_bind_forward(fleet, cost_b, tables, X, U, Kg, d, alphas, X5, U5, J, library,
+                      max_rows, tail), dev)
     return (X5.permute(_inverse(COLUMN_ORDER)),
             U5.permute(_inverse(COLUMN_ORDER)), J)
 
@@ -634,6 +716,40 @@ def forward_pass_batched(
         else forward_pass_batched_torch
     )
     return fn(fleet, cost_b, mids_s, X, U, Kg, d, alphas)
+
+
+def line_search_batched(fleet: Fleet, cfg: SolverConfig, sub_cost: GameCost, mids_s,
+                        X, U, Kg, d, J, active, backend: str = "auto"):
+    """The line search of one iteration over ``cfg.n_ls_iter`` alphas:
+    ``X5``, ``U5`` (public shapes, column-major memory) and ``J_c
+    (n_alpha, S)``.  Two-stage where ``0 < cfg.ls_probe < n_alpha``: the
+    first ``ls_probe`` alphas, then the rest under the tail's predicate
+    (given the carry's ``J`` and ``active``).  On the kernels both launches
+    always run, into one buffer of all the alphas; no host sync decides
+    (the counterpart of the ``lax.cond`` at pallas_batched.py:1045).  The
+    twins join their two candidate sets."""
+    n_alpha, p = cfg.n_ls_iter, cfg.ls_probe
+    alphas = line_search_alphas(n_alpha, X.dtype, X.device)
+    if not 0 < p < n_alpha:
+        return forward_pass_batched(fleet, sub_cost, mids_s, X, U, Kg, d, alphas,
+                                    backend)
+    if resolve_backend(backend, X) == "cuda":
+        S, Np1, K, nx_p = X.shape
+        X5 = X.new_empty((n_alpha, S, Np1 - 1, K, nx_p))
+        U5 = X.new_empty((n_alpha, S, Np1 - 1, K, U.shape[-1]))
+        J_c = X.new_empty((n_alpha, S))
+        forward_pass_batched_cuda(fleet, sub_cost, mids_s, X, U, Kg, d, alphas[:p],
+                                  out=(X5[:p], U5[:p], J_c[:p]))
+        forward_pass_batched_cuda(fleet, sub_cost, mids_s, X, U, Kg, d, alphas[p:],
+                                  out=(X5[p:], U5[p:], J_c[p:]),
+                                  tail=(J_c[:p], J, active))
+        inv = _inverse(COLUMN_ORDER)
+        return X5.permute(inv), U5.permute(inv), J_c
+    X5, U5, J_a = forward_pass_batched_torch(fleet, sub_cost, mids_s, X, U, Kg, d,
+                                             alphas[:p])
+    X5b, U5b, J_b = forward_pass_batched_torch(fleet, sub_cost, mids_s, X, U, Kg, d,
+                                               alphas[p:], tail=(J_a, J, active))
+    return _cat_alphas(X5, X5b), _cat_alphas(U5, U5b), torch.cat([J_a, J_b], dim=0)
 
 
 def select_alpha(X5, U5, x0_s, a_idx):
@@ -702,40 +818,17 @@ def init_batch_carry(
     )
 
 
-def batched_iteration(
-    fleet: Fleet, cfg: SolverConfig, sub_cost: GameCost, mids_s, x0_s,
-    c: BatchCarry, backend: str = "auto",
-) -> BatchCarry:
-    """One iLQR iteration over the batch: backward sweep, (two-stage) line
-    search, per-subproblem accept / regularization / convergence
-    (reference control.py:150-226), inactive subproblems frozen."""
+def accept_batched_torch(cfg: SolverConfig, X5, U5, J_c, x0_s, c: BatchCarry,
+                         counter=None):
+    """Plain PyTorch version of ``csrc/accept_batched.cu``: the accept step
+    of one iteration (reference control.py:150-237), per subproblem the
+    first improving candidate of ``X5 (N, nx_p, K, n_alpha, S)``, ``U5``
+    and ``J_c (n_alpha, S)``, regularization and convergence, inactive
+    subproblems frozen.  Updates the carry ``c`` in place, as the kernel
+    does; with ``counter`` (int32 (2,)) writes the active count to
+    ``counter[0]``.  It runs on the CPU and in the tests; the card's path
+    runs the kernel."""
     dtype = x0_s.dtype
-    n_alpha = cfg.n_ls_iter
-    alphas = line_search_alphas(n_alpha, dtype, x0_s.device)
-    Kg, dv = backward_pass_batched(
-        fleet, sub_cost, mids_s, c.X, c.U, c.mu, backend
-    )
-
-    def fwd(a):
-        return forward_pass_batched(
-            fleet, sub_cost, mids_s, c.X, c.U, Kg, dv, a, backend
-        )
-
-    # Two-stage line search: the first p alphas, then the rest only when
-    # some active subproblem improved at none of them.  The accept rule is
-    # the FIRST improving alpha, so the decision equals the one-shot sweep.
-    p = cfg.ls_probe
-    if 0 < p < n_alpha:
-        X5, U5, J_c = fwd(alphas[:p])
-        need_tail = bool(torch.any(c.active & ~torch.any(J_c < c.J, dim=0)))
-        if need_tail:
-            X5b, U5b, J_b = fwd(alphas[p:])
-            X5 = _cat_alphas(X5, X5b)
-            U5 = _cat_alphas(U5, U5b)
-            J_c = torch.cat([J_c, J_b], dim=0)
-    else:
-        X5, U5, J_c = fwd(alphas)
-
     improved = J_c < c.J[None, :]  # (n_alpha, S)
     accept = torch.any(improved, dim=0)
     a_idx = torch.argmax(improved.to(torch.int32), dim=0)  # first improving
@@ -772,7 +865,275 @@ def batched_iteration(
     converged = c.converged | converged_now
     failed = c.failed | failed_now
     active = c.active & ~converged_now & ~failed_now & (i < cfg.n_lqr_iter)
-    return BatchCarry(X, U, J, mu, delta, i, converged, failed, active)
+    for dst, src in zip(c, (X, U, J, mu, delta, i, converged, failed, active)):
+        dst.copy_(src)
+    if counter is not None:
+        counter[0] = active.sum()
+
+
+def _bind_accept(cfg: SolverConfig, X5, U5, J_c, x0_s, c: BatchCarry, counter):
+    """Check the accept kernel's tensors (``X5 (n_alpha, S, N, K, nx_p)``
+    and ``U5`` contiguous, the kernel's memory) and bind its launch."""
+    n_alpha, S, N, K, nx_p = X5.shape
+    nu_p = U5.shape[-1]
+    dtype, dev = x0_s.dtype, x0_s.device
+    ins = dict(X5=X5, U5=U5, J_c=J_c, x0=x0_s, X=c.X, U=c.U, J=c.J, mu=c.mu,
+               delta=c.delta, i=c.i, converged=c.converged, failed=c.failed,
+               active=c.active, counter=counter)
+    check_tensors("accept_batched", ins, dict(
+        X5=(n_alpha, S, N, K, nx_p), U5=(n_alpha, S, N, K, nu_p), J_c=(n_alpha, S),
+        x0=(S, K, nx_p), X=(S, N + 1, K, nx_p), U=(S, N, K, nu_p), J=(S,), mu=(S,),
+        delta=(S,), i=(S,), converged=(S,), failed=(S,), active=(S,), counter=(2,)),
+        dtype, dev, ints=("i", "counter"), bools=("converged", "failed", "active"))
+    return bind("accept_batched", dtype, *ins.values(), S, N, K, nx_p, nu_p, n_alpha,
+                float(cfg.tol), float(cfg.mu_min), float(cfg.mu_max),
+                float(cfg.delta_0), int(cfg.mu_floor), int(cfg.on_failed_ls == "increase"),
+                int(cfg.n_lqr_iter))
+
+
+def accept_batched_cuda(cfg: SolverConfig, X5, U5, J_c, x0_s, c: BatchCarry,
+                        counter=None):
+    """Launch ``csrc/accept_batched.cu``: ``accept_batched_torch``'s contract
+    and bits, one CTA per subproblem; ``counter`` (int32 (2,), its second
+    value 0) is allocated where not given."""
+    require_cuda("accept_batched", x0_s)
+    if counter is None:
+        counter = torch.zeros((2,), dtype=torch.int32, device=x0_s.device)
+    run(_bind_accept(cfg, X5.permute(COLUMN_ORDER), U5.permute(COLUMN_ORDER), J_c,
+                     x0_s, c, counter), x0_s.device)
+
+
+def accept_batched(cfg: SolverConfig, X5, U5, J_c, x0_s, c: BatchCarry,
+                   backend: str = "auto"):
+    """The accept step (``accept_batched_torch``): the kernel on CUDA
+    tensors, the plain version on CPU tensors; the carry ``c`` is updated
+    in place."""
+    cuda = resolve_backend(backend, x0_s) == "cuda"
+    (accept_batched_cuda if cuda else accept_batched_torch)(cfg, X5, U5, J_c, x0_s, c)
+
+
+def batched_iteration(
+    fleet: Fleet, cfg: SolverConfig, sub_cost: GameCost, mids_s, x0_s,
+    c: BatchCarry, backend: str = "auto",
+) -> BatchCarry:
+    """One iLQR iteration over the batch, eagerly: backward sweep, (two-stage)
+    line search (``line_search_batched``), per-subproblem accept /
+    regularization / convergence (``accept_batched``; reference
+    control.py:150-226), inactive subproblems frozen.  Returns a new carry
+    (``c`` is left as it was).  On the card ``solve_subproblems_batched``
+    replays the same launches as a CUDA graph (``IterationGraph``); this
+    eager form is the torch backend's iteration and the kernels' reference
+    for the graph's bits."""
+    Kg, dv = backward_pass_batched(
+        fleet, sub_cost, mids_s, c.X, c.U, c.mu, backend
+    )
+    X5, U5, J_c = line_search_batched(fleet, cfg, sub_cost, mids_s, c.X, c.U, Kg, dv,
+                                      c.J, c.active, backend)
+    c = BatchCarry(*(a.clone() for a in c))
+    accept_batched(cfg, X5, U5, J_c, x0_s, c, backend=backend)
+    return c
+
+
+# ---------------------------------------------------------------------------
+# The iteration as a CUDA graph.
+# ---------------------------------------------------------------------------
+
+# The captured iterations kept across calls, least recently used first out
+# past either bound (entries, and bytes of their buffers).
+GRAPH_CACHE_ENTRIES = 32
+GRAPH_CACHE_BYTES = 4 << 30
+_graphs: OrderedDict = OrderedDict()
+
+
+def graph_key(cfg: SolverConfig, S: int, N: int, K: int, nx_p: int, nu_p: int,
+              n_specs: int, dtype, device, library: str | None) -> tuple:
+    """The cache key of a captured iteration: every shape its buffers and
+    launches have (the width ``S``, ``N``, ``K``, ``nx_p``, ``nu_p``, the
+    alphas and the probe's split, the fleet's number of distinct models),
+    the type and the device, the kernels' library (default, or a custom
+    build's header) and every ``SolverConfig`` value the accept kernel's
+    launch bakes in."""
+    return (S, N, K, nx_p, nu_p, n_specs, dtype, torch.device(device), library,
+            cfg.n_ls_iter, cfg.ls_probe, float(cfg.tol), float(cfg.mu_min),
+            float(cfg.mu_max), float(cfg.delta_0), bool(cfg.mu_floor),
+            cfg.on_failed_ls, int(cfg.n_lqr_iter))
+
+
+def _capture(launches, device):
+    """Capture ``launches`` (bound, run once already) as a CUDA graph on
+    ``device``; returns the graph and the bytes its capture allocated (its
+    private pool: every buffer is allocated before, so none is expected).
+    A failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    before = torch.cuda.memory_allocated(device)
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream(device)
+        for b in launches:
+            call(b, stream)
+    return graph, torch.cuda.memory_allocated(device) - before
+
+
+class IterationGraph:
+    """One iteration of the batched solve at one width, over fixed buffers:
+    K1 or K3, K2 for the probe alphas and K2 for the tail under its
+    predicate (one K2 where ``ls_probe`` does not split the alphas), and the
+    accept kernel, which updates the carry in place and writes the active
+    count.  Every check, table and binding is made once, here; the first
+    ``step`` launches the four eagerly (the warm-up, a real iteration) and
+    captures them, every later one replays the graph.  ``load`` copies a
+    stage's carry and data in."""
+
+    def __init__(self, fleet: Fleet, cfg: SolverConfig, library, S, N, K, nx_p, nu_p,
+                 dtype, device):
+        nxf, nuf = K * nx_p, K * nu_p
+        n_alpha, p = cfg.n_ls_iter, cfg.ls_probe
+
+        def new(*shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device=device)
+
+        self.device = device
+        self.carry = BatchCarry(
+            X=new(S, N + 1, K, nx_p), U=new(S, N, K, nu_p), J=new(S), mu=new(S),
+            delta=new(S), i=new(S, dt=torch.int32), converged=new(S, dt=torch.bool),
+            failed=new(S, dt=torch.bool), active=new(S, dt=torch.bool))
+        self.cost = GameCost(
+            xf=new(S, K, nx_p), Q=new(S, K, nx_p, nx_p), R=new(S, K, nu_p, nu_p),
+            Qf=new(S, K, nx_p, nx_p), radius=new(S), n_pos=new(S, K, dt=torch.int32),
+            agent_mask=new(S, K), prox_weight=new(S), ref_weight=new(S),
+            n_pos_eval=new(S, K, dt=torch.int32))
+        self.mids, self.x0 = new(S, K, dt=torch.int32), new(S, K, nx_p)
+        self.tables = (new(S, K, dt=torch.int32), new(S, K, dt=torch.int32), new(S, K))
+        self.ids, self.dt = new(len(fleet.unique_specs), dt=torch.int32), new(1)
+        self.alphas = line_search_alphas(n_alpha, dtype, device)
+        self.Kg, self.d = new(S, N, nuf, nxf), new(S, N, nuf)
+        narrow = nxf <= MAX_NXF  # backward_pass_batched's routing
+        kernel = "backward_batched" if narrow else "backward_batched_wide"
+        self.work = (None if narrow else
+                     new(S, riccati_plan(K, nx_p, nu_p, self.x0.element_size())[2]))
+        self.X5, self.U5 = new(n_alpha, S, N, K, nx_p), new(n_alpha, S, N, K, nu_p)
+        self.J_c = new(n_alpha, S)
+        self.counter = torch.zeros((2,), dtype=torch.int32, device=device)
+
+        c = self.carry
+        Kg, d = self.Kg.permute(_inverse(GAIN_ORDER)), self.d.permute(_inverse(D_ORDER))
+
+        def forward(lo, hi, tail=None):
+            return _bind_forward(fleet, self.cost, self.tables, c.X, c.U, Kg, d,
+                                 self.alphas[lo:hi], self.X5[lo:hi], self.U5[lo:hi],
+                                 self.J_c[lo:hi], library, tail=tail)
+
+        self.launches = [_bind_backward(kernel, fleet, self.cost, self.mids, self.ids,
+                                        self.dt, c.X, c.U, c.mu, self.Kg, self.d,
+                                        self.work, library)]
+        if 0 < p < n_alpha:
+            self.launches += [forward(0, p),
+                              forward(p, n_alpha, (self.J_c[:p], c.J, c.active))]
+        else:
+            self.launches.append(forward(0, n_alpha))
+        self.launches.append(_bind_accept(cfg, self.X5, self.U5, self.J_c, self.x0, c,
+                                          self.counter))
+        self.nbytes = sum(
+            t.numel() * t.element_size()
+            for t in (*self.carry, *self.cost, self.mids, self.x0, *self.tables,
+                      self.ids, self.dt, self.alphas, self.Kg, self.d, self.work,
+                      self.X5, self.U5, self.J_c, self.counter) if t is not None)
+        self.graph, self.pool_bytes, self.capture_ms = None, 0, 0.0
+
+    @property
+    def data(self):
+        return self.cost, self.mids, self.x0
+
+    def load(self, fleet: Fleet, c: BatchCarry, data, perm=None):
+        """Copy the carry ``c`` and the data ``(sub_cost, mids_s, x0_s)``
+        into the buffers, gathered by ``perm`` where given (a compaction);
+        then the slot tables and the fleet's model ids and step."""
+        src = (*c, *data[0], *data[1:])
+        for dst, a in zip((*self.carry, *self.cost, self.mids, self.x0), src):
+            dst.copy_(a if perm is None else a[perm])
+        specs = fleet.unique_specs
+        tabs = _model_tables(specs, fleet.dt, self.x0.dtype, self.device,
+                             tuple(s.expr for s in specs))
+        m = self.mids.long()
+        for dst, tab in zip(self.tables, tabs):
+            dst.copy_(tab[m])
+        self.ids.copy_(tabs[0])
+        self.dt.copy_(_dt_tensor(fleet.dt, self.x0.dtype, self.device))
+
+    def step(self) -> int:
+        """One iteration; returns the active count after it (the one host
+        sync).  Inside a ``timed_launches()`` block the four launches run
+        one by one, each timed, in place of the replay."""
+        if self.graph is None:
+            for b in self.launches:
+                run(b, self.device)
+            t0 = perf_counter()
+            self.graph, self.pool_bytes = _capture(self.launches, self.device)
+            self.capture_ms = (perf_counter() - t0) * 1e3
+        elif timing():
+            for b in self.launches:
+                run(b, self.device)
+        else:
+            self.graph.replay()
+            for b in self.launches:
+                count(b)
+        return int(self.counter[0])
+
+
+def iteration_graph(fleet: Fleet, cfg: SolverConfig, library, S, N, K, nx_p, nu_p,
+                    dtype, device) -> IterationGraph:
+    """The cached ``IterationGraph`` of this key (``graph_key``), made where
+    there is none; the least recently used leave past ``GRAPH_CACHE_ENTRIES``
+    or ``GRAPH_CACHE_BYTES``."""
+    key = graph_key(cfg, S, N, K, nx_p, nu_p, len(fleet.unique_specs), dtype, device,
+                    library)
+    g = _graphs.pop(key, None)
+    if g is None:
+        g = IterationGraph(fleet, cfg, library, S, N, K, nx_p, nu_p, dtype, device)
+    _graphs[key] = g
+    while len(_graphs) > 1 and (len(_graphs) > GRAPH_CACHE_ENTRIES
+                                or graph_cache_info()["bytes"] > GRAPH_CACHE_BYTES):
+        _graphs.popitem(last=False)
+    return g
+
+
+def graph_cache_info() -> dict:
+    """The graph cache: entries, of them captured, the bytes of their
+    buffers, the bytes their captures allocated in the graphs' pools, and
+    the host milliseconds the captures took (each after its warm-up)."""
+    gs = list(_graphs.values())
+    return {"entries": len(gs), "captured": sum(g.graph is not None for g in gs),
+            "bytes": sum(g.nbytes for g in gs), "pool_bytes": sum(g.pool_bytes for g in gs),
+            "capture_ms": sum(g.capture_ms for g in gs)}
+
+
+class _EagerStage:
+    """A width of the retirement loop run eagerly (``batched_iteration``):
+    the torch backend's, and on the card the bits' reference."""
+
+    def __init__(self, fleet, cfg, backend, c, data):
+        self.fleet, self.cfg, self.backend = fleet, cfg, backend
+        self.carry, self.data = c, data
+
+    def step(self) -> int:
+        self.carry = batched_iteration(self.fleet, self.cfg, *self.data, self.carry,
+                                       self.backend)
+        return int(self.carry.active.sum())
+
+
+def _eager_stage(fleet, cfg, backend, c, data, perm=None):
+    if perm is not None:
+        c = BatchCarry(*(a[perm] for a in c))
+        data = (GameCost(*(a[perm] for a in data[0])), data[1][perm], data[2][perm])
+    return _EagerStage(fleet, cfg, backend, c, data)
+
+
+def _graph_stage(fleet, cfg, backend, c, data, perm=None):
+    X = c.X
+    S = X.shape[0] if perm is None else perm.shape[0]
+    g = iteration_graph(fleet, cfg, require_kernel_models(fleet), S, X.shape[1] - 1,
+                        X.shape[2], X.shape[3], c.U.shape[-1], X.dtype, X.device)
+    g.load(fleet, c, data, perm)
+    return g
 
 
 def next_width(w: int, unit: int = COMPACTION_UNIT) -> int:
@@ -805,6 +1166,11 @@ def solve_subproblems_batched(
     subproblem's iteration sequence does not depend on its lane, so results
     equal the lockstep loop's.
 
+    On the card each width's iteration is a CUDA graph (``IterationGraph``,
+    cached across calls by ``graph_key``): the host replays it and reads the
+    active count the accept kernel wrote, one sync an iteration.  A failed
+    capture or launch raises.  The torch backend iterates eagerly.
+
     ``x0_s (S, K, nx_p)``, ``U0_s (S, N, K, nu_p)``, ``mids_s (S, K)`` branch
     indices, ``enabled (S,)`` bool; ``backend`` defaults to
     ``cfg.sweep_backend``.  On the kernels a width that K1's or K3's plan
@@ -816,8 +1182,7 @@ def solve_subproblems_batched(
     host checks it after each iteration's active-count fetch, the sync that
     paces the loop, and once it has passed starts no further iteration: the
     best plan so far returns, with the unfinished subproblems neither
-    converged nor failed.  Compaction keeps its schedule under a deadline
-    (no width needs compiling here).
+    converged nor failed.  Compaction keeps its schedule under a deadline.
     """
     if t0 is None:
         t0 = perf_counter()
@@ -829,36 +1194,37 @@ def solve_subproblems_batched(
         K, item = x0_s.shape[1], x0_s.element_size()
         sweep_smem_bytes(K, fleet.nx_p, fleet.nu_p, item)
         forward_smem_bytes(K, fleet.nx_p, fleet.nu_p, cfg.n_ls_iter, item)
+    stage = _graph_stage if backend == "cuda" else _eager_stage
     sub_cost = cast_cost(sub_cost, dtype)
     S = x0_s.shape[0]
     c = init_batch_carry(fleet, cfg, sub_cost, x0_s, U0_s, mids_s, enabled, backend)
     out = BatchCarry(*(a.clone() for a in c))
     data = (sub_cost, mids_s, x0_s)
     idx_map = torch.arange(S, device=x0_s.device)
-    w = S
+    w, perm = S, None
+    n_active = int(c.active.sum())  # host sync
     expired = False
     while True:
         nw = next_width(w)
+        st = stage(fleet, cfg, backend, c, data, perm)
         while True:
-            n_active = int(c.active.sum())  # host sync: paces the deadline
             if n_active == 0:
                 break
             if t_kill is not None and perf_counter() - t0 > t_kill:
                 expired = True
                 if verbose:
-                    print(f"t_kill reached after {int(c.i.max())} iterations")
+                    print(f"t_kill reached after {int(st.carry.i.max())} iterations")
                 break
             if nw < w and n_active <= nw:
                 break
-            c = batched_iteration(fleet, cfg, *data, c, backend)
+            n_active = st.step()  # host sync: paces the deadline
+        c, data = st.carry, st.data
         for o, a in zip(out, c):
             o[idx_map] = a
         if n_active == 0 or expired or nw == w:
             break
         # Stable active-first permutation; keep the first nw lanes.
         perm = torch.argsort((~c.active).to(torch.uint8), stable=True)[:nw]
-        c = BatchCarry(*(a[perm] for a in c))
-        data = (GameCost(*(a[perm] for a in data[0])), data[1][perm], data[2][perm])
         idx_map = idx_map[perm]
         w = nw
     return SolveResult(

@@ -19,7 +19,11 @@ launch and counts the launch in ``launch_counts`` (and, from a custom
 library, in ``custom_launch_counts``; the plain-torch twins never count).
 Inside a ``timed_launches()`` block it also brackets each kernel with CUDA
 events, so a caller can read the kernel's own time apart from its
-wrapper's torch preparation.
+wrapper's torch preparation.  ``bind`` resolves a launch once (entry point
+and arguments, tensors as pointers) for a caller that repeats it on fixed
+buffers: ``run`` launches it as ``launch`` does, ``call`` launches it
+alone (inside a CUDA graph's capture), and ``count`` adds a graph's
+replayed launches to the counts.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import tempfile
 import time
 from functools import cache
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -55,13 +60,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 # Argument lists of the C entry points (pointers, then sizes and scalars,
 # then stream).
 _SIGNATURES = {
+    "accept_batched": [_P] * 14 + [_I] * 6 + [_D] * 4 + [_I] * 3 + [_P],
     "backward_batched": [_P] * 17 + [_I] * 5 + [_P],
     "backward_batched_wide": [_P] * 18 + [_L] + [_I] * 5 + [_P],
     "backward_sweep": [_P] * 17 + [_L] + [_I] * 4 + [_P],
-    "forward_batched": [_P] * 20 + [_I] * 7 + [_P],
+    "forward_batched": [_P] * 23 + [_I] * 8 + [_P],
     "forward_sweep": [_P] * 21 + [_I] * 7 + [_P],
     "probe_fma": [_P] * 2 + [_L, _I] + [_F] * 8 + [_P],
     "probe_hbm": [_P] * 2 + [_I, _L] + [_P],
@@ -69,6 +76,7 @@ _SIGNATURES = {
 }
 # Entry-point suffixes of each kernel: the dtypes it is compiled for.
 _DTYPES = {
+    "accept_batched": ("f32", "f64"),
     "backward_batched": ("f32", "f64"),
     "backward_batched_wide": ("f32", "f64"),
     "backward_sweep": ("f32", "f64"),
@@ -290,13 +298,14 @@ def require_cuda(name: str, t):
 
 
 def check_tensors(name: str, tensors: dict, shapes: dict, dtype, device,
-                  ints=(), layouts=None):
+                  ints=(), layouts=None, bools=()):
     """Raise unless every tensor has its shape, lies on ``device``, has
-    ``dtype`` (int32 for the keys in ``ints``) and is contiguous in memory:
-    as it stands or, for a key in ``layouts``, after the permutation given
-    there (a tensor handed out as a permuted view of the kernel's layout)."""
+    ``dtype`` (int32 for the keys in ``ints``, bool for those in ``bools``)
+    and is contiguous in memory: as it stands or, for a key in ``layouts``,
+    after the permutation given there (a tensor handed out as a permuted
+    view of the kernel's layout)."""
     for key, t in tensors.items():
-        want = torch.int32 if key in ints else dtype
+        want = torch.int32 if key in ints else torch.bool if key in bools else dtype
         if tuple(t.shape) != shapes[key]:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {shapes[key]}")
@@ -350,30 +359,73 @@ def ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else None
 
 
-def launch(kernel: str, dtype, device, *args, library: str | None = None):
-    """Call ``dpilqr_<kernel>_<f32|f64>(*args, stream)`` on the current
-    stream of ``device``; tensors among ``args`` pass as pointers.
-    ``library``: what ``require_kernel_models`` returned (None: the default
-    library)."""
+class Bound(NamedTuple):
+    """A kernel launch resolved once: the C entry point and its arguments
+    (tensors as pointers), the launch's integer arguments as
+    ``timed_launches`` records them, and the tensors themselves, held so
+    that no pointer outlives its memory (a graph replays them)."""
+
+    kernel: str
+    library: str | None
+    fn: object
+    args: tuple
+    sizes: tuple
+    tensors: tuple
+
+
+def bind(kernel: str, dtype, *args, library: str | None = None) -> Bound:
+    """Resolve ``dpilqr_<kernel>_<f32|f64>(*args, stream)``: ``library`` is
+    what ``require_kernel_models`` returned (None: the default library)."""
     suffix = dtype_suffix(dtype)
     if suffix not in _DTYPES[kernel]:
         raise ValueError(f"{kernel} takes {_DTYPES[kernel]}, got {dtype}")
     if library is not None and kernel not in CUSTOM_KERNELS:
         raise ValueError(f"{kernel} holds no model: it has no custom-model build")
     fn = getattr(load_library(library), f"dpilqr_{kernel}_{suffix}")
+    return Bound(kernel, library, fn,
+                 tuple(ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
+                 tuple(a for a in args if isinstance(a, int)),
+                 tuple(a for a in args if isinstance(a, torch.Tensor)))
+
+
+def call(b: Bound, stream):
+    """Launch ``b`` on ``stream`` (a ``torch.cuda.Stream``), uncounted and
+    untimed: the one step of a graph's capture; raises on a failed launch."""
+    err = b.fn(*b.args, ctypes.c_void_p(stream.cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{b.kernel} kernel failed: cudaError {err}")
+
+
+def count(b: Bound):
+    """Add one launch of ``b`` to the counts (a graph's replay of it)."""
+    launch_counts[b.kernel] += 1
+    if b.library is not None:
+        custom_launch_counts[b.kernel] += 1
+
+
+def run(b: Bound, device):
+    """Launch ``b`` on the current stream of ``device``: counted, and timed
+    inside a ``timed_launches()`` block."""
     stream = torch.cuda.current_stream(device)
     if _timed is not None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record(stream)
-    err = fn(*(ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
-             ctypes.c_void_p(stream.cuda_stream))
+    call(b, stream)
     if _timed is not None:
         end.record(stream)
-        _timed.append((kernel, start, end,
-                       tuple(a for a in args if isinstance(a, int))))
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel failed: cudaError {err}")
-    launch_counts[kernel] += 1
-    if library is not None:
-        custom_launch_counts[kernel] += 1
+        _timed.append((b.kernel, start, end, b.sizes))
+    count(b)
+
+
+def timing() -> bool:
+    """Whether a ``timed_launches()`` block is open."""
+    return _timed is not None
+
+
+def launch(kernel: str, dtype, device, *args, library: str | None = None):
+    """Call ``dpilqr_<kernel>_<f32|f64>(*args, stream)`` on the current
+    stream of ``device``; tensors among ``args`` pass as pointers.
+    ``library``: what ``require_kernel_models`` returned (None: the default
+    library)."""
+    run(bind(kernel, dtype, *args, library=library), device)

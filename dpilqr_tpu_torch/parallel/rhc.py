@@ -81,6 +81,19 @@ def _advance_shift(X, U, xf, step_size: int, n_d: int):
     return xi, X[:step_size], U[:step_size], X_warm, U_warm, dists
 
 
+def _to_host(*tensors) -> list[np.ndarray]:
+    """``tensors`` on the host in one copy: packed into one float64 buffer
+    (each value a float, a bool or an integer below 2**53, so exact), then
+    unpacked to each tensor's dtype and shape."""
+    host = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        dtype = torch.empty((0,), dtype=t.dtype).numpy().dtype
+        out.append(host[at:at + t.numel()].astype(dtype).reshape(tuple(t.shape)))
+        at += t.numel()
+    return out
+
+
 def _pow2(k: int) -> int:
     return 1 << (k - 1).bit_length() if k > 1 else 1
 
@@ -216,18 +229,25 @@ def solve_rhc(
         widened ``K_cur``."""
         nonlocal K_cur
         res = rec["res"]
-        J_h = float(res.J)
-        dists_h = rec["dists"].cpu().numpy()
+        # The step's one device-to-host copy (the JAX loop's jax.device_get).
+        if centralized:
+            J_h, dists_h, iters_h, conv_h = _to_host(
+                res.J, rec["dists"], res.iters, res.converged)
+        else:
+            J_h, dists_h, kmax, trunc, memb_h, iters_h, conv_h = _to_host(
+                res.J, rec["dists"], res.sizes.max(), res.truncated, res.membership,
+                res.iters, res.converged)
+        J_h = float(J_h)
         solve_time = perf_counter() - rec["t0"]
         if centralized:
             info = RhcStepInfo(
                 t=rec["t"], J=J_h, solve_time=solve_time,
-                iters=[int(res.iters)], distance_left=dists_h.tolist(),
-                converged=[bool(res.converged)],
+                iters=[int(iters_h)], distance_left=dists_h.tolist(),
+                converged=[bool(conv_h)],
             )
             return commit(rec, info)
-        kmax = int(res.sizes.max())
-        if bool(res.truncated):
+        kmax = int(kmax)
+        if bool(trunc):
             # A neighborhood outgrew the slot count.  Under auto-K redo the
             # step wider than the width it used; with a pinned K, warn.
             K_used = rec["K_used"]
@@ -247,11 +267,10 @@ def solve_rhc(
                 K_cur = k_need
 
         return commit(rec, RhcStepInfo(
-            t=rec["t"], J=J_h, solve_time=solve_time,
-            membership=res.membership.cpu().numpy(),
-            iters=res.iters.cpu().tolist(), distance_left=dists_h.tolist(),
+            t=rec["t"], J=J_h, solve_time=solve_time, membership=memb_h,
+            iters=iters_h.tolist(), distance_left=dists_h.tolist(),
             K=rec["K_used"] or min(_pow2(kmax), n), k_max=kmax,
-            converged=res.converged.cpu().tolist(),
+            converged=conv_h.tolist(),
         ))
 
     def commit(rec, info):

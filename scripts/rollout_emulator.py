@@ -20,7 +20,10 @@ rollout's three kernels are not emulated).  Slow: keep shapes small.
 Checks: the library's plan equals ``batched.forward_smem_bytes``; K2 (10
 unicycles, K=8, and 16 Quad6D, K=16) against its twin, with tiles forced
 (``max_rows``) bit-equal to the whole block; K4 with gains on 100 Unicycle4D
-(tiles) against its twin, float64 and float32.
+(tiles) against its twin, float64 and float32; K2's tail under its
+predicate against the unpredicated launch; the accept kernel
+(``csrc/accept_batched.cu``, also compiled here) against
+``accept_batched_torch``, bit for bit.
 """
 
 import ctypes
@@ -44,7 +47,9 @@ from dpilqr_tpu_torch.ops import ilqr, sweeps  # noqa: E402
 HEADER = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
+#include <cfloat>
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
@@ -78,11 +83,29 @@ struct Block {
   std::vector<std::unique_ptr<std::barrier<>>> warp;
   std::vector<double> xbuf;
   size_t bytes = 0;
+  std::atomic<int> vote{0};
 };
 inline Block* g_block = nullptr;
 inline const bool g_lazy = getenv("EMU_LAZY") != nullptr;
 inline void __syncthreads() { g_block->all->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_block->warp[threadIdx.x >> 5]->arrive_and_wait(); }
+inline int __syncthreads_or(int p) {
+  if (p) g_block->vote.store(1);
+  g_block->all->arrive_and_wait();
+  const int r = g_block->vote.load();
+  g_block->all->arrive_and_wait();
+  if (threadIdx.x == 0) g_block->vote.store(0);
+  g_block->all->arrive_and_wait();
+  return r;
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
 template <typename T> T __shfl_xor_sync(unsigned, T v, int o) {
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   std::memcpy(&g_block->xbuf[w * 32 + lane], &v, sizeof(T));
@@ -126,7 +149,7 @@ static void emu_run(dim3 blocks, int threads, size_t bytes, F body) {
 }
 """
 
-SOURCES = ("forward_batched.cu", "forward_sweep.cu")
+SOURCES = ("forward_batched.cu", "forward_sweep.cu", "accept_batched.cu")
 
 
 def build() -> Path:
@@ -155,10 +178,10 @@ def build() -> Path:
 
 
 def install(lib_path: Path) -> ctypes.CDLL:
-    """Send the wrappers' K2 and K4 launches (and ``cuda_build.forward_plan``)
-    to the emulated library, on CPU tensors."""
+    """Send the wrappers' K2, K4 and accept launches (and
+    ``cuda_build.forward_plan``) to the emulated library, on CPU tensors."""
     lib = ctypes.CDLL(str(lib_path))
-    for base in ("forward_batched", "forward_sweep"):
+    for base in ("forward_batched", "forward_sweep", "accept_batched"):
         for sfx in cb._DTYPES[base]:
             fn = getattr(lib, f"dpilqr_{base}_{sfx}")
             fn.argtypes, fn.restype = cb._SIGNATURES[base], ctypes.c_int
@@ -166,17 +189,20 @@ def install(lib_path: Path) -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
     lib.dpilqr_forward_smem_bytes.restype = ctypes.c_longlong
 
-    def launch(kernel, dtype, device, *args, library=None):
-        fn = getattr(lib, f"dpilqr_{kernel}_{cb.dtype_suffix(dtype)}")
-        err = fn(*(cb.ptr(a) if isinstance(a, torch.Tensor) else a for a in args), None)
+    def run(b, device):
+        err = b.fn(*b.args, None)
         if err:
-            raise RuntimeError(f"{kernel} kernel failed: error {err}")
-        cb.launch_counts[kernel] += 1
+            raise RuntimeError(f"{b.kernel} kernel failed: error {err}")
+        cb.count(b)
+
+    def launch(kernel, dtype, device, *args, library=None):
+        run(cb.bind(kernel, dtype, *args, library=library), device)
 
     cb.load_library = lambda header=None: lib
     for module in (bt, sweeps):
-        module.launch = launch
         module.require_cuda = lambda name, t: None
+    bt.run = run
+    sweeps.launch = launch
     return lib
 
 
@@ -264,7 +290,74 @@ def main():
         plan = cb.forward_plan(n, 4, 2, 10, X.element_size())
         print(f"K4 100 Unicycle4D {str(dtype)[6:]} (chunks, warps, buffers, rows, bytes) "
               f"{plan}: the twin's values", flush=True)
+    tail_checks()
+    accept_checks()
     print("ok")
+
+
+def tail_checks():
+    """K2's tail under its predicate: the unpredicated launch's bits where
+    some active subproblem improved at no probe alpha, J = +inf and nothing
+    else where none needs the tail."""
+    for dtype in (torch.float64, torch.float32):
+        fleet, sub, mids, carry, Kg, d = batch(dtt.UNICYCLE_4D, 10, 8, dtype, 3)
+        alphas = ilqr.line_search_alphas(10, dtype)
+        fa = (fleet, sub, mids, carry.X, carry.U, Kg, d)
+        J_probe = bt.forward_pass_batched_cuda(*fa, alphas[:2])[2]
+        plain = bt.forward_pass_batched_cuda(*fa, alphas[2:])
+        active = torch.tensor([True, False, True])
+        need = J_probe.min(0).values.clone()  # subproblem 2 improves at no probe alpha
+        need[0] = float("inf")
+        got = bt.forward_pass_batched_cuda(*fa, alphas[2:], tail=(J_probe, need, active))
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+        skip = torch.full((3,), float("inf"), dtype=dtype)
+        got = bt.forward_pass_batched_cuda(*fa, alphas[2:], tail=(J_probe, skip, active))
+        assert bool(torch.isinf(got[2]).all())
+        print(f"K2 tail {str(dtype)[6:]}: the unpredicated bits, J = inf when skipped",
+              flush=True)
+
+
+def accept_checks():
+    """The accept kernel against ``accept_batched_torch``, bit for bit, on a
+    random carry (a tail needed or not, both ``on_failed_ls`` modes,
+    ``mu_floor``, inactive lanes)."""
+    rng = np.random.default_rng(4)
+    S, N, K, nx, nu, n_alpha = 7, 5, 3, 4, 2, 6
+    for dtype in (torch.float64, torch.float32):
+        for mode in ("bail", "increase"):
+            for mu_floor in (False, True):
+                cfg = dtt.SolverConfig(on_failed_ls=mode, mu_floor=mu_floor, tol=0.05,
+                                       n_lqr_iter=4, mu_max=2.0)
+
+                def t(a, dt=dtype):
+                    return torch.as_tensor(a).to(dt)
+
+                X5 = t(rng.standard_normal((n_alpha, S, N, K, nx)))
+                U5 = t(rng.standard_normal((n_alpha, S, N, K, nu)))
+                J_c = t(rng.uniform(0.5, 1.5, (n_alpha, S)))
+                J_c[:, 1] = float("inf")  # no improving alpha
+                x0 = t(rng.standard_normal((S, K, nx)))
+                carry = bt.BatchCarry(
+                    X=t(rng.standard_normal((S, N + 1, K, nx))),
+                    U=t(rng.standard_normal((S, N, K, nu))),
+                    J=t(rng.uniform(0.9, 1.1, S)), mu=t(rng.choice([1e-7, 0.5, 1.5], S)),
+                    delta=t(rng.choice([0.25, 1.0, 4.0], S)),
+                    i=t(rng.integers(0, 4, S), torch.int32),
+                    converged=torch.zeros(S, dtype=torch.bool),
+                    failed=torch.zeros(S, dtype=torch.bool),
+                    active=t(rng.uniform(size=S) < 0.8, torch.bool))
+                inv = bt._inverse(bt.COLUMN_ORDER)
+                outs = []
+                for fn in (bt.accept_batched_cuda, bt.accept_batched_torch):
+                    c = bt.BatchCarry(*(a.clone() for a in carry))
+                    counter = torch.zeros(2, dtype=torch.int32)
+                    fn(cfg, X5.permute(inv), U5.permute(inv), J_c, x0, c, counter)
+                    outs.append((c, counter))
+                (got, n_got), (want, n_want) = outs
+                for name, a, b in zip(bt.BatchCarry._fields, got, want):
+                    assert torch.equal(a, b), (name, mode, mu_floor, dtype)
+                assert torch.equal(n_got, n_want), (n_got, n_want)
+        print(f"accept {str(dtype)[6:]}: the torch version's bits", flush=True)
 
 
 if __name__ == "__main__":

@@ -6,16 +6,22 @@ solve loop, the torch prep of the backward pass -- on the card none since
 K1 and K3 compute their inputs, but the script also runs in a tree where
 they took them from torch --, the three batched kernels' wrappers,
 ``select_alpha``, the stitched plan's joint-cost rollout, which on the card
-is K4's wrapper ``rollout_cuda``) in wall-clock timers that synchronize the
+is K4's wrapper ``rollout_cuda``; and where the tree has them the graph
+loop's sections: ``iteration_graph``, the cached graph's lookup or making,
+``IterationGraph.load``, a stage's copy and compaction into the graph's
+buffers, and ``IterationGraph.step``, one iteration: its replay, or the
+first iteration's launches and capture, and the read of the active count)
+in wall-clock timers that synchronize the
 device before and after, then drives ``chip_smoke.py``'s closed loops (100
 Unicycle4D agents at auto K; 64 Quad6D agents at K=16 and at auto K), 5 MPC
 steps each after a warm-up run, and prints the milliseconds per step of
 every section, the torch prep's share and K4's share of the timed step.  The synchronizations
 serialize host and device, so the step itself runs slower here than in
 ``chip_smoke.py``; the shares are what this script is for.  Sections nest:
-the solve loop contains the preparation, the kernels and ``select_alpha``;
-``rollout`` contains ``rollout_cuda``.  Needs one CUDA device; run from the
-repository root:
+the solve loop contains the preparation, the kernels, ``select_alpha`` and
+the graph loop's sections; ``rollout`` contains ``rollout_cuda``.  A
+section the tree does not have is left out.  Needs one CUDA device; run
+from the repository root:
 
     python3 scripts/step_breakdown.py
 """
@@ -42,7 +48,8 @@ SECTIONS = {
     "dpilqr_tpu_torch.ops.batched": (
         "init_batch_carry", "_quadraticize_batch", "_linearize_batch",
         "backward_pass_batched_cuda", "backward_pass_batched_wide_cuda",
-        "forward_pass_batched_cuda", "select_alpha"),
+        "forward_pass_batched_cuda", "select_alpha", "iteration_graph",
+        "IterationGraph.load", "IterationGraph.step"),
 }
 
 
@@ -50,7 +57,13 @@ def instrument(totals):
     for module_name, names in SECTIONS.items():
         module = importlib.import_module(module_name)
         for name in names:
-            fn = getattr(module, name)
+            owner, attr = module, name
+            if "." in name:
+                owner, attr = name.split(".")
+                owner = getattr(module, owner, None)
+            fn = getattr(owner, attr, None)
+            if fn is None:
+                continue
 
             def timed(*args, _fn=fn, _name=name, **kwargs):
                 torch.cuda.synchronize()
@@ -61,7 +74,7 @@ def instrument(totals):
                 totals[_name] = (ms + (time.perf_counter() - t0) * 1e3, calls + 1)
                 return out
 
-            setattr(module, name, timed)
+            setattr(owner, attr, timed)
 
 
 def main():

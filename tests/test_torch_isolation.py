@@ -81,6 +81,8 @@ def test_sources_import_no_jax():
 
 
 KERNEL_SOURCES = {
+    # No Pallas kernel: the accept step XLA fuses into the batched iteration.
+    "accept_batched.cu": "dpilqr_tpu/ops/pallas_batched.py :: batched_iteration",
     "backward_batched.cu": "dpilqr_tpu/ops/pallas_batched.py :: backward_pass_batched",
     "forward_batched.cu": "dpilqr_tpu/ops/pallas_batched.py :: forward_pass_batched",
     "backward_batched_wide.cu":
@@ -99,7 +101,7 @@ KERNEL_HEADERS = {
                             "backward_sweep.cu", "derivatives_host.cpp"),
     "derivatives.cuh": ("computed_inputs.cuh",),
     "dynamics.cuh": ("rollout.cuh", "derivatives.cuh"),
-    "launch.cuh": ("riccati.cuh", "rollout.cuh"),
+    "launch.cuh": ("riccati.cuh", "rollout.cuh", "accept_batched.cu"),
     "riccati.cuh": ("backward_batched.cu", "backward_batched_wide.cu", "backward_sweep.cu"),
     "rollout.cuh": ("forward_batched.cu", "forward_sweep.cu"),
 }
