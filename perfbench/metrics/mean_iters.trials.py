@@ -1,0 +1,13 @@
+"""``mean_iters.trials``: iLQR iterations a subproblem solve, over every
+subproblem of every trial batch of the window (the results' ``iters``)."""
+
+import numpy as np
+
+NAME, UNIT, SOURCE = "mean_iters.trials", "iters", "program_counter"
+LAYER, MOVES = "Batched driver (ops/batched.py)", "trial_ms"
+
+
+def read(run):
+    if run.kind != "trial_batch" or not run.batches:
+        return None
+    return float(np.concatenate([b.iters for b in run.batches]).mean())
