@@ -565,8 +565,10 @@ def traced_loop(arg):
             res = loop()
             sync(s)
             wall_us = (perf_counter() - t0) * 1e6
+    # Kernels and copies; not the program's spans, which the profiler also
+    # projects onto the device's timeline.
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     busy, steps = union_length(spans), len(res.steps)
     print(json.dumps(tagged("mpc_100", BUSY, (busy / wall_us, busy / 1e3 / steps,
                                                wall_us / 1e3 / steps, len(spans)))))

@@ -994,7 +994,10 @@ def batched_iteration_kernels(dev, ls_probe=2):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         g.step()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # Kernels and copies; not the ranges of the program's spans, which the
+    # profiler also projects onto the device's timeline.
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
     copies = sum("memcpy" in e.name.lower() and "dtoh" in e.name.lower() for e in events)
     names = collections.Counter(e.name for e in events if "memcpy" not in e.name.lower()
                                 and "memset" not in e.name.lower())
@@ -1174,8 +1177,8 @@ def iteration_kernels(dev):
         torch.cuda.synchronize()
     names = collections.Counter(
         e.name for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower()
-        and "memset" not in e.name.lower())
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+        and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
     k5 = sum(n for k, n in names.items() if "backward_sweep_kernel" in k)
     k4 = sum(n for k, n in names.items() if "forward_sweep_kernel" in k)
     other = {k: n for k, n in names.items()

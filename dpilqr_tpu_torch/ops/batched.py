@@ -56,6 +56,7 @@ import torch
 from ..config import SolverConfig, resolve_backend
 from ..models.fleet import Fleet
 from ..models.vectorized import blended_f
+from ..utils.profiling import span
 from .costs import (
     GameCost,
     assemble_pair_hessian,
@@ -943,6 +944,15 @@ def batched_iteration(
 GRAPH_CACHE_ENTRIES = 32
 GRAPH_CACHE_BYTES = 4 << 30
 _graphs: OrderedDict = OrderedDict()
+# The cache's lookups since the process started or ``reset_graph_cache_counts``:
+# a hit finds the key's graph, a miss makes one (captured at its first step),
+# an eviction drops the least recently used.
+_graph_counts = dict(hits=0, misses=0, evictions=0)
+
+
+def reset_graph_cache_counts():
+    for k in _graph_counts:
+        _graph_counts[k] = 0
 
 
 def graph_key(cfg: SolverConfig, S: int, N: int, K: int, nx_p: int, nu_p: int,
@@ -1047,36 +1057,41 @@ class IterationGraph:
         """Copy the carry ``c`` and the data ``(sub_cost, mids_s, x0_s)``
         into the buffers, gathered by ``perm`` where given (a compaction);
         then the slot tables and the fleet's model ids and step."""
-        src = (*c, *data[0], *data[1:])
-        for dst, a in zip((*self.carry, *self.cost, self.mids, self.x0), src):
-            dst.copy_(a if perm is None else a[perm])
-        specs = fleet.unique_specs
-        tabs = _model_tables(specs, fleet.dt, self.x0.dtype, self.device,
-                             tuple(s.expr for s in specs))
-        m = self.mids.long()
-        for dst, tab in zip(self.tables, tabs):
-            dst.copy_(tab[m])
-        self.ids.copy_(tabs[0])
-        self.dt.copy_(_dt_tensor(fleet.dt, self.x0.dtype, self.device))
+        with span("dpilqr.batched.load"):
+            src = (*c, *data[0], *data[1:])
+            for dst, a in zip((*self.carry, *self.cost, self.mids, self.x0), src):
+                dst.copy_(a if perm is None else a[perm])
+            specs = fleet.unique_specs
+            tabs = _model_tables(specs, fleet.dt, self.x0.dtype, self.device,
+                                 tuple(s.expr for s in specs))
+            m = self.mids.long()
+            for dst, tab in zip(self.tables, tabs):
+                dst.copy_(tab[m])
+            self.ids.copy_(tabs[0])
+            self.dt.copy_(_dt_tensor(fleet.dt, self.x0.dtype, self.device))
 
     def step(self) -> int:
         """One iteration; returns the active count after it (the one host
         sync).  Inside a ``timed_launches()`` block the four launches run
         one by one, each timed, in place of the replay."""
         if self.graph is None:
-            for b in self.launches:
-                run(b, self.device)
-            t0 = perf_counter()
-            self.graph, self.pool_bytes = _capture(self.launches, self.device)
-            self.capture_ms = (perf_counter() - t0) * 1e3
-        elif timing():
-            for b in self.launches:
-                run(b, self.device)
+            with span("dpilqr.batched.capture"):
+                for b in self.launches:
+                    run(b, self.device)
+                t0 = perf_counter()
+                self.graph, self.pool_bytes = _capture(self.launches, self.device)
+                self.capture_ms = (perf_counter() - t0) * 1e3
         else:
-            self.graph.replay()
-            for b in self.launches:
-                count(b)
-        return int(self.counter[0])
+            with span("dpilqr.batched.replay"):
+                if timing():
+                    for b in self.launches:
+                        run(b, self.device)
+                else:
+                    self.graph.replay()
+                    for b in self.launches:
+                        count(b)
+        with span("dpilqr.batched.read"):
+            return int(self.counter[0])
 
 
 def iteration_graph(fleet: Fleet, cfg: SolverConfig, library, S, N, K, nx_p, nu_p,
@@ -1087,23 +1102,26 @@ def iteration_graph(fleet: Fleet, cfg: SolverConfig, library, S, N, K, nx_p, nu_
     key = graph_key(cfg, S, N, K, nx_p, nu_p, len(fleet.unique_specs), dtype, device,
                     library)
     g = _graphs.pop(key, None)
+    _graph_counts["misses" if g is None else "hits"] += 1
     if g is None:
         g = IterationGraph(fleet, cfg, library, S, N, K, nx_p, nu_p, dtype, device)
     _graphs[key] = g
     while len(_graphs) > 1 and (len(_graphs) > GRAPH_CACHE_ENTRIES
                                 or graph_cache_info()["bytes"] > GRAPH_CACHE_BYTES):
         _graphs.popitem(last=False)
+        _graph_counts["evictions"] += 1
     return g
 
 
 def graph_cache_info() -> dict:
     """The graph cache: entries, of them captured, the bytes of their
-    buffers, the bytes their captures allocated in the graphs' pools, and
-    the host milliseconds the captures took (each after its warm-up)."""
+    buffers, the bytes their captures allocated in the graphs' pools, the
+    host milliseconds the captures took (each after its warm-up), and the
+    lookups' ``hits``, ``misses`` and ``evictions`` (``_graph_counts``)."""
     gs = list(_graphs.values())
     return {"entries": len(gs), "captured": sum(g.graph is not None for g in gs),
             "bytes": sum(g.nbytes for g in gs), "pool_bytes": sum(g.pool_bytes for g in gs),
-            "capture_ms": sum(g.capture_ms for g in gs)}
+            "capture_ms": sum(g.capture_ms for g in gs), **_graph_counts}
 
 
 class _EagerStage:
@@ -1117,7 +1135,8 @@ class _EagerStage:
     def step(self) -> int:
         self.carry = batched_iteration(self.fleet, self.cfg, *self.data, self.carry,
                                        self.backend)
-        return int(self.carry.active.sum())
+        with span("dpilqr.batched.read"):
+            return int(self.carry.active.sum())
 
 
 def _eager_stage(fleet, cfg, backend, c, data, perm=None):
@@ -1184,50 +1203,57 @@ def solve_subproblems_batched(
     best plan so far returns, with the unfinished subproblems neither
     converged nor failed.  Compaction keeps its schedule under a deadline.
     """
-    if t0 is None:
-        t0 = perf_counter()
-    dtype = x0_s.dtype
-    backend = resolve_backend(backend or cfg.sweep_backend, x0_s)
-    if backend == "cuda":
-        # A width the backward kernels' plan (K1, K3) or K2's does not place
-        # raises its ValueError here, before any launch.
-        K, item = x0_s.shape[1], x0_s.element_size()
-        sweep_smem_bytes(K, fleet.nx_p, fleet.nu_p, item)
-        forward_smem_bytes(K, fleet.nx_p, fleet.nu_p, cfg.n_ls_iter, item)
-    stage = _graph_stage if backend == "cuda" else _eager_stage
-    sub_cost = cast_cost(sub_cost, dtype)
-    S = x0_s.shape[0]
-    c = init_batch_carry(fleet, cfg, sub_cost, x0_s, U0_s, mids_s, enabled, backend)
-    out = BatchCarry(*(a.clone() for a in c))
-    data = (sub_cost, mids_s, x0_s)
-    idx_map = torch.arange(S, device=x0_s.device)
-    w, perm = S, None
-    n_active = int(c.active.sum())  # host sync
-    expired = False
-    while True:
-        nw = next_width(w)
-        st = stage(fleet, cfg, backend, c, data, perm)
+    with span("dpilqr.batched.solve"):
+        if t0 is None:
+            t0 = perf_counter()
+        dtype = x0_s.dtype
+        backend = resolve_backend(backend or cfg.sweep_backend, x0_s)
+        if backend == "cuda":
+            # A width the backward kernels' plan (K1, K3) or K2's does not place
+            # raises its ValueError here, before any launch.
+            K, item = x0_s.shape[1], x0_s.element_size()
+            sweep_smem_bytes(K, fleet.nx_p, fleet.nu_p, item)
+            forward_smem_bytes(K, fleet.nx_p, fleet.nu_p, cfg.n_ls_iter, item)
+        stage = _graph_stage if backend == "cuda" else _eager_stage
+        sub_cost = cast_cost(sub_cost, dtype)
+        S = x0_s.shape[0]
+        with span("dpilqr.batched.init"):
+            c = init_batch_carry(fleet, cfg, sub_cost, x0_s, U0_s, mids_s, enabled,
+                                 backend)
+            out = BatchCarry(*(a.clone() for a in c))
+            idx_map = torch.arange(S, device=x0_s.device)
+        data = (sub_cost, mids_s, x0_s)
+        w, perm = S, None
+        with span("dpilqr.batched.read"):
+            n_active = int(c.active.sum())  # host sync
+        expired = False
         while True:
-            if n_active == 0:
+            nw = next_width(w)
+            with span("dpilqr.batched.stage"):
+                st = stage(fleet, cfg, backend, c, data, perm)
+            while True:
+                if n_active == 0:
+                    break
+                if t_kill is not None and perf_counter() - t0 > t_kill:
+                    expired = True
+                    if verbose:
+                        print(f"t_kill reached after {int(st.carry.i.max())} iterations")
+                    break
+                if nw < w and n_active <= nw:
+                    break
+                n_active = st.step()  # host sync: paces the deadline
+            c, data = st.carry, st.data
+            with span("dpilqr.batched.scatter"):
+                for o, a in zip(out, c):
+                    o[idx_map] = a
+            if n_active == 0 or expired or nw == w:
                 break
-            if t_kill is not None and perf_counter() - t0 > t_kill:
-                expired = True
-                if verbose:
-                    print(f"t_kill reached after {int(st.carry.i.max())} iterations")
-                break
-            if nw < w and n_active <= nw:
-                break
-            n_active = st.step()  # host sync: paces the deadline
-        c, data = st.carry, st.data
-        for o, a in zip(out, c):
-            o[idx_map] = a
-        if n_active == 0 or expired or nw == w:
-            break
-        # Stable active-first permutation; keep the first nw lanes.
-        perm = torch.argsort((~c.active).to(torch.uint8), stable=True)[:nw]
-        idx_map = idx_map[perm]
-        w = nw
-    return SolveResult(
-        X=out.X, U=out.U, J=out.J, iters=out.i, converged=out.converged,
-        failed_line_search=out.failed,
-    )
+            # Stable active-first permutation; keep the first nw lanes.
+            with span("dpilqr.batched.compact"):
+                perm = torch.argsort((~c.active).to(torch.uint8), stable=True)[:nw]
+                idx_map = idx_map[perm]
+            w = nw
+        return SolveResult(
+            X=out.X, U=out.U, J=out.J, iters=out.i, converged=out.converged,
+            failed_line_search=out.failed,
+        )

@@ -20,6 +20,7 @@ from ..models.fleet import Fleet
 from ..ops.batched import solve_subproblems_batched
 from ..ops.costs import GameCost, cast_cost
 from ..ops.ilqr import rollout
+from ..utils.profiling import span
 from .graph import interaction_graph
 from .subproblems import (
     extract_owner,
@@ -103,57 +104,63 @@ def _solve_decomposed(fleet, cost, X, U, radius, ignore_mask, K, graph_n_d,
     same five steps, with the batched solve's deadline ``(t_kill, t0)`` when
     there is one.  ``solve_batch(sub_cost, x0_s, U_s, mids_s, enabled)``,
     when given, takes step 3's place (the sharded solve's chunks)."""
-    X = torch.as_tensor(X, device=resolve_device(device, X))
-    if X.ndim == 2:
-        X = X[None]
-    dtype, dev = X.dtype, X.device
-    U = torch.as_tensor(U, dtype=dtype, device=dev)
-    n = fleet.n_agents
-    if tuple(X.shape[1:]) != (n, fleet.nx_p):
-        raise ValueError(f"X must be (T, {n}, {fleet.nx_p}), got {tuple(X.shape)}")
-    if tuple(U.shape[1:]) != (n, fleet.nu_p):
-        raise ValueError(f"U must be (N, {n}, {fleet.nu_p}), got {tuple(U.shape)}")
-    if ignore_mask is None:
-        ignore_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
-    ignore_mask = torch.as_tensor(ignore_mask, dtype=torch.bool, device=dev)
-    radius = torch.as_tensor(radius, dtype=dtype, device=dev)
-    cost = cast_cost(GameCost(*(a.to(dev) for a in cost)), dtype)
+    with span("dpilqr.distributed.solve"):
+        X = torch.as_tensor(X, device=resolve_device(device, X))
+        if X.ndim == 2:
+            X = X[None]
+        dtype, dev = X.dtype, X.device
+        U = torch.as_tensor(U, dtype=dtype, device=dev)
+        n = fleet.n_agents
+        if tuple(X.shape[1:]) != (n, fleet.nx_p):
+            raise ValueError(f"X must be (T, {n}, {fleet.nx_p}), got {tuple(X.shape)}")
+        if tuple(U.shape[1:]) != (n, fleet.nu_p):
+            raise ValueError(f"U must be (N, {n}, {fleet.nu_p}), got {tuple(U.shape)}")
+        if ignore_mask is None:
+            ignore_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+        ignore_mask = torch.as_tensor(ignore_mask, dtype=torch.bool, device=dev)
+        radius = torch.as_tensor(radius, dtype=dtype, device=dev)
+        cost = cast_cost(GameCost(*(a.to(dev) for a in cost)), dtype)
 
-    # 1. Interaction graph from the previous trajectory (distributed.py:42).
-    membership = interaction_graph(X, radius, n_pos=cost.n_pos, n_d=graph_n_d)
-    if K is None:
-        K = _width_from_kmax(int(membership.sum(dim=1).max()), n)
-    batch = gather_subproblems(membership, K)
+        # 1. Interaction graph from the previous trajectory (distributed.py:42).
+        with span("dpilqr.distributed.graph"):
+            membership = interaction_graph(X, radius, n_pos=cost.n_pos, n_d=graph_n_d)
+        if K is None:
+            with span("dpilqr.distributed.read"):
+                K = _width_from_kmax(int(membership.sum(dim=1).max()), n)
 
-    # 2. Gather the batch (split_graph / problem.split equivalents).
-    sub_cost = gather_cost(cost, batch, dtype)
-    x0_s = gather_states(X[0], batch)
-    U_s = gather_controls(U, batch)
-    branch = torch.as_tensor(fleet.branch_index_array, dtype=torch.int32, device=dev)
-    mids_s = branch[batch.member_idx]
+        # 2. Gather the batch (split_graph / problem.split equivalents).
+        with span("dpilqr.distributed.gather"):
+            batch = gather_subproblems(membership, K)
+            sub_cost = gather_cost(cost, batch, dtype)
+            x0_s = gather_states(X[0], batch)
+            U_s = gather_controls(U, batch)
+            branch = torch.as_tensor(fleet.branch_index_array, dtype=torch.int32, device=dev)
+            mids_s = branch[batch.member_idx]
 
-    # 3. One batched solve for all subproblems.
-    if solve_batch is None:
-        res = solve_subproblems_batched(
-            fleet, config, sub_cost, x0_s, U_s, mids_s, ~ignore_mask,
-            t_kill=t_kill, t0=t0, verbose=verbose,
+        # 3. One batched solve for all subproblems.
+        if solve_batch is None:
+            res = solve_subproblems_batched(
+                fleet, config, sub_cost, x0_s, U_s, mids_s, ~ignore_mask,
+                t_kill=t_kill, t0=t0, verbose=verbose,
+            )
+        else:
+            res = solve_batch(sub_cost, x0_s, U_s, mids_s, ~ignore_mask)
+
+        # 4. Owner extraction + scatter (ignored agents stay zero, matching the
+        #    reference's skip-and-leave-zeros, distributed.py:59-63).
+        with span("dpilqr.distributed.stitch"):
+            X_dec, U_dec = extract_owner(batch, res.X, res.U)
+            keep = (~ignore_mask).to(dtype)
+            X_dec = X_dec * keep[None, :, None]
+            U_dec = U_dec * keep[None, :, None]
+
+        # 5. Joint cost of the stitched plan (distributed.py:99-103): the
+        #    rollout kernel on the card, the time-batched plain version on the CPU.
+        with span("dpilqr.distributed.rollout"):
+            _, J_full = rollout(fleet, cost, X[0], U_dec, time_batched_cost=True)
+
+        return DistributedResult(
+            X=X_dec, U=U_dec, J=J_full, membership=membership, iters=res.iters,
+            converged=res.converged, sizes=batch.sizes,
+            truncated=torch.any(batch.sizes > K),
         )
-    else:
-        res = solve_batch(sub_cost, x0_s, U_s, mids_s, ~ignore_mask)
-
-    # 4. Owner extraction + scatter (ignored agents stay zero, matching the
-    #    reference's skip-and-leave-zeros, distributed.py:59-63).
-    X_dec, U_dec = extract_owner(batch, res.X, res.U)
-    keep = (~ignore_mask).to(dtype)
-    X_dec = X_dec * keep[None, :, None]
-    U_dec = U_dec * keep[None, :, None]
-
-    # 5. Joint cost of the stitched plan (distributed.py:99-103): the
-    #    rollout kernel on the card, the time-batched plain version on the CPU.
-    _, J_full = rollout(fleet, cost, X[0], U_dec, time_batched_cost=True)
-
-    return DistributedResult(
-        X=X_dec, U=U_dec, J=J_full, membership=membership, iters=res.iters,
-        converged=res.converged, sizes=batch.sizes,
-        truncated=torch.any(batch.sizes > K),
-    )

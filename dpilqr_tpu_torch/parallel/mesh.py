@@ -28,6 +28,7 @@ from ..models.fleet import Fleet
 from ..ops.batched import solve_subproblems_batched
 from ..ops.costs import GameCost, cast_cost
 from ..ops.ilqr import SolveResult, rollout
+from ..utils.profiling import span
 from .distributed import DistributedResult, _solve_decomposed
 from .graph import interaction_graph
 from .subproblems import (
@@ -68,13 +69,14 @@ def _solve_chunks(fleet: Fleet, config: SolverConfig, mesh, home, sub_cost: Game
     ``mesh`` (``_chunks``), each solved by ``solve_subproblems_batched`` on
     its device, one after the other; the results concatenated on ``home``."""
     results = []
-    for dev, sl in zip(mesh, _chunks(x0_s.shape[0], len(mesh))):
-        res = solve_subproblems_batched(
-            fleet, config, GameCost(*(a[sl].to(dev) for a in sub_cost)),
-            x0_s[sl].to(dev), U_s[sl].to(dev), mids_s[sl].to(dev),
-            enabled[sl].to(dev))
-        results.append([a.to(home) for a in res])
-    return SolveResult(*(torch.cat(f) for f in zip(*results)))
+    with span("dpilqr.mesh.chunks"):
+        for dev, sl in zip(mesh, _chunks(x0_s.shape[0], len(mesh))):
+            res = solve_subproblems_batched(
+                fleet, config, GameCost(*(a[sl].to(dev) for a in sub_cost)),
+                x0_s[sl].to(dev), U_s[sl].to(dev), mids_s[sl].to(dev),
+                enabled[sl].to(dev))
+            results.append([a.to(home) for a in res])
+        return SolveResult(*(torch.cat(f) for f in zip(*results)))
 
 
 def solve_distributed_sharded(
@@ -129,51 +131,60 @@ def solve_trials_sharded(
     trial's result is that of its own ``solve_distributed`` at the same K.
     Returns a ``DistributedResult`` with a leading trial axis.
     """
-    home = mesh[0]
-    X_T = torch.as_tensor(X_T, device=home)
-    dtype = X_T.dtype
-    U_T = torch.as_tensor(U_T, dtype=dtype, device=home)
-    T, n = X_T.shape[0], fleet.n_agents
-    if X_T.ndim != 4 or tuple(X_T.shape[2:]) != (n, fleet.nx_p):
-        raise ValueError(f"X_T must be (T, Tw, {n}, {fleet.nx_p}), got {tuple(X_T.shape)}")
-    if U_T.ndim != 4 or tuple(U_T.shape[::2]) != (T, n) or U_T.shape[3] != fleet.nu_p:
-        raise ValueError(
-            f"U_T must be ({T}, N, {n}, {fleet.nu_p}), got {tuple(U_T.shape)}")
-    if ignore_mask is None:
-        ignore_mask = torch.zeros((n,), dtype=torch.bool, device=home)
-    ignore_mask = torch.as_tensor(ignore_mask, dtype=torch.bool, device=home)
-    radius = torch.as_tensor(radius, dtype=dtype, device=home)
-    branch = torch.as_tensor(fleet.branch_index_array, dtype=torch.int32, device=home)
+    with span("dpilqr.mesh.trials"):
+        home = mesh[0]
+        X_T = torch.as_tensor(X_T, device=home)
+        dtype = X_T.dtype
+        U_T = torch.as_tensor(U_T, dtype=dtype, device=home)
+        T, n = X_T.shape[0], fleet.n_agents
+        if X_T.ndim != 4 or tuple(X_T.shape[2:]) != (n, fleet.nx_p):
+            raise ValueError(f"X_T must be (T, Tw, {n}, {fleet.nx_p}), got {tuple(X_T.shape)}")
+        if U_T.ndim != 4 or tuple(U_T.shape[::2]) != (T, n) or U_T.shape[3] != fleet.nu_p:
+            raise ValueError(
+                f"U_T must be ({T}, N, {n}, {fleet.nu_p}), got {tuple(U_T.shape)}")
+        if ignore_mask is None:
+            ignore_mask = torch.zeros((n,), dtype=torch.bool, device=home)
+        ignore_mask = torch.as_tensor(ignore_mask, dtype=torch.bool, device=home)
+        radius = torch.as_tensor(radius, dtype=dtype, device=home)
+        branch = torch.as_tensor(fleet.branch_index_array, dtype=torch.int32, device=home)
 
-    # 1. Each trial's graph and gathered subproblems.
-    costs, batches, parts = [], [], []
-    for t in range(T):
-        cost = cast_cost(GameCost(*(a[t].to(home) for a in cost_T)), dtype)
-        membership = interaction_graph(X_T[t], radius, n_pos=cost.n_pos, n_d=graph_n_d)
-        batch = gather_subproblems(membership, K)
-        costs.append(cost)
-        batches.append((membership, batch))
-        parts.append((gather_cost(cost, batch, dtype), gather_states(X_T[t, 0], batch),
-                      gather_controls(U_T[t], batch), branch[batch.member_idx]))
+        # 1. Each trial's graph and gathered subproblems.
+        costs, batches, parts = [], [], []
+        with span("dpilqr.mesh.gather"):
+            for t in range(T):
+                cost = cast_cost(GameCost(*(a[t].to(home) for a in cost_T)), dtype)
+                with span("dpilqr.mesh.graph"):
+                    membership = interaction_graph(X_T[t], radius, n_pos=cost.n_pos,
+                                                   n_d=graph_n_d)
+                batch = gather_subproblems(membership, K)
+                costs.append(cost)
+                batches.append((membership, batch))
+                parts.append((gather_cost(cost, batch, dtype),
+                              gather_states(X_T[t, 0], batch),
+                              gather_controls(U_T[t], batch), branch[batch.member_idx]))
 
-    # 2. (trial, subproblem) lanes flattened into one batch, a chunk a device.
-    sub_cost = GameCost(*(torch.cat(f) for f in zip(*(p[0] for p in parts))))
-    x0_s, U_s, mids_s = (torch.cat([p[i] for p in parts]) for i in (1, 2, 3))
-    enabled = (~ignore_mask).repeat(T)
-    X_s, U_sol, _, iters, converged, _ = _solve_chunks(
-        fleet, config, mesh, home, sub_cost, x0_s, U_s, mids_s, enabled)
+        # 2. (trial, subproblem) lanes flattened into one batch, a chunk a device.
+        with span("dpilqr.mesh.flatten"):
+            sub_cost = GameCost(*(torch.cat(f) for f in zip(*(p[0] for p in parts))))
+            x0_s, U_s, mids_s = (torch.cat([p[i] for p in parts]) for i in (1, 2, 3))
+            enabled = (~ignore_mask).repeat(T)
+        X_s, U_sol, _, iters, converged, _ = _solve_chunks(
+            fleet, config, mesh, home, sub_cost, x0_s, U_s, mids_s, enabled)
 
-    # 3. Per trial: owner rows, ignored agents zeroed, the stitched plan's cost.
-    keep = (~ignore_mask).to(dtype)
-    out = []
-    for t, (cost, (membership, batch)) in enumerate(zip(costs, batches)):
-        lanes = slice(t * n, (t + 1) * n)
-        X_dec, U_dec = extract_owner(batch, X_s[lanes], U_sol[lanes])
-        X_dec = X_dec * keep[None, :, None]
-        U_dec = U_dec * keep[None, :, None]
-        _, J = rollout(fleet, cost, X_T[t, 0], U_dec, time_batched_cost=True)
-        out.append(DistributedResult(
-            X=X_dec, U=U_dec, J=J, membership=membership, iters=iters[lanes],
-            converged=converged[lanes], sizes=batch.sizes,
-            truncated=torch.any(batch.sizes > K)))
-    return DistributedResult(*(torch.stack(f) for f in zip(*out)))
+        # 3. Per trial: owner rows, ignored agents zeroed, the stitched plan's
+        #    cost.
+        keep = (~ignore_mask).to(dtype)
+        out = []
+        with span("dpilqr.mesh.stitch"):
+            for t, (cost, (membership, batch)) in enumerate(zip(costs, batches)):
+                lanes = slice(t * n, (t + 1) * n)
+                X_dec, U_dec = extract_owner(batch, X_s[lanes], U_sol[lanes])
+                X_dec = X_dec * keep[None, :, None]
+                U_dec = U_dec * keep[None, :, None]
+                with span("dpilqr.mesh.rollout"):
+                    _, J = rollout(fleet, cost, X_T[t, 0], U_dec, time_batched_cost=True)
+                out.append(DistributedResult(
+                    X=X_dec, U=U_dec, J=J, membership=membership, iters=iters[lanes],
+                    converged=converged[lanes], sizes=batch.sizes,
+                    truncated=torch.any(batch.sizes > K)))
+            return DistributedResult(*(torch.stack(f) for f in zip(*out)))

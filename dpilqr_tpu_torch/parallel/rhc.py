@@ -36,6 +36,7 @@ from ..ops.costs import GameCost, cast_cost
 from ..ops.ilqr import ilqr_solve_steppable, rollout
 from ..utils.checkpoint import RhcState, save_rhc_state
 from ..utils.geometry import distance_to_goal
+from ..utils.profiling import span
 from .distributed import solve_distributed
 from .graph import graph_to_dict
 
@@ -143,193 +144,208 @@ def solve_rhc(
     if not centralized and radius is None:
         raise ValueError("Decomposed mode needs the proximity radius")
 
-    n, nx_p, nu_p = fleet.n_agents, fleet.nx_p, fleet.nu_p
-    dt = fleet.dt
-    dev = resolve_device(device, x0)
-    x0 = x0.cpu().numpy() if isinstance(x0, torch.Tensor) else np.asarray(x0)
-    if not np.issubdtype(x0.dtype, np.floating):
-        x0 = x0.astype(float)
-    x0 = x0.reshape(n, nx_p)
-    dtype = torch.float32 if x0.dtype == np.float32 else torch.float64
-    cost = cast_cost(GameCost(*(a.to(dev) for a in cost)), dtype)
-    xf = cost.xf
+    with span("dpilqr.rhc.episode"):
+        n, nx_p, nu_p = fleet.n_agents, fleet.nx_p, fleet.nu_p
+        dt = fleet.dt
+        X_exec_parts: list[torch.Tensor] = []
+        U_exec_parts: list[torch.Tensor] = []
+        step_count = 0
+        with span("dpilqr.rhc.setup"):
+            dev = resolve_device(device, x0)
+            x0 = x0.cpu().numpy() if isinstance(x0, torch.Tensor) else np.asarray(x0)
+            if not np.issubdtype(x0.dtype, np.floating):
+                x0 = x0.astype(float)
+            x0 = x0.reshape(n, nx_p)
+            dtype = torch.float32 if x0.dtype == np.float32 else torch.float64
+            cost = cast_cost(GameCost(*(a.to(dev) for a in cost)), dtype)
+            xf = cost.xf
 
-    X_exec_parts: list[torch.Tensor] = []
-    U_exec_parts: list[torch.Tensor] = []
-    step_count = 0
-    if resume_state is not None:
-        # Resume a checkpointed run (utils/checkpoint.py).
-        def on_dev(a):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+            if resume_state is not None:
+                # Resume a checkpointed run (utils/checkpoint.py).
+                def on_dev(a):
+                    return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-        xi = on_dev(resume_state.xi)
-        X = on_dev(resume_state.X_warm)
-        U = on_dev(resume_state.U_warm)
-        t = resume_state.t
-        X_exec_parts.append(on_dev(resume_state.X_full))
-        U_exec_parts.append(on_dev(resume_state.U_full))
-        step_count = resume_state.step
-    else:
-        if U0 is not None:
-            if isinstance(U0, torch.Tensor):
-                U0 = U0.cpu().numpy()
-            U_np = np.asarray(U0, dtype=x0.dtype)
-            if U_np.shape != (N, n, nu_p):
-                raise ValueError(
-                    f"U0 must be (N, n, nu_p) = {(N, n, nu_p)}, got {U_np.shape}"
+                xi = on_dev(resume_state.xi)
+                X = on_dev(resume_state.X_warm)
+                U = on_dev(resume_state.U_warm)
+                t = resume_state.t
+                X_exec_parts.append(on_dev(resume_state.X_full))
+                U_exec_parts.append(on_dev(resume_state.U_full))
+                step_count = resume_state.step
+            else:
+                if U0 is not None:
+                    if isinstance(U0, torch.Tensor):
+                        U0 = U0.cpu().numpy()
+                    U_np = np.asarray(U0, dtype=x0.dtype)
+                    if U_np.shape != (N, n, nu_p):
+                        raise ValueError(
+                            f"U0 must be (N, n, nu_p) = {(N, n, nu_p)}, got {U_np.shape}"
+                        )
+                elif rng is None:
+                    raise ValueError("pass U0 or an rng for the random warm start")
+                else:
+                    # Small random warm start (reference distributed.py:152).
+                    U_np = (rng.uniform(size=(N, n, nu_p)) * 0.01).astype(x0.dtype)
+                U_np = U_np * np.asarray(fleet.control_mask, x0.dtype)[None]
+                U = torch.as_tensor(U_np, device=dev)
+                xi = torch.as_tensor(x0, device=dev)
+                X = xi[None]  # (1, n, nx) until the first solve
+                t = 0.0
+
+            dists = (
+                distance_to_goal(xi, xf, n_d).cpu().numpy()
+                if dist_converge is not None else None
+            )
+
+        def stop(J, dists):
+            if J_converge is not None:
+                return J < J_converge
+            return bool(np.all(dists <= dist_converge))
+
+        converged = True
+        steps: list[RhcStepInfo] = []
+        K_cur = K
+
+        def dispatch(t_step, xi_cur, X_w, U_w, K_use):
+            t0 = perf_counter()
+            if centralized:
+                # With t_kill None this is ilqr_solve.
+                res = ilqr_solve_steppable(fleet, cost, xi_cur, U0=U_w,
+                                           config=config, t_kill=t_kill)
+            else:
+                res = solve_distributed(
+                    fleet, cost, X_w, U_w, radius, ignore_mask=ignore_mask,
+                    K=K_use, config=config, t_kill=t_kill,
                 )
-        elif rng is None:
-            raise ValueError("pass U0 or an rng for the random warm start")
-        else:
-            # Small random warm start (reference distributed.py:152).
-            U_np = (rng.uniform(size=(N, n, nu_p)) * 0.01).astype(x0.dtype)
-        U_np = U_np * np.asarray(fleet.control_mask, x0.dtype)[None]
-        U = torch.as_tensor(U_np, device=dev)
-        xi = torch.as_tensor(x0, device=dev)
-        X = xi[None]  # (1, n, nx) until the first solve
-        t = 0.0
+            with span("dpilqr.rhc.advance"):
+                xi_n, X_exec, U_exec, X_n, U_n, dists_dev = _advance_shift(
+                    res.X, res.U, xf, step_size, n_d
+                )
+            return {
+                "t": t_step, "t0": t0, "res": res, "K_used": K_use,
+                "X_exec": X_exec, "U_exec": U_exec, "xi": xi_n, "X": X_n,
+                "U": U_n, "dists": dists_dev,
+                "xi_in": xi_cur, "X_in": X_w, "U_in": U_w,
+            }
 
-    def stop(J, dists):
-        if J_converge is not None:
-            return J < J_converge
-        return bool(np.all(dists <= dist_converge))
+        def resolve(rec):
+            """Commit a step.  Returns (stop, diverged, redo); with ``redo``
+            nothing was committed and the step must be solved again with the
+            widened ``K_cur``."""
+            nonlocal K_cur
+            res = rec["res"]
+            # The step's one device-to-host copy (the JAX loop's jax.device_get).
+            with span("dpilqr.rhc.read"):
+                if centralized:
+                    J_h, dists_h, iters_h, conv_h = _to_host(
+                        res.J, rec["dists"], res.iters, res.converged)
+                else:
+                    J_h, dists_h, kmax, trunc, memb_h, iters_h, conv_h = _to_host(
+                        res.J, rec["dists"], res.sizes.max(), res.truncated,
+                        res.membership, res.iters, res.converged)
+            J_h = float(J_h)
+            solve_time = perf_counter() - rec["t0"]
+            if centralized:
+                info = RhcStepInfo(
+                    t=rec["t"], J=J_h, solve_time=solve_time,
+                    iters=[int(iters_h)], distance_left=dists_h.tolist(),
+                    converged=[bool(conv_h)],
+                )
+                return commit(rec, info)
+            kmax = int(kmax)
+            if bool(trunc):
+                # A neighborhood outgrew the slot count.  Under auto-K redo the
+                # step wider than the width it used; with a pinned K, warn.
+                K_used = rec["K_used"]
+                if K is None and K_used is not None and K_used < n:
+                    K_cur = min(max(_pow2(kmax), K_used * 2), n)
+                    return False, False, True
+                warnings.warn(
+                    f"neighborhood exceeded the subproblem width K={K_used}: "
+                    "coupling partners were dropped from some subproblem(s)",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+            if K is None:
+                # Grow at once; shrink with hysteresis.
+                k_need = min(_pow2(kmax), n)
+                if K_cur is None or k_need > K_cur or k_need <= K_cur // 2:
+                    K_cur = k_need
 
-    dists = (
-        distance_to_goal(xi, xf, n_d).cpu().numpy()
-        if dist_converge is not None else None
-    )
-    converged = True
-    steps: list[RhcStepInfo] = []
-    K_cur = K
-
-    def dispatch(t_step, xi_cur, X_w, U_w, K_use):
-        t0 = perf_counter()
-        if centralized:
-            # With t_kill None this is ilqr_solve.
-            res = ilqr_solve_steppable(fleet, cost, xi_cur, U0=U_w,
-                                       config=config, t_kill=t_kill)
-        else:
-            res = solve_distributed(
-                fleet, cost, X_w, U_w, radius, ignore_mask=ignore_mask,
-                K=K_use, config=config, t_kill=t_kill,
-            )
-        xi_n, X_exec, U_exec, X_n, U_n, dists_dev = _advance_shift(
-            res.X, res.U, xf, step_size, n_d
-        )
-        return {
-            "t": t_step, "t0": t0, "res": res, "K_used": K_use,
-            "X_exec": X_exec, "U_exec": U_exec, "xi": xi_n, "X": X_n,
-            "U": U_n, "dists": dists_dev,
-            "xi_in": xi_cur, "X_in": X_w, "U_in": U_w,
-        }
-
-    def resolve(rec):
-        """Commit a step.  Returns (stop, diverged, redo); with ``redo``
-        nothing was committed and the step must be solved again with the
-        widened ``K_cur``."""
-        nonlocal K_cur
-        res = rec["res"]
-        # The step's one device-to-host copy (the JAX loop's jax.device_get).
-        if centralized:
-            J_h, dists_h, iters_h, conv_h = _to_host(
-                res.J, rec["dists"], res.iters, res.converged)
-        else:
-            J_h, dists_h, kmax, trunc, memb_h, iters_h, conv_h = _to_host(
-                res.J, rec["dists"], res.sizes.max(), res.truncated, res.membership,
-                res.iters, res.converged)
-        J_h = float(J_h)
-        solve_time = perf_counter() - rec["t0"]
-        if centralized:
-            info = RhcStepInfo(
-                t=rec["t"], J=J_h, solve_time=solve_time,
-                iters=[int(iters_h)], distance_left=dists_h.tolist(),
-                converged=[bool(conv_h)],
-            )
-            return commit(rec, info)
-        kmax = int(kmax)
-        if bool(trunc):
-            # A neighborhood outgrew the slot count.  Under auto-K redo the
-            # step wider than the width it used; with a pinned K, warn.
-            K_used = rec["K_used"]
-            if K is None and K_used is not None and K_used < n:
-                K_cur = min(max(_pow2(kmax), K_used * 2), n)
-                return False, False, True
-            warnings.warn(
-                f"neighborhood exceeded the subproblem width K={K_used}: "
-                "coupling partners were dropped from some subproblem(s)",
-                RuntimeWarning,
-                stacklevel=3,
-            )
-        if K is None:
-            # Grow at once; shrink with hysteresis.
-            k_need = min(_pow2(kmax), n)
-            if K_cur is None or k_need > K_cur or k_need <= K_cur // 2:
-                K_cur = k_need
-
-        return commit(rec, RhcStepInfo(
-            t=rec["t"], J=J_h, solve_time=solve_time, membership=memb_h,
-            iters=iters_h.tolist(), distance_left=dists_h.tolist(),
-            K=rec["K_used"] or min(_pow2(kmax), n), k_max=kmax,
-            converged=conv_h.tolist(),
-        ))
-
-    def commit(rec, info):
-        nonlocal converged, step_count
-        X_exec_parts.append(rec["X_exec"])
-        U_exec_parts.append(rec["U_exec"])
-        steps.append(info)
-        step_count += 1
-        if checkpoint_path is not None:
-            # The NEXT step's simulated time, so that a resumed run goes on
-            # exactly where this one stopped.
-            save_rhc_state(checkpoint_path, RhcState(
-                xi=rec["xi"].cpu().numpy(), X_warm=rec["X"].cpu().numpy(),
-                U_warm=rec["U"].cpu().numpy(), t=rec["t"] + step_size * dt,
-                X_full=torch.cat(X_exec_parts).cpu().numpy(),
-                U_full=torch.cat(U_exec_parts).cpu().numpy(), step=step_count,
+            return commit(rec, RhcStepInfo(
+                t=rec["t"], J=J_h, solve_time=solve_time, membership=memb_h,
+                iters=iters_h.tolist(), distance_left=dists_h.tolist(),
+                K=rec["K_used"] or min(_pow2(kmax), n), k_max=kmax,
+                converged=conv_h.tolist(),
             ))
-        if log_fn is not None:
-            log_fn(info)
-        if verbose:
-            print(f"t: {info.t:.3g}\tJ: {info.J:g}\tsolve: {info.solve_time:.3g}s")
-        diverged = t_diverge is not None and info.t >= t_diverge
-        if diverged:
-            converged = False
-        return stop(info.J, np.asarray(info.distance_left)), diverged, False
 
-    if not stop(np.inf, dists):
-        rec = dispatch(t, xi, X, U, K_cur)
-        while True:
-            # The JAX loop dispatches the next step before resolving this
-            # one, so the next step uses the width from before this resolve;
-            # under a deadline it does not pipeline, and the next step uses
-            # the width this resolve settles.
-            K_before = K_cur
-            stopped, diverged, redo = resolve(rec)
-            K_next = K_before if t_kill is None else K_cur
-            if redo:
-                rec = dispatch(rec["t"], rec["xi_in"], rec["X_in"], rec["U_in"], K_cur)
-                continue
-            if stopped or diverged:
-                break
-            rec = dispatch(rec["t"] + step_size * dt, rec["xi"], rec["X"],
-                           rec["U"], K_next)
+        def commit(rec, info):
+            nonlocal converged, step_count
+            with span("dpilqr.rhc.commit"):
+                X_exec_parts.append(rec["X_exec"])
+                U_exec_parts.append(rec["U_exec"])
+                steps.append(info)
+                step_count += 1
+                if checkpoint_path is not None:
+                    # The NEXT step's simulated time, so that a resumed run goes
+                    # on exactly where this one stopped.
+                    save_rhc_state(checkpoint_path, RhcState(
+                        xi=rec["xi"].cpu().numpy(), X_warm=rec["X"].cpu().numpy(),
+                        U_warm=rec["U"].cpu().numpy(), t=rec["t"] + step_size * dt,
+                        X_full=torch.cat(X_exec_parts).cpu().numpy(),
+                        U_full=torch.cat(U_exec_parts).cpu().numpy(), step=step_count,
+                    ))
+            if log_fn is not None:
+                with span("dpilqr.rhc.log_fn"):
+                    log_fn(info)
+            if verbose:
+                print(f"t: {info.t:.3g}\tJ: {info.J:g}\tsolve: {info.solve_time:.3g}s")
+            diverged = t_diverge is not None and info.t >= t_diverge
+            if diverged:
+                converged = False
+            return stop(info.J, np.asarray(info.distance_left)), diverged, False
 
-    # Executed trajectory and its joint cost (distributed.py:206-211).
-    x0_t = torch.as_tensor(x0, device=dev)
-    if X_exec_parts:
-        Xc = torch.cat(X_exec_parts)
-        Uc = torch.cat(U_exec_parts)
-        _, J_full = rollout(fleet, cast_cost(cost, dtype), x0_t, Uc)
-        X_full, U_full = Xc.cpu().numpy(), Uc.cpu().numpy()
-    else:
-        # Immediate convergence without optimization (distributed.py:206-208).
-        X_full = x0[None].copy()
-        U_full = np.zeros((1, n, nu_p), x0.dtype)
-        _, J_full = rollout(fleet, cast_cost(cost, dtype), x0_t,
-                            torch.as_tensor(U_full, device=dev))
-    return RhcResult(X=X_full, U=U_full, J=float(J_full), converged=converged,
-                     steps=steps)
+        if not stop(np.inf, dists):
+            step, redo = (t, xi, X, U, K_cur), False
+            while True:
+                # The JAX loop dispatches the next step before resolving this
+                # one, so the next step uses the width from before this
+                # resolve; under a deadline it does not pipeline, and the next
+                # step uses the width this resolve settles.
+                K_before = K_cur
+                with span("dpilqr.rhc.step"):
+                    if redo:
+                        with span("dpilqr.rhc.redo"):
+                            rec = dispatch(*step)
+                    else:
+                        rec = dispatch(*step)
+                    stopped, diverged, redo = resolve(rec)
+                K_next = K_before if t_kill is None else K_cur
+                if redo:
+                    step = (rec["t"], rec["xi_in"], rec["X_in"], rec["U_in"], K_cur)
+                    continue
+                if stopped or diverged:
+                    break
+                step = (rec["t"] + step_size * dt, rec["xi"], rec["X"], rec["U"], K_next)
+
+        # Executed trajectory and its joint cost (distributed.py:206-211).
+        with span("dpilqr.rhc.rollout"):
+            x0_t = torch.as_tensor(x0, device=dev)
+            if X_exec_parts:
+                Xc = torch.cat(X_exec_parts)
+                Uc = torch.cat(U_exec_parts)
+                _, J_full = rollout(fleet, cast_cost(cost, dtype), x0_t, Uc)
+                X_full, U_full = Xc.cpu().numpy(), Uc.cpu().numpy()
+            else:
+                # Immediate convergence without optimization
+                # (distributed.py:206-208).
+                X_full = x0[None].copy()
+                U_full = np.zeros((1, n, nu_p), x0.dtype)
+                _, J_full = rollout(fleet, cast_cost(cost, dtype), x0_t,
+                                    torch.as_tensor(U_full, device=dev))
+            J_full = float(J_full)
+        return RhcResult(X=X_full, U=U_full, J=J_full, converged=converged,
+                         steps=steps)
 
 
 def selfish_warmstart(fleet: Fleet, cost: GameCost, x0, N: int,

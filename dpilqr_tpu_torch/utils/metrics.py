@@ -8,15 +8,13 @@ the edge, by ``_plain``).  Two sinks:
   ``dynamics,n_agents,trial,centralized,last,t,J,horizon,dt,converged,ids,
   times,subgraphs,dist_left`` -- so the reference's analysis notebooks keep
   working against our logs.
-- JSON-lines records carrying the solver's counters (per-solve wall time,
-  iLQR iterations, subproblem sizes, Riccati block-nnz throughput).
+- JSON-lines records, one dict a line (``JsonlWriter``).
 """
 
 from __future__ import annotations
 
 import json
 import logging
-from dataclasses import asdict, dataclass
 from pathlib import Path
 
 import numpy as np
@@ -84,30 +82,6 @@ def csv_row(
     )
 
 
-@dataclass
-class SolveMetrics:
-    """Per-solve counters (the BASELINE.md north-star measurements)."""
-
-    n_agents: int
-    horizon: int
-    wall_time_s: float
-    iters: int
-    converged: bool
-    mode: str  # "centralized" | "distributed"
-    subproblem_sizes: list | None = None
-    # Riccati throughput: nonzero blocks processed per second.  Per timestep
-    # and iteration the block backward pass touches n^2 (nx*nx) P-coupling
-    # blocks plus n each of A, B blocks.
-    block_nnz_per_s: float | None = None
-
-    def finalize(self, nx: int):
-        n, N = self.n_agents, self.horizon
-        blocks_per_iter = N * (n * n + 2 * n)
-        total = blocks_per_iter * max(self.iters, 1)
-        self.block_nnz_per_s = total / self.wall_time_s if self.wall_time_s else None
-        return self
-
-
 def riccati_block_nnz(n_agents: int, nx: int, nu: int, N: int) -> int:
     """Nonzero block ENTRIES touched by one Riccati backward sweep
     (BASELINE.md north-star counter): per timestep the block backward pass
@@ -124,10 +98,6 @@ class JsonlWriter:
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
 
-    def write(self, record):
-        if hasattr(record, "__dataclass_fields__"):
-            record = asdict(record)
-        elif hasattr(record, "to_dict"):
-            record = record.to_dict()
+    def write(self, record: dict):
         with self.path.open("a") as f:
             f.write(json.dumps(_plain(record)) + "\n")

@@ -11,7 +11,8 @@ Counterpart of ``dpilqr_tpu/utils/profiling.py``:
 - ``timed_solve``: steady-state wall seconds per call.
 - ``cuda_min_ms``: a callable's time on the device from CUDA events, the
   minimum of k runs after a warm-up.
-- ``solve_stats``: per-solve counters (solve Hz, Riccati block-nnz/s).
+- ``span(name)``: a named host range of the program, recorded only while a
+  ``torch.profiler`` session records (``trace`` among them).
 """
 
 from __future__ import annotations
@@ -21,6 +22,24 @@ from pathlib import Path
 from time import perf_counter
 
 import torch
+
+# What ``span`` returns while no profiler records: one shared context that
+# does nothing.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program's host work: inside a ``torch.profiler``
+    session a ``record_function(name)`` range, on the profiler's clock (the
+    one its CUDA kernels carry, so a range lies against the kernels as it
+    is); outside one the shared no-op context, after one check.
+
+    Names read ``dpilqr.<layer>.<section>``, ``<layer>`` one of ``rhc``,
+    ``distributed``, ``mesh``, ``batched``; a range around a device-to-host
+    read ends in ``.read``, and no other does."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -80,16 +99,3 @@ def cuda_min_ms(fn, reps: int = 1, k: int = 5) -> float:
         best = min(best, start.elapsed_time(end) / reps)
     return best
 
-
-def solve_stats(wall_s: float, n_agents: int, horizon: int, iters: int,
-                nx: int) -> dict:
-    """Throughput counters for one solve."""
-    blocks = horizon * (n_agents * n_agents + 2 * n_agents) * max(iters, 1)
-    return {
-        "wall_s": wall_s,
-        "hz": 1.0 / wall_s if wall_s else float("inf"),
-        "block_nnz_per_s": blocks / wall_s if wall_s else float("inf"),
-        "n_agents": n_agents,
-        "horizon": horizon,
-        "iters": iters,
-    }

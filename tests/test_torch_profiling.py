@@ -1,7 +1,8 @@
 """The port's profiling helpers (dpilqr_tpu_torch.utils.profiling) on the
-CPU: ``solve_stats`` against the JAX package's, ``trace`` writing a chrome
-trace of a small solve, ``timed_solve`` and ``hard_sync`` without a card.
-``cuda_min_ms`` times with CUDA events and is held under the ``cuda`` marker.
+CPU: ``trace`` writing a chrome trace of a small solve, ``timed_solve`` and
+``hard_sync`` without a card.  ``cuda_min_ms`` times with CUDA events and is
+held under the ``cuda`` marker; ``span`` has its own tests
+(``test_torch_spans.py``).
 """
 
 import json
@@ -14,14 +15,6 @@ import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
-
-
-@pytest.mark.parametrize("args", [(0.25, 100, 50, 7, 4), (2.0, 3, 10, 0, 6),
-                                  (0.0, 4, 8, 2, 4)])
-def test_solve_stats_match_jax(args):
-    from dpilqr_tpu.utils.profiling import solve_stats as stats_j
-
-    assert profiling.solve_stats(*args) == stats_j(*args)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
