@@ -32,49 +32,67 @@
 // prep runs after it, on the chain.
 //
 // Where the working set lives is chosen at launch from the type and the
-// widths (riccati_plan, with the input source's buffers in the gain group:
-// computed_plan), and is a template argument of the kernel: all of it in
-// shared memory where it fits; else the three nxf^2 matrices in a
-// per-subproblem workspace in device memory (L2-resident: 14 MB in float64
-// at S = 64) with the gain blocks, the source's buffers, the tableau and the
-// vectors in shared memory; else the gain blocks and the source's buffers in
-// the workspace too.  The wrapper sizes the workspace with
-// dpilqr_riccati_plan.
+// widths (wide_plan: riccati_plan with the input source's buffers in the
+// gain group, computed_plan, then the cluster tier), and is a template
+// argument of the kernel: all of it in shared memory where it fits; else
+// the three nxf^2 matrices in a per-subproblem workspace in device memory
+// (L2-resident: 14 MB in float64 at S = 64) with the gain blocks, the
+// source's buffers, the tableau and the vectors in shared memory; else, where
+// a thread-block cluster of at most 8 CTAs holds the whole working set in
+// its distributed shared memory, on such a cluster (TIER 3,
+// riccati_cluster.cuh: Quad6D at K = 32 in float32, nxf 192, where the
+// device-memory workspace made a launch 36 ms at S = 16); else the gain
+// blocks and the source's buffers in the workspace too.  The wrapper sizes
+// the workspace with dpilqr_riccati_plan.
 //
 // Layouts: as backward_batched.cu, plus
 //   work (S, plan.work values)        scratch from the wrapper.
 
 #include "computed_inputs.cuh"
 #include "riccati.cuh"
+#include "riccati_cluster.cuh"
 
 namespace {
 
 constexpr int MIN_THREADS = 128, MAX_THREADS = 640;
 
+// TIER 0-2: one CTA a subproblem (riccati_place); 3: a cluster of CTAs a
+// subproblem (riccati_cluster.cuh), blockIdx.x / cluster size its index.
 template <typename T, int TIER, int TILE>
-__global__ void __launch_bounds__(MAX_THREADS) backward_batched_wide_kernel(
-    const T* __restrict__ X, const T* __restrict__ U, const T* __restrict__ xf,
-    const T* __restrict__ Q, const T* __restrict__ R, const T* __restrict__ Qf,
-    const T* __restrict__ mask, const T* __restrict__ refw,
-    const T* __restrict__ radius, const T* __restrict__ pw,
-    const int* __restrict__ npos, const int* __restrict__ mids,
-    const int* __restrict__ ids, const T* __restrict__ dt,
-    const T* __restrict__ mu_s, T* __restrict__ Kg, T* __restrict__ dg,
-    T* __restrict__ work, long long work_each, int N, int K, int nx, int nu) {
+__global__ void __launch_bounds__(TIER == 3 ? CLUSTER_THREADS : MAX_THREADS)
+    backward_batched_wide_kernel(
+        const T* __restrict__ X, const T* __restrict__ U, const T* __restrict__ xf,
+        const T* __restrict__ Q, const T* __restrict__ R, const T* __restrict__ Qf,
+        const T* __restrict__ mask, const T* __restrict__ refw,
+        const T* __restrict__ radius, const T* __restrict__ pw,
+        const int* __restrict__ npos, const int* __restrict__ mids,
+        const int* __restrict__ ids, const T* __restrict__ dt,
+        const T* __restrict__ mu_s, T* __restrict__ Kg, T* __restrict__ dg,
+        T* __restrict__ work, long long work_each, int N, int K, int nx, int nu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const int s = blockIdx.x;
-  T* extra = nullptr;
-  const RiccatiWork<T> ws =
-      riccati_place<TIER>(sm, work + (size_t)s * work_each, K, nx, nu,
-                          sweep_extra_values(K, nx, nu), &extra);
-  ComputedInputs<false, MAX_NX, T, SlotProblem<T>, 6> src;
-  src.pb = slot_problem(X, U, xf, Q, R, Qf, mask, refw, radius, pw, npos, mids, ids,
-                        dt[0], s, N, K, nx, nu);
-  src.carve(extra, K, nx, nu);
-  const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu, sN = (size_t)s * N;
-  riccati_sweep_from<TILE>(src, mu_s[s], Kg + sN * nuf * nxf, dg + sN * nuf, N, K, nx,
-                           nu, ws);
+  const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu;
+  if constexpr (TIER == 3) {
+    const int s = blockIdx.x / (int)cg::this_cluster().num_blocks();
+    const SlotProblem<T> pb = slot_problem(X, U, xf, Q, R, Qf, mask, refw, radius, pw,
+                                           npos, mids, ids, dt[0], s, N, K, nx, nu);
+    const size_t sN = (size_t)s * N;
+    riccati_cluster_sweep<6>(pb, mu_s[s], Kg + sN * nuf * nxf, dg + sN * nuf, N, K, nx,
+                             nu, sm);
+  } else {
+    const int s = blockIdx.x;
+    T* extra = nullptr;
+    const RiccatiWork<T> ws =
+        riccati_place<TIER>(sm, work + (size_t)s * work_each, K, nx, nu,
+                            sweep_extra_values(K, nx, nu), &extra);
+    ComputedInputs<false, MAX_NX, T, SlotProblem<T>, 6> src;
+    src.pb = slot_problem(X, U, xf, Q, R, Qf, mask, refw, radius, pw, npos, mids, ids,
+                          dt[0], s, N, K, nx, nu);
+    src.carve(extra, K, nx, nu);
+    const size_t sN = (size_t)s * N;
+    riccati_sweep_from<TILE>(src, mu_s[s], Kg + sN * nuf * nxf, dg + sN * nuf, N, K, nx,
+                             nu, ws);
+  }
 }
 
 template <typename T>
@@ -85,10 +103,15 @@ int launch(const T* X, const T* U, const T* xf, const T* Q, const T* R,
            int S, int N, int K, int nx, int nu, void* stream) {
   if (K < 1 || nx < 1 || nu < 1 || nx > MAX_NX || nu > MAX_NU)
     return (int)cudaErrorInvalidValue;
-  const RiccatiPlan plan = computed_plan(K, nx, nu, sizeof(T));
+  const RiccatiPlan plan = wide_plan(K, nx, nu, sizeof(T), CLUSTER_MAX);
   if (plan.tier < 0 || (size_t)work_size < S * plan.work)
     return (int)cudaErrorInvalidValue;
   if (S == 0 || N == 0) return 0;
+  if (plan.tier == 3)
+    return launch_cluster(backward_batched_wide_kernel<T, 3, 4>, S * plan.cluster,
+                          CLUSTER_THREADS, plan.cluster, plan.smem * sizeof(T), stream, X,
+                          U, xf, Q, R, Qf, mask, refw, radius, pw, npos, mids, ids, dt, mu,
+                          Kg, d, work, (long long)plan.work, N, K, nx, nu);
   const int tile = riccati_tile(K * nx, plan.tier);
   const int threads = riccati_threads(K * nx, tile, MIN_THREADS, MAX_THREADS);
   const auto kernel = plan.tier == 2   ? backward_batched_wide_kernel<T, 2, 4>
@@ -119,18 +142,21 @@ DPILQR_BACKWARD_WIDE(dpilqr_backward_batched_wide_f64, double)
 
 // Where one problem's working set goes on the current device (computed_plan:
 // riccati_plan with the input source's buffers, the plan of all three
-// backward kernels): returns the tier (0 all in shared memory, 1 the value
-// group in the workspace, 2 the gain group too, -1 no fit) and writes the
-// shared-memory bytes of a CTA and the workspace values of one problem.  The
+// backward kernels; with max_cluster > 1, this kernel's wide_plan, which may
+// put it on a cluster of up to max_cluster CTAs): returns the tier (0 all in
+// shared memory, 1 the value group in the workspace, 2 the gain group too, 3
+// a cluster's shared memory, -1 no fit) and writes the shared-memory bytes of
+// a CTA, the workspace values of one problem and the CTAs a problem.  The
 // Python wrappers of this kernel and of backward_sweep.cu size their
-// workspace through it, so the layout is defined once, in riccati.cuh and
-// computed_inputs.cuh.
-extern "C" int dpilqr_riccati_plan(int K, int nx, int nu, int itemsize,
-                                   long long* smem_bytes,
-                                   long long* work_values) {
-  const RiccatiPlan plan = computed_plan(K, nx, nu, itemsize);
+// workspace through it, so the layout is defined once, in riccati.cuh,
+// riccati_cluster.cuh and computed_inputs.cuh.
+extern "C" int dpilqr_riccati_plan(int K, int nx, int nu, int itemsize, int max_cluster,
+                                   long long* smem_bytes, long long* work_values,
+                                   int* cluster) {
+  const RiccatiPlan plan = wide_plan(K, nx, nu, itemsize, max_cluster);
   *smem_bytes = (long long)(plan.smem * itemsize);
   *work_values = (long long)plan.work;
+  *cluster = plan.cluster;
   return plan.tier;
 }
 

@@ -134,7 +134,54 @@ DPILQR_HD __forceinline__ void sweep_prep_items_inline(const P& pb, const CostTe
                 Lblk + (i * n + i) * kk);
 }
 
+// The same for agents [i0, i1) alone (the cluster tier of K3, whose CTAs
+// each compute their own slots' inputs): their Jacobian columns, their
+// ordered pairs (i, j) for every partner j, then their L_x, L_u and
+// diagonal blocks.  Lblk and G hold those agents' rows alone (rows i0 ..
+// i1 - 1 of (n, n, k, k) and (n, n, 3)), lx and lu their entries; At and
+// Bt are whole (n blocks).  Every item's arithmetic is
+// sweep_prep_items_inline's.
+template <int NXC, typename T, typename P>
+DPILQR_HD __forceinline__ void sweep_prep_rows_inline(const P& pb, const CostTerms<T>& c,
+                                                      int t, int i0, int i1, T* lx, T* lu,
+                                                      T* At, T* Bt, T* Lblk, T* G, int ft,
+                                                      int fn) {
+  const int n = c.n, nx = c.nx, nu = c.nu, k = c.k, kk = k * k, m = i1 - i0;
+  const bool terminal = t == pb.N;
+  const T* x = pb.X + (size_t)t * n * nx;
+  const T* u = terminal ? nullptr : pb.U + (size_t)t * n * nu;
+  const int n_jac = terminal ? 0 : m * (nx + nu);
+  for (int it = ft; it < n_jac + m * (n - 1); it += fn) {
+    if (it < n_jac) {
+      const int i = i0 + it / (nx + nu), q = it % (nx + nu);
+      jacobian_column<NXC>(model_of(pb, i), x + i * nx, u + i * nu, nx, nu, q, pb.dt,
+                           c.mask[i], At + i * nx * nx, nx, Bt + i * nx * nu, nu);
+    } else {
+      const int p = it - n_jac, il = p / (n - 1), jj = p % (n - 1);
+      const int j = jj + (jj >= i0 + il);
+      pair_terms_block(c, i0 + il, j, x, Lblk + (il * n + j) * kk, G + (il * n + j) * 3);
+    }
+  }
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync 2, %0;" ::"r"(fn) : "memory");
+#endif
+  // agent_terms reads row i of Lblk and G by the agent's index: their bases
+  // shifted back by i0 rows.
+  const T* Lrows = Lblk - (long long)i0 * n * kk;
+  const T* Grows = G - (long long)i0 * n * 3;
+  for (int i = i0 + ft; i < i1; i += fn)
+    agent_terms(c, i, x, u, Lrows, Grows, lx + (i - i0) * nx,
+                terminal ? nullptr : lu + (i - i0) * nu, Lblk + ((i - i0) * n + i) * kk);
+}
+
 #ifdef __CUDACC__
+
+template <int NXC, typename T, typename P>
+__device__ __noinline__ void sweep_prep_rows(const P pb, const CostTerms<T> c, int t,
+                                             int i0, int i1, T* lx, T* lu, T* At, T* Bt,
+                                             T* Lblk, T* G, int ft, int fn) {
+  sweep_prep_rows_inline<NXC>(pb, c, t, i0, i1, lx, lu, At, Bt, Lblk, G, ft, fn);
+}
 
 // The same, not inlined: the nine models' derivatives compile once per type,
 // width and problem kind for the run-time path, not once per instantiation of

@@ -141,4 +141,66 @@ int dpilqr_host_batched_prep(int S, int N, int K, int nx, int nu, const double* 
   return 0;
 }
 
+// The same inputs as the cluster tier of K3 computes them (riccati_cluster.cuh):
+// rank q of C computes the agents [q K / C, (q + 1) K / C) with
+// sweep_prep_rows_inline, into its own rows of the proximity blocks and
+// gradient terms, and assembles its own rows of L_xx from them; the ranks'
+// rows together must be dpilqr_host_batched_prep's to the bit.
+int dpilqr_host_batched_prep_rows(int S, int N, int K, int nx, int nu, const double* X,
+                                  const double* U, const double* xf, const double* Q,
+                                  const double* R, const double* Qf, const double* mask,
+                                  const double* refw, const double* radius,
+                                  const double* pw, const int* npos, const int* mids,
+                                  const int* ids, double dt, double* A, double* B,
+                                  double* Lx, double* Lu, double* Lxx, double* Luu,
+                                  double* p0, double* P0, int C) {
+  if (nx > MAX_NX || nu > MAX_NU || C < 1 || C > K) return 1;
+  const int k = nx < 3 ? nx : 3, nxf = K * nx, nuf = K * nu;
+  std::vector<double> QQ(K * nx * nx), RR(K * nu * nu), Ld(K * nx * nx),
+      Lud(K * nu * nu), Lrows(K * K * k * k), Grows(K * K * 3);
+  const auto symmetrize = [](const double* W, double* out, int n, int w) {
+    for (int e = 0; e < n * w * w; ++e) {
+      const int i = e / (w * w), a = e % (w * w) / w, b = e % w;
+      out[e] = W[e] + W[(i * w + b) * w + a];
+    }
+  };
+  // Rank q's share of a step: its agents' items, then its rows of L_xx.
+  const auto rank_step = [&](const SlotProblem<double>& pb, const CostTerms<double>& c,
+                             int t, int q, double* lx, double* lu, double* At, double* Bt,
+                             double* lxx) {
+    const int i0 = q * K / C, i1 = (q + 1) * K / C;
+    sweep_prep_rows_inline<MAX_NX>(pb, c, t, i0, i1, lx + i0 * nx,
+                                   lu ? lu + i0 * nu : nullptr, At, Bt, Lrows.data(),
+                                   Grows.data(), 0, 1);
+    const double* shifted = Lrows.data() - (long long)i0 * K * k * k;
+    for (int r = i0 * nx; r < i1 * nx; ++r)
+      for (int col = 0; col < nxf; ++col)
+        lxx[r * nxf + col] = lxx_entry(r, col, K, nx, k, Ld.data(), shifted);
+  };
+  for (int s = 0; s < S; ++s) {
+    const SlotProblem<double> pb = slot_problem(X, U, xf, Q, R, Qf, mask, refw, radius,
+                                                pw, npos, mids, ids, dt, s, N, K, nx, nu);
+    const CostTerms<double> c{pb.xf, QQ.data(), RR.data(), pb.mask, pb.npos, pb.refw,
+                              pb.radius, pb.pw, K, nx, nu, k};
+    symmetrize(pb.Qf, QQ.data(), K, nx);
+    symmetrize(pb.R, RR.data(), K, nu);
+    constant_blocks(c, Ld.data(), Lud.data(), 0, 1);
+    for (int q = 0; q < C; ++q)
+      rank_step(pb, c, N, q, p0 + (size_t)s * nxf, nullptr, nullptr, nullptr,
+                P0 + (size_t)s * nxf * nxf);
+    symmetrize(pb.Q, QQ.data(), K, nx);
+    constant_blocks(c, Ld.data(), Lud.data(), 0, 1);
+    for (int t = 0; t < N; ++t) {
+      const size_t st = (size_t)s * N + t;
+      for (int q = 0; q < C; ++q)
+        rank_step(pb, c, t, q, Lx + st * nxf, Lu + st * nuf, A + st * K * nx * nx,
+                  B + st * K * nx * nu, Lxx + st * nxf * nxf);
+      for (int r = 0; r < nuf; ++r)
+        for (int col = 0; col < nuf; ++col)
+          Luu[st * nuf * nuf + r * nuf + col] = luu_entry(r, col, nu, Lud.data());
+    }
+  }
+  return 0;
+}
+
 }  // extern "C"

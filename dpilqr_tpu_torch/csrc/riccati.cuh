@@ -100,10 +100,13 @@ __host__ __device__ inline RiccatiSizes riccati_sizes(int K, int nx, int nu) {
 
 // Where the groups of one problem live.  tier 0: all in shared memory;
 // 1: the value group in the workspace; 2: the value and gain groups in the
-// workspace; -1: not even the vectors fit.  `smem` and `work` are values.
+// workspace; 3 (K3 alone, riccati_cluster.cuh): all of it in the shared
+// memory of a cluster of `cluster` CTAs; -1: not even the vectors fit.
+// `smem` (of a CTA) and `work` are values.
 struct RiccatiPlan {
   int tier;
   size_t smem, work;
+  int cluster = 1;
 };
 
 // `extra`: values a kernel adds to the gain group for itself (the input
@@ -323,11 +326,12 @@ __device__ __forceinline__ Grid2 grid2(int ncols) {
 // Strips of one row by four columns of a product with a block-diagonal LEFT
 // factor: out[r][c] = sum_b Blk[k][b][j] (P[k nx + b][c] (+ mu on the
 // diagonal when REG)) for row r = k w + j, b ascending from 0; Blk holds K
-// blocks of nx x w, out has K w rows.
+// blocks of nx x w, out has K w rows.  P's rows are rows row0 .. of the
+// whole P (a CTA of the cluster tier holds its own slots' rows alone).
 template <bool REG, typename T>
 __device__ __forceinline__ void bd_left(const T* Blk, int w, int nrows,
                                         const T* P, T mu, T* out, int nx,
-                                        int nxf) {
+                                        int nxf, int row0 = 0) {
   const int nx4 = (nxf + 3) / 4;
   const bool vec4 = nxf % 4 == 0;
   const Grid2 g = grid2(nx4);
@@ -345,7 +349,7 @@ __device__ __forceinline__ void bd_left(const T* Blk, int w, int nrows,
         const T a = blk[b * w];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const T preg = REG ? pv[i] + (k * nx + b == c0 + i ? mu : T(0)) : pv[i];
+          const T preg = REG ? pv[i] + (row0 + k * nx + b == c0 + i ? mu : T(0)) : pv[i];
           const T term = a * preg;
           acc[i] = b == 0 ? term : acc[i] + term;
         }

@@ -68,7 +68,7 @@ from .costs import (
     terminal_cost,
 )
 from .codegen import library_ids
-from .cuda_build import (bind, call, check_tensors, count, require_cuda,
+from .cuda_build import (RiccatiPlan, bind, call, check_tensors, count, require_cuda,
                          require_kernel_models, riccati_plan, run, timing)
 from .ilqr import SolveResult, line_search_alphas
 
@@ -93,6 +93,16 @@ COLUMN_ORDER = (3, 4, 0, 2, 1)  # X5 (N, nx_p, K, n_alpha, S): (n_alpha, S, N, K
 # (sm_90a: 227 KB), and the forward kernel's warps (alphas) per CTA.
 SMEM_LIMIT = 232_448
 FORWARD_WARPS_PER_CTA = 8
+
+# K3's cluster tier (csrc/riccati_cluster.cuh): the largest cluster (the
+# portable limit) and the control rows one CTA of it may own (the register
+# rows of its elimination).
+CLUSTER_MAX = 8
+CLUSTER_MU = 16
+# Tableau columns ([Q_uu | Q_ux | Q_u]) the backward kernels eliminate in
+# registers (csrc/riccati.cuh, 32 GJ_COLS); past them tier 2 eliminates in
+# place in device memory, and only there does K3 take the cluster tier.
+GJ_REGISTER_COLS = 160
 
 
 def _inverse(order):
@@ -130,23 +140,23 @@ def riccati_sizes(K: int, nx: int, nu: int) -> tuple[int, int, int]:
 
 def riccati_smem_bytes(K: int, nx: int, nu: int, itemsize: int,
                        limit: int = SMEM_LIMIT,
-                       extra: int = 0) -> tuple[int, int, int]:
+                       extra: int = 0) -> RiccatiPlan:
     """Where a backward kernel places one problem's working set: the mirror
     of ``riccati_plan`` in csrc/riccati.cuh.  Returns ``(tier, shared-memory
-    bytes of a CTA, workspace values of one problem)``: tier 0 has all three
-    groups in shared memory, 1 the value group in the device-memory
-    workspace, 2 the gain group too; ``extra`` values join the gain group
-    (the kernels' input buffers, ``sweep_extra_values``).  Raises where not
-    even the vectors fit ``limit`` bytes."""
+    bytes of a CTA, workspace values of one problem, CTAs a problem)``: tier
+    0 has all three groups in shared memory, 1 the value group in the
+    device-memory workspace, 2 the gain group too; ``extra`` values join the
+    gain group (the kernels' input buffers, ``sweep_extra_values``).  Raises
+    where not even the vectors fit ``limit`` bytes."""
     value, gain, vec = riccati_sizes(K, nx, nu)
     gain += extra
     room = limit // itemsize
     if value + gain + vec <= room:
-        return 0, (value + gain + vec) * itemsize, 0
+        return RiccatiPlan(0, (value + gain + vec) * itemsize, 0)
     if gain + vec <= room:
-        return 1, (gain + vec) * itemsize, value
+        return RiccatiPlan(1, (gain + vec) * itemsize, value)
     if vec <= room:
-        return 2, vec * itemsize, value + gain
+        return RiccatiPlan(2, vec * itemsize, value + gain)
     raise ValueError(
         f"backward kernels: riccati_plan finds no tier for a problem with "
         f"K*nx={K * nx}, K*nu={K * nu}: its vectors alone take "
@@ -165,13 +175,49 @@ def sweep_extra_values(n: int, nx: int, nu: int) -> int:
             + _pad4(n * n * 3))
 
 
-def sweep_smem_bytes(n: int, nx: int, nu: int, itemsize: int) -> tuple[int, int, int]:
+def cluster_layout_values(K: int, nx: int, nu: int, C: int) -> int:
+    """Values of one CTA's shared memory when a cluster of ``C`` CTAs holds
+    a problem of ``K`` slots (K3's cluster tier): the mirror of
+    ``cluster_layout`` in csrc/riccati_cluster.cuh.  Each rank owns at most
+    ``ms`` slots: its rows of P, A^T P, Q_xx (and the pivot rows it saves),
+    a staging buffer (another rank's pivot rows, or rows of Q_ux and Q_uu
+    K), its rows of Q_ux, Q_uu K, Q_uu, the tableau, Q_uu's
+    columns of its rows, K whole, two steps' A and B blocks, the cost
+    blocks, its rows of the proximity blocks and gradient terms, and the
+    vectors."""
+    ms, k = -(-K // C), min(3, nx)
+    nxf, nuf = K * nx, K * nu
+    ncol = nuf + nxf + 1
+    mx, mu = ms * nx, ms * nu
+    ldq, lds = _pad4(mu), _pad4(ncol)
+    return (2 * _pad4(mx * nxf) + _pad4(max(mx * nxf, mu * lds))
+            + max(2 * _pad4(mu * nxf), _pad4(mu * lds)) + 2 * _pad4(mu * nxf)
+            + _pad4(mu * nuf) + _pad4(nuf * ldq) + _pad4(mu * ncol) + _pad4(nuf * nxf)
+            + 2 * (_pad4(K * nx * nx) + _pad4(K * nx * nu)) + 2 * _pad4(K * nx * nx)
+            + 2 * _pad4(K * nu * nu) + _pad4(ms * K * k * k) + _pad4(ms * K * 3)
+            + 3 * _pad4(mx) + 2 * _pad4(mu) + 2 * _pad4(nuf) + _pad4(CLUSTER_MU)
+            + 2 * CLUSTER_MU * CLUSTER_MU)
+
+
+def sweep_smem_bytes(n: int, nx: int, nu: int, itemsize: int,
+                     max_cluster: int = 1) -> RiccatiPlan:
     """Where a backward kernel (K1, K3, K5) places one problem of ``n``
-    slots: ``(tier, shared-memory bytes, workspace values)``, the mirror of
-    ``dpilqr_riccati_plan`` (``riccati_smem_bytes`` with the input source's
-    buffers); raises where no tier fits."""
-    return riccati_smem_bytes(n, nx, nu, itemsize,
-                              extra=sweep_extra_values(n, nx, nu))
+    slots: ``(tier, shared-memory bytes of a CTA, workspace values, CTAs a
+    problem)``, the mirror of ``dpilqr_riccati_plan`` (``riccati_smem_bytes``
+    with the input source's buffers).  With ``max_cluster`` > 1 (K3, which
+    passes ``CLUSTER_MAX``) a problem that would need tier 2 with a tableau
+    past ``GJ_REGISTER_COLS`` columns takes tier 3 instead wherever a
+    cluster of at most that many CTAs holds it whole: the smallest such
+    cluster whose ranks own at most ``CLUSTER_MU`` control rows each.
+    Raises where no tier fits."""
+    plan = riccati_smem_bytes(n, nx, nu, itemsize, extra=sweep_extra_values(n, nx, nu))
+    if plan.tier != 2 or n * (nx + nu) + 1 <= GJ_REGISTER_COLS:
+        return plan
+    for C in range(2, min(max_cluster, n) + 1):
+        nbytes = cluster_layout_values(n, nx, nu, C) * itemsize
+        if -(-n // C) * nu <= CLUSTER_MU and nbytes <= SMEM_LIMIT:
+            return RiccatiPlan(3, nbytes, 0, C)
+    return plan
 
 
 class ForwardPlan(NamedTuple):
@@ -439,7 +485,15 @@ def _bind_backward(kernel, fleet: Fleet, cost_b: GameCost, mids_s, ids, dt, X, U
         dtype, dev, ints=("npos", "mids", "ids"))
     extra = () if work is None else (work, work.numel())
     return bind(kernel, dtype, *ins.values(), Kg, d, *extra, S, N, K, nx_p, nu_p,
-                library=library)
+                library=library, tier=_backward_plan(kernel, K, nx_p, nu_p,
+                                                     X.element_size()).tier)
+
+
+def _backward_plan(kernel: str, K: int, nx_p: int, nu_p: int, itemsize: int) -> RiccatiPlan:
+    """The library's plan for backward kernel ``kernel`` (K1 or K3): K3's
+    may put a subproblem on a cluster of CTAs."""
+    return riccati_plan(K, nx_p, nu_p, itemsize,
+                        CLUSTER_MAX if kernel == "backward_batched_wide" else 1)
 
 
 def _launch_backward(kernel, narrow, fleet: Fleet, cost_b: GameCost, mids_s, X, U,
@@ -457,7 +511,7 @@ def _launch_backward(kernel, narrow, fleet: Fleet, cost_b: GameCost, mids_s, X, 
     ids = _model_tables(specs, fleet.dt, dtype, dev, tuple(s.expr for s in specs))[0]
     Kg = X.new_empty((S, Np1 - 1, nuf, nxf))
     d = X.new_empty((S, Np1 - 1, nuf))
-    work = (X.new_empty((S, riccati_plan(K, nx_p, nu_p, X.element_size())[2]))
+    work = (X.new_empty((S, _backward_plan(kernel, K, nx_p, nu_p, X.element_size()).work))
             if workspace else None)
     run(_bind_backward(kernel, fleet, cost_b, mids_s, ids,
                        _dt_tensor(fleet.dt, dtype, dev), X, U, mu, Kg, d, work,
@@ -483,10 +537,13 @@ def backward_pass_batched_wide_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U
                                     mu):
     """Launch ``csrc/backward_batched_wide.cu`` (any width the card places):
     the same contract as ``backward_pass_batched_cuda``.  Each subproblem's
-    working set lies in shared memory where it fits (``sweep_smem_bytes``),
-    else its three nxf^2 matrices (and then its gain blocks and input
-    buffers) in a device-memory workspace; it raises where not even the
-    vectors fit."""
+    working set lies in shared memory where it fits (``sweep_smem_bytes``
+    with ``CLUSTER_MAX``), else its three nxf^2 matrices in a device-memory
+    workspace, else where a cluster of at most ``CLUSTER_MAX`` CTAs holds
+    it all in their shared memory on such a cluster (Quad6D at K=32 in
+    float32), else its gain blocks and input buffers in the workspace too;
+    it raises where not even the vectors fit, or where the card cannot
+    place a cluster."""
     return _launch_backward("backward_batched_wide", False, fleet, cost_b, mids_s,
                             X, U, mu, workspace=True)
 
@@ -1019,7 +1076,8 @@ class IterationGraph:
         narrow = nxf <= MAX_NXF  # backward_pass_batched's routing
         kernel = "backward_batched" if narrow else "backward_batched_wide"
         self.work = (None if narrow else
-                     new(S, riccati_plan(K, nx_p, nu_p, self.x0.element_size())[2]))
+                     new(S, _backward_plan(kernel, K, nx_p, nu_p,
+                                           self.x0.element_size()).work))
         self.X5, self.U5 = new(n_alpha, S, N, K, nx_p), new(n_alpha, S, N, K, nu_p)
         self.J_c = new(n_alpha, S)
         self.counter = torch.zeros((2,), dtype=torch.int32, device=device)

@@ -96,12 +96,17 @@ CUSTOM_KERNELS = ("backward_batched", "backward_batched_wide", "backward_sweep",
 # from a custom-model library.
 launch_counts = dict.fromkeys(_SIGNATURES, 0)
 custom_launch_counts = dict.fromkeys(CUSTOM_KERNELS, 0)
+# Launches of the backward kernels (K1, K3, K5) by the placement tier of
+# their working set (``riccati_plan``: 0-2, and 3 for K3's cluster tier),
+# keyed ``(kernel, tier)``; a graph's replays count as its launches do.
+tier_counts: dict[tuple[str, int], int] = {}
 
 
 def reset_launch_counts():
     for counts in (launch_counts, custom_launch_counts):
         for k in counts:
             counts[k] = 0
+    tier_counts.clear()
 
 
 # While a ``timed_launches()`` block is open: its list of
@@ -252,7 +257,8 @@ def load_library(header: str | None = None) -> ctypes.CDLL:
             fn.argtypes = _SIGNATURES[base]
             fn.restype = ctypes.c_int
     if header is None:  # the plans: the default library's alone are called
-        lib.dpilqr_riccati_plan.argtypes = [_I] * 4 + [ctypes.POINTER(_L)] * 2
+        lib.dpilqr_riccati_plan.argtypes = ([_I] * 5 + [ctypes.POINTER(_L)] * 2
+                                            + [ctypes.POINTER(_I)])
         lib.dpilqr_riccati_plan.restype = ctypes.c_int
         lib.dpilqr_forward_smem_bytes.argtypes = [_I] * 7 + [_L, ctypes.POINTER(_I)]
         lib.dpilqr_forward_smem_bytes.restype = ctypes.c_longlong
@@ -320,25 +326,39 @@ def check_tensors(name: str, tensors: dict, shapes: dict, dtype, device,
                 + ("" if perm is None else f" in memory order {perm}"))
 
 
+class RiccatiPlan(NamedTuple):
+    """Where a backward kernel places one problem's working set: the tier
+    (0 all in shared memory, 1 the three nxf^2 matrices in a device-memory
+    workspace, 2 the gain blocks and the input buffers too, 3 all of it in
+    the shared memory of a cluster of CTAs), the shared-memory bytes of a
+    CTA, the workspace values of one problem and the CTAs a problem (1
+    below tier 3)."""
+
+    tier: int
+    smem: int
+    work: int
+    cluster: int = 1
+
+
 @cache
-def riccati_plan(K: int, nx: int, nu: int, itemsize: int) -> tuple[int, int, int]:
+def riccati_plan(K: int, nx: int, nu: int, itemsize: int,
+                 max_cluster: int = 1) -> RiccatiPlan:
     """Where the library places one problem's working set of a backward
     kernel (K1, K3, K5) on the current device (``computed_plan`` in
     csrc/computed_inputs.cuh: ``riccati_plan`` of csrc/riccati.cuh with the
-    input source's buffers, exported by csrc/backward_batched_wide.cu):
-    ``(tier, shared-memory bytes of a CTA, workspace values of one
-    problem)``.  Tier 0 keeps everything in shared memory, 1 the three
-    nxf^2 matrices in a device-memory workspace, 2 the gain blocks and the
-    input buffers too; a working set whose vectors alone exceed shared
-    memory raises."""
-    smem, work = _L(), _L()
+    input source's buffers; with ``max_cluster`` > 1 K3's ``wide_plan`` of
+    csrc/riccati_cluster.cuh, which puts a problem that would need tier 2
+    on a cluster of at most that many CTAs where one holds it; exported by
+    csrc/backward_batched_wide.cu).  A working set whose vectors alone
+    exceed shared memory raises."""
+    smem, work, cluster = _L(), _L(), _I()
     lib = load_library()
-    tier = lib.dpilqr_riccati_plan(K, nx, nu, itemsize, ctypes.byref(smem),
-                                   ctypes.byref(work))
+    tier = lib.dpilqr_riccati_plan(K, nx, nu, itemsize, max_cluster, ctypes.byref(smem),
+                                   ctypes.byref(work), ctypes.byref(cluster))
     if tier < 0:
         raise ValueError(f"a Riccati problem of K={K}, nx={nx}, nu={nu} does "
                          "not fit the device's shared memory")
-    return tier, smem.value, work.value
+    return RiccatiPlan(tier, smem.value, work.value, cluster.value)
 
 
 def forward_plan(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
@@ -371,11 +391,14 @@ class Bound(NamedTuple):
     args: tuple
     sizes: tuple
     tensors: tuple
+    tier: int | None = None
 
 
-def bind(kernel: str, dtype, *args, library: str | None = None) -> Bound:
+def bind(kernel: str, dtype, *args, library: str | None = None,
+         tier: int | None = None) -> Bound:
     """Resolve ``dpilqr_<kernel>_<f32|f64>(*args, stream)``: ``library`` is
-    what ``require_kernel_models`` returned (None: the default library)."""
+    what ``require_kernel_models`` returned (None: the default library);
+    ``tier``, a backward kernel's placement tier, for ``tier_counts``."""
     suffix = dtype_suffix(dtype)
     if suffix not in _DTYPES[kernel]:
         raise ValueError(f"{kernel} takes {_DTYPES[kernel]}, got {dtype}")
@@ -385,7 +408,7 @@ def bind(kernel: str, dtype, *args, library: str | None = None) -> Bound:
     return Bound(kernel, library, fn,
                  tuple(ptr(a) if isinstance(a, torch.Tensor) else a for a in args),
                  tuple(a for a in args if isinstance(a, int)),
-                 tuple(a for a in args if isinstance(a, torch.Tensor)))
+                 tuple(a for a in args if isinstance(a, torch.Tensor)), tier)
 
 
 def call(b: Bound, stream):
@@ -401,6 +424,8 @@ def count(b: Bound):
     launch_counts[b.kernel] += 1
     if b.library is not None:
         custom_launch_counts[b.kernel] += 1
+    if b.tier is not None:
+        tier_counts[b.kernel, b.tier] = tier_counts.get((b.kernel, b.tier), 0) + 1
 
 
 def run(b: Bound, device):
@@ -423,9 +448,10 @@ def timing() -> bool:
     return _timed is not None
 
 
-def launch(kernel: str, dtype, device, *args, library: str | None = None):
+def launch(kernel: str, dtype, device, *args, library: str | None = None,
+           tier: int | None = None):
     """Call ``dpilqr_<kernel>_<f32|f64>(*args, stream)`` on the current
     stream of ``device``; tensors among ``args`` pass as pointers.
     ``library``: what ``require_kernel_models`` returned (None: the default
-    library)."""
-    run(bind(kernel, dtype, *args, library=library), device)
+    library); ``tier`` as ``bind``'s."""
+    run(bind(kernel, dtype, *args, library=library, tier=tier), device)

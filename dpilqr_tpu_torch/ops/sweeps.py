@@ -65,12 +65,12 @@ def backward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, mu):
         R=(n, nu_p, nu_p), Qf=(n, nx_p, nx_p), mask=(n,), refw=(1,), radius=(1,),
         proxw=(1,), npos=(n,), model=(n,), dt=(1,), mu=(1,)),
         dtype, dev, ints=("npos", "model"))
-    n_work = riccati_plan(n, nx_p, nu_p, X.element_size())[2]
-    work = X.new_empty((n_work,))
+    plan = riccati_plan(n, nx_p, nu_p, X.element_size())
+    work = X.new_empty((plan.work,))
     K = X.new_empty((N, nuf, nxf))
     d = X.new_empty((N, nuf))
-    launch("backward_sweep", dtype, dev, *ins.values(), K, d, work, n_work,
-           N, n, nx_p, nu_p, library=library)
+    launch("backward_sweep", dtype, dev, *ins.values(), K, d, work, plan.work,
+           N, n, nx_p, nu_p, library=library, tier=plan.tier)
     return K, d
 
 

@@ -27,7 +27,8 @@ centralized MPC step.
 says float64, at the shapes phases 3a, 3b and 7c of ``chip_smoke.py`` time:
 ``backward_pass_batched`` on CUDA tensors as a whole (in a tree whose K1 and
 K3 take their inputs from the torch prep, the prep and the launch) and the
-launch alone (CUDA events around the kernel), K3 forced at nxf 32 too.
+launch alone (CUDA events around the kernel), K3 forced at nxf 32 too,
+and K3 at Quad6D K=32 (nxf 192) at S=16 and S=64 in both types.
 
 ``forward`` times the forward kernels' launches alone (CUDA events, the
 least of 20), with gains, at the shapes where a step's whole gain block
@@ -36,7 +37,8 @@ Quad12D at K=8 (2 alphas), Quad6D at K=32 S=16 (2 and 10 alphas, float32
 and float64); K4 at the 10-agent centralized shape (10 alphas, both types).
 
 ``bits`` saves the outputs of the three backward kernels (K1 and K3 on the
-same narrow batches, K3 at Quad6D K=16, K5 at 10 agents) and of the two
+same narrow batches, K3 at Quad6D K=16 and at K=32, S=16 and S=64, K5 at
+10 agents) and of the two
 forward ones at the smoke's phase 3a and 3c shapes (K2 at 100 Unicycle4D,
 K=8, 2 and 10 alphas, with and without gains; K4 with gains at 10 agents
 over 10 alphas and without at 100), float64 and float32, to OUT.pt; given
@@ -89,6 +91,13 @@ def forced_backward(kernel, args):
     return fn(A, B, q["L_uu"], q["L_xx"], q["L_x"], q["L_u"], mu, q["p0"], q["P0"])
 
 
+def quad6d_k32(dtype, dev):
+    """The quad6d_64 loop's widest batch: 64 Quad6D at K=32 (nxf 192, S=64)
+    about hover, as ``backward_args`` makes it."""
+    fleet, cost, x0 = cs.quad_problem(dtt.QUAD_6D, 64, 0.7, dtype, dev)
+    return backward_args(fleet, cost, x0, 32, dev, u_scale=0.01, u_trim=np.array([G, 0, 0]))
+
+
 def backward(tag, dev):
     def shapes():
         for dtype in (torch.float64, torch.float32):
@@ -119,12 +128,10 @@ def backward(tag, dev):
                        "wide", backward_args(fleet, cost, x0, K, dev, u_scale=u_scale,
                                              u_trim=np.array(trim)))
         for dtype in (torch.float32, torch.float64):
-            fleet, cost, x0 = cs.quad_problem(dtt.QUAD_6D, 64, 0.7, dtype, dev)
-            a = backward_args(fleet, cost, x0, 32, dev, u_scale=0.01,
-                              u_trim=np.array([G, 0, 0]))
+            a = quad6d_k32(dtype, dev)
             yield (f"K3 Quad6D K=32 nxf 192 S=16 {str(dtype)[6:]}", "wide",
-                   (a[0], type(a[1])(*(f[::4].contiguous() for f in a[1])),
-                    *(f[::4].contiguous() for f in a[2:])))
+                   cs.cut_args(a, slice(None, None, 4)))
+            yield f"K3 Quad6D K=32 nxf 192 S=64 {str(dtype)[6:]}", "wide", a
         fleet = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, cs.N_AGENTS, cs.DT)
         parts = []
         for t in range(8):
@@ -302,6 +309,10 @@ def bits(out_path, other_path, dev):
                              u_trim=np.array([G, 0, 0]))
         out[f"K3 Quad6D K=16 {str(dtype)[6:]}"] = [
             t.cpu() for t in forced_backward("wide", args)]
+        args = quad6d_k32(dtype, dev)
+        for label, a in (("S=16", cs.cut_args(args, slice(None, None, 4))), ("S=64", args)):
+            out[f"K3 Quad6D K=32 {label} {str(dtype)[6:]}"] = [
+                t.cpu() for t in forced_backward("wide", a)]
         fleet, cost, x0 = cs.centralized_inputs(dtype, dev)
         x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
         U0 = torch.as_tensor(np.random.default_rng(2).uniform(size=(cs.HORIZON, 10, 2)) * 0.1,

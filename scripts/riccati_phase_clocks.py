@@ -8,6 +8,7 @@ step of each phase, with the launch's milliseconds beside them.  Needs one
 CUDA device; run from the repository root:
 
     python3 scripts/riccati_phase_clocks.py                  # K3, the wide shapes
+                                                             # (Quad6D K=32 at S=16, 64 too)
     python3 scripts/riccati_phase_clocks.py --kernel narrow  # K1: S=100 at K=8, 4, 2, 1,
                                                              # and two run-time-width fleets
     python3 scripts/riccati_phase_clocks.py --kernel sweep   # K5: chip_smoke.py's fleets
@@ -20,7 +21,11 @@ elimination (one warp) stores the gains itself, so its phase 4 reads as the
 wait at the barrier that follows: the part of the next step's input
 computation that the elimination does not hide; so does K5's at 10
 Unicycle4D.  Where K3's elimination is in place (past 160 tableau
-columns) the prep runs after it, inside phase 3.
+columns) the prep runs after it, inside phase 3.  A launch whose plan puts
+a subproblem on a cluster of CTAs (the cluster tier, Quad6D K=32 in
+float32) reads the clocks of rank 0 of the first cluster: its elimination
+in blocks of pivots is phase 3, and its own share of the next step's prep
+sits in phase 4 with the gains.
 """
 
 import argparse
@@ -108,9 +113,19 @@ def main():
                 (dtt.QUAD_6D, 8, 0.01, [g, 0, 0]),
                 (dtt.QUAD_12D, 8, 1e-7, [0, 0, 0, g * 63 / 2000]),
                 (dtt.QUAD_6D, 16, 0.01, [g, 0, 0]))]
+        # nxf 192: the quad6d_64 loop's widest steps, at the smoke's S=16
+        # (every fourth subproblem) and at the whole batch's S=64.
+        cases += [("Quad6D K=32 nxf 192", lambda: cs.cut_args(
+                      quads(dtt.QUAD_6D, 32, 0.01, [g, 0, 0]), slice(None, None, 4))),
+                  ("Quad6D K=32 nxf 192", lambda: quads(dtt.QUAD_6D, 32, 0.01, [g, 0, 0]))]
     for tag, make in cases:
         args = make()
         ms = cs.timed(lambda: launch(*args), 20)
+        if not narrow:  # K3's placement: its tier and the CTAs of a subproblem
+            X, U = args[3], args[4]
+            plan = bt.sweep_smem_bytes(X.shape[2], X.shape[3], U.shape[3],
+                                       X.element_size(), bt.CLUSTER_MAX)
+            tag += f" (tier {plan.tier}, {plan.cluster} CTA{'s' if plan.cluster > 1 else ''})"
         report(read, buf, lambda: launch(*args), f"{tag} S={cs.batch_width(args)}", ms,
                cs.HORIZON)
 

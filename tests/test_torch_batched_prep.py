@@ -70,6 +70,8 @@ def lib():
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     L.dpilqr_host_batched_prep.argtypes = [I] * 5 + [P] * 13 + [D] + [P] * 8
     L.dpilqr_host_batched_prep.restype = I
+    L.dpilqr_host_batched_prep_rows.argtypes = [I] * 5 + [P] * 13 + [D] + [P] * 8 + [I]
+    L.dpilqr_host_batched_prep_rows.restype = I
     return L
 
 
@@ -126,8 +128,10 @@ def _p(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _host_prep(lib, fleet, sub_cost, mids, Xs, Us):
-    """``dpilqr_host_batched_prep`` on the batch, in the port's layout."""
+def _host_prep(lib, fleet, sub_cost, mids, Xs, Us, ranks=0):
+    """``dpilqr_host_batched_prep`` on the batch, in the port's layout; with
+    ``ranks`` > 0 ``dpilqr_host_batched_prep_rows``, the inputs as that many
+    ranks of K3's cluster tier compute them, each its own agents' rows."""
     S, Np1, K, nx = Xs.shape
     nu = Us.shape[-1]
     nxf, nuf = K * nx, K * nu
@@ -140,12 +144,29 @@ def _host_prep(lib, fleet, sub_cost, mids, Xs, Us):
                p0=np.zeros((S, nxf)), P0=np.zeros((S, nxf, nxf)))
     X, U = np.ascontiguousarray(Xs.numpy()), np.ascontiguousarray(Us.numpy())
     m = np.ascontiguousarray(mids.numpy())
-    assert lib.dpilqr_host_batched_prep(
-        S, N, K, nx, nu, _p(X), _p(U), _p(f["xf"]), _p(f["Q"]), _p(f["R"]),
-        _p(f["Qf"]), _p(f["agent_mask"]), _p(f["ref_weight"]), _p(f["radius"]),
-        _p(f["prox_weight"]), _p(f["n_pos"]), _p(m), _p(ids), DT,
-        *(_p(out[k]) for k in ("A", "B", "L_x", "L_u", "L_xx", "L_uu", "p0", "P0"))) == 0
+    args = (S, N, K, nx, nu, _p(X), _p(U), _p(f["xf"]), _p(f["Q"]), _p(f["R"]),
+            _p(f["Qf"]), _p(f["agent_mask"]), _p(f["ref_weight"]), _p(f["radius"]),
+            _p(f["prox_weight"]), _p(f["n_pos"]), _p(m), _p(ids), DT,
+            *(_p(out[k]) for k in ("A", "B", "L_x", "L_u", "L_xx", "L_uu", "p0", "P0")))
+    if ranks:
+        assert lib.dpilqr_host_batched_prep_rows(*args, ranks) == 0
+    else:
+        assert lib.dpilqr_host_batched_prep(*args) == 0
     return out
+
+
+# K3's cluster tier: each rank computes its own agents' inputs
+# (sweep_prep_rows_inline) and its own rows of L_xx; the ranks together give
+# the whole prep's bits, at every split of the slots (even and uneven).
+@pytest.mark.parametrize("case,ranks", [("quad6d-k16", 2), ("quad6d-k16", 3),
+                                        ("quad6d-k16", 8), ("unicycle-k8", 3),
+                                        ("unicycle-k8", 8), ("mixed-k4-padded", 4)])
+def test_host_prep_by_ranks_matches_the_whole_prep(lib, case, ranks):
+    _, fleet, _, sub_cost, mids, Xs, Us = _decomposition(case)
+    whole = _host_prep(lib, fleet, sub_cost, mids, Xs, Us)
+    split = _host_prep(lib, fleet, sub_cost, mids, Xs, Us, ranks=ranks)
+    for key, want in whole.items():
+        assert np.array_equal(split[key], want), key
 
 
 def _close(got, want, rtol=RTOL):

@@ -103,6 +103,7 @@ KERNEL_HEADERS = {
     "dynamics.cuh": ("rollout.cuh", "derivatives.cuh"),
     "launch.cuh": ("riccati.cuh", "rollout.cuh", "accept_batched.cu"),
     "riccati.cuh": ("backward_batched.cu", "backward_batched_wide.cu", "backward_sweep.cu"),
+    "riccati_cluster.cuh": ("backward_batched_wide.cu",),
     "rollout.cuh": ("forward_batched.cu", "forward_sweep.cu"),
 }
 

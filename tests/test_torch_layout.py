@@ -219,7 +219,8 @@ def test_slot_tables_are_built_once_per_fleet(names):
 def test_every_routed_shape_fits_shared_memory(shape, itemsize):
     K, nx, nu = shape
     # The backward kernels' plan: their input buffers join the gain group.
-    tier, smem, work = bt.sweep_smem_bytes(K, nx, nu, itemsize)
+    tier, smem, work, cluster = bt.sweep_smem_bytes(K, nx, nu, itemsize)
+    assert cluster == 1
     value, gain, vec = bt.riccati_sizes(K, nx, nu)
     gain += bt.sweep_extra_values(K, nx, nu)
     assert tier in (0, 1, 2) and 0 < smem <= bt.SMEM_LIMIT
@@ -255,7 +256,7 @@ def test_working_set_placement_follows_type_and_width():
     # Twice the widest routed width (nxf 192, nuf 96) is answered, not
     # refused: the matrices move to the workspace, the forward kernel keeps
     # two stages in float32 and one in float64.
-    tier, smem, work = bt.riccati_smem_bytes(32, 6, 3, 4)
+    tier, smem, work, _ = bt.riccati_smem_bytes(32, 6, 3, 4)
     assert tier == 2 and smem <= bt.SMEM_LIMIT and work == sum(bt.riccati_sizes(32, 6, 3)[:2])
     assert bt.forward_smem_bytes(32, 6, 3, 10, 4).buffers == 2
     assert bt.forward_smem_bytes(32, 6, 3, 10, 8).buffers == 1
@@ -290,6 +291,10 @@ def test_cuda_library_sizes_equal_the_python_mirrors(cuda_device):
             # buffers join the gain group.
             assert cuda_build.riccati_plan(K, nx, nu, itemsize) == bt.sweep_smem_bytes(
                 K, nx, nu, itemsize)
+            # K3's, which may put a subproblem on a cluster of CTAs.
+            assert cuda_build.riccati_plan(
+                K, nx, nu, itemsize, bt.CLUSTER_MAX) == bt.sweep_smem_bytes(
+                    K, nx, nu, itemsize, bt.CLUSTER_MAX)
             for n_alpha in (1, 2, 10):
                 for gains in (True, False):
                     for limit in (bt.SMEM_LIMIT, 1 << 40):
@@ -405,17 +410,24 @@ def test_cuda_narrow_kernel_matches_twin(cuda_device, case, S, dtype):
 
 
 # Past nxf 96: Quad6D at K = 32 (nxf 192, nuf 96), where the wide backward
-# kernel keeps every matrix in its workspace and eliminates in place, and the
-# forward kernel stages two gain blocks in float32 and one in float64.
+# kernel puts a subproblem on a cluster of eight CTAs in float32 (every
+# launch counted under the cluster tier) and keeps every matrix in its
+# workspace, eliminating in place, in float64; the forward kernel stages
+# two gain blocks in float32 and one in float64.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_cuda_kernels_match_twins_at_nxf_192(cuda_device, dtype):
     tol = {torch.float64: (1e-9, 1e-9), torch.float32: (2e-3, 1e-4)}[dtype]
     fleet, fields, mids, X, U, mu = _batch(["Quad6D"], 6, 32, N=5, seed=13)
     cost, mids_t, Xt, Ut, mut = _tensors(fields, mids, X, U, mu, dtype, cuda_device)
-    assert bt.riccati_smem_bytes(32, 6, 3, Xt.element_size())[0] == 2
+    item = Xt.element_size()
+    assert bt.riccati_smem_bytes(32, 6, 3, item)[0] == 2
+    tier = bt.sweep_smem_bytes(32, 6, 3, item, bt.CLUSTER_MAX).tier
+    assert tier == (3 if dtype == torch.float32 else 2)
     Kg_t, d_t = bt.backward_pass_batched(fleet, cost, mids_t, Xt, Ut, mut, "torch")
+    before = cuda_build.tier_counts.get(("backward_batched_wide", tier), 0)
     Kg_c, d_c = bt.backward_pass_batched(fleet, cost, mids_t, Xt, Ut, mut, "cuda")
+    assert cuda_build.tier_counts[("backward_batched_wide", tier)] == before + 1
     Kg_64, d_64 = bt.backward_pass_batched(
         fleet, game_cost_from_numpy(fields, cuda_device, torch.float64), mids_t,
         Xt.double(), Ut.double(), mut.double(), "torch")

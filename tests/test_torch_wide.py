@@ -31,9 +31,10 @@ S, K, N = 2, 8, 3
 HETERO = ["DoubleInt4D", "Car3D", "Bike5D"]
 
 
-def _batch(names, seed=0, S=S, K=K):
+def _batch(names, seed=0, S=S, K=K, spread=0.3):
     """Seeded batch of S subproblems with K slots over the models
-    ``names``: cost fields, branch indices, X, U, mu (numpy)."""
+    ``names``: cost fields, branch indices, X, U, mu (numpy); states and
+    controls normal with deviation ``spread``."""
     rng = np.random.default_rng(seed)
     fleet = dtt.Fleet.from_names(names, 0.1)
     nx_p, nu_p = fleet.nx_p, fleet.nu_p
@@ -43,8 +44,8 @@ def _batch(names, seed=0, S=S, K=K):
     smask = np.stack([[fleet.state_mask[m] for m in row] for row in mids])
     umask = np.stack([[fleet.control_mask[m] for m in row] for row in mids])
     # Slots clustered within the radius so proximity pairs are active.
-    X = 0.3 * rng.standard_normal((S, N + 1, K, nx_p)) * smask[:, None]
-    U = 0.3 * rng.standard_normal((S, N, K, nu_p)) * umask[:, None]
+    X = spread * rng.standard_normal((S, N + 1, K, nx_p)) * smask[:, None]
+    U = spread * rng.standard_normal((S, N, K, nu_p)) * umask[:, None]
     U = U * mask[:, None, :, None]
     n_pos = 3 if nx_p >= 6 else 2
     fields = dict(
@@ -194,6 +195,68 @@ def test_solve_distributed_wide_matches_jax():
 # ---------------------------------------------------------------------------
 
 
+# K3's plan with its cluster tier (``sweep_smem_bytes`` with
+# ``max_cluster``, the mirror of ``wide_plan`` in csrc/riccati_cluster.cuh):
+# the narrow widths, the routed Quad6D/Quad12D/mixed widths and past them.
+PLAN_SHAPES = [(1, 4, 2), (4, 4, 2), (8, 4, 2), (8, 5, 2), (8, 6, 3), (16, 6, 3),
+               (20, 6, 3), (24, 6, 3), (32, 6, 3), (4, 12, 4), (8, 12, 4), (16, 12, 4),
+               (32, 12, 4), (24, 4, 2), (32, 3, 2), (32, 4, 2), (64, 4, 2)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "K{}nx{}nu{}".format(*s))
+def test_cluster_tier_replaces_only_the_workspace_tier(shape, itemsize):
+    K, nx, nu = shape
+    base = bt.sweep_smem_bytes(K, nx, nu, itemsize)
+    plan = bt.sweep_smem_bytes(K, nx, nu, itemsize, bt.CLUSTER_MAX)
+    assert base.cluster == 1
+    if (K * nx <= bt.MAX_NXF or base.tier in (0, 1)
+            or K * (nx + nu) + 1 <= bt.GJ_REGISTER_COLS):
+        # Every narrow shape, every shape one CTA holds (tier 0), every
+        # tier-1 shape and every tier-2 shape whose tableau the register
+        # path eliminates keeps its plan.
+        assert plan == base
+        return
+
+    def fits(C):
+        return (-(-K // C) * nu <= bt.CLUSTER_MU
+                and bt.cluster_layout_values(K, nx, nu, C) * itemsize <= bt.SMEM_LIMIT)
+
+    assert base.tier == 2
+    if plan.tier == 3:
+        # The smallest cluster of at most eight CTAs that holds the whole
+        # working set, nothing of it in the workspace.
+        C = plan.cluster
+        assert 2 <= C <= min(bt.CLUSTER_MAX, K) and fits(C)
+        assert not any(fits(c) for c in range(2, C))
+        assert plan.smem == bt.cluster_layout_values(K, nx, nu, C) * itemsize
+        assert 0 < plan.smem <= bt.SMEM_LIMIT and plan.work == 0
+    else:
+        assert plan == base
+        assert not any(fits(c) for c in range(2, min(bt.CLUSTER_MAX, K) + 1))
+    if shape == (32, 6, 3):
+        # The quad6d_64 loop's widest steps: a cluster of eight in float32;
+        # float64 (1.9 MB) stays in the workspace.
+        assert (plan.tier, plan.cluster) == ((3, 8) if itemsize == 4 else (2, 1))
+
+
+
+def test_tier_counts_count_each_launch_of_a_backward_kernel():
+    from dpilqr_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launch_counts()
+    b = cuda_build.Bound("backward_batched_wide", None, None, (), (), (), 3)
+    for _ in range(3):  # a graph's replays count as launches
+        cuda_build.count(b)
+    cuda_build.count(b._replace(tier=1))
+    cuda_build.count(b._replace(kernel="forward_batched", tier=None))
+    assert cuda_build.tier_counts == {("backward_batched_wide", 3): 3,
+                                      ("backward_batched_wide", 1): 1}
+    assert cuda_build.launch_counts["backward_batched_wide"] == 4
+    cuda_build.reset_launch_counts()
+    assert cuda_build.tier_counts == {}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -203,15 +266,26 @@ def cuda_device():
 
 # Quad6D at K=16, S=64 is the quad6d_64 loop's shape (nxf 96, nuf 48); in
 # float64 its gain blocks exceed shared memory and the kernel keeps them in
-# device memory.
+# device memory.  At K=32 (nxf 192, the loop's widest steps) float32 takes
+# a cluster of eight CTAs (the cluster tier) and float64 keeps the
+# device-memory workspace (tier 2).  Quad6D at K=24 (nxf 144) takes a
+# cluster of 5 CTAs owning 5, 5, 5, 5 and 4 slots in float32; Unicycle4D
+# at K=32 (nxf 128) one of 4 in float32 and of 8 in float64.  24 or 32
+# slots at a spread of 0.3 pack every slot inside the radius: gains of 2e3
+# whose float32 rounding alone is percents (the kernel gives tier 2's bits
+# there), so those batches are spread out to 1.0.
 @pytest.mark.cuda
 @pytest.mark.parametrize("names,shape", [(HETERO, (S, K)), (["Quad6D"], (S, K)),
-                                         (["Quad12D"], (S, K)), (["Quad6D"], (64, 16))],
-                         ids=["nxf40", "nxf48", "nxf96", "nxf96-nuf48"])
+                                         (["Quad12D"], (S, K)), (["Quad6D"], (64, 16)),
+                                         (["Quad6D"], (64, 32)), (["Quad6D"], (16, 24)),
+                                         (["Unicycle4D"], (16, 32))],
+                         ids=["nxf40", "nxf48", "nxf96", "nxf96-nuf48", "nxf192", "nxf144",
+                              "nxf128"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_cuda_wide_kernels_match_twins(cuda_device, names, shape, dtype):
     tol = {torch.float64: (1e-9, 1e-9), torch.float32: (2e-3, 1e-4)}[dtype]
-    fleet_t, fields, mids, X, U, mu = _batch(names, seed=5, S=shape[0], K=shape[1])
+    fleet_t, fields, mids, X, U, mu = _batch(names, seed=5, S=shape[0], K=shape[1],
+                                             spread=1.0 if shape[1] >= 24 else 0.3)
     if names == ["Quad12D"]:
         U = 1e-4 * U  # Quad12D's torque gains are ~6e4
     cost_t = game_cost_from_numpy(fields, cuda_device, dtype)
