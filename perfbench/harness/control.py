@@ -11,11 +11,13 @@ the check's own tests (never by the benchmark's runs):
 They sit where the decomposed solve, the trial batch and the loop call
 ``solve_subproblems_batched`` and ``rollout`` (``parallel/distributed.py``,
 ``parallel/mesh.py``, ``parallel/rhc.py``); graph, gather and stitch stay
-the program's.
+the program's.  Each slot runs the model that the program's ``mids_s``
+name in its fleet's branch table, so that they serve a mixed fleet too.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..reference import solver as ref
@@ -32,15 +34,21 @@ def _result(like, X, U, J, iters, converged, failed):
                        failed_line_search=failed.to(torch.bool))
 
 
+def slot_models(fleet, mids_s):
+    """The model name of each slot, ``(S, K)``, from the program's branch
+    indices into ``fleet.unique_specs``."""
+    return np.array([s.name for s in fleet.unique_specs])[mids_s.cpu().numpy()]
+
+
 def control_solve(dtype=torch.bfloat16):
     """The reference's batched solve in ``dtype``, with the program's batched
     solve's signature and result."""
 
     def solve(fleet, cfg, sub_cost, x0_s, U0_s, mids_s, enabled, **_):
-        model = fleet.unique_specs[0].name
         c = sub_cost_dict(sub_cost, dtype)
-        out = ref.solve(model, c, x0_s.to(dtype), U0_s.to(dtype), fleet.dt, cfg.n_lqr_iter,
-                        cfg.tol, cfg.n_ls_iter, cfg.mu_init, cfg.delta_0, cfg.mu_min)
+        out = ref.solve(slot_models(fleet, mids_s), c, x0_s.to(dtype), U0_s.to(dtype),
+                        fleet.dt, cfg.n_lqr_iter, cfg.tol, cfg.n_ls_iter, cfg.mu_init,
+                        cfg.delta_0, cfg.mu_min, enabled=enabled)
         return _result(x0_s, out["X"], out["U"], out["J"], out["iters"], out["converged"],
                        out["failed"])
 
@@ -52,10 +60,10 @@ def control_rollout(dtype=torch.bfloat16):
     program's ``rollout`` signature (``ops/ilqr.py``; on the card, K4)."""
 
     def rollout(fleet, cost, x0, U, time_batched_cost=False):
-        model = fleet.unique_specs[0].name
         c = {k: (v.reshape(1) if v.dim() == 0 else v[None])
              for k, v in sub_cost_dict(cost, dtype).items()}
-        X = ref.rollout(model, x0[None].to(dtype), U[None].to(dtype), fleet.dt)
+        X = ref.rollout([s.name for s in fleet.specs], x0[None].to(dtype), U[None].to(dtype),
+                        fleet.dt)
         J = ref.trajectory_cost(c, X, U[None].to(dtype))
         return X[0].to(x0.dtype), J[0].to(x0.dtype)
 
@@ -68,9 +76,9 @@ def _unchanged(orig):
 
     def solve(fleet, cfg, sub_cost, x0_s, U0_s, mids_s, enabled, **kw):
         out = orig(fleet, cfg, sub_cost, x0_s, U0_s, mids_s, enabled, **kw)
-        model = fleet.unique_specs[0].name
         c = sub_cost_dict(sub_cost, torch.float64)
-        X = ref.rollout(model, x0_s.to(torch.float64), U0_s.to(torch.float64), fleet.dt)
+        X = ref.rollout(slot_models(fleet, mids_s), x0_s.to(torch.float64),
+                        U0_s.to(torch.float64), fleet.dt)
         J = ref.trajectory_cost(c, X, U0_s.to(torch.float64))
         return _result(x0_s, X, U0_s, J, out.iters, out.converged, out.failed_line_search)
 

@@ -16,7 +16,7 @@ class Step:
     """One committed MPC step: host milliseconds since the previous commit
     (or the episode's start), the program's own solve time, the width it
     was solved at, each subproblem's iterations and converged flag, and in
-    a traced step each subproblem's neighbourhood size."""
+    a traced step the interaction graph's rows, one a subproblem."""
 
     ms: float
     solve_s: float
@@ -24,14 +24,14 @@ class Step:
     iters: np.ndarray
     converged: np.ndarray
     traced: bool
-    sizes: np.ndarray | None = None
+    members: np.ndarray | None = None
 
 
 @dataclass
 class Batch:
     """One trial batch: host milliseconds, trials, every subproblem's
-    iterations and converged flag, and in a traced batch every
-    subproblem's neighbourhood size."""
+    iterations and converged flag, and in a traced batch every trial's
+    interaction graph's rows, one a subproblem (trial by trial)."""
 
     ms: float
     trials: int
@@ -40,7 +40,7 @@ class Batch:
     converged: np.ndarray
     truncated: int
     traced: bool
-    sizes: np.ndarray | None = None
+    members: np.ndarray | None = None
 
 
 @dataclass

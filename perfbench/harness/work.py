@@ -290,30 +290,41 @@ def roofline_pct(device_s: float, flops: float, bytes_: float, trig: float = 0.0
 def needed_work(run, role: str):
     """``(flops, trig, bytes)`` the traced slice's solves needed of one kernel
     role, ``backward`` or ``forward``: each subproblem's reported iterations
-    times one sweep of a subproblem of its own neighbourhood's size (at most
-    the step's width ``K``, where a neighbourhood was truncated).  The width
-    a solve was padded or compacted to is the program's choice, and its
-    padded slots and lanes are waste, not work.  An iteration's line search
-    is counted at the probe's ``ls_probe`` alphas, the least that every
-    iteration evaluates (which later alphas an iteration needed is not read
-    from outside the program), and every solve's first rollout of its warm
-    start at one alpha without gains."""
+    times one sweep of a subproblem of its own neighbourhood (at most the
+    step's width ``K``, where a neighbourhood was truncated: the owner and
+    its lowest-numbered neighbours), each slot at its own agent's model.
+    The width a solve was padded or compacted to is the program's choice,
+    and its padded slots and lanes are waste, not work; so is the lane of
+    an uncontrolled agent, which the solve leaves out.  An iteration's line
+    search is counted at the probe's ``ls_probe`` alphas, the least that
+    every iteration evaluates (which later alphas an iteration needed is not
+    read from outside the program), and every solve's first rollout of its
+    warm start at one alpha without gains.  ``run.trace.solves`` holds a
+    traced step's or batch's ``(K, iters, graph rows)``, lane ``s`` owned
+    by agent ``s % n``."""
     p = run.problem
     N, nx, nu = p.N, p.nx, p.nu
     probe = int(p.solver["ls_probe"]) or int(p.solver["n_ls_iter"])
     iters_at, solves_at = {}, {}
-    for K, iters, sizes in run.trace.solves:
-        for k, i in zip(np.minimum(np.asarray(sizes), K).tolist(), np.asarray(iters).tolist()):
-            iters_at[k] = iters_at.get(k, 0) + int(i)
-            solves_at[k] = solves_at.get(k, 0) + 1
+    for K, iters, rows in run.trace.solves:
+        for s, (row, i) in enumerate(zip(np.asarray(rows), np.asarray(iters).tolist())):
+            a = s % p.n
+            if p.ignore_mask[a]:
+                continue
+            others = np.flatnonzero(row)
+            members = [a] + others[others != a][:K - 1].tolist()
+            key = tuple(sorted(p.models[members].tolist()))
+            iters_at[key] = iters_at.get(key, 0) + int(i)
+            solves_at[key] = solves_at.get(key, 0) + 1
     tot = [0, 0, 0]
-    for k, its in iters_at.items():
+    for key, its in iters_at.items():
+        k = len(key)
         if role == "backward":
-            w = [x * its for x in sweep_work("backward", N, k, nx, nu, 1, probe, p.model)]
+            w = [x * its for x in sweep_work("backward", N, k, nx, nu, 1, probe, key)]
         else:
-            w = [x * its for x in sweep_work("forward", N, k, nx, nu, 1, probe, p.model)]
-            r = sweep_work("rollout_sweep", N, k, nx, nu, 1, 1, p.model)
-            w = [a + solves_at[k] * b for a, b in zip(w, r)]
+            w = [x * its for x in sweep_work("forward", N, k, nx, nu, 1, probe, key)]
+            r = sweep_work("rollout_sweep", N, k, nx, nu, 1, 1, key)
+            w = [a + solves_at[key] * b for a, b in zip(w, r)]
         tot = [a + b for a, b in zip(tot, w)]
     return tuple(tot)
 

@@ -3,7 +3,11 @@ back to back through ``solve_rhc(..., centralized=False)``, each ended as
 the configuration's ``rhc`` settings say (the source's: every agent within
 ``dist_converge`` of its goal in its first ``n_d`` coordinates, or
 ``t_diverge`` of simulated time), each step executing ``step_size``
-controls.
+controls.  The configuration's uncontrolled agents go to the loop as its
+``ignore_mask``; ``rhc.warm_start`` is ``random`` (small random controls
+from the scenario seed, the default) or ``selfish`` (the program's
+``selfish_warmstart``, computed in the episode, so that its time counts in
+the episode's first step).
 
 The episodes are a pool of ``pool`` jittered scenarios of the
 configuration (scenario seeds ``warmup_seed`` on, each with its own warm
@@ -48,16 +52,26 @@ class ClosedLoop:
         self.seeds = np.concatenate([rng.permutation(self.pool) for _ in range(cycles)])
         self.scenarios = {s: problem.scenario(s) for s in self.pool}
         self.sample = Reservoir(int(t["check_calls"]), np.random.default_rng([seed, 1]))
+        # The selfish warm starts' solves, sampled apart from the loop's.
+        self.warm_sample = Reservoir(int(t["check_calls"]), np.random.default_rng([seed, 2]))
+        warm = self.rhc.get("warm_start", "random")
+        if warm not in ("random", "selfish"):
+            raise ValueError(f"rhc.warm_start is 'random' or 'selfish', not {warm!r}")
+        self.selfish = warm == "selfish"
         self.items, self.plans = [], []
 
     def episode(self, x0, xf, seed, log_fn=None):
         p = self.p
+        cost = p.game_cost(xf)
+        U0 = (p.dtt.selfish_warmstart(p.fleet, cost, x0, p.N, config=p.config, device=p.device)
+              if self.selfish else None)
         return p.dtt.solve_rhc(
-            p.fleet, p.game_cost(xf), x0, p.N, radius=p.radius, centralized=False,
+            p.fleet, cost, x0, p.N, radius=p.radius, centralized=False,
             step_size=self.step_size, dist_converge=float(self.rhc["dist_converge"]),
             n_d=int(self.rhc["n_d"]),
-            t_diverge=float(self.rhc["t_diverge"]), K=self.t["K"], config=p.config,
-            rng=np.random.default_rng(seed), log_fn=log_fn, device=p.device)
+            t_diverge=float(self.rhc["t_diverge"]), ignore_mask=p.uncontrolled, K=self.t["K"],
+            config=p.config, rng=np.random.default_rng(seed), U0=U0, log_fn=log_fn,
+            device=p.device)
 
     def warm_up(self):
         """The pool's episodes in turn until one captures no new iteration
@@ -74,7 +88,9 @@ class ClosedLoop:
 
     def _patch(self, episode_of):
         """Wrap the loop's solve and the batched solve inside it: a sampled
-        call keeps its inputs, its result and the next call's inputs."""
+        call keeps its inputs, its result and the next call's inputs.  A
+        selfish warm start's solve (its radius negative) is no loop solve:
+        it is sampled apart, and has no next call."""
         from dpilqr_tpu_torch.parallel import distributed, rhc
 
         solve_d, solve_b = rhc.solve_distributed, distributed.solve_subproblems_batched
@@ -82,12 +98,20 @@ class ClosedLoop:
 
         def solve_distributed(fleet, cost, X, U, radius, K=None, **kw):
             e = episode_of()
+            xf = self.scenarios[int(self.seeds[e])][1]
+            if float(radius) < 0:
+                item = SolveItem(xf=xf, X_w=X, U_w=U, K=K, sub={}, res=None,
+                                 radius=float(radius))
+                state["current"] = item if self.warm_sample.offer(item) else None
+                res = solve_d(fleet, cost, X, U, radius, K=K, **kw)
+                item.res, state["current"] = res, None
+                return res
             pend = state["pending"]
             if pend is not None and pend[1] == e:
                 pend[0].next = (X, U)
             state["pending"] = None
-            item = SolveItem(xf=self.scenarios[int(self.seeds[e])][1], X_w=X, U_w=U, K=K,
-                             sub={}, res=None)
+            item = SolveItem(xf=xf, X_w=X, U_w=U, K=K, sub={}, res=None,
+                             ignore=self.p.ignore_mask)
             state["current"] = item if self.sample.offer(item) else None
             res = solve_d(fleet, cost, X, U, radius, K=K, **kw)
             if state["current"] is not None:
@@ -99,7 +123,8 @@ class ClosedLoop:
         def solve_subproblems_batched(fleet, cfg, sub_cost, x0_s, U_s, mids_s, enabled, **kw):
             out = solve_b(fleet, cfg, sub_cost, x0_s, U_s, mids_s, enabled, **kw)
             if state["current"] is not None:
-                state["current"].sub = {"cost": sub_cost, "x0": x0_s, "U": U_s, "out": out}
+                state["current"].sub = {"cost": sub_cost, "x0": x0_s, "U": U_s, "out": out,
+                                        "mids": mids_s, "enabled": enabled}
             return out
 
         return Patch((rhc, "solve_distributed", solve_distributed),
@@ -114,12 +139,12 @@ class ClosedLoop:
 
         def log_fn(info):
             now = perf_counter()
-            # The traced slice's neighbourhood sizes, for the rooflines' work.
-            sizes = info.membership.sum(axis=1) if cur["traced"] else None
+            # The traced slice's neighbourhoods, for the rooflines' work.
+            members = info.membership if cur["traced"] else None
             run.steps.append(Step(ms=(now - cur["last"]) * 1e3, solve_s=info.solve_time,
                                   K=int(info.K), iters=np.asarray(info.iters),
                                   converged=np.asarray(info.converged, dtype=bool),
-                                  traced=cur["traced"], sizes=sizes))
+                                  traced=cur["traced"], members=members))
             cur["last"] = now
             if cur["open"]:
                 cur["end"] = now
@@ -163,7 +188,8 @@ class ClosedLoop:
                 for u in range(int(self.t["trace_units"])):
                     episode((e + u) % len(self.seeds))
                 run.trace = slice_.stop()
-                run.trace.solves = [(s.K, s.iters, s.sizes) for s in run.steps if s.traced]
-        self.items = [it for it in self.sample.items if it.res is not None and it.sub]
+                run.trace.solves = [(s.K, s.iters, s.members) for s in run.steps if s.traced]
+        self.items = [it for it in self.sample.items + self.warm_sample.items
+                      if it.res is not None and it.sub]
 
 make = ClosedLoop

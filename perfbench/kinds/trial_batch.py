@@ -11,7 +11,8 @@ Start and goal states are made on the host before the window (numpy, as a
 user holds them); the warm starts are drawn on the device from the seed in
 one call, a pool of ``max_units`` batches the window cycles through.
 Building the game costs, the graphs and everything after is the program's,
-inside the window.
+inside the window.  The configuration's uncontrolled agents go to the solve
+as its ``ignore_mask``, as in a closed loop.
 """
 
 from __future__ import annotations
@@ -41,9 +42,15 @@ class TrialBatch:
         g.manual_seed(int(rng.integers(0, 2**62)))
         self.U = torch.rand((units, self.T, problem.N, problem.n, problem.nu), generator=g,
                             dtype=problem.dtype, device=problem.device) * float(t["warm_start"])
+        # No control on a padded coordinate.
+        self.U *= self._control_mask()
         self.sample = Reservoir(int(t["check_calls"]), np.random.default_rng([seed, 1]))
         self.mesh = problem.dtt.make_mesh([problem.device])
         self.items, self.plans = [], []
+
+    def _control_mask(self):
+        p = self.p
+        return torch.as_tensor(p.fleet.control_mask, dtype=p.dtype, device=p.device)
 
     def batch(self, x0, xf, U_T):
         from dpilqr_tpu_torch.parallel.mesh import stack_costs
@@ -52,7 +59,8 @@ class TrialBatch:
         cost_T = stack_costs([p.game_cost(f) for f in xf])
         X_T = torch.as_tensor(x0[:, None], dtype=p.dtype, device=p.device)
         return p.dtt.solve_trials_sharded(p.fleet, cost_T, X_T, U_T, p.radius, self.mesh,
-                                          self.K, config=p.config), X_T
+                                          self.K, ignore_mask=p.uncontrolled,
+                                          config=p.config), X_T
 
     def warm_up(self):
         p, seed = self.p, int(self.p.cfg["warmup_seed"])
@@ -61,7 +69,7 @@ class TrialBatch:
         for u in range(int(self.t["warmup_units"])):
             sc = [p.scenario(seed + u * self.T + i) for i in range(self.T)]
             U = torch.rand((self.T, p.N, p.n, p.nu), generator=g, dtype=p.dtype,
-                           device=p.device) * float(self.t["warm_start"])
+                           device=p.device) * float(self.t["warm_start"]) * self._control_mask()
             res, _ = self.batch(np.stack([a for a, _ in sc]), [b for _, b in sc], U)
             res.J.cpu()
 
@@ -74,7 +82,8 @@ class TrialBatch:
         def solve_subproblems_batched(fleet, cfg, sub_cost, x0_s, U_s, mids_s, enabled, **kw):
             out = solve_b(fleet, cfg, sub_cost, x0_s, U_s, mids_s, enabled, **kw)
             if state["current"] is not None:
-                state["current"]["sub"] = {"cost": sub_cost, "x0": x0_s, "U": U_s, "out": out}
+                state["current"]["sub"] = {"cost": sub_cost, "x0": x0_s, "U": U_s, "out": out,
+                                           "mids": mids_s, "enabled": enabled}
             return out
 
         return state, Patch((mesh, "solve_subproblems_batched", solve_subproblems_batched))
@@ -94,15 +103,15 @@ class TrialBatch:
             J, iters, conv, trunc = (a.cpu().numpy() for a in (
                 res.J, res.iters, res.converged, res.truncated))
             end = perf_counter()
-            # The traced slice's neighbourhood sizes, for the rooflines' work.
-            sizes = res.sizes.cpu().numpy().reshape(-1) if traced else None
+            # The traced slice's neighbourhoods, for the rooflines' work.
+            members = res.membership.cpu().numpy().reshape(-1, self.p.n) if traced else None
             if state["current"] is not None:
                 rec.update(res=res, X_T=X_T)
             state["current"] = None
             run.batches.append(Batch(ms=(end - last) * 1e3, trials=self.T, K=self.K,
                                      iters=iters.reshape(-1), converged=conv.reshape(-1),
                                      truncated=int(trunc.sum()), traced=traced,
-                                     sizes=sizes))
+                                     members=members))
             for t in range(self.T):
                 self.plans.append(PlanItem(key=(u, t), xf=self.xf[u, t], x0=self.x0[u, t],
                                            U=res.U[t], J=float(J[t])))
@@ -125,7 +134,7 @@ class TrialBatch:
                 for u in range(int(self.t["trace_units"])):
                     batch(b + u, True)
                 run.trace = slice_.stop()
-                run.trace.solves = [(x.K, x.iters, x.sizes) for x in run.batches
+                run.trace.solves = [(x.K, x.iters, x.members) for x in run.batches
                                     if x.traced]
         self.items = []
         n = self.p.n
@@ -139,8 +148,9 @@ class TrialBatch:
                     xf=self.xf[u, t], X_w=rec["X_T"][t], U_w=self.U[u, t], K=self.K,
                     sub={"cost": type(sub["cost"])(*(a[lanes] for a in sub["cost"])),
                          "x0": sub["x0"][lanes], "U": sub["U"][lanes],
-                         "out": type(sub["out"])(*(a[lanes] for a in sub["out"]))},
-                    res=type(res)(*(a[t] for a in res))))
+                         "out": type(sub["out"])(*(a[lanes] for a in sub["out"])),
+                         "mids": sub["mids"][lanes], "enabled": sub["enabled"][lanes]},
+                    res=type(res)(*(a[t] for a in res)), ignore=self.p.ignore_mask))
 
 
 make = TrialBatch

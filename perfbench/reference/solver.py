@@ -8,6 +8,14 @@ nu, nu)``, ``n_pos``, ``n_pos_eval (S, K)`` (int), ``mask (S, K)`` and the
 per-subproblem scalars ``radius``, ``prox_w``, ``ref_w (S,)``.  A whole
 fleet is one subproblem of K = n slots.
 
+Each slot carries its model: ``models`` is an array of ModelSpec names,
+one a slot (a mixed fleet's slots are padded to the widest model's ``nx``,
+``nu``).  A model's dynamics is a file of its
+own, ``models/<name>.py``, found by the name; each model is evaluated on
+its own slots' leading coordinates, and a padded coordinate never moves.
+A batch of one model takes the same arithmetic as a fleet of that model
+alone.
+
 The solve follows the reference's ``ilqrSolver.solve`` (control.py:150-242)
 per subproblem: the warm start rolled out, then at most ``n_lqr_iter``
 iterations of a backward pass with the state regularization ``B^T (P + mu
@@ -15,88 +23,115 @@ I) B``, a line search over ``alpha = 1.1^(-i^2)`` that takes the first
 alpha whose cost is lower, the relative-decrease test against ``tol``, the
 decrease of ``mu`` on acceptance (snapped to 0 at ``mu_min``) and the bail
 on a failed line search.  Padded slots (mask 0) carry no cost, get the
-control penalty ``(1 - m) u^T u`` and ``B = 0``, so they never move.
+control penalty ``(1 - m) u^T u`` and ``B = 0``, so they never move.  A
+subproblem that the solve leaves out (an uncontrolled agent's, the
+reference's ``ignore_ids``) returns its warm start rolled out.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
-GRAVITY = 9.80665
-RK4_SUBSTEPS = 5
+from ..harness.spec import load_module
+
+# One file a model, ``models/<ModelSpec name>.py``: ``NX``, ``NU``,
+# ``SUBSTEPS`` (RK4 substeps a control period), the continuous right-hand
+# side ``f(x (..., NX), u (..., NU))`` and its Jacobians ``jac(x, u) -> (A
+# (..., NX, NX), B (..., NX, NU))``, in plain PyTorch.
+MODELS_DIR = Path(__file__).resolve().parent / "models"
+# name -> its loaded module.
+LOADED: dict = {}
 
 
 # ---------------------------------------------------------------- dynamics
 
-def _unicycle(x, u):
-    v, th = x[..., 2], x[..., 3]
-    return torch.stack([v * torch.cos(th), v * torch.sin(th), u[..., 0], u[..., 1]], -1)
+def dynamics(name: str):
+    """The reference dynamics of the model ``name``, from ``models/<name>.py``."""
+    if name not in LOADED:
+        LOADED[name] = load_module(MODELS_DIR / f"{name}.py", f"perfbench_reference_{name}")
+    return LOADED[name]
 
 
-def _unicycle_jac(x, u):
-    v, th = x[..., 2], x[..., 3]
-    A = x.new_zeros((*x.shape, 4))
-    A[..., 0, 2] = torch.cos(th)
-    A[..., 0, 3] = -v * torch.sin(th)
-    A[..., 1, 2] = torch.sin(th)
-    A[..., 1, 3] = v * torch.cos(th)
-    B = x.new_zeros((*x.shape, 2))
-    B[..., 2, 0] = 1.0
-    B[..., 3, 1] = 1.0
-    return A, B
+def _slots(models, x, u):
+    """``models`` over the slots of ``x (..., nx_p)``: ``[(model, rows)]``,
+    ``rows`` None where one model fills every slot at its own width, else
+    a bool tensor of ``x.shape[:-1]`` selecting the model's slots."""
+    names = np.asarray(models)
+    uniq = list(dict.fromkeys(names.reshape(-1).tolist()))
+    if len(uniq) == 1:
+        m = dynamics(uniq[0])
+        if (m.NX, m.NU) == (x.shape[-1], u.shape[-1]):
+            return [(m, None)]
+    return [(dynamics(n), torch.as_tensor(names == n, device=x.device).expand(x.shape[:-1]))
+            for n in uniq]
 
 
-def _quad6d(x, u):
-    g = GRAVITY
-    return torch.stack([x[..., 3], x[..., 4], x[..., 5], g * torch.tan(u[..., 2]),
-                        -g * torch.tan(u[..., 1]), u[..., 0] - g], -1)
-
-
-def _quad6d_jac(x, u):
-    g = GRAVITY
-    A = x.new_zeros((*x.shape, 6))
-    A[..., 0, 3] = A[..., 1, 4] = A[..., 2, 5] = 1.0
-    B = x.new_zeros((*x.shape, 3))
-    B[..., 3, 2] = g * (1.0 + torch.tan(u[..., 2]) ** 2)
-    B[..., 4, 1] = -g * (1.0 + torch.tan(u[..., 1]) ** 2)
-    B[..., 5, 0] = 1.0
-    return A, B
-
-
-# name -> (right-hand side, continuous Jacobians, nx, nu)
-MODELS = {
-    "Unicycle4D": (_unicycle, _unicycle_jac, 4, 2),
-    "Quad6D": (_quad6d, _quad6d_jac, 6, 3),
-}
-
-
-def step(model: str, x, u, dt: float):
-    """One control period: RK4 with five equal substeps under zero-order hold."""
-    f = MODELS[model][0]
-    dh = dt / RK4_SUBSTEPS
-    for _ in range(RK4_SUBSTEPS):
-        k0 = f(x, u)
-        k1 = f(x + 0.5 * dh * k0, u)
-        k2 = f(x + 0.5 * dh * k1, u)
-        k3 = f(x + dh * k2, u)
+def _rk4(m, x, u, dt: float):
+    """One control period of ``m``: RK4 with ``m.SUBSTEPS`` equal substeps
+    under zero-order hold."""
+    dh = dt / m.SUBSTEPS
+    for _ in range(m.SUBSTEPS):
+        k0 = m.f(x, u)
+        k1 = m.f(x + 0.5 * dh * k0, u)
+        k2 = m.f(x + 0.5 * dh * k1, u)
+        k3 = m.f(x + dh * k2, u)
         x = x + dh * (k0 + 2.0 * k1 + 2.0 * k2 + k3) / 6.0
     return x
 
 
-def linearize(model: str, x, u, dt: float):
-    """Forward-Euler discretized Jacobians ``I + dt A_c``, ``dt B_c``."""
-    A, B = MODELS[model][1](x, u)
-    eye = torch.eye(A.shape[-1], dtype=x.dtype, device=x.device)
+def step(models, x, u, dt: float):
+    """One control period of ``x (..., K, nx_p)`` under ``u (..., K, nu_p)``.
+    ``models``: an array of names, one a slot, broadcasting against
+    ``x.shape[:-1]``.  Each model steps its own slots'
+    leading ``NX`` coordinates under their leading ``NU`` controls; a
+    slot's padded coordinates keep their values."""
+    slots = _slots(models, x, u)
+    if slots[0][1] is None:
+        return _rk4(slots[0][0], x, u, dt)
+    out = x.clone()
+    for m, rows in slots:
+        xm, um = x[rows], u[rows]
+        out[rows] = torch.cat([_rk4(m, xm[:, :m.NX], um[:, :m.NU], dt), xm[:, m.NX:]], -1)
+    return out
+
+
+def linearize(models, x, u, dt: float):
+    """Forward-Euler discretized Jacobians ``I + dt A_c``, ``dt B_c``; a
+    slot's padded coordinates have zero dynamics (an identity row of ``A``,
+    a zero row of ``B``) and its padded controls zero columns of ``B``."""
+    nx, nu = x.shape[-1], u.shape[-1]
+    eye = torch.eye(nx, dtype=x.dtype, device=x.device)
+    slots = _slots(models, x, u)
+    if slots[0][1] is None:
+        A, B = slots[0][0].jac(x, u)
+        return eye + dt * A, dt * B
+    A = x.new_zeros((*x.shape, nx))
+    B = x.new_zeros((*x.shape, nu))
+    for m, rows in slots:
+        Am, Bm = m.jac(x[rows][:, :m.NX], u[rows][:, :m.NU])
+        A[rows] = torch.nn.functional.pad(Am, (0, nx - m.NX, 0, nx - m.NX))
+        B[rows] = torch.nn.functional.pad(Bm, (0, nu - m.NU, 0, nx - m.NX))
     return eye + dt * A, dt * B
 
 
-def rollout(model: str, x0, U, dt: float):
+def rollout(models, x0, U, dt: float):
     """``x0 (..., K, nx)``, ``U (..., N, K, nu)`` -> ``X (..., N+1, K, nx)``."""
     X = [x0]
     for t in range(U.shape[-3]):
-        X.append(step(model, X[-1], U[..., t, :, :], dt))
+        X.append(step(models, X[-1], U[..., t, :, :], dt))
     return torch.stack(X, dim=-3)
+
+
+def lanes(models, a):
+    """``models`` of the subproblems ``a`` (indices): a per-subproblem array
+    of names ``(S, K)`` is cut to those rows; one name a slot ``(K,)``
+    serves every subproblem."""
+    if np.ndim(models) < 2:
+        return models
+    return np.asarray(models)[np.asarray(a.cpu())]
 
 
 # ---------------------------------------------------------------- cost
@@ -306,12 +341,13 @@ def _solve(M, R):
     return _gauss_jordan(M, R)
 
 
-def backward(model: str, c: dict, X, U, mu, dt: float):
+def backward(models, c: dict, X, U, mu, dt: float):
     """Gains ``Kg (S, N, nuf, nxf)`` and ``d (S, N, nuf)`` (control.py:116-148)."""
     S, Np1, K, nx = X.shape
     N, nu = Np1 - 1, U.shape[-1]
     nxf, nuf = K * nx, K * nu
-    A, B = linearize(model, X[:, :-1], U, dt)  # (S, N, K, nx, nx), (S, N, K, nx, nu)
+    at_t = models if np.ndim(models) < 2 else np.asarray(models)[:, None]
+    A, B = linearize(at_t, X[:, :-1], U, dt)  # (S, N, K, nx, nx), (S, N, K, nx, nu)
     B = B * c["mask"][:, None, :, None, None]
     eye = torch.eye(nxf, dtype=X.dtype, device=X.device)
     p, P = quadraticize(c, X[:, -1])
@@ -338,7 +374,7 @@ def backward(model: str, c: dict, X, U, mu, dt: float):
     return Kg, dg
 
 
-def forward(model: str, c: dict, X, U, Kg, dg, alphas, dt: float):
+def forward(models, c: dict, X, U, Kg, dg, alphas, dt: float):
     """Closed-loop rollouts ``u = U + Kg (x - X) + alpha d`` for every alpha:
     ``Xc (A, S, N+1, K, nx)``, ``Uc (A, S, N, K, nu)``, ``Jc (A, S)``."""
     S, Np1, K, nx = X.shape
@@ -352,22 +388,25 @@ def forward(model: str, c: dict, X, U, Kg, dg, alphas, dt: float):
         du = torch.einsum("snm,asm->asn", Kg[:, t], dx) + alphas[:, None, None] * dg[:, t]
         u = U[:, t] + du.reshape(nA, S, K, nu)
         J = J + stage_cost(c, x, u)
-        x = step(model, x, u, dt)
+        x = step(models, x, u, dt)
         Xs.append(x)
         Us.append(u)
     J = J + terminal_cost(c, x)
     return torch.stack(Xs, dim=2), torch.stack(Us, dim=2), J
 
 
-def solve(model: str, c: dict, x0, U0, dt: float, n_lqr_iter: int, tol: float,
+def solve(models, c: dict, x0, U0, dt: float, n_lqr_iter: int, tol: float,
           n_ls_iter: int = 10, mu_init: float = 1.0, delta_0: float = 2.0,
-          mu_min: float = 1e-6):
+          mu_min: float = 1e-6, enabled=None):
     """The batched iLQR from the warm start ``U0 (S, N, K, nu)`` at ``x0 (S,
-    K, nx)``.  Returns a dict: ``X``, ``U``, ``J`` (the accepted plan and
-    its cost), ``J0`` (the warm start's cost), ``iters``, ``converged``,
-    ``failed`` (the line search found no lower cost)."""
+    K, nx)``; ``models`` one name a slot ``(K,)``, serving every
+    subproblem, or of each subproblem ``(S, K)``.  A subproblem that ``enabled (S,)`` leaves out
+    returns its warm start rolled out, with no iteration.  Returns a dict:
+    ``X``, ``U``, ``J`` (the accepted plan and its cost), ``J0`` (the warm
+    start's cost), ``iters``, ``converged``, ``failed`` (the line search
+    found no lower cost)."""
     S = x0.shape[0]
-    X = rollout(model, x0, U0, dt)
+    X = rollout(models, x0, U0, dt)
     U = U0.clone()
     J = trajectory_cost(c, X, U)
     J0 = J.clone()
@@ -378,13 +417,16 @@ def solve(model: str, c: dict, x0, U0, dt: float, n_lqr_iter: int, tol: float,
     conv = torch.zeros((S,), dtype=torch.bool, device=dev)
     failed = torch.zeros((S,), dtype=torch.bool, device=dev)
     active = torch.full((S,), n_lqr_iter > 0, dtype=torch.bool, device=dev)
+    if enabled is not None:
+        active &= enabled.to(device=dev, dtype=torch.bool)
     alphas = line_search_alphas(n_ls_iter, dtype, dev)
     tiny = torch.finfo(dtype).tiny
     while bool(active.any()):
         a = torch.nonzero(active).flatten()
         ca = {k: v[a] for k, v in c.items()}
-        Kg, dg = backward(model, ca, X[a], U[a], mu[a], dt)
-        Xc, Uc, Jc = forward(model, ca, X[a], U[a], Kg, dg, alphas, dt)
+        ma = lanes(models, a)
+        Kg, dg = backward(ma, ca, X[a], U[a], mu[a], dt)
+        Xc, Uc, Jc = forward(ma, ca, X[a], U[a], Kg, dg, alphas, dt)
         improved = Jc < J[a][None]
         accept = improved.any(dim=0)
         first = torch.argmax(improved.to(torch.int32), dim=0)

@@ -11,10 +11,12 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 
-from bench_helpers import BENCH, ROOT, load_run, run_cell
+from bench_helpers import BENCH, MODELS, ROOT, load_run, run_cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -178,3 +180,98 @@ def test_a_cell_is_added_with_new_files_only(tmp_path):
     assert out["correct"] is True
     for p, data in before.items():
         assert p.read_bytes() == data, p
+
+
+MIXED = "mixed7.mpc"
+
+
+@pytest.fixture(scope="module")
+def mixed_checkout(tmp_path_factory):
+    """A checkout with a mixed fleet added as new files only (and entries in
+    BENCHMARK.json): a model's reference dynamics (DoubleInt4D), a scenario
+    layout, and a configuration of Unicycle4D and DoubleInt4D robots beside
+    an uncontrolled DoubleInt4D agent, warm-started selfishly, run as a
+    closed loop.  Returns the checkout and its harness's files as they
+    were before."""
+    root = tmp_path_factory.mktemp("mixed")
+    shutil.copytree(BENCH, root / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "dpilqr_tpu_torch").symlink_to(ROOT / "dpilqr_tpu_torch")
+    before = {p: p.read_bytes() for p in (root / "perfbench").rglob("*") if p.is_file()}
+    bench_dir = root / "perfbench"
+    shutil.copy(MODELS / "DoubleInt4D.py", bench_dir / "reference" / "models")
+    (bench_dir / "layouts").mkdir()
+    shutil.copy(BENCH / "tests" / "layouts" / "crossing.py", bench_dir / "layouts")
+    cfg = json.loads((BENCH / "configs" / "uni4d_swap_100.json").read_text())
+    for k in ("model", "n_agents", "n_pos", "assumed", "deployment", "rehearse"):
+        del cfg[k]
+    cfg.update(name="mixed_7", source="a test", N=8,
+               fleet=[{"model": "Unicycle4D", "count": 3}, {"model": "DoubleInt4D", "count": 3},
+                      {"model": "DoubleInt4D", "count": 1, "controlled": False}],
+               scenario={"layout": "crossing", "spacing": 0.6})
+    cfg["rhc"].update(t_diverge=0.6, warm_start="selfish")
+    (bench_dir / "configs" / "mixed_7.json").write_text(json.dumps(cfg))
+    b = bench()
+    b["configs"].append({"name": "mixed_7", "source": "a test", "reduced": [],
+                         "file": "perfbench/configs/mixed_7.json", "why": "a test"})
+    b["workloads"].append({"name": MIXED, "config": "mixed_7", "traffic": "mpc", "chips": 1,
+                           "why": "a test"})
+    for m in b["end_to_end"] + b["per_layer"]:
+        if "uni100.mpc" in m.get("workloads", ()):
+            m["workloads"].append(MIXED)
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    return root, before
+
+
+def _run_in(root: Path, *extra) -> dict:
+    """One rehearsed run of the mixed cell in its own process, which imports
+    the harness of ``root``."""
+    out = subprocess.run(
+        [sys.executable, str(root / "perfbench" / "tests" / "bench_helpers.py"), "--cell",
+         MIXED, "--seed", str(2**31 + 43), "--seconds", "1", *extra],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("variant", [(), ("--fault", "unchanged"), ("--fault", "half"),
+                                     ("--fault", "altered"), ("--control",)],
+                         ids=["sound", "unchanged", "half", "altered", "bf16_control"])
+def test_a_mixed_fleet_is_added_with_new_files_only(mixed_checkout, variant):
+    """The mixed fleet's cell rehearses correct, its work counted slot by
+    slot in a traced run, and each planted fault and the control in bfloat16
+    read not correct in it, with no file of the harness edited."""
+    root, before = mixed_checkout
+    out = _run_in(root, *(variant or ("--trace",)))
+    assert out["check"]["lanes_judged"]["value"] > 0
+    numbers = {k: v["value"] for k, v in out["check"].items()}
+    assert out["correct"] is (not variant), numbers
+    if not variant:
+        assert out["metrics"]["mean_iters.mpc"]["value"] > 0
+    for p, data in before.items():
+        assert p.read_bytes() == data, p
+
+
+@pytest.mark.parametrize("metric", ["mean_iters.mpc", "mean_iters.trials", "conv_frac"])
+def test_iteration_readers_leave_out_uncontrolled_lanes(metric):
+    """An uncontrolled agent's lane is not solved (zero iterations, no flag):
+    the readers of iterations and convergence average over the others."""
+    load_run()  # the checkout's root on the path
+    from perfbench.harness import spec
+    from perfbench.harness.window import Batch, Run, Step
+
+    mask = np.array([False, False, True])
+    iters, conv = np.array([4, 6, 0]), np.array([True, True, False])
+    problem = SimpleNamespace(ignore_mask=mask)
+    if metric.endswith(".trials"):
+        run = Run(kind="trial_batch", problem=problem, traffic={})
+        run.batches = [Batch(ms=1.0, trials=2, K=2, iters=np.tile(iters, 2),
+                             converged=np.tile(conv, 2), truncated=0, traced=False)]
+    else:
+        run = Run(kind="closed_loop", problem=problem, traffic={})
+        run.steps = [Step(ms=1.0, solve_s=0.001, K=2, iters=iters, converged=conv,
+                          traced=False)]
+    read = spec.load_module(BENCH / "metrics" / f"{metric}.py",
+                            "perfbench_metric_" + metric.replace(".", "_")).read
+    assert read(run) == (100.0 if metric == "conv_frac" else 5.0)
+    problem.ignore_mask = np.zeros(3, dtype=bool)
+    assert read(run) == pytest.approx(200.0 / 3 if metric == "conv_frac" else 10.0 / 3)

@@ -8,35 +8,53 @@ import numpy as np
 import pytest
 import torch
 
-from bench_helpers import load_run
+from bench_helpers import MODELS, load_run
 
 load_run()  # the checkout's root on the path
 
 from perfbench.harness import problem as hp  # noqa: E402
 from perfbench.harness import trace, work  # noqa: E402
+from perfbench.harness.spec import load_module  # noqa: E402
 from perfbench.reference import solver as ref  # noqa: E402
 
 
-@pytest.mark.parametrize("model,n,spacing", [("Unicycle4D", 9, 0.55), ("Quad6D", 8, 0.6)])
-def test_reference_agrees_with_the_program_in_float64(model, n, spacing):
+@pytest.fixture
+def test_models(monkeypatch):
+    """The reference dynamics of the models the tests bring (``models/``),
+    beside the shipped ones."""
+    for path in MODELS.glob("*.py"):
+        monkeypatch.setitem(ref.LOADED, path.stem, load_module(path, "test_" + path.stem))
+
+
+@pytest.mark.parametrize("fleet,spacing,layout", [
+    ([("Unicycle4D", 9, 2)], 0.55, "swap"),
+    ([("Quad6D", 8, 3)], 0.6, "grid3d"),
+    # Mixed state sizes (Car3D's 3 padded to 4), each model its own slots;
+    # spaced so that the subproblems are well conditioned (five scenario
+    # seeds agree to 5e-8): closer, two right float64 solves part by
+    # rounding, as a homogeneous fleet's do.
+    ([("DoubleInt4D", 3, 2), ("Car3D", 3, 2), ("Unicycle4D", 3, 2)], 0.9, "swap"),
+])
+def test_reference_agrees_with_the_program_in_float64(fleet, spacing, layout, test_models):
     import dpilqr_tpu_torch as dtt
     from dpilqr_tpu_torch.parallel import distributed
+    from perfbench.harness.control import slot_models
     from perfbench.harness.record import Patch
 
-    cfg = {"model": model, "n_agents": n, "dt": 0.1, "N": 20, "radius": 0.5, "Q": 1.0,
-           "R": 1.0, "Qf": 1000.0, "prox_weight": 200.0, "ref_weight": 1.0,
-           "n_pos": 2 if model == "Unicycle4D" else 3, "dtype": "float64",
-           "scenario": {"layout": "swap" if model == "Unicycle4D" else "grid3d",
-                        "spacing": spacing},
+    cfg = {"fleet": [{"model": m, "count": c, "n_pos": k} for m, c, k in fleet],
+           "dt": 0.1, "N": 20, "radius": 0.5, "Q": 1.0,
+           "R": 1.0, "Qf": 1000.0, "prox_weight": 200.0, "ref_weight": 1.0, "dtype": "float64",
+           "scenario": {"layout": layout, "spacing": spacing},
            "solver": {"n_lqr_iter": 15, "tol": 1e-3, "n_ls_iter": 10, "ls_probe": 2}}
     p = hp.Problem(cfg, torch.device("cpu"))
+    n = p.n
     x0, xf = p.scenario(1)
     seen = {}
     orig = distributed.solve_subproblems_batched
 
     def spy(fleet, c, sub_cost, x0_s, U_s, mids_s, enabled, **kw):
         out = orig(fleet, c, sub_cost, x0_s, U_s, mids_s, enabled, **kw)
-        seen.update(cost=sub_cost, x0=x0_s, U=U_s, out=out)
+        seen.update(cost=sub_cost, x0=x0_s, U=U_s, mids=mids_s, out=out)
         return out
 
     X0 = torch.as_tensor(x0)[None]
@@ -44,7 +62,7 @@ def test_reference_agrees_with_the_program_in_float64(model, n, spacing):
     with Patch((distributed, "solve_subproblems_batched", spy)):
         res = dtt.solve_distributed(p.fleet, p.game_cost(xf), X0, U0, p.radius,
                                     config=p.config)
-    M, tie = ref.interaction_graph(X0, p.radius, [p.n_pos] * n)
+    M, tie = ref.interaction_graph(X0, p.radius, p.n_pos)
     assert torch.equal(M, res.membership)
     K = seen["x0"].shape[1]
     idx, mem = ref.gather_plan(M, K)
@@ -52,12 +70,14 @@ def test_reference_agrees_with_the_program_in_float64(model, n, spacing):
           for k, v in p.reference_cost(xf).items()}
     c, gx0, gU = ref.gather(fc, X0[0], U0, idx, mem)
     assert torch.equal(gx0, seen["x0"]) and torch.equal(gU, seen["U"])
-    out = ref.solve(model, c, gx0, gU, p.dt, 15, 1e-3)
+    slots = p.models_at(idx)
+    assert np.array_equal(slot_models(p.fleet, seen["mids"]), p.models[idx.numpy()])
+    out = ref.solve(slots, c, gx0, gU, p.dt, 15, 1e-3)
     prog = seen["out"]
     assert torch.equal(out["iters"], prog.iters) and torch.equal(out["converged"],
                                                                  prog.converged)
     assert torch.allclose(out["J"], prog.J, rtol=1e-6)
-    Xj = ref.rollout(model, X0[0][None], res.U[None], p.dt)
+    Xj = ref.rollout(p.models, X0[0][None], res.U[None], p.dt)
     Jj = ref.trajectory_cost(p.reference_cost(xf), Xj, res.U[None])
     assert float(Jj[0]) == pytest.approx(float(res.J), rel=1e-10)
 
@@ -86,22 +106,69 @@ def test_frozen_work_counts_match_the_program_today():
     assert work.roofline_pct(0.0, 1, 1) is None
 
 
+def _graph(n, rows):
+    """An ``(n, n)`` interaction graph: the diagonal and each ``(i, j)`` of
+    ``rows`` both ways."""
+    M = np.eye(n, dtype=bool)
+    for i, js in rows.items():
+        M[i, js] = M[js, i] = True
+    return M
+
+
 def test_needed_work_counts_each_subproblem_at_its_own_size():
     """A padded slot is waste: subproblems of 2 and 3 agents solved at the
     width 8 (one truncated neighbourhood of 9 counts at 8) need the work of
-    their own sizes."""
+    their own sizes, and so a fleet of one model counts as it always has."""
     from types import SimpleNamespace
 
-    p = SimpleNamespace(N=50, nx=4, nu=2, model="Unicycle4D",
-                        solver={"ls_probe": 2, "n_ls_iter": 10})
-    run = SimpleNamespace(problem=p, trace=SimpleNamespace(
-        solves=[(8, np.array([3, 5, 2]), np.array([2, 3, 9]))]))
+    n = 12
+    M = _graph(n, {0: [1], 2: [3, 4], 5: [3, 4, 6, 7, 8, 9, 10, 11]})
+    lanes = [0, 2, 5]  # the lanes' sizes 2, 3 and 9
+    p = SimpleNamespace(N=50, nx=4, nu=2, n=n, models=np.array(["Unicycle4D"] * n),
+                        ignore_mask=np.zeros(n, bool), solver={"ls_probe": 2, "n_ls_iter": 10})
+    iters = np.zeros(n, int)
+    iters[lanes] = (3, 5, 2)
+    rest = [i for i in range(n) if i not in lanes]  # their own sizes, some iterations
+    iters[rest] = 1
+    run = SimpleNamespace(problem=p, trace=SimpleNamespace(solves=[(8, iters, M)]))
 
     def at(fam, k, a=2):
         return np.array(work.sweep_work(fam, 50, k, 4, 2, 1, a, "Unicycle4D"))
 
-    want = 3 * at("backward", 2) + 5 * at("backward", 3) + 2 * at("backward", 8)
+    sizes = np.minimum(M.sum(axis=1), 8)
+    want = sum(i * at("backward", k) for i, k in zip(iters, sizes))
     assert np.array_equal(np.array(work.needed_work(run, "backward")), want)
-    want = (3 * at("forward", 2) + 5 * at("forward", 3) + 2 * at("forward", 8)
-            + at("rollout_sweep", 2, 1) + at("rollout_sweep", 3, 1) + at("rollout_sweep", 8, 1))
+    want = sum(i * at("forward", k) + at("rollout_sweep", k, 1) for i, k in zip(iters, sizes))
     assert np.array_equal(np.array(work.needed_work(run, "forward")), want)
+
+
+def test_needed_work_counts_each_slot_at_its_own_model():
+    """A mixed fleet: each subproblem counted at its members' models (the
+    owner and its lowest-numbered neighbours, where truncated); an
+    uncontrolled agent's lane, which the solve leaves out, counts nothing,
+    though the agent counts in its neighbours' subproblems."""
+    from types import SimpleNamespace
+
+    names = ["Unicycle4D", "Quad6D", "Bike5D", "Quad6D", "Unicycle4D"]
+    n = len(names)
+    M = _graph(n, {0: [1, 2, 3], 4: [3]})
+    p = SimpleNamespace(N=50, nx=6, nu=3, n=n, models=np.array(names),
+                        ignore_mask=np.array([False, False, False, True, False]),
+                        solver={"ls_probe": 2, "n_ls_iter": 10})
+    iters = np.array([4, 2, 3, 0, 6])
+    run = SimpleNamespace(problem=p, trace=SimpleNamespace(solves=[(2, iters, M)]))
+    members = {0: ["Unicycle4D", "Quad6D"], 1: ["Quad6D", "Unicycle4D"],
+               2: ["Bike5D", "Unicycle4D"], 4: ["Unicycle4D", "Quad6D"]}
+
+    def at(fam, models, a=2):
+        return np.array(work.sweep_work(fam, 50, len(models), 6, 3, 1, a, tuple(models)))
+
+    want = sum(iters[i] * at("backward", m) for i, m in members.items())
+    assert np.array_equal(np.array(work.needed_work(run, "backward")), want)
+    want = sum(iters[i] * at("forward", m) + at("rollout_sweep", m, 1)
+               for i, m in members.items())
+    assert np.array_equal(np.array(work.needed_work(run, "forward")), want)
+    # The counts see the models: Bike5D's single substep makes its lane's
+    # forward work differ from a Unicycle4D's.
+    assert not np.array_equal(at("forward", ["Bike5D", "Unicycle4D"]),
+                              at("forward", ["Unicycle4D", "Unicycle4D"]))
