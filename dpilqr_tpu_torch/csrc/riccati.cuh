@@ -584,9 +584,12 @@ __device__ __forceinline__ void gauss_jordan_warp(const T* M, int nuf, int nxf,
 
 // Cycles of each phase of one sweep, summed over the steps by the first
 // thread of the first CTA, when compiled with -DDPILQR_PHASE_CLOCKS
-// (scripts/riccati_phase_clocks.py); nothing otherwise.
+// (scripts/riccati_phase_clocks.py); nothing otherwise.  Slots 0-7 are the
+// phases of a step; slot 8 only the cluster tier's (riccati_cluster.cuh),
+// whose elimination splits into 3 (the pivot chain) and 8 (the right-hand
+// pass).
 #ifdef DPILQR_PHASE_CLOCKS
-constexpr int RICCATI_PHASES = 8;
+constexpr int RICCATI_PHASES = 9;
 __device__ unsigned long long riccati_phase_clocks[RICCATI_PHASES];
 #define RICCATI_CLOCK(i)                                   \
   if (threadIdx.x == 0 && blockIdx.x == 0) {               \

@@ -11,7 +11,7 @@
 //
 // Rows are split by agent slot: rank q owns slots [q K / C, (q + 1) K / C),
 // and with them the rows of P, A^T P, Q_xx (its slots' nx each) and of W1,
-// Q_ux, Q_uu, K and the tableau (its slots' nu each).  A and B are block
+// Q_ux, Q_uu, K and the right-hand sides [Q_ux | Q_u] (its slots' nu each).  A and B are block
 // diagonal, so phases 1 and 2 need a CTA's own rows and every slot's A and
 // B blocks (each rank computes its own slots' inputs, computed_inputs.cuh
 // sweep_prep_rows, and pulls the others' blocks through distributed shared
@@ -20,33 +20,40 @@
 // multiply-adds in index order), the same reciprocals, so that the cluster
 // tier gives tier 2's bits on the same problem.
 //
-// The elimination runs in blocks of pivots, one block a rank (its own
-// rows): the owner of a block runs the block before's pivots and then its
-// own on the two blocks' columns in one warp's registers (the multipliers
-// and reciprocals), then every column right of its block, a thread a
-// column, takes both blocks' pivots one after another and saves each scaled
-// pivot row; after one cluster barrier every other rank applies those
-// pivot rows to its own rows, in pivot order (its multipliers first, a
-// thread a row, then a thread a column), and each rank computes its slots'
-// inputs of the next step in the iteration where it has nothing to apply.
-// That is one cluster barrier a block, C a step, instead of a barrier a
-// pivot.  Every entry still takes M[r][j] - M[r][kp] (M[kp][j] (1 /
-// M[kp][kp])) for kp ascending.
+// The elimination is split by columns, since no right-hand column ever
+// feeds a pivot: column j's value at pivot kp depends only on the
+// multipliers M[r][kp] (Q_uu's own columns), the reciprocals and column j's
+// own entries.  Phase 3a, the pivot chain: every rank writes its rows of
+// Q_uu into one rank (CHAIN_RANK), whose warps eliminate that nuf x nuf
+// square alone, in panels of pivots: one warp takes a panel's pivots in
+// its registers (a shuffle, not a barrier, a pivot) and records each
+// pivot's reciprocal and multipliers; six warps apply each taken panel to
+// the next one, which is then ready for the chain, and to the columns past
+// it; two push its multipliers into the other ranks; three compute the
+// rank's inputs of the next step, as the other ranks do meanwhile.  Phase
+// 3b, the right-hand pass: each rank takes its share of the nxf + 1
+// right-hand columns in chunks of four (sent to it with the rows of Q_uu),
+// a warp a chunk with every row in its lanes' registers, through every
+// pivot with no barrier, and writes them back to the rows' owners.
+// Three cluster barriers a step for the elimination, whatever C.  Every
+// entry still takes M[r][j] - M[r][kp] (M[kp][j] (1 / M[kp][kp])) for kp
+// ascending.
 //
 // The value update reads the others' rows of K, Q_ux and K^T Q_uu's factor
 // Q_uu K through distributed shared memory: K whole (pulled once a step),
 // Q_ux and Q_uu K a rank's rows at a time into a staging buffer, while each
 // thread keeps its tile's sums in registers from one rank's rows to the
 // next; the symmetrization reads the transposed entries of Q_xx from their
-// owners.  Twelve cluster barriers a step at C = 8.
+// owners.  Seven cluster barriers a step, whatever C.
 //
 // What bounds it on an H100 (scripts/riccati_phase_clocks.py, rank 0 of the
-// first cluster, Quad6D K = 32 float32): about 330 k cycles a step, over half of
-// it the elimination's chain of eight blocks (a block's owner: about 8 k
-// cycles in its warp, 4.5 k for its column pass, 2 k for the barrier),
-// then the value update's products.  A cluster of 8 CTAs of 219 KB takes
-// 8 SMs of one GPC: 15 clusters fit the H100 at once, so a launch of S
-// subproblems runs in ceil(S / 15) waves.
+// first cluster, Quad6D K = 32 float32): about 220 k cycles a step; the
+// pivot chain about 69 k (its warp about 30 k factoring, the rest waiting
+// on the update warps; the chain rank's own prep about 32 k beside it),
+// the right-hand pass about 22 k, the value update's products about 64 k.
+// A cluster of 8 CTAs of 212 KiB takes 8 SMs of one GPC: 15 clusters fit
+// the H100 at once, so a launch of S subproblems runs in ceil(S / 15)
+// waves.
 
 #pragma once
 
@@ -59,9 +66,23 @@ namespace {
 namespace cg = cooperative_groups;
 
 // The portable cluster size; the control rows one CTA of a cluster holds at
-// most (the register rows of the elimination's block steps); the threads of
-// a CTA.
+// most (so nuf <= 128: a warp of the elimination holds every row of Q_uu,
+// four a lane); the threads of a CTA.
 constexpr int CLUSTER_MAX = 8, CLUSTER_MU = 16, CLUSTER_THREADS = 384;
+// The rank that runs the pivot chain.
+constexpr int CHAIN_RANK = 0;
+
+// The row stride of the elimination's multipliers: 32 R values, R =
+// ceil(nuf / 32) the rows a lane holds.
+__host__ __device__ inline int chain_ldm(int nuf) { return (nuf + 31) / 32 * 32; }
+// The right-hand sides [Q_ux | Q_u] in chunks of four columns: a row's
+// stride, the chunks, and the columns a rank takes at most (its chunks are
+// cluster_slot0 of the chunk count).
+__host__ __device__ inline int rhs_ld(int nxf) { return (nxf + 4) / 4 * 4; }
+__host__ __device__ inline int rhs_chunks(int nxf) { return (nxf + 4) / 4; }
+__host__ __device__ inline int rhs_cols(int nxf, int C) {
+  return 4 * ((rhs_chunks(nxf) + C - 1) / C);
+}
 
 // First slot of rank q of a cluster of C over K slots, and the rank that
 // owns a slot.
@@ -75,33 +96,39 @@ __host__ __device__ inline int cluster_owner(int slot, int K, int C) {
 // (ms), so that a buffer lies at the same offset in every rank.
 struct ClusterLayout {
   size_t P, AtP, Qxx, stage, Qux, QuuK, Quu, Qs, M, Kt, AB, QQ, RR, Ld, Lu, Lblk, G;
-  size_t p, Qx, Qu, lx, lu, d, w, inv, mult, total;
-  int ms, ldq, lds;
+  size_t p, Qx, Qu, lx, lu, d, w, total;
+  int ms, ldq;
 };
 
 __host__ __device__ inline ClusterLayout cluster_layout(int K, int nx, int nu, int C) {
   ClusterLayout L;
   const int ms = (K + C - 1) / C, k = nx < 3 ? nx : 3;
-  const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu, ncol = nuf + nxf + 1;
+  const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu;
   const size_t mx = (size_t)ms * nx, mu = (size_t)ms * nu;
+  // In the elimination: the multipliers (nuf x chain_ldm) in P and A^T P;
+  // in K, the chain rank's copy of Q_uu (nuf x (nuf + 1)) and, after it,
+  // every rank's right-hand columns (nuf x rhs_cols).
+  const size_t mult = nuf * (size_t)chain_ldm((int)nuf);
+  const size_t elim = pad4(nuf * (nuf + 1)) + nuf * (size_t)rhs_cols((int)nxf, C);
   L.ms = ms;
   L.ldq = (int)pad4(mu);
-  L.lds = (int)pad4(ncol);
   size_t o = 0;
   L.P = o;     o += pad4(mx * nxf);
-  // A^T P in phases 1 and 2; in the elimination, the owner's scaled pivot
-  // rows (mu x lds), which the other ranks read.
-  L.AtP = o;   o += pad4(mx * nxf > mu * L.lds ? mx * nxf : mu * L.lds);
+  // A^T P in phases 1 and 2; with P before it, the multipliers in the
+  // elimination.
+  const size_t after_p = mult > pad4(mx * nxf) ? mult - pad4(mx * nxf) : 0;
+  L.AtP = o;   o += pad4(mx * nxf > after_p ? mx * nxf : after_p);
   L.Qxx = o;   o += pad4(mx * nxf);
-  // W1 in phases 1 and 2; another block's pivot rows in the elimination;
-  // a rank's rows of Q_ux and Q_uu K in the update.
-  L.stage = o; o += 2 * pad4(mu * nxf) > pad4(mu * L.lds) ? 2 * pad4(mu * nxf) : pad4(mu * L.lds);
+  // W1 in phases 1 and 2; a rank's rows of Q_ux and Q_uu K in the update.
+  L.stage = o; o += 2 * pad4(mu * nxf);
   L.Qux = o;   o += pad4(mu * nxf);
   L.QuuK = o;  o += pad4(mu * nxf);
   L.Quu = o;   o += pad4(mu * nuf);
-  L.Qs = o;    o += pad4(nuf * L.ldq);  // Q_uu's columns of the own rows
-  L.M = o;     o += pad4(mu * ncol);
-  L.Kt = o;    o += pad4(nuf * nxf);    // K whole
+  // Q_uu's columns of the own rows; the pivots' reciprocals in the
+  // elimination.
+  L.Qs = o;    o += pad4(nuf * L.ldq);
+  L.M = o;     o += pad4(mu * rhs_ld((int)nxf));  // the own rows of [Q_ux | Q_u]
+  L.Kt = o;    o += pad4(nuf * nxf > elim ? nuf * nxf : elim);  // K whole
   L.AB = o;    o += 2 * (pad4((size_t)K * nx * nx) + pad4((size_t)K * nx * nu));
   L.QQ = o;    o += pad4((size_t)K * nx * nx);
   L.RR = o;    o += pad4((size_t)K * nu * nu);
@@ -116,8 +143,6 @@ __host__ __device__ inline ClusterLayout cluster_layout(int K, int nx, int nu, i
   L.lu = o;    o += pad4(mu);
   L.d = o;     o += pad4(nuf);  // d whole
   L.w = o;     o += pad4(nuf);  // w whole
-  L.inv = o;   o += pad4(CLUSTER_MU);
-  L.mult = o;  o += 2 * CLUSTER_MU * CLUSTER_MU;  // the own block's, the block before's
   L.total = o;
   return L;
 }
@@ -205,34 +230,6 @@ __device__ __forceinline__ void pull2(T* dst0, const T* src0, T* dst1, const T* 
   }
 }
 
-// n values of another rank's buffer into this CTA's, by threads tid of
-// nth: 16 bytes a request where the ends and n allow, four in flight a
-// thread.
-template <typename T>
-__device__ __forceinline__ void pull(T* dst, const T* src, int n, int tid, int nth) {
-  constexpr int PER = 16 / sizeof(T);
-  const bool wide =
-      ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0 &&
-      n % PER == 0;
-  const int nv = wide ? n / PER : n;
-  for (int i = tid; i < nv; i += 4 * nth) {
-    float4 v4[4];
-    T v1[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      if (i + a * nth < nv) {
-        if (wide) v4[a] = reinterpret_cast<const float4*>(src)[i + a * nth];
-        else v1[a] = src[i + a * nth];
-      }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      if (i + a * nth < nv) {
-        if (wide) reinterpret_cast<float4*>(dst)[i + a * nth] = v4[a];
-        else dst[i + a * nth] = v1[a];
-      }
-  }
-}
-
 // Every slot's `per` values of buf (K slots, contiguous) that another rank
 // owns, from that rank's copy at the same offset: 16-byte requests where
 // per allows, four in flight a thread.
@@ -274,151 +271,186 @@ __device__ __forceinline__ void gather_slots(T* buf, int per, int K, int C, int 
   }
 }
 
-// Every loop over pivots below is unrolled to CLUSTER_MU with an exit past
-// the block's count, so that a row's register is picked by a constant
-// index, and every update runs on all CLUSTER_MU register rows without a
-// guard (rows past the block's hold values that are never stored): a
-// guarded update compiled to a branch and its reconvergence per row.
+// The elimination's workers keep their entries in registers, lane l of a
+// warp rows R l .. R l + R - 1 (R = ceil(nuf / 32); rows past nuf hold
+// values that are never stored), under loops over a panel's W pivots
+// unrolled so that the pivot's register row (kp mod R, W a multiple of R)
+// is a constant, and update every register row without a guard: a guarded
+// update compiled to a branch and its reconvergence per row.
 
-// The owner's part of the elimination that runs in one warp (lane l holds
-// column pu0 + l of the mb own rows, the columns of the block before,
-// pmb of them, then those of the own block): first the block before's
-// pivots on those columns, its scaled pivot rows read from their owner
-// (rsave) and its multipliers multp[kp][r] = M[r][pu0 + kp] at pivot kp;
-// then the own block's pivots: the reciprocals, the scaled pivot rows'
-// entries right of each pivot in the block (saved to `save`) and the
-// multipliers mult[kp][r] = M[r][bu0 + kp] at pivot kp.  What the columns
-// right of the block need.
-template <typename T>
-__device__ __forceinline__ void gj_owner_pivots(const T* M, int ncol, int mb, int bu0,
-                                                int pmb, const T* rsave, T* save, int lds,
-                                                T* inv_s, T* mult, T* multp) {
-  const int lane = threadIdx.x & 31, pu0 = bu0 - pmb, nc = pmb + mb;
-  T dv[CLUSTER_MU], pr[CLUSTER_MU];
+// R values of a multiplier row from this lane's first row on.
+template <int R, typename T>
+__device__ __forceinline__ void load_rows(const T* p, T (&m)[R]) {
+  if constexpr (R == 2 || R == 4) {
+    load_vec<R>(p, m);
+  } else {
 #pragma unroll
-  for (int kp = 0; kp < CLUSTER_MU; ++kp)
-    pr[kp] = kp < pmb && lane < nc ? rsave[kp * lds + pu0 + lane] : T(0);
-#pragma unroll
-  for (int r = 0; r < CLUSTER_MU; ++r)
-    dv[r] = r < mb && lane < nc ? M[r * ncol + pu0 + lane] : T(0);
-#pragma unroll
-  for (int kp = 0; kp < CLUSTER_MU; ++kp) {
-    if (kp >= pmb) break;
-    T cr[CLUSTER_MU];
-#pragma unroll
-    for (int r = 0; r < CLUSTER_MU; ++r) cr[r] = __shfl_sync(0xffffffffu, dv[r], kp);
-    if (lane == 0)
-#pragma unroll
-      for (int r = 0; r < CLUSTER_MU; ++r) multp[kp * CLUSTER_MU + r] = cr[r];
-#pragma unroll
-    for (int r = 0; r < CLUSTER_MU; ++r) dv[r] = dv[r] - cr[r] * pr[kp];
+    for (int a = 0; a < R; ++a) m[a] = p[a];
   }
+}
+
+// NC columns in one warp (col[b][a]: column b, this lane's row a).  Panels
+// p0 .. p1 - 1 of W pivots (kp < nuf) on them, in order: the pivot row's
+// entries by shuffle from the lane that holds row kp, scaled by the
+// reciprocal, then col[r] -= M[r][kp] pj with this lane's multipliers of
+// pivot kp (Mult row kp, stride ldm), the pivot row itself set to pj.  The
+// next pivot's multipliers and reciprocal are loaded while a pivot is
+// applied.
+template <int R, int W, int NC, typename T>
+__device__ __forceinline__ void gj_warp_columns(T (&col)[NC][R], int p0, int p1, int nuf,
+                                                const T* Mult, int ldm, const T* inv_s) {
+  static_assert(W % R == 0, "a panel starts on register row 0");
+  const int lane = threadIdx.x & 31, r0 = R * lane;
+  const int k1 = W * p1 < nuf ? W * p1 : nuf;
+  T m[R], inv = T(0);
 #pragma unroll
-  for (int kp = 0; kp < CLUSTER_MU; ++kp) {
-    if (kp >= mb) break;
-    const int lk = pmb + kp;  // the pivot's lane
-    const T inv = T(1) / __shfl_sync(0xffffffffu, dv[kp], lk);
-    T cr[CLUSTER_MU];
+  for (int a = 0; a < R; ++a) m[a] = T(0);
+  if (W * p0 < k1) {
+    inv = inv_s[W * p0];
+    load_rows<R>(Mult + W * p0 * ldm + r0, m);
+  }
+  for (int p = p0; p < p1; ++p) {
 #pragma unroll
-    for (int r = 0; r < CLUSTER_MU; ++r) cr[r] = __shfl_sync(0xffffffffu, dv[r], lk);
-    const T pj = dv[kp] * inv;
-    if (lane > lk && lane < nc) save[kp * lds + pu0 + lane] = pj;
-    if (lane == 0) {
-      inv_s[kp] = inv;
+    for (int c = 0; c < W; ++c) {
+      const int kp = W * p + c, lk = kp / R;
+      if (kp >= k1) break;
+      const T inv_k = inv;
+      T m_k[R];
 #pragma unroll
-      for (int r = 0; r < CLUSTER_MU; ++r) mult[kp * CLUSTER_MU + r] = cr[r];
+      for (int a = 0; a < R; ++a) m_k[a] = m[a];
+      if (kp + 1 < k1) {
+        inv = inv_s[kp + 1];
+        load_rows<R>(Mult + (kp + 1) * ldm + r0, m);
+      }
+      T pj[NC];
+#pragma unroll
+      for (int b = 0; b < NC; ++b)
+        pj[b] = __shfl_sync(0xffffffffu, col[b][c % R], lk) * inv_k;
+#pragma unroll
+      for (int b = 0; b < NC; ++b)
+#pragma unroll
+        for (int a = 0; a < R; ++a)
+          col[b][a] = a == c % R && lane == lk ? pj[b] : col[b][a] - m_k[a] * pj[b];
     }
-#pragma unroll
-    for (int r = 0; r < CLUSTER_MU; ++r) dv[r] = r == kp ? pj : dv[r] - cr[r] * pj;
   }
 }
 
-// The CLUSTER_MU multipliers of pivot kp (mult[kp][.]) as vector loads.
-template <typename T>
-__device__ __forceinline__ void load_multipliers(const T* mult, int kp, T (&m)[CLUSTER_MU]) {
+// NC columns of the square S (row stride lds) from column j on, through
+// panels p0 .. p1 - 1, in one warp: loaded, eliminated, stored back.
+template <int R, int W, int NC, typename T>
+__device__ __forceinline__ void gj_square_columns(T* S, int lds, int nuf, int j, int p0,
+                                                  int p1, const T* Mult, int ldm,
+                                                  const T* inv_s) {
+  const int r0 = R * (threadIdx.x & 31);
+  T col[NC][R];
 #pragma unroll
-  for (int r = 0; r < CLUSTER_MU; r += 4) {
-    T v[4];
-    load_vec<4>(mult + kp * CLUSTER_MU + r, v);
+  for (int b = 0; b < NC; ++b)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) m[r + a] = v[a];
+    for (int a = 0; a < R; ++a)
+      col[b][a] = r0 + a < nuf && j + b < nuf ? S[(r0 + a) * lds + j + b] : T(0);
+  gj_warp_columns<R, W, NC>(col, p0, p1, nuf, Mult, ldm, inv_s);
+#pragma unroll
+  for (int b = 0; b < NC; ++b)
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+      if (r0 + a < nuf && j + b < nuf) S[(r0 + a) * lds + j + b] = col[b][a];
+}
+
+// The named barriers of the pivot chain (0 is the CTA's, 2 the prep's): a
+// panel taken (the chain's, update and push warps), the next panel ready
+// for the chain (the chain's and update warps).
+constexpr int BAR_TAKEN = 1, BAR_READY = 3;
+
+template <int ID>
+__device__ __forceinline__ void named_sync(int threads) {
+  asm volatile("bar.sync %0, %1;" ::"n"(ID), "r"(threads) : "memory");
+}
+
+// The pivot chain's warp: the nuf x nuf square S (row stride lds) in panels
+// of W pivots.  Once panel p is ready (every pivot before it applied, by
+// the update warps), its W columns in registers: for each pivot the pivot
+// row's entries by shuffle, the reciprocal, the multipliers (this lane's
+// rows of the pivot's column) and the reciprocal recorded in Mult and
+// inv_s, the columns right of the pivot updated; then the panel is handed
+// over.
+template <int R, int W, typename T>
+__device__ __forceinline__ void gj_chain_warp(const T* S, int lds, int nuf, T* Mult, int ldm,
+                                              T* inv_s, int taken, int ready) {
+  const int lane = threadIdx.x & 31, r0 = R * lane, np = (nuf + W - 1) / W;
+  for (int p = 0; p < np; ++p) {
+    const int c0 = W * p;
+    if (p > 0) named_sync<BAR_READY>(ready);
+    T reg[W][R];
+#pragma unroll
+    for (int c = 0; c < W; ++c)
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+        const int row = r0 + a, col = c0 + c;
+        reg[c][a] = row < nuf && col < nuf ? S[row * lds + col] : T(0);
+      }
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+      const int kp = c0 + c, lk = kp / R;
+      if (kp >= nuf) break;
+      T pv[W];
+#pragma unroll
+      for (int c2 = c; c2 < W; ++c2) pv[c2] = __shfl_sync(0xffffffffu, reg[c2][c % R], lk);
+      const T inv = T(1) / pv[c];
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+        if (r0 + a < nuf) Mult[kp * ldm + r0 + a] = reg[c][a];
+      if (lane == 0) inv_s[kp] = inv;
+#pragma unroll
+      for (int c2 = c + 1; c2 < W; ++c2) {
+        const T pj = pv[c2] * inv;
+#pragma unroll
+        for (int a = 0; a < R; ++a)
+          reg[c2][a] = a == c % R && lane == lk ? pj : reg[c2][a] - reg[c][a] * pj;
+      }
+    }
+    named_sync<BAR_TAKEN>(taken);
   }
 }
 
-// Column j of the own rows under the pmb pivots of another block (a thread
-// a column): col[r] -= mult[kp][r] pv[kp], kp ascending, the pivot rows'
-// entries pv from PR (row stride lds).
-template <typename T>
-__device__ __forceinline__ void gj_apply_block(T (&col)[CLUSTER_MU], int pmb, int j,
-                                               const T* PR, int lds, const T* mult) {
-#pragma unroll
-  for (int kp = 0; kp < CLUSTER_MU; ++kp) {
-    if (kp >= pmb) break;
-    const T pv = PR[kp * lds + j];
-    T m[CLUSTER_MU];
-    load_multipliers(mult, kp, m);
-#pragma unroll
-    for (int r = 0; r < CLUSTER_MU; ++r) col[r] = col[r] - m[r] * pv;
+// The chain rank's update warps (uw of nuw): once the chain's warp has
+// taken panel p, its pivots first on panel p + 1 (two columns a warp), which
+// then is ready for the chain, then on the square's columns from panel p + 2
+// on (four a warp).
+template <int R, int W, typename T>
+__device__ __forceinline__ void gj_update_warps(T* S, int lds, int nuf, const T* Mult,
+                                                int ldm, const T* inv_s, int uw, int nuw,
+                                                int taken, int ready) {
+  const int np = (nuf + W - 1) / W;
+  for (int p = 0; p < np; ++p) {
+    named_sync<BAR_TAKEN>(taken);
+    if (p + 1 < np) {
+      for (int j = W * (p + 1) + 2 * uw; j < W * (p + 2); j += 2 * nuw)
+        gj_square_columns<R, W, 2>(S, lds, nuf, j, p, p + 1, Mult, ldm, inv_s);
+      named_sync<BAR_READY>(ready);
+    }
+    for (int j = W * (p + 2) + 4 * uw; j < nuf; j += 4 * nuw)
+      gj_square_columns<R, W, 4>(S, lds, nuf, j, p, p + 1, Mult, ldm, inv_s);
   }
 }
 
-// The owner's block on column j right of it: first the pmb pivots of the
-// block before (pivot rows PR, multipliers multp), then its own mb pivots
-// in order, each scaled pivot row's entry saved for the other ranks.
-template <typename T>
-__device__ __forceinline__ void gj_block_column(T* M, int ncol, int mb, int j, T* save,
-                                                int lds, const T* inv_s, const T* mult,
-                                                int pmb, const T* PR, const T* multp) {
-  T col[CLUSTER_MU];
-#pragma unroll
-  for (int r = 0; r < CLUSTER_MU; ++r) col[r] = r < mb ? M[r * ncol + j] : T(0);
-  gj_apply_block(col, pmb, j, PR, lds, multp);
-#pragma unroll
-  for (int kp = 0; kp < CLUSTER_MU; ++kp) {
-    if (kp >= mb) break;
-    const T pj = col[kp] * inv_s[kp];
-    save[kp * lds + j] = pj;
-    T m[CLUSTER_MU];
-    load_multipliers(mult, kp, m);
-#pragma unroll
-    for (int r = 0; r < CLUSTER_MU; ++r) col[r] = r == kp ? pj : col[r] - m[r] * pj;
+// The chain rank's push warps (threads ut of un): once the chain's warp
+// has taken panel p, its multipliers and reciprocals into the other ranks.
+template <int W, typename T>
+__device__ __forceinline__ void gj_push_warps(T* Mult, int ldm, T* inv_s, int nuf, int C,
+                                              int ut, int un, int taken) {
+  const int np = (nuf + W - 1) / W;
+  for (int p = 0; p < np; ++p) {
+    named_sync<BAR_TAKEN>(taken);
+    const int k0 = W * p, nk = nuf - k0 < W ? nuf - k0 : W;
+    const int nv = nk * ldm / (16 / (int)sizeof(T));  // ldm is a multiple of 32
+    const float4* const src = reinterpret_cast<const float4*>(Mult + k0 * ldm);
+    for (int rank = 0; rank < C; ++rank) {
+      if (rank == CHAIN_RANK) continue;
+      float4* const dst = reinterpret_cast<float4*>(at_rank(Mult, rank) + k0 * ldm);
+      for (int e = ut; e < nv; e += un) dst[e] = src[e];
+      if (ut < nk) at_rank(inv_s, rank)[k0 + ut] = inv_s[k0 + ut];
+    }
   }
-#pragma unroll
-  for (int r = 0; r < CLUSTER_MU; ++r)
-    if (r < mb) M[r * ncol + j] = col[r];
-}
-
-// Another block applied to own row `row` (a thread a row): its multipliers
-// mult[kp][row] = M[row][pu0 + kp] at pivot kp (mult_row = mult + row,
-// stride CLUSTER_MU), from the block's scaled pivot rows on the block's
-// columns (PR, row stride lds, from column pu0).
-template <typename T>
-__device__ __forceinline__ void gj_row_multipliers(const T* Mrow, int pmb, const T* PR,
-                                                   int lds, T* mult_row) {
-  T x[CLUSTER_MU];
-#pragma unroll
-  for (int l = 0; l < CLUSTER_MU; ++l) x[l] = l < pmb ? Mrow[l] : T(0);
-#pragma unroll
-  for (int kp = 0; kp < CLUSTER_MU; ++kp) {
-    if (kp >= pmb) break;
-    const T c = x[kp];
-    mult_row[kp * CLUSTER_MU] = c;
-#pragma unroll
-    for (int l = kp + 1; l < CLUSTER_MU; ++l) x[l] = x[l] - c * PR[kp * lds + l];
-  }
-}
-
-// Column j of the mr own rows under another block: load, apply, store.
-template <typename T>
-__device__ __forceinline__ void gj_apply_column(T* M, int ncol, int mr, int pmb, int j,
-                                                const T* PR, int lds, const T* mult) {
-  T col[CLUSTER_MU];
-#pragma unroll
-  for (int r = 0; r < CLUSTER_MU; ++r) col[r] = r < mr ? M[r * ncol + j] : T(0);
-  gj_apply_block(col, pmb, j, PR, lds, mult);
-#pragma unroll
-  for (int r = 0; r < CLUSTER_MU; ++r)
-    if (r < mr) M[r * ncol + j] = col[r];
 }
 
 template <typename T>
@@ -429,18 +461,17 @@ __device__ __forceinline__ void symmetrize_blocks(const T* W, T* S, int n, int w
   }
 }
 
-// The prep of agents [i0, i1) at step t, compiled for the slot width NXC_LO
-// where the problem's slots fit it (K3's input source's choice).
+// The prep of agents [i0, i1) at step t by threads ft of fn (whole warps),
+// compiled for the slot width NXC_LO where the problem's slots fit it (K3's
+// input source's choice).
 template <int NXC_LO, typename T, typename P>
 __device__ __forceinline__ void prep_rows(const P& pb, const CostTerms<T>& c, int t, int i0,
                                           int i1, T* lx, T* lu, T* At, T* Bt, T* Lblk,
-                                          T* G) {
+                                          T* G, int ft, int fn) {
   if (c.nx <= NXC_LO)
-    sweep_prep_rows<NXC_LO, T, P>(pb, c, t, i0, i1, lx, lu, At, Bt, Lblk, G, threadIdx.x,
-                                  blockDim.x);
+    sweep_prep_rows<NXC_LO, T, P>(pb, c, t, i0, i1, lx, lu, At, Bt, Lblk, G, ft, fn);
   else
-    sweep_prep_rows<MAX_NX, T, P>(pb, c, t, i0, i1, lx, lu, At, Bt, Lblk, G, threadIdx.x,
-                                  blockDim.x);
+    sweep_prep_rows<MAX_NX, T, P>(pb, c, t, i0, i1, lx, lu, At, Bt, Lblk, G, ft, fn);
 }
 
 // What the phases of the cluster sweep need: the widths, this rank's rows
@@ -451,9 +482,9 @@ __device__ __forceinline__ void prep_rows(const P& pb, const CostTerms<T>& c, in
 // step (which spilled to local memory, hence to L2 beside 219 KB of shared
 // memory, in every phase).
 struct ClusterCtx {
-  int K, nx, nu, C, q, k0, nxf, nuf, ncol, mx, mu, x0, u0, ms, ldq, lds, kq, ab;
+  int K, nx, nu, C, q, k0, nxf, nuf, mx, mu, x0, u0, ms, ldq, kq, ab;
   int P, AtP, Qxx, stage, Qux, QuuK, Quu, Qs, M, Kt, AB, Ld, Lu, Lblk, p, Qx, Qu, lx, lu,
-      d, w, inv, mult;
+      d, w;
 };
 
 // The CTA's dynamic shared memory (the kernel's extern array).
@@ -463,65 +494,112 @@ __device__ __forceinline__ T* cluster_smem() {
   return reinterpret_cast<T*>(cluster_smem_raw);
 }
 
-// Phase 3: the elimination, a block of pivots a rank.  Iteration b first
-// applies block b - 1 (saved by its owner before the barrier that ended
-// the iteration before) to the own rows; then the owner of block b takes
-// its pivots, the columns right of its block in one pass with block
-// b - 1's, and saves them for the barrier that ends the iteration.  The
-// owner's part is the chain; a rank computes the own slots' inputs of the
-// next step (`prep`, every thread) in the iteration after its own block,
-// where it has nothing to apply (the last rank: in the first), between
-// arriving at that iteration's barrier and waiting on it.
-template <typename T, typename Prep>
-__device__ __noinline__ void cluster_eliminate(const ClusterCtx& x, const Prep& prep) {
+// Phase 3a: the pivot chain.  Every rank writes its rows of Q_uu into the
+// chain rank's square and its rows of [Q_ux | Q_u] into the ranks that
+// take their chunks (both in K, free until phase 4), and arrives at the
+// cluster barrier; the other ranks compute their slots' inputs of the
+// next step (`prep`, every thread) before they wait on it.  On the chain
+// rank, once every row has landed, the chain's, update, push and prep
+// warps below.  Ends with the cluster barrier after which every rank holds
+// every multiplier and reciprocal (Mult in its P and A^T P, the
+// reciprocals in its Q_s).
+template <typename T, int R, int W, typename Prep>
+__device__ __noinline__ void cluster_pivot_chain(const ClusterCtx& x, const Prep& prep) {
+  static_assert(CLUSTER_THREADS == 384, "the chain rank's roles take twelve warps");
+  // Warp 0 the chain, alone on its scheduler (a warp w issues on scheduler
+  // w mod 4); warps 1-3 and 5-7 the updates; warps 4 and 8, which share
+  // warp 0's scheduler, the pushes; warps 9-11 the prep.
+  constexpr int UPDATE_WARPS = 6, PREP0 = 9 * 32;
+  constexpr int TAKEN = 9 * 32, READY = 32 * (1 + UPDATE_WARPS);
   T* const sm = cluster_smem<T>();
-  const int K = x.K, nu = x.nu, C = x.C, q = x.q, nuf = x.nuf, ncol = x.ncol,
-            mu_ = x.mu, lds = x.lds;
+  const int C = x.C, nxf = x.nxf, nuf = x.nuf, mu_ = x.mu, u0 = x.u0;
+  const int lds = nuf + 1, ldm = chain_ldm(nuf), ldb = rhs_ld(nxf), ldc = rhs_cols(nxf, C),
+            nch = rhs_chunks(nxf);
   const int tid = threadIdx.x, nth = blockDim.x;
-  T* const M = sm + x.M;
-  T* const save = sm + x.AtP;  // the scaled pivot rows of the own block
-  T* const inv_s = sm + x.inv;
-  T* const mult = sm + x.mult;
-  T* const multp = mult + CLUSTER_MU * CLUSTER_MU;
-  T* const PR = sm + x.stage;  // another block's pivot rows
-  for (int b = 0; b <= C; ++b) {
-    const int bu0 = b < C ? cluster_slot0(b, K, C) * nu : nuf;
-    const int mb = b < C ? cluster_slot0(b + 1, K, C) * nu - bu0 : 0, bu1 = bu0 + mb;
-    const int pu0 = b > 0 ? cluster_slot0(b - 1, K, C) * nu : 0, pmb = bu0 - pu0;
-    const T* rsave = at_rank(save, b > 0 ? b - 1 : q);
-    if (b == q) {
-      // One warp: block b - 1 on the own block's columns, then the own
-      // pivots; the others fetch block b - 1's pivot rows meanwhile.
-      if (tid < 32)
-        gj_owner_pivots(M, ncol, mb, bu0, pmb, rsave, save, lds, inv_s, mult, multp);
-      else if (b > 0)
-        pull(PR, rsave, pmb * lds, tid - 32, nth - 32);
-      __syncthreads();
-      for (int j = bu1 + tid; j < ncol; j += nth)
-        gj_block_column(M, ncol, mb, j, save, lds, inv_s, mult, pmb, PR, multp);
-    } else if (b > 0 && b - 1 != q) {
-      // Block b - 1's pivot rows, whole, into the staging buffer; the own
-      // rows' multipliers of it; then every column right of it.
-      pull(PR, rsave, pmb * lds, tid, nth);
-      __syncthreads();
-      if (tid < mu_)
-        gj_row_multipliers(M + tid * ncol + pu0, pmb, PR + pu0, lds,
-                           multp + tid);
-      __syncthreads();
-      for (int j = bu0 + tid; j < ncol; j += nth)
-        gj_apply_column(M, ncol, mu_, pmb, j, PR, lds, multp);
-      __syncthreads();
+  T* const S = sm + x.Kt;
+  T* const CB = S + pad4((size_t)nuf * lds);
+  T* const Mult = sm + x.P;
+  T* const inv_s = sm + x.Qs;
+  {
+    const T* const Quu = sm + x.Quu;
+    T* const dst = at_rank(S, CHAIN_RANK) + (size_t)u0 * lds;
+    for (int e = tid; e < mu_ * nuf; e += nth) {
+      const int r = e / nuf;
+      dst[r * lds + e - r * nuf] = Quu[e];
     }
-    if (b == (q + 1) % C) {
-      // This rank has nothing to do in this iteration: it arrives at once
-      // and computes its inputs while the owner of block b works.
-      cluster_arrive();
-      prep();
-      cluster_wait();
-    } else if (b < C) {
-      cluster_sync();  // block b's pivot rows are saved
+    const T* const M = sm + x.M;
+    for (int e = tid; e < mu_ * nch; e += nth) {
+      const int r = e / nch, ch = e - r * nch, o = cluster_owner(ch, nch, C);
+      T v[4];
+      load_vec<4>(M + r * ldb + 4 * ch, v);
+      store_row<4>(at_rank(CB, o) + (u0 + r) * ldc + 4 * (ch - cluster_slot0(o, nch, C)), 4,
+                   true, v);
     }
   }
+  cluster_arrive();
+  if (x.q != CHAIN_RANK) {
+    prep(tid, nth);
+    cluster_wait();
+    cluster_sync();  // the multipliers and reciprocals have landed
+    return;
+  }
+  cluster_wait();  // the square has landed
+  const int wrp = tid >> 5;
+  if (wrp == 0)
+    gj_chain_warp<R, W>(S, lds, nuf, Mult, ldm, inv_s, TAKEN, READY);
+  else if (wrp < 8 && wrp != 4)
+    gj_update_warps<R, W>(S, lds, nuf, Mult, ldm, inv_s, wrp - 1 - (wrp > 4), UPDATE_WARPS,
+                          TAKEN, READY);
+  else if (wrp == 4 || wrp == 8)
+    gj_push_warps<W>(Mult, ldm, inv_s, nuf, C, tid & 31 | (wrp == 8) << 5, 64, TAKEN);
+  else if (tid >= PREP0)
+    prep(tid - PREP0, nth - PREP0);
+  __syncthreads();
+  cluster_sync();  // the multipliers and reciprocals have landed
+}
+
+// Phase 3b: the right-hand pass.  Rank q takes chunks [q n / C, (q + 1) n
+// / C) of the n chunks of [Q_ux | Q_u], a chunk of four columns a warp,
+// every row in registers (from this rank's copy in K), through every pivot
+// (the multipliers and reciprocals in its P and Q_s), and back to the rows'
+// owners; then the cluster barrier after which each rank's rows of M hold
+// its rows of X and x, the solution.
+template <typename T, int R, int W>
+__device__ __noinline__ void cluster_right_pass(const ClusterCtx& x) {
+  T* const sm = cluster_smem<T>();
+  const int K = x.K, nu = x.nu, C = x.C, q = x.q, nxf = x.nxf, nuf = x.nuf;
+  const int ldm = chain_ldm(nuf), ldb = rhs_ld(nxf), ldc = rhs_cols(nxf, C),
+            nch = rhs_chunks(nxf), np = (nuf + W - 1) / W;
+  const int lane = threadIdx.x & 31, wrp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int r0 = R * lane, ch0 = cluster_slot0(q, nch, C), ch1 = cluster_slot0(q + 1, nch, C);
+  const T* const CB = sm + x.Kt + pad4((size_t)nuf * (nuf + 1));
+  const T* const Mult = sm + x.P;
+  const T* const inv_s = sm + x.Qs;
+  T* const M = sm + x.M;
+  T* dst[R];  // this lane's rows in their owners' M
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int row = r0 + a < nuf ? r0 + a : nuf - 1, o = cluster_owner(row / nu, K, C);
+    dst[a] = at_rank(M, o) + (row - cluster_slot0(o, K, C) * nu) * ldb;
+  }
+  for (int ch = ch0 + wrp; ch < ch1; ch += nw) {
+    T col[4][R];
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+      T v[4] = {T(0), T(0), T(0), T(0)};
+      if (r0 + a < nuf) load_vec<4>(CB + (r0 + a) * ldc + 4 * (ch - ch0), v);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) col[b][a] = v[b];
+    }
+    gj_warp_columns<R, W, 4>(col, 0, np, nuf, Mult, ldm, inv_s);
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+      if (r0 + a < nuf) {
+        const T v[4] = {col[0][a], col[1][a], col[2][a], col[3][a]};
+        store_row<4>(dst[a] + 4 * ch, 4, true, v);
+      }
+  }
+  cluster_sync();  // every rank's rows of the solution
 }
 
 // One rank's rows v0 .. v0 + mv - 1 of Qux (qx) and Quu K (qk) into a
@@ -746,11 +824,12 @@ __device__ __noinline__ void cluster_phase1(const ClusterCtx& x, int t, T mu) {
   __syncthreads();
 }
 
-// Phase 2 of step t on the own rows: Q_xx, Q_ux, Q_uu and the tableau.
+// Phase 2 of step t on the own rows: Q_xx, Q_ux, Q_uu and the right-hand
+// sides [Q_ux | Q_u] (M).
 template <typename T>
 __device__ __noinline__ void cluster_phase2(const ClusterCtx& x, int t) {
   T* const sm = cluster_smem<T>();
-  const int K = x.K, nx = x.nx, nu = x.nu, nxf = x.nxf, nuf = x.nuf, ncol = x.ncol,
+  const int K = x.K, nx = x.nx, nu = x.nu, nxf = x.nxf, nuf = x.nuf, ldb = rhs_ld(nxf),
             mx = x.mx, mu_ = x.mu, x0 = x.x0, u0 = x.u0, kq = x.kq;
   const T* const At = sm + x.AB + (t & 1) * x.ab;
   const T* const Bt = At + pad4((size_t)K * nx * nx);
@@ -784,7 +863,7 @@ __device__ __noinline__ void cluster_phase2(const ClusterCtx& x, int t) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             Qux[(r0 + i) * nxf + col] = acc[i];
-            M[(r0 + i) * ncol + nuf + col] = acc[i];
+            M[(r0 + i) * ldb + col] = acc[i];
           }
         }
       }
@@ -797,9 +876,7 @@ __device__ __noinline__ void cluster_phase2(const ClusterCtx& x, int t) {
           bd_right_full(W1, nxf, Bt, nu, nx, r0, kc, jc, acc);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const T qv = acc[i] + luu_entry(u0 + r0 + i, col, nu, Lu);
-            Quu[(r0 + i) * nuf + col] = qv;
-            M[(r0 + i) * ncol + col] = qv;
+            Quu[(r0 + i) * nuf + col] = acc[i] + luu_entry(u0 + r0 + i, col, nu, Lu);
           }
         }
       }
@@ -824,7 +901,7 @@ __device__ __noinline__ void cluster_phase2(const ClusterCtx& x, int t) {
           for (int i = 0; i < 4; ++i)
             if (r0 + i < mu_) {
               Qux[(r0 + i) * nxf + col] = acc[i];
-              M[(r0 + i) * ncol + nuf + col] = acc[i];
+              M[(r0 + i) * ldb + col] = acc[i];
             }
         }
       }
@@ -840,16 +917,14 @@ __device__ __noinline__ void cluster_phase2(const ClusterCtx& x, int t) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             if (r0 + i < mu_) {
-              const T qv = acc[i] + luu_entry(u0 + r0 + i, col, nu, Lu);
-              Quu[(r0 + i) * nuf + col] = qv;
-              M[(r0 + i) * ncol + col] = qv;
+              Quu[(r0 + i) * nuf + col] = acc[i] + luu_entry(u0 + r0 + i, col, nu, Lu);
             }
         }
       }
   }
   }
   const T* const Qu = sm + x.Qu;
-  for (int i = threadIdx.x; i < mu_; i += blockDim.x) M[i * ncol + nuf + nxf] = Qu[i];
+  for (int i = threadIdx.x; i < mu_; i += blockDim.x) M[i * ldb + nxf] = Qu[i];
   __syncthreads();
 }
 
@@ -859,7 +934,7 @@ __device__ __noinline__ void cluster_phase2(const ClusterCtx& x, int t) {
 template <typename T>
 __device__ __noinline__ void cluster_gains(const ClusterCtx& x, int t, T* Kg, T* dg) {
   T* const sm = cluster_smem<T>();
-  const int nxf = x.nxf, nuf = x.nuf, ncol = x.ncol, mu_ = x.mu, u0 = x.u0;
+  const int nxf = x.nxf, nuf = x.nuf, ldb = rhs_ld(nxf), mu_ = x.mu, u0 = x.u0;
   const int tid = threadIdx.x, nth = blockDim.x;
   const T* const M = sm + x.M;
   T* const Kt = sm + x.Kt + (size_t)u0 * nxf;
@@ -867,12 +942,12 @@ __device__ __noinline__ void cluster_gains(const ClusterCtx& x, int t, T* Kg, T*
   T* const Kg_t = Kg + (size_t)t * nuf * nxf + (size_t)u0 * nxf;
   for (int e = tid; e < mu_ * nxf; e += nth) {
     const int r = e / nxf, col = e - r * nxf;
-    const T kval = -M[r * ncol + nuf + col];
+    const T kval = -M[r * ldb + col];
     Kt[e] = kval;
     Kg_t[e] = kval;
   }
   for (int r = tid; r < mu_; r += nth) {
-    const T dval = -M[r * ncol + nuf + nxf];
+    const T dval = -M[r * ldb + nxf];
     d[u0 + r] = dval;
     dg[(size_t)t * nuf + u0 + r] = dval;
   }
@@ -999,13 +1074,12 @@ __device__ __forceinline__ void riccati_cluster_sweep(const Prob& pb, const T mu
   const int mx = (k1 - k0) * nx, x0 = k0 * nx;
   const int tid = threadIdx.x, nth = blockDim.x;
   const int ab = (int)(pad4((size_t)K * nx * nx) + pad4((size_t)K * nx * nu));
-  const ClusterCtx ctx = {K, nx, nu, C, q, k0, nxf, nuf, nuf + nxf + 1, mx,
-                          (k1 - k0) * nu, x0, k0 * nu, L.ms, L.ldq, L.lds, kq, ab,
-                          (int)L.P, (int)L.AtP, (int)L.Qxx, (int)L.stage, (int)L.Qux,
-                          (int)L.QuuK, (int)L.Quu, (int)L.Qs, (int)L.M, (int)L.Kt,
-                          (int)L.AB, (int)L.Ld, (int)L.Lu, (int)L.Lblk, (int)L.p,
-                          (int)L.Qx, (int)L.Qu, (int)L.lx, (int)L.lu, (int)L.d, (int)L.w,
-                          (int)L.inv, (int)L.mult};
+  const ClusterCtx ctx = {K, nx, nu, C, q, k0, nxf, nuf, mx, (k1 - k0) * nu, x0, k0 * nu,
+                          L.ms, L.ldq, kq, ab, (int)L.P, (int)L.AtP, (int)L.Qxx,
+                          (int)L.stage, (int)L.Qux, (int)L.QuuK, (int)L.Quu, (int)L.Qs,
+                          (int)L.M, (int)L.Kt, (int)L.AB, (int)L.Ld, (int)L.Lu,
+                          (int)L.Lblk, (int)L.p, (int)L.Qx, (int)L.Qu, (int)L.lx, (int)L.lu,
+                          (int)L.d, (int)L.w};
   T* const QQ = sm + L.QQ;
   T* const RR = sm + L.RR;
   T* const Ld = sm + L.Ld;
@@ -1014,11 +1088,12 @@ __device__ __forceinline__ void riccati_cluster_sweep(const Prob& pb, const T mu
   T* const G = sm + L.G;
   const CostTerms<T> c = {pb.xf, QQ, RR, pb.mask, pb.npos, pb.refw, pb.radius, pb.pw,
                           K, nx, nu, kq};
-  // The own slots' inputs of step s (A_s, B_s into that step's half of AB).
-  auto prep_step = [&](int s) {
+  // The own slots' inputs of step s (A_s, B_s into that step's half of AB)
+  // by threads ft of fn.
+  auto prep_step = [&](int s, int ft, int fn) {
     T* const As = sm + L.AB + (s & 1) * ab;
     prep_rows<NXC_LO>(pb, c, s, k0, k1, sm + L.lx, sm + L.lu, As,
-                      As + pad4((size_t)K * nx * nx), Lblk, G);
+                      As + pad4((size_t)K * nx * nx), Lblk, G, ft, fn);
   };
 
   // The terminal step's P and p (ComputedInputs::init, own rows), then the
@@ -1028,7 +1103,7 @@ __device__ __forceinline__ void riccati_cluster_sweep(const Prob& pb, const T mu
   __syncthreads();
   constant_blocks(c, Ld, Lu, tid, nth);
   prep_rows<NXC_LO>(pb, c, N, k0, k1, sm + L.p, (T*)nullptr, (T*)nullptr, (T*)nullptr,
-                    Lblk, G);
+                    Lblk, G, tid, nth);
   __syncthreads();
   {
     const T* const Lrows = Lblk - (long long)k0 * K * kq * kq;
@@ -1039,7 +1114,7 @@ __device__ __forceinline__ void riccati_cluster_sweep(const Prob& pb, const T mu
   symmetrize_blocks(pb.Q, QQ, K, nx);
   __syncthreads();
   constant_blocks(c, Ld, Lu, tid, nth);
-  if (N > 0) prep_step(N - 1);
+  if (N > 0) prep_step(N - 1, tid, nth);
   cluster_sync();
 #ifdef DPILQR_PHASE_CLOCKS
   long long phase_start_ = clock64();
@@ -1051,13 +1126,31 @@ __device__ __forceinline__ void riccati_cluster_sweep(const Prob& pb, const T mu
     RICCATI_CLOCK(1)
     cluster_phase2<T>(ctx, t);
     RICCATI_CLOCK(2)
-    // The elimination; inside it, while this rank waits for a block's
-    // owner, the own slots' inputs of the next step.
-    auto prep = [&]() {
-      if (t > 0) prep_step(t - 1);
+    // The elimination: the pivot chain, beside it the own slots' inputs of
+    // the next step; then the right-hand columns.
+    auto prep = [&](int ft, int fn) {
+      if (t > 0) prep_step(t - 1, ft, fn);
     };
-    cluster_eliminate<T>(ctx, prep);
-    RICCATI_CLOCK(3)
+    // Panels of 12 pivots (16 where a lane holds 4 rows), a multiple of
+    // the rows R a lane holds.
+    if (nuf > 96) {
+      cluster_pivot_chain<T, 4, 16>(ctx, prep);
+      RICCATI_CLOCK(3)
+      cluster_right_pass<T, 4, 16>(ctx);
+    } else if (nuf > 64) {
+      cluster_pivot_chain<T, 3, 12>(ctx, prep);
+      RICCATI_CLOCK(3)
+      cluster_right_pass<T, 3, 12>(ctx);
+    } else if (nuf > 32) {
+      cluster_pivot_chain<T, 2, 12>(ctx, prep);
+      RICCATI_CLOCK(3)
+      cluster_right_pass<T, 2, 12>(ctx);
+    } else {
+      cluster_pivot_chain<T, 1, 12>(ctx, prep);
+      RICCATI_CLOCK(3)
+      cluster_right_pass<T, 1, 12>(ctx);
+    }
+    RICCATI_CLOCK(8)
     cluster_gains<T>(ctx, t, Kg, dg);
     RICCATI_CLOCK(4)
     cluster_phase5<T>(ctx);

@@ -95,8 +95,8 @@ SMEM_LIMIT = 232_448
 FORWARD_WARPS_PER_CTA = 8
 
 # K3's cluster tier (csrc/riccati_cluster.cuh): the largest cluster (the
-# portable limit) and the control rows one CTA of it may own (the register
-# rows of its elimination).
+# portable limit) and the control rows one CTA of it may own (so that a
+# warp of its elimination holds every row of Q_uu, four a lane).
 CLUSTER_MAX = 8
 CLUSTER_MU = 16
 # Tableau columns ([Q_uu | Q_ux | Q_u]) the backward kernels eliminate in
@@ -179,24 +179,27 @@ def cluster_layout_values(K: int, nx: int, nu: int, C: int) -> int:
     """Values of one CTA's shared memory when a cluster of ``C`` CTAs holds
     a problem of ``K`` slots (K3's cluster tier): the mirror of
     ``cluster_layout`` in csrc/riccati_cluster.cuh.  Each rank owns at most
-    ``ms`` slots: its rows of P, A^T P, Q_xx (and the pivot rows it saves),
-    a staging buffer (another rank's pivot rows, or rows of Q_ux and Q_uu
-    K), its rows of Q_ux, Q_uu K, Q_uu, the tableau, Q_uu's
-    columns of its rows, K whole, two steps' A and B blocks, the cost
-    blocks, its rows of the proximity blocks and gradient terms, and the
+    ``ms`` slots: its rows of P and A^T P (together, the elimination's
+    multipliers, ``nuf`` x ``chain_ldm``), of Q_xx, a staging buffer (rows
+    of Q_ux and Q_uu K), its rows of Q_ux, Q_uu K, Q_uu, Q_uu's columns of
+    its rows, its rows of the right-hand sides [Q_ux | Q_u], K whole (in
+    the elimination, the chain rank's copy of Q_uu and the rank's share of
+    the right-hand columns), two steps' A and B blocks, the cost blocks,
+    its rows of the proximity blocks and gradient terms, and the
     vectors."""
     ms, k = -(-K // C), min(3, nx)
     nxf, nuf = K * nx, K * nu
-    ncol = nuf + nxf + 1
     mx, mu = ms * nx, ms * nu
-    ldq, lds = _pad4(mu), _pad4(ncol)
-    return (2 * _pad4(mx * nxf) + _pad4(max(mx * nxf, mu * lds))
-            + max(2 * _pad4(mu * nxf), _pad4(mu * lds)) + 2 * _pad4(mu * nxf)
-            + _pad4(mu * nuf) + _pad4(nuf * ldq) + _pad4(mu * ncol) + _pad4(nuf * nxf)
+    ldb = _pad4(nxf + 1)  # [Q_ux | Q_u] in chunks of four columns
+    mult = nuf * _pad32(nuf)
+    elim = _pad4(nuf * (nuf + 1)) + nuf * 4 * -(-(ldb // 4) // C)
+    return (2 * _pad4(mx * nxf) + _pad4(max(mx * nxf, mult - _pad4(mx * nxf)))
+            + 2 * _pad4(mu * nxf) + 2 * _pad4(mu * nxf)
+            + _pad4(mu * nuf) + _pad4(nuf * _pad4(mu)) + _pad4(mu * ldb)
+            + _pad4(max(nuf * nxf, elim))
             + 2 * (_pad4(K * nx * nx) + _pad4(K * nx * nu)) + 2 * _pad4(K * nx * nx)
             + 2 * _pad4(K * nu * nu) + _pad4(ms * K * k * k) + _pad4(ms * K * 3)
-            + 3 * _pad4(mx) + 2 * _pad4(mu) + 2 * _pad4(nuf) + _pad4(CLUSTER_MU)
-            + 2 * CLUSTER_MU * CLUSTER_MU)
+            + 3 * _pad4(mx) + 2 * _pad4(mu) + 2 * _pad4(nuf))
 
 
 def sweep_smem_bytes(n: int, nx: int, nu: int, itemsize: int,

@@ -7,7 +7,7 @@ It needs one CUDA device and only ``chip_smoke.py`` and the package of the
 tree it runs in, so it also runs in an older tree it is copied into:
 
     python3 scripts/compare_builds.py times TAG
-    python3 scripts/compare_builds.py backward TAG
+    python3 scripts/compare_builds.py backward TAG [MATCH]
     python3 scripts/compare_builds.py forward TAG
     python3 scripts/compare_builds.py bits OUT.pt [OTHER.pt]
 
@@ -28,7 +28,9 @@ says float64, at the shapes phases 3a, 3b and 7c of ``chip_smoke.py`` time:
 ``backward_pass_batched`` on CUDA tensors as a whole (in a tree whose K1 and
 K3 take their inputs from the torch prep, the prep and the launch) and the
 launch alone (CUDA events around the kernel), K3 forced at nxf 32 too,
-and K3 at Quad6D K=32 (nxf 192) at S=16 and S=64 in both types.
+K3 at Quad6D K=32 (nxf 192) at S=16 and S=64 in both types, and K3 at the
+hetero_99 fleet's K=32 (nxf 160) at S=33 and S=99 in float32; with MATCH,
+only the shapes whose label holds it (``"K=32"``: the cluster tier's).
 
 ``forward`` times the forward kernels' launches alone (CUDA events, the
 least of 20), with gains, at the shapes where a step's whole gain block
@@ -37,8 +39,8 @@ Quad12D at K=8 (2 alphas), Quad6D at K=32 S=16 (2 and 10 alphas, float32
 and float64); K4 at the 10-agent centralized shape (10 alphas, both types).
 
 ``bits`` saves the outputs of the three backward kernels (K1 and K3 on the
-same narrow batches, K3 at Quad6D K=16 and at K=32, S=16 and S=64, K5 at
-10 agents) and of the two
+same narrow batches, K3 at Quad6D K=16 and at K=32, S=16 and S=64, and at
+the hetero_99 fleet's K=32, S=33 and S=99, K5 at 10 agents) and of the two
 forward ones at the smoke's phase 3a and 3c shapes (K2 at 100 Unicycle4D,
 K=8, 2 and 10 alphas, with and without gains; K4 with gains at 10 agents
 over 10 alphas and without at 100), float64 and float32, to OUT.pt; given
@@ -98,7 +100,17 @@ def quad6d_k32(dtype, dev):
     return backward_args(fleet, cost, x0, 32, dev, u_scale=0.01, u_trim=np.array([G, 0, 0]))
 
 
-def backward(tag, dev):
+def hetero99_k32(dtype, dev):
+    """The hetero99 loop's widest batch: the hetero_99 configuration's 99
+    agents (DoubleInt4D, Car3D and Bike5D in turn, swapping with a
+    neighbour at 0.75) at K=32 (nxf 160, nuf 64, S=99)."""
+    fleet = dtt.Fleet.from_names(["DoubleInt4D", "Car3D", "Bike5D"] * 33, cs.DT)
+    x4, xf4 = cs.swap_scenario(fleet.n_agents, 0.75)
+    cost, x0 = cs.problem(fleet, x4, xf4, dtype, dev)
+    return backward_args(fleet, cost, x0, 32, dev, seed=1)
+
+
+def backward(tag, dev, match=""):
     def shapes():
         for dtype in (torch.float64, torch.float32):
             fleet, cost, x0 = cs.unicycle_problem(cs.N_AGENTS, 0.55, dtype, dev)
@@ -132,6 +144,10 @@ def backward(tag, dev):
             yield (f"K3 Quad6D K=32 nxf 192 S=16 {str(dtype)[6:]}", "wide",
                    cs.cut_args(a, slice(None, None, 4)))
             yield f"K3 Quad6D K=32 nxf 192 S=64 {str(dtype)[6:]}", "wide", a
+        a = hetero99_k32(torch.float32, dev)
+        yield "K3 hetero_99 K=32 nxf 160 S=33 float32", "wide", cs.cut_args(
+            a, slice(None, None, 3))
+        yield "K3 hetero_99 K=32 nxf 160 S=99 float32", "wide", a
         fleet = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, cs.N_AGENTS, cs.DT)
         parts = []
         for t in range(8):
@@ -143,6 +159,8 @@ def backward(tag, dev):
             *(torch.cat([p[i] for p in parts]) for i in (2, 3, 4, 5)))
 
     for label, kernel, args in shapes():
+        if match not in label:
+            continue
         name = "backward_batched" if kernel == "narrow" else "backward_batched_wide"
         whole = cs.timed(lambda: forced_backward(kernel, args), 10)
         with cuda_build.timed_launches() as record:
@@ -291,6 +309,16 @@ def forward(tag, dev):
               f"alone {ms:.4f} ms", flush=True)
 
 
+def same_bits(a, b):
+    """Whether two outputs hold the same bits (NaNs included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
 def bits(out_path, other_path, dev):
     out = {}
     for names, K in ((["Unicycle4D"], 8), (["Unicycle4D"], 4), (["Unicycle4D"], 1),
@@ -312,6 +340,10 @@ def bits(out_path, other_path, dev):
         args = quad6d_k32(dtype, dev)
         for label, a in (("S=16", cs.cut_args(args, slice(None, None, 4))), ("S=64", args)):
             out[f"K3 Quad6D K=32 {label} {str(dtype)[6:]}"] = [
+                t.cpu() for t in forced_backward("wide", a)]
+        args = hetero99_k32(dtype, dev)
+        for label, a in (("S=33", cs.cut_args(args, slice(None, None, 3))), ("S=99", args)):
+            out[f"K3 hetero_99 K=32 {label} {str(dtype)[6:]}"] = [
                 t.cpu() for t in forced_backward("wide", a)]
         fleet, cost, x0 = cs.centralized_inputs(dtype, dev)
         x0 = torch.as_tensor(x0, dtype=dtype, device=dev)
@@ -342,12 +374,15 @@ def bits(out_path, other_path, dev):
     torch.save(out, out_path)
     for key, val in out.items():
         if key.startswith("K1"):
-            same = all(torch.equal(a, b) for a, b in zip(val, out["K3" + key[2:]]))
+            same = all(same_bits(a, b) for a, b in zip(val, out["K3" + key[2:]]))
             print(f"{key}: K1 and K3 agree bit for bit: {same}")
     if other_path:
         other = torch.load(other_path)
         for key, val in out.items():
-            same = all(torch.equal(a, b) for a, b in zip(val, other[key]))
+            if key not in other:
+                print(f"{key}: not in {other_path}")
+                continue
+            same = all(same_bits(a, b) for a, b in zip(val, other[key]))
             diff = max(float((a - b).abs().max() / b.abs().max())
                        for a, b in zip(val, other[key]))
             print(f"{key}: the two builds agree bit for bit: {same} (rel diff {diff:.3e})")
@@ -375,7 +410,7 @@ def main():
     if sys.argv[1] == "times":
         times(sys.argv[2], dev)
     elif sys.argv[1] == "backward":
-        backward(sys.argv[2], dev)
+        backward(sys.argv[2], dev, sys.argv[3] if len(sys.argv) > 3 else "")
     elif sys.argv[1] == "forward":
         forward(sys.argv[2], dev)
     else:

@@ -23,9 +23,11 @@ computation that the elimination does not hide; so does K5's at 10
 Unicycle4D.  Where K3's elimination is in place (past 160 tableau
 columns) the prep runs after it, inside phase 3.  A launch whose plan puts
 a subproblem on a cluster of CTAs (the cluster tier, Quad6D K=32 in
-float32) reads the clocks of rank 0 of the first cluster: its elimination
-in blocks of pivots is phase 3, and its own share of the next step's prep
-sits in phase 4 with the gains.
+float32, and the hetero_99 fleet's K=32) reads the clocks of rank 0 of the
+first cluster, the rank that runs the elimination's pivot chain: phase 3
+splits into 3a, the chain over Q_uu's own columns (with the other ranks'
+share of the next step's prep beside it), and 3b, the right-hand columns'
+pass on every rank.  A build from before that split has one phase 3.
 """
 
 import argparse
@@ -35,8 +37,12 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PHASES = ("0 step top", "1 Qx Qu AtP W1", "2 Qxx Qux Quu", "3 Gauss-Jordan",
-          "4 gains", "5 QuuK KtQux", "6 value update", "7 symmetrize")
+# Clock slots in the order a step runs them; slot 8 (3b) exists only in a
+# build that splits the cluster tier's elimination.
+PHASES = ("0 step top", "1 Qx Qu AtP W1", "2 Qxx Qux Quu", "3 Gauss-Jordan / 3a pivot chain",
+          "4 gains", "5 QuuK KtQux", "6 value update", "7 symmetrize",
+          "3b right-hand pass")
+ORDER = (0, 1, 2, 3, 8, 4, 5, 6, 7)
 
 
 def main():
@@ -68,7 +74,7 @@ def main():
             "sweep": lib.dpilqr_riccati_phase_clocks_sweep}[opts.kernel]
     read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     launch = bt.backward_pass_batched_cuda if narrow else bt.backward_pass_batched_wide_cuda
-    buf = (ctypes.c_ulonglong * len(PHASES))()
+    buf = (ctypes.c_ulonglong * len(PHASES))()  # a build with 8 slots leaves the 9th 0
     print(f"device: {torch.cuda.get_device_name(0)}; {opts.kernel} kernel"
           + (f", {opts.threads} threads" if opts.threads else "")
           + f"; cycles per step (N = {cs.HORIZON}) of the first CTA, float32")
@@ -100,6 +106,14 @@ def main():
         cost, x0 = cs.problem(fleet, x0, xf, torch.float32, dev)
         return cs.sweep_inputs(fleet, cost, x0, K, dev, seed=1)[0]
 
+    def hetero99(K):
+        # The hetero_99 configuration's fleet: 99 agents of three models in
+        # turn, swapping with a neighbour at 0.75.
+        fleet = dtt.Fleet.from_names(["DoubleInt4D", "Car3D", "Bike5D"] * 33, cs.DT)
+        x0, xf = cs.swap_scenario(fleet.n_agents, 0.75)
+        cost, x0 = cs.problem(fleet, x0, xf, torch.float32, dev)
+        return cs.sweep_inputs(fleet, cost, x0, K, dev, seed=1)[0]
+
     if narrow:
         cases = [(f"Unicycle4D K={K} nxf {4 * K}", lambda K=K: unicycles(K))
                  for K in (8, 4, 2, 1)] + [
@@ -118,6 +132,11 @@ def main():
         cases += [("Quad6D K=32 nxf 192", lambda: cs.cut_args(
                       quads(dtt.QUAD_6D, 32, 0.01, [g, 0, 0]), slice(None, None, 4))),
                   ("Quad6D K=32 nxf 192", lambda: quads(dtt.QUAD_6D, 32, 0.01, [g, 0, 0]))]
+        # nxf 160: the hetero99 loop's widest steps, every third subproblem
+        # and the whole batch.
+        cases += [("hetero_99 K=32 nxf 160",
+                   lambda: cs.cut_args(hetero99(32), slice(None, None, 3))),
+                  ("hetero_99 K=32 nxf 160", lambda: hetero99(32))]
     for tag, make in cases:
         args = make()
         ms = cs.timed(lambda: launch(*args), 20)
@@ -141,8 +160,7 @@ def report(read, buf, run, tag, ms, N):
         sys.exit("reading the phase clocks failed")
     per_step = np.array(list(buf), dtype=np.float64) / N
     print(f"{tag}: {ms:.4f} ms a launch (clocks on); total {per_step.sum():.0f}; "
-          + ", ".join(f"{name} {c:.0f}" for name, c in zip(PHASES, per_step)),
-          flush=True)
+          + ", ".join(f"{PHASES[i]} {per_step[i]:.0f}" for i in ORDER), flush=True)
 
 
 if __name__ == "__main__":

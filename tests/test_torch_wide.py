@@ -200,7 +200,7 @@ def test_solve_distributed_wide_matches_jax():
 # the narrow widths, the routed Quad6D/Quad12D/mixed widths and past them.
 PLAN_SHAPES = [(1, 4, 2), (4, 4, 2), (8, 4, 2), (8, 5, 2), (8, 6, 3), (16, 6, 3),
                (20, 6, 3), (24, 6, 3), (32, 6, 3), (4, 12, 4), (8, 12, 4), (16, 12, 4),
-               (32, 12, 4), (24, 4, 2), (32, 3, 2), (32, 4, 2), (64, 4, 2)]
+               (32, 12, 4), (24, 4, 2), (32, 3, 2), (32, 4, 2), (64, 4, 2), (32, 5, 2)]
 
 
 @pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
@@ -238,6 +238,10 @@ def test_cluster_tier_replaces_only_the_workspace_tier(shape, itemsize):
         # The quad6d_64 loop's widest steps: a cluster of eight in float32;
         # float64 (1.9 MB) stays in the workspace.
         assert (plan.tier, plan.cluster) == ((3, 8) if itemsize == 4 else (2, 1))
+    if shape == (32, 5, 2) and itemsize == 4:
+        # The hetero99 loop's widest steps (DoubleInt4D, Car3D and Bike5D
+        # slots padded to nx 5, nu 2): a cluster of four.
+        assert (plan.tier, plan.cluster) == (3, 4)
 
 
 
@@ -270,7 +274,9 @@ def cuda_device():
 # a cluster of eight CTAs (the cluster tier) and float64 keeps the
 # device-memory workspace (tier 2).  Quad6D at K=24 (nxf 144) takes a
 # cluster of 5 CTAs owning 5, 5, 5, 5 and 4 slots in float32; Unicycle4D
-# at K=32 (nxf 128) one of 4 in float32 and of 8 in float64.  24 or 32
+# at K=32 (nxf 128) one of 4 in float32 and of 7 in float64; the mixed
+# fleet at K=32 (nxf 160) one of 4 in float32 (the hetero99 loop's widest
+# steps) and the workspace in float64.  24 or 32
 # slots at a spread of 0.3 pack every slot inside the radius: gains of 2e3
 # whose float32 rounding alone is percents (the kernel gives tier 2's bits
 # there), so those batches are spread out to 1.0.
@@ -278,9 +284,9 @@ def cuda_device():
 @pytest.mark.parametrize("names,shape", [(HETERO, (S, K)), (["Quad6D"], (S, K)),
                                          (["Quad12D"], (S, K)), (["Quad6D"], (64, 16)),
                                          (["Quad6D"], (64, 32)), (["Quad6D"], (16, 24)),
-                                         (["Unicycle4D"], (16, 32))],
+                                         (["Unicycle4D"], (16, 32)), (HETERO, (16, 32))],
                          ids=["nxf40", "nxf48", "nxf96", "nxf96-nuf48", "nxf192", "nxf144",
-                              "nxf128"])
+                              "nxf128", "nxf160"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_cuda_wide_kernels_match_twins(cuda_device, names, shape, dtype):
     tol = {torch.float64: (1e-9, 1e-9), torch.float32: (2e-3, 1e-4)}[dtype]
