@@ -29,8 +29,8 @@ Phases (any failure exits non-zero and prints no result line):
       and at K=16 (nxf 96, nuf 48) and Quad12D at K=8 (nxf 96) from the
       64-agent quadrotor swarm (S=64), and Quad6D at K=32 (nxf 192, nuf 96:
       the width phase 4b's loop reaches; S=16), float64 and float32, 2 and 10
-      alphas, each with K3's memory tier with copied inputs and computing
-      them; every timed shape is printed beside its bound by the published
+      alphas, each with K3's memory tier and the CTAs of a subproblem;
+      every timed shape is printed beside its bound by the published
       peaks;
    c. K5 (the whole backward pass, its inputs computed in the kernel) on
       10 Unicycle4D at N=50 and N=200, one agent of each of the nine models,
@@ -166,10 +166,10 @@ Phases (any failure exits non-zero and prints no result line):
       launch and nothing else, iterations and flags equal, J within 1e-9
       relative, more than one iteration; then 2 steps of
       ``solve_rhc(centralized=True)`` in float32 on the kernels, ms a step;
-   e. the library's forward plan (``cuda_build.forward_plan``) equal to the
-      mirror's (``batched.forward_smem_bytes``) at every shape of a-c and on
-      each side of the one-column limit (1,709 and 1,710 Unicycle4D in
-      float32, 854 and 855 in float64).
+   e. the forward plan (``cuda_build.forward_plan``, the kernels' own
+      ``column_launch``) at every shape of a-c, and on each side of the
+      one-column limit (1,709 and 1,710 Unicycle4D in float32, 854 and 855
+      in float64).
 10. ``bench_torch.py``: every point of the port's bench (``python3
     bench_torch.py --list``) through its ``main`` at full width, one timed
     repeat, closed loops of 3 MPC steps instead of 20 (15 at 500 agents),
@@ -623,15 +623,13 @@ def wide_checks(checks, results, dev):
 
 
 def wide_tiers(K, fleet, dtype):
-    """Where K3 places a subproblem: the tier of its working set with the
-    inputs copied in (the plan before they were computed in the kernel) and
-    with the input source's buffers (now)."""
-    from dpilqr_tpu_torch.ops import batched as bt
+    """Where K3 places a subproblem: the tier of its working set and the
+    CTAs of a subproblem."""
+    from dpilqr_tpu_torch.ops import cuda_build
 
     item = torch.empty((), dtype=dtype).element_size()
-    before = bt.riccati_smem_bytes(K, fleet.nx_p, fleet.nu_p, item)[0]
-    now = bt.sweep_smem_bytes(K, fleet.nx_p, fleet.nu_p, item)[0]
-    return f"K3 tier {str(dtype)[6:]}: {before} with copied inputs, {now} computing them"
+    plan = cuda_build.riccati_plan(K, fleet.nx_p, fleet.nu_p, item, cuda_build.cluster_max())
+    return f"K3 tier {str(dtype)[6:]}: {plan.tier}, {plan.cluster} CTA(s) a subproblem"
 
 
 def centralized_inputs(dtype, dev):
@@ -701,7 +699,6 @@ def centralized_checks(checks, results, dev):
     """Phase 3c: K5 on its fleets (``k5_problems``) and K4 with gains at the
     10-agent centralized shape."""
     import dpilqr_tpu_torch as dtt
-    from dpilqr_tpu_torch.ops import batched as bt
     from dpilqr_tpu_torch.ops import cuda_build, ilqr, sweeps
 
     for dtype in (torch.float64, torch.float32):
@@ -709,8 +706,8 @@ def centralized_checks(checks, results, dev):
         for name, (fleet, cost, X, U) in k5_problems(dtype, dev).items():
             bw = (fleet, cost, X, U, mu)
             K_t, d_t = ilqr._backward_pass(fleet.linearize, cost, X, U, mu)
-            tier = bt.sweep_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p,
-                                       X.element_size())[0]
+            tier = cuda_build.riccati_plan(fleet.n_agents, fleet.nx_p, fleet.nu_p,
+                                           X.element_size()).tier
             checks.compare("backward_sweep", f"K5 {name} {str(dtype)[6:]} (tier {tier})",
                            ("Kg", "d"), sweeps.backward_pass_cuda(*bw), (K_t, d_t),
                            TOL[dtype])
@@ -2193,20 +2190,13 @@ def custom_phase(checks, results, dev, launches, UserBike):
     sharded_phase(dev, launches)
 
 
-def checked_plan(K, fleet, n_alpha, dtype, max_rows=0):
-    """Phase 9e at one shape: the library's forward plan (K2, K4) must equal
-    the mirror's; returns it as a line."""
-    from dpilqr_tpu_torch.ops import batched as bt
+def plan_line(K, fleet, n_alpha, dtype, max_rows=0):
+    """Phase 9e at one shape: the forward plan (K2, K4) as a line."""
     from dpilqr_tpu_torch.ops import cuda_build
 
     item = torch.empty((), dtype=dtype).element_size()
-    plan = bt.forward_smem_bytes(K, fleet.nx_p, fleet.nu_p, n_alpha, item,
-                                 max_rows=max_rows)
-    lib = cuda_build.forward_plan(K, fleet.nx_p, fleet.nu_p, n_alpha, item, True,
-                                  max_rows)
-    if lib != tuple(plan):
-        fail(f"forward plan at K={K} {fleet.specs[0].name} {n_alpha} alphas "
-             f"{str(dtype)[6:]}: library {lib}, mirror {tuple(plan)}")
+    plan = cuda_build.forward_plan(K, fleet.nx_p, fleet.nu_p, n_alpha, item,
+                                   max_rows=max_rows)
     return (f"{plan.placement(K * fleet.nu_p)}: {plan.buffers} buffers of "
             f"{plan.rows} gain rows, {plan.warps} warps x {plan.chunks} CTAs, "
             f"{plan.nbytes} B")
@@ -2229,7 +2219,7 @@ def k4_tiles(checks, results, dev):
         alphas = dtt.ops.line_search_alphas(10, dtype, dev)
         fw = (cost, X, U, Kb, db, alphas)
         tag = f"K4 100 Unicycle4D tiles 10 alphas{'' if dtype == torch.float32 else ' float64'}"
-        print(f"{tag}: {checked_plan(100, fleet, 10, dtype)}", flush=True)
+        print(f"{tag}: {plan_line(100, fleet, 10, dtype)}", flush=True)
         checks.compare("forward_sweep", tag, ("X5", "U5", "J"),
                        sweeps.forward_pass_cuda(fleet, *fw),
                        ilqr._forward_pass(fleet.step, *fw), TOL[dtype])
@@ -2261,7 +2251,7 @@ def k2_tiles(checks, results, dev):
         for n_alpha in (2, 10):
             tag = (f"K2 Quad12D K=32 nxf 384 S={batch_width(args)} {n_alpha} alphas"
                    + ("" if dtype == torch.float32 else " float64"))
-            print(f"{tag}: {checked_plan(32, fleet, n_alpha, dtype)}", flush=True)
+            print(f"{tag}: {plan_line(32, fleet, n_alpha, dtype)}", flush=True)
             fa = (fleet, sub_cost, mids, carry.X, carry.U, Kg, d,
                   dtt.ops.line_search_alphas(n_alpha, dtype, dev))
             checks.compare("forward_batched", tag, ("X5", "U5", "J"),
@@ -2298,7 +2288,7 @@ def forced_tiles(dev):
                   dtt.ops.line_search_alphas(10, dtype, dev))
             whole = bt.forward_pass_batched_cuda(*fa)
             for rows in rows_list:
-                plan = checked_plan(K, fleet, 10, dtype, rows)
+                plan = plan_line(K, fleet, 10, dtype, rows)
                 same = bits_agree(bt.forward_pass_batched_cuda(*fa, max_rows=rows), whole)
                 print(f"K2 {name} {str(dtype)[6:]} forced {plan}: the whole block's "
                       f"bits {same}", flush=True)
@@ -2310,7 +2300,7 @@ def forced_tiles(dev):
         fw = (cost, X, U, Kb, db, dtt.ops.line_search_alphas(10, dtype, dev))
         whole = sweeps.forward_pass_cuda(fleet, *fw)
         for rows in (4, 8):
-            plan = checked_plan(10, fleet, 10, dtype, rows)
+            plan = plan_line(10, fleet, 10, dtype, rows)
             same = bits_agree(sweeps.forward_pass_cuda(fleet, *fw, max_rows=rows), whole)
             print(f"K4 10 Unicycle4D {str(dtype)[6:]} forced {plan}: the whole "
                   f"block's bits {same}", flush=True)
@@ -2377,21 +2367,19 @@ def plan_limits():
     """Phase 9e, the one-column limit: the last Unicycle4D fleet the forward
     plan places and the first it does not, in both types."""
     import dpilqr_tpu_torch as dtt
-    from dpilqr_tpu_torch.ops import batched as bt
     from dpilqr_tpu_torch.ops import cuda_build
 
     for dtype, last in ((torch.float32, 1709), (torch.float64, 854)):
         item = torch.empty((), dtype=dtype).element_size()
         print(f"forward plan at {last} Unicycle4D {str(dtype)[6:]}: "
-              f"{checked_plan(last, dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 1, DT), 10, dtype)}")
+              f"{plan_line(last, dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 1, DT), 10, dtype)}")
         try:
-            bt.forward_smem_bytes(last + 1, 4, 2, 10, item)
-            fail(f"the mirror places {last + 1} Unicycle4D in {dtype}")
+            cuda_build.forward_plan(last + 1, 4, 2, 10, item)
+            fail(f"the plan places {last + 1} Unicycle4D in {dtype}")
         except ValueError:
             pass
-        if cuda_build.forward_plan(last + 1, 4, 2, 10, item) is not None:
-            fail(f"the library places {last + 1} Unicycle4D in {dtype}")
-    print("forward plans: library and mirror agree at every shape of phase 9", flush=True)
+    print("forward plans: every shape of phase 9 placed, none past one column",
+          flush=True)
 
 
 def forward_tiles_phase(checks, results, dev, launches):

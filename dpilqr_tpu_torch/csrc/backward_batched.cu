@@ -102,7 +102,7 @@ int launch(const T* X, const T* U, const T* xf, const T* Q, const T* R,
       K * nu > 32)
     return (int)cudaErrorInvalidValue;
   if (S == 0 || N == 0) return 0;
-  const RiccatiPlan plan = computed_plan(K, nx, nu, sizeof(T));
+  const RiccatiPlan plan = computed_plan(K, nx, nu, sizeof(T), max_shared_optin());
   if (plan.tier != 0) return (int)cudaErrorInvalidValue;
   // Slots of 4 states and 2 controls (Unicycle4D, DoubleInt4D: the 100-agent
   // main path) have their widths compiled in, the models' width too (every

@@ -43,7 +43,8 @@
 // riccati_cluster.cuh: Quad6D at K = 32 in float32, nxf 192, where the
 // device-memory workspace made a launch 36 ms at S = 16); else the gain
 // blocks and the source's buffers in the workspace too.  The wrapper sizes
-// the workspace with dpilqr_riccati_plan.
+// the workspace with the same plan's host build (plan.cpp
+// dpilqr_riccati_plan).
 //
 // Layouts: as backward_batched.cu, plus
 //   work (S, plan.work values)        scratch from the wrapper.
@@ -103,7 +104,8 @@ int launch(const T* X, const T* U, const T* xf, const T* Q, const T* R,
            int S, int N, int K, int nx, int nu, void* stream) {
   if (K < 1 || nx < 1 || nu < 1 || nx > MAX_NX || nu > MAX_NU)
     return (int)cudaErrorInvalidValue;
-  const RiccatiPlan plan = wide_plan(K, nx, nu, sizeof(T), CLUSTER_MAX);
+  const RiccatiPlan plan =
+      wide_plan(K, nx, nu, sizeof(T), max_shared_optin(), CLUSTER_MAX);
   if (plan.tier < 0 || (size_t)work_size < S * plan.work)
     return (int)cudaErrorInvalidValue;
   if (S == 0 || N == 0) return 0;
@@ -139,26 +141,6 @@ int launch(const T* X, const T* U, const T* xf, const T* Q, const T* R,
 
 DPILQR_BACKWARD_WIDE(dpilqr_backward_batched_wide_f32, float)
 DPILQR_BACKWARD_WIDE(dpilqr_backward_batched_wide_f64, double)
-
-// Where one problem's working set goes on the current device (computed_plan:
-// riccati_plan with the input source's buffers, the plan of all three
-// backward kernels; with max_cluster > 1, this kernel's wide_plan, which may
-// put it on a cluster of up to max_cluster CTAs): returns the tier (0 all in
-// shared memory, 1 the value group in the workspace, 2 the gain group too, 3
-// a cluster's shared memory, -1 no fit) and writes the shared-memory bytes of
-// a CTA, the workspace values of one problem and the CTAs a problem.  The
-// Python wrappers of this kernel and of backward_sweep.cu size their
-// workspace through it, so the layout is defined once, in riccati.cuh,
-// riccati_cluster.cuh and computed_inputs.cuh.
-extern "C" int dpilqr_riccati_plan(int K, int nx, int nu, int itemsize, int max_cluster,
-                                   long long* smem_bytes, long long* work_values,
-                                   int* cluster) {
-  const RiccatiPlan plan = wide_plan(K, nx, nu, itemsize, max_cluster);
-  *smem_bytes = (long long)(plan.smem * itemsize);
-  *work_values = (long long)plan.work;
-  *cluster = plan.cluster;
-  return plan.tier;
-}
 
 #ifdef DPILQR_PHASE_CLOCKS
 // This kernel's cycles by phase (riccati.cuh, RICCATI_CLOCK), read and reset.

@@ -48,7 +48,7 @@
 // Layouts (contiguous): X (N+1, n, nx), U (N, n, nu), xf (n, nx), Q, Qf
 // (n, nx, nx), R (n, nu, nu), mask (n), refw, radius, pw (1), npos, model
 // (n) int32, dt (1), mu (1) -> K (N, nuf, nxf), d (N, nuf); work holds the
-// values dpilqr_riccati_plan asks for.
+// values the plan asks for (plan.cpp dpilqr_riccati_plan).
 
 #include "computed_inputs.cuh"
 #include "riccati.cuh"
@@ -95,7 +95,7 @@ int launch(const T* X, const T* U, const T* xf, const T* Q, const T* R,
            int nx, int nu, void* stream) {
   if (n < 1 || nx < 1 || nu < 1 || nx > MAX_NX || nu > MAX_NU)
     return (int)cudaErrorInvalidValue;
-  const RiccatiPlan plan = computed_plan(n, nx, nu, sizeof(T));
+  const RiccatiPlan plan = computed_plan(n, nx, nu, sizeof(T), max_shared_optin());
   if (plan.tier < 0 || (size_t)work_size < plan.work)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;

@@ -23,27 +23,12 @@
 #pragma once
 
 #include "derivatives.cuh"
+#include "plan.h"
 #ifdef __CUDACC__
 #include "riccati.cuh"
 #endif
 
 namespace {
-
-#ifndef __CUDACC__
-// launch.cuh's, for a host build.
-inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
-#endif
-
-// The buffers the source adds to the Riccati working set (riccati_plan's
-// `extra`, after the gain group): per agent QQ = Q + Q^T (Qf + Qf^T until
-// the terminal step is done), RR = R + R^T, Ld = w QQ and Lu = w RR +
-// 2 (1 - m) I (derivatives.cuh constant_blocks), and one step's proximity
-// blocks Lblk (n, n, k, k) and pair gradient terms G (n, n, 3).
-DPILQR_HD inline size_t sweep_extra_values(int n, int nx, int nu) {
-  const size_t k = nx < 3 ? nx : 3;
-  return 2 * pad4((size_t)n * nx * nx) + 2 * pad4((size_t)n * nu * nu) +
-         pad4((size_t)n * n * k * k) + pad4((size_t)n * n * 3);
-}
 
 // What a step's inputs are computed from: one problem's trajectory X (N+1,
 // n, nx) and U (N, n, nu), its cost's per-agent fields, its scalars and its
@@ -287,13 +272,6 @@ struct ComputedInputs {
     return luu_entry(r, c, nu, Lu);
   }
 };
-
-// Where a backward kernel's working set goes on the current device:
-// riccati_plan with the source's buffers in the gain group.
-inline RiccatiPlan computed_plan(int n, int nx, int nu, size_t itemsize) {
-  return riccati_plan(n, nx, nu, itemsize, max_shared_optin(),
-                      sweep_extra_values(n, nx, nu));
-}
 
 #endif  // __CUDACC__
 

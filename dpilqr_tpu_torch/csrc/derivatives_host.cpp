@@ -1,8 +1,9 @@
 // Host build of derivatives.cuh and computed_inputs.cuh, for the CPU tests:
 // the functions K1, K3 and K5 compute their inputs with, compiled by a host
-// C++ compiler into a small shared library with a plain C interface and
-// called through ctypes (tests/test_torch_derivatives.py,
-// tests/test_torch_batched_prep.py).  float64 only.
+// C++ compiler (ops/cuda_build.py host_build) into a small shared library
+// with a plain C interface and called through ctypes
+// (tests/test_torch_derivatives.py, tests/test_torch_batched_prep.py).
+// float64 only.
 //
 //   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I csrc -o lib.so csrc/derivatives_host.cpp
 //

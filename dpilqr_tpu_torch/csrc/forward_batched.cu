@@ -195,21 +195,3 @@ int launch(const T* X, const T* U, const T* Kg, const T* d, const T* alphas,
 
 DPILQR_FORWARD(dpilqr_forward_batched_f32, float)
 DPILQR_FORWARD(dpilqr_forward_batched_f64, double)
-
-// The forward kernels' plan (column_launch) for the Python mirror's test
-// and the smoke: fills plan = {chunks, warps, n_buf, rows} and returns the
-// dynamic shared memory of a CTA in bytes, or -1 where nothing fits `limit`
-// bytes (limit < 0: the current device's opt-in maximum).
-extern "C" long long dpilqr_forward_smem_bytes(int K, int nx, int nu,
-                                               int n_alpha, int gains,
-                                               int itemsize, int max_rows,
-                                               long long limit, int* plan) {
-  const long long optin = limit < 0 ? max_shared_optin() : limit;
-  const ColumnLaunch cl = column_launch(K * nx, K * nu, n_alpha, gains != 0,
-                                        itemsize, optin, max_rows);
-  plan[0] = cl.chunks;
-  plan[1] = cl.warps;
-  plan[2] = cl.n_buf;
-  plan[3] = cl.rows;
-  return cl.n_buf == 0 ? -1 : (long long)cl.bytes;
-}

@@ -1,7 +1,7 @@
 // Helpers shared by the kernels that size their dynamic shared memory at
-// launch (the three backward kernels and forward_batched.cu): the launch
-// itself, buffer padding, and the CTA-wide asynchronous copy into shared
-// memory.
+// launch (the three backward kernels and forward_batched.cu): the device's
+// opt-in limit their plans (plan.h) are made under, the launch itself, and
+// the CTA-wide asynchronous copy into shared memory.
 
 #pragma once
 
@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "plan.h"
 
 namespace {
 
@@ -32,11 +34,6 @@ int launch_with_smem(Kernel kernel, dim3 blocks, int threads, size_t bytes,
   kernel<<<blocks, threads, bytes, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
-
-// n rounded up to a multiple of 4 values: every buffer carved from a
-// 16-byte aligned base then starts 16-byte aligned in float32 (32 in
-// float64), which the vector loads and the 16-byte async copies need.
-__host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
 
 // Asynchronous copy of n values by `nth` threads of which this is number
 // `tid` (default: the whole CTA): 16 bytes a request where both ends are

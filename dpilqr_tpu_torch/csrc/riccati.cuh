@@ -67,8 +67,8 @@
 //          [Q_uu | Q_ux | Q_u], A_t, B_t;
 //   vec:   p, Q_x, Q_u, d, w, the staged L_x and L_u rows, two pivot rows
 //          and two pivot columns.
-// riccati_plan places them: all in shared memory where that fits, else the
-// value group in a device-memory workspace, else the gain group too.
+// riccati_plan (plan.h) places them: all in shared memory where that fits,
+// else the value group in a device-memory workspace, else the gain group too.
 //
 // A step's inputs, as the source leaves them in the working set: A_t (K, nx,
 // nx), B_t (K, nx, nu), the L_x and L_u rows; L_xx and L_uu entries on
@@ -79,48 +79,9 @@
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
+#include "plan.h"
 
 namespace {
-
-struct RiccatiSizes {
-  size_t value, gain, vec;  // values per group
-};
-
-// The two pivot rows and two pivot columns of the Gauss-Jordan solve are
-// padded to whole warps, so that the register path reads its row unguarded.
-__host__ __device__ inline size_t pad32(size_t n) { return (n + 31) / 32 * 32; }
-
-__host__ __device__ inline RiccatiSizes riccati_sizes(int K, int nx, int nu) {
-  const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu, ncol = nuf + nxf + 1;
-  return {3 * pad4(nxf * nxf),
-          4 * pad4(nuf * nxf) + pad4(nuf * nuf) + pad4(nuf * ncol) +
-              pad4((size_t)K * nx * nx) + pad4((size_t)K * nx * nu),
-          3 * pad4(nxf) + 4 * pad4(nuf) + 2 * pad32(ncol) + 2 * pad32(nuf)};
-}
-
-// Where the groups of one problem live.  tier 0: all in shared memory;
-// 1: the value group in the workspace; 2: the value and gain groups in the
-// workspace; 3 (K3 alone, riccati_cluster.cuh): all of it in the shared
-// memory of a cluster of `cluster` CTAs; -1: not even the vectors fit.
-// `smem` (of a CTA) and `work` are values.
-struct RiccatiPlan {
-  int tier;
-  size_t smem, work;
-  int cluster = 1;
-};
-
-// `extra`: values a kernel adds to the gain group for itself (the input
-// source's buffers, computed_inputs.cuh computed_plan).
-inline RiccatiPlan riccati_plan(int K, int nx, int nu, size_t itemsize,
-                                long long optin, size_t extra = 0) {
-  RiccatiSizes z = riccati_sizes(K, nx, nu);
-  z.gain += extra;
-  const size_t room = optin < 0 ? 0 : (size_t)optin / itemsize;
-  if (z.value + z.gain + z.vec <= room) return {0, z.value + z.gain + z.vec, 0};
-  if (z.gain + z.vec <= room) return {1, z.gain + z.vec, z.value};
-  if (z.vec <= room) return {2, z.vec, z.value + z.gain};
-  return {-1, 0, 0};
-}
 
 // The register tile of the nuf-deep products: 4 x 4 where that still gives
 // every thread of a 256-thread CTA a tile of the nxf^2 outputs (and for
@@ -391,7 +352,7 @@ __device__ __forceinline__ void bd_right(const T* In, int ldin, int nrows,
 // r / GJ_ROWS, lane j mod 32, for tableaus of up to 32 GJ_COLS columns;
 // larger ones are eliminated in place by the whole CTA (entry (r, j) on
 // warp r mod warps).
-constexpr int GJ_ROWS = 4, GJ_COLS = 5;
+constexpr int GJ_ROWS = 4;  // GJ_COLS: plan.h
 
 // Gauss-Jordan without pivoting on the nuf x ncol tableau M = [Quu | Qux |
 // Qu], one barrier per pivot.  Every entry has one owning thread for the

@@ -60,120 +60,23 @@
 #include <cooperative_groups.h>
 
 #include "computed_inputs.cuh"
+#include "plan.h"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-// The portable cluster size; the control rows one CTA of a cluster holds at
-// most (so nuf <= 128: a warp of the elimination holds every row of Q_uu,
-// four a lane); the threads of a CTA.
-constexpr int CLUSTER_MAX = 8, CLUSTER_MU = 16, CLUSTER_THREADS = 384;
+// The threads of a CTA (the cluster's sizes and layout, CLUSTER_MAX,
+// CLUSTER_MU, cluster_layout and wide_plan, are plan.h's).
+constexpr int CLUSTER_THREADS = 384;
 // The rank that runs the pivot chain.
 constexpr int CHAIN_RANK = 0;
-
-// The row stride of the elimination's multipliers: 32 R values, R =
-// ceil(nuf / 32) the rows a lane holds.
-__host__ __device__ inline int chain_ldm(int nuf) { return (nuf + 31) / 32 * 32; }
-// The right-hand sides [Q_ux | Q_u] in chunks of four columns: a row's
-// stride, the chunks, and the columns a rank takes at most (its chunks are
-// cluster_slot0 of the chunk count).
-__host__ __device__ inline int rhs_ld(int nxf) { return (nxf + 4) / 4 * 4; }
-__host__ __device__ inline int rhs_chunks(int nxf) { return (nxf + 4) / 4; }
-__host__ __device__ inline int rhs_cols(int nxf, int C) {
-  return 4 * ((rhs_chunks(nxf) + C - 1) / C);
-}
 
 // First slot of rank q of a cluster of C over K slots, and the rank that
 // owns a slot.
 __host__ __device__ inline int cluster_slot0(int q, int K, int C) { return q * K / C; }
 __host__ __device__ inline int cluster_owner(int slot, int K, int C) {
   return ((slot + 1) * C - 1) / K;
-}
-
-// Offsets (values) of one CTA's buffers under the cluster tier; every CTA of
-// the cluster has the same layout, sized for the largest share of slots
-// (ms), so that a buffer lies at the same offset in every rank.
-struct ClusterLayout {
-  size_t P, AtP, Qxx, stage, Qux, QuuK, Quu, Qs, M, Kt, AB, QQ, RR, Ld, Lu, Lblk, G;
-  size_t p, Qx, Qu, lx, lu, d, w, total;
-  int ms, ldq;
-};
-
-__host__ __device__ inline ClusterLayout cluster_layout(int K, int nx, int nu, int C) {
-  ClusterLayout L;
-  const int ms = (K + C - 1) / C, k = nx < 3 ? nx : 3;
-  const size_t nxf = (size_t)K * nx, nuf = (size_t)K * nu;
-  const size_t mx = (size_t)ms * nx, mu = (size_t)ms * nu;
-  // In the elimination: the multipliers (nuf x chain_ldm) in P and A^T P;
-  // in K, the chain rank's copy of Q_uu (nuf x (nuf + 1)) and, after it,
-  // every rank's right-hand columns (nuf x rhs_cols).
-  const size_t mult = nuf * (size_t)chain_ldm((int)nuf);
-  const size_t elim = pad4(nuf * (nuf + 1)) + nuf * (size_t)rhs_cols((int)nxf, C);
-  L.ms = ms;
-  L.ldq = (int)pad4(mu);
-  size_t o = 0;
-  L.P = o;     o += pad4(mx * nxf);
-  // A^T P in phases 1 and 2; with P before it, the multipliers in the
-  // elimination.
-  const size_t after_p = mult > pad4(mx * nxf) ? mult - pad4(mx * nxf) : 0;
-  L.AtP = o;   o += pad4(mx * nxf > after_p ? mx * nxf : after_p);
-  L.Qxx = o;   o += pad4(mx * nxf);
-  // W1 in phases 1 and 2; a rank's rows of Q_ux and Q_uu K in the update.
-  L.stage = o; o += 2 * pad4(mu * nxf);
-  L.Qux = o;   o += pad4(mu * nxf);
-  L.QuuK = o;  o += pad4(mu * nxf);
-  L.Quu = o;   o += pad4(mu * nuf);
-  // Q_uu's columns of the own rows; the pivots' reciprocals in the
-  // elimination.
-  L.Qs = o;    o += pad4(nuf * L.ldq);
-  L.M = o;     o += pad4(mu * rhs_ld((int)nxf));  // the own rows of [Q_ux | Q_u]
-  L.Kt = o;    o += pad4(nuf * nxf > elim ? nuf * nxf : elim);  // K whole
-  L.AB = o;    o += 2 * (pad4((size_t)K * nx * nx) + pad4((size_t)K * nx * nu));
-  L.QQ = o;    o += pad4((size_t)K * nx * nx);
-  L.RR = o;    o += pad4((size_t)K * nu * nu);
-  L.Ld = o;    o += pad4((size_t)K * nx * nx);
-  L.Lu = o;    o += pad4((size_t)K * nu * nu);
-  L.Lblk = o;  o += pad4((size_t)ms * K * k * k);
-  L.G = o;     o += pad4((size_t)ms * K * 3);
-  L.p = o;     o += pad4(mx);
-  L.Qx = o;    o += pad4(mx);
-  L.Qu = o;    o += pad4(mu);
-  L.lx = o;    o += pad4(mx);
-  L.lu = o;    o += pad4(mu);
-  L.d = o;     o += pad4(nuf);  // d whole
-  L.w = o;     o += pad4(nuf);  // w whole
-  L.total = o;
-  return L;
-}
-
-// The smallest cluster (2 .. max_cluster CTAs) whose layout fits `optin`
-// bytes a CTA, or 0.
-inline int cluster_ctas(int K, int nx, int nu, size_t itemsize, long long optin,
-                        int max_cluster) {
-  if (optin < 0) return 0;
-  for (int C = 2; C <= max_cluster && C <= K; ++C) {
-    const ClusterLayout L = cluster_layout(K, nx, nu, C);
-    if (L.ms * nu <= CLUSTER_MU && L.total * itemsize <= (size_t)optin) return C;
-  }
-  return 0;
-}
-
-// K3's plan: computed_plan, with the cluster tier in place of the
-// device-memory workspace (tier 2) wherever that tier eliminates in place in
-// device memory (a tableau past the register path's 32 GJ_COLS columns,
-// riccati.cuh gauss_jordan) and a cluster of at most max_cluster CTAs holds
-// the whole working set.  Below that width tier 2 keeps the tableau in
-// registers and was faster (Quad6D K = 16 in float64 on an H100: 5.7 ms a
-// launch at S = 64 against 19.6 on clusters of 4, scripts/compare_builds.py).
-inline RiccatiPlan wide_plan(int K, int nx, int nu, size_t itemsize, int max_cluster) {
-  const RiccatiPlan plan = computed_plan(K, nx, nu, itemsize);
-  if (plan.tier != 2 || max_cluster < 2 || K * (nx + nu) + 1 <= 32 * GJ_COLS) return plan;
-  const int C = cluster_ctas(K, nx, nu, itemsize, max_shared_optin(), max_cluster);
-  if (C == 0) return plan;
-  RiccatiPlan out{3, cluster_layout(K, nx, nu, C).total, 0};
-  out.cluster = C;
-  return out;
 }
 
 __device__ __forceinline__ void cluster_arrive() {

@@ -44,10 +44,10 @@
 
 #include "dynamics.cuh"
 #include "launch.cuh"
+#include "plan.h"
 
 namespace {
 
-constexpr int WARPS_PER_CTA = 8;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Sum over the warp, the same bits on every lane.
@@ -56,67 +56,6 @@ __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
-}
-
-// The values of a step's rows beside its gains (d row, nominal U row,
-// nominal X row), of a tile of `rows` gain rows, and of one column's x, dx,
-// u.  Mirrored by forward_smem_bytes in dpilqr_tpu_torch/ops/batched.py.
-__host__ __device__ inline size_t row_values(int nxf, int nuf) {
-  return 2 * pad4(nuf) + pad4(nxf);
-}
-__host__ __device__ inline size_t tile_values(int rows, int nxf) {
-  return pad4((size_t)rows * nxf);
-}
-__host__ __device__ inline size_t column_values(int nxf, int nuf) {
-  return 2 * pad4(nxf) + pad4(nuf);
-}
-
-// How n_alpha columns of one problem are laid over CTAs: `chunks` CTAs of
-// `warps` warps each; with gains `n_buf` buffers (2 or 1) of a tile of
-// `rows` gain rows and a step's rows; `bytes` of dynamic shared memory in
-// all.  n_buf 0 where nothing fits `optin` bytes.
-struct ColumnLaunch {
-  int chunks, warps, n_buf, rows;
-  size_t bytes;
-};
-
-// The placement, in order of preference: a whole block a buffer (two, then
-// one); tiles of as many rows as fit, a multiple of 4 (two buffers, then
-// one), evened out over the block; then the same with fewer warps a CTA.
-// `max_rows` > 0 forces tiles of at most that many rows (rounded down to a
-// multiple of 4, at least 4) where it is below nuf: the tests and the smoke
-// hold the tiled walk to the staged one's bits with it.
-inline ColumnLaunch column_launch(int nxf, int nuf, int n_alpha, bool gains,
-                                  size_t itemsize, long long optin,
-                                  int max_rows = 0) {
-  if (optin < 0 || n_alpha < 1) return {0, 0, 0, 0, 0};
-  const size_t room = (size_t)optin / itemsize;
-  const size_t col = column_values(nxf, nuf), rowv = row_values(nxf, nuf);
-  const bool whole = max_rows <= 0 || max_rows >= nuf;
-  const int cap_rows = whole ? nuf : (max_rows < 4 ? 4 : max_rows / 4 * 4);
-  for (int cap = WARPS_PER_CTA; cap >= 1; --cap) {
-    const int chunks = (n_alpha + cap - 1) / cap;
-    const int warps = (n_alpha + chunks - 1) / chunks;
-    const size_t cols = warps * col;
-    if (cols > room) continue;
-    if (!gains) return {chunks, warps, 1, 0, cols * itemsize};
-    for (int nb = 2; whole && nb >= 1; --nb) {
-      const size_t v = cols + nb * (tile_values(nuf, nxf) + rowv);
-      if (v <= room) return {chunks, warps, nb, nuf, v * itemsize};
-    }
-    for (int nb = 2; nb >= 1; --nb) {
-      if (cols + nb * (tile_values(4, nxf) + rowv) > room) continue;
-      const size_t per = ((room - cols) / nb - rowv) / 4 * 4;
-      size_t fit = per / nxf;
-      if (fit > (size_t)cap_rows) fit = cap_rows;
-      const int rmax = (int)(fit / 4 * 4);
-      const int n_tiles = (nuf + rmax - 1) / rmax;
-      const int rows = (int)pad4((nuf + n_tiles - 1) / n_tiles);
-      return {chunks, warps, nb, rows,
-              (cols + nb * (tile_values(rows, nxf) + rowv)) * itemsize};
-    }
-  }
-  return {0, 0, 0, 0, 0};
 }
 
 // This lane's share of the cost at state x (and control u, or nullptr at

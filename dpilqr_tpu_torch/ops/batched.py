@@ -9,7 +9,8 @@ two batched sweeps over all of them:
   control.py:116-148) with its inputs, as ONE launch of kernel
   ``csrc/backward_batched.cu`` for flat states up to 32 wide or
   ``csrc/backward_batched_wide.cu`` for every wider one whose working set
-  the card can place (``sweep_smem_bytes``); each kernel computes a step's
+  the card can place (``cuda_build.riccati_plan``, the kernels' own plan of
+  ``csrc/plan.h``); each kernel computes a step's
   Jacobians and cost derivatives itself (``csrc/computed_inputs.cuh``);
 - ``forward_pass_batched``: the closed-loop line-search rollout over all
   alphas (control.py:95-114,162), kernel ``csrc/forward_batched.cu``.
@@ -68,16 +69,18 @@ from .costs import (
     terminal_cost,
 )
 from .codegen import library_ids
-from .cuda_build import (RiccatiPlan, bind, call, check_tensors, count, require_cuda,
-                         require_kernel_models, riccati_plan, run, timing)
+from .cuda_build import (RiccatiPlan, bind, call, check_tensors, cluster_max, count,
+                         forward_plan, require_cuda, require_kernel_models, riccati_plan,
+                         run, timing)
 from .ilqr import SolveResult, line_search_alphas
 
 # Widest flat state (K * nx_p, and K * nu_p) of the narrow backward kernel,
 # whose elimination keeps the tableau in one warp's registers; wider
 # subproblems take the wide one.  Past that routing the only width limit is
-# the card's: what ``riccati_smem_bytes`` and ``forward_smem_bytes`` can
-# place in the shared memory of a block (the rest lies in a device-memory
-# workspace), e.g. Quad6D at K = 32 (nxf 192, nuf 96) in either type.
+# the card's: what the kernels' plans (``cuda_build.riccati_plan`` and
+# ``forward_plan``) can place in the shared memory of a block (the rest lies
+# in a device-memory workspace), e.g. Quad6D at K = 32 (nxf 192, nuf 96) in
+# either type.
 MAX_NXF = 32
 
 # Compaction granularity of the retirement schedule (widths halve, rounded
@@ -89,21 +92,6 @@ GAIN_ORDER = (3, 0, 1, 2)  # Kg (N, nuf, nxf, S) lies as (S, N, nuf, nxf)
 D_ORDER = (2, 0, 1)  # d (N, nuf, S) lies as (S, N, nuf)
 COLUMN_ORDER = (3, 4, 0, 2, 1)  # X5 (N, nx_p, K, n_alpha, S): (n_alpha, S, N, K, nx_p)
 
-# Dynamic shared memory a block may use on the card the kernels compile for
-# (sm_90a: 227 KB), and the forward kernel's warps (alphas) per CTA.
-SMEM_LIMIT = 232_448
-FORWARD_WARPS_PER_CTA = 8
-
-# K3's cluster tier (csrc/riccati_cluster.cuh): the largest cluster (the
-# portable limit) and the control rows one CTA of it may own (so that a
-# warp of its elimination holds every row of Q_uu, four a lane).
-CLUSTER_MAX = 8
-CLUSTER_MU = 16
-# Tableau columns ([Q_uu | Q_ux | Q_u]) the backward kernels eliminate in
-# registers (csrc/riccati.cuh, 32 GJ_COLS); past them tier 2 eliminates in
-# place in device memory, and only there does K3 take the cluster tier.
-GJ_REGISTER_COLS = 160
-
 
 def _inverse(order):
     return tuple(order.index(i) for i in range(len(order)))
@@ -114,181 +102,6 @@ def as_layout(t, order):
     ``order`` (``t.permute(order).is_contiguous()``); a copy only where it
     is not already."""
     return t.permute(order).contiguous().permute(_inverse(order))
-
-
-def _pad4(n: int) -> int:
-    return -(-n // 4) * 4
-
-
-def _pad32(n: int) -> int:
-    return -(-n // 32) * 32
-
-
-def riccati_sizes(K: int, nx: int, nu: int) -> tuple[int, int, int]:
-    """Values of the value, gain and vector groups of one problem's Riccati
-    working set: the mirror of ``riccati_sizes`` in csrc/riccati.cuh (every
-    buffer padded to a multiple of four values, the pivot rows and columns
-    of the Gauss-Jordan solve to whole warps)."""
-    nxf, nuf = K * nx, K * nu
-    ncol = nuf + nxf + 1
-    value = 3 * _pad4(nxf * nxf)
-    gain = (4 * _pad4(nuf * nxf) + _pad4(nuf * nuf) + _pad4(nuf * ncol)
-            + _pad4(K * nx * nx) + _pad4(K * nx * nu))
-    vec = 3 * _pad4(nxf) + 4 * _pad4(nuf) + 2 * _pad32(ncol) + 2 * _pad32(nuf)
-    return value, gain, vec
-
-
-def riccati_smem_bytes(K: int, nx: int, nu: int, itemsize: int,
-                       limit: int = SMEM_LIMIT,
-                       extra: int = 0) -> RiccatiPlan:
-    """Where a backward kernel places one problem's working set: the mirror
-    of ``riccati_plan`` in csrc/riccati.cuh.  Returns ``(tier, shared-memory
-    bytes of a CTA, workspace values of one problem, CTAs a problem)``: tier
-    0 has all three groups in shared memory, 1 the value group in the
-    device-memory workspace, 2 the gain group too; ``extra`` values join the
-    gain group (the kernels' input buffers, ``sweep_extra_values``).  Raises
-    where not even the vectors fit ``limit`` bytes."""
-    value, gain, vec = riccati_sizes(K, nx, nu)
-    gain += extra
-    room = limit // itemsize
-    if value + gain + vec <= room:
-        return RiccatiPlan(0, (value + gain + vec) * itemsize, 0)
-    if gain + vec <= room:
-        return RiccatiPlan(1, (gain + vec) * itemsize, value)
-    if vec <= room:
-        return RiccatiPlan(2, vec * itemsize, value + gain)
-    raise ValueError(
-        f"backward kernels: riccati_plan finds no tier for a problem with "
-        f"K*nx={K * nx}, K*nu={K * nu}: its vectors alone take "
-        f"{vec * itemsize} bytes of shared memory, over the {limit} a block "
-        "may use")
-
-
-def sweep_extra_values(n: int, nx: int, nu: int) -> int:
-    """Values the backward kernels' input source adds to the Riccati working
-    set's gain group (per agent Q + Q^T, R + R^T and their weighted blocks,
-    a step's (n, n, k, k) proximity blocks and (n, n, 3) pair gradient
-    terms): the mirror of ``sweep_extra_values`` in
-    csrc/computed_inputs.cuh."""
-    k = min(3, nx)
-    return (2 * _pad4(n * nx * nx) + 2 * _pad4(n * nu * nu) + _pad4(n * n * k * k)
-            + _pad4(n * n * 3))
-
-
-def cluster_layout_values(K: int, nx: int, nu: int, C: int) -> int:
-    """Values of one CTA's shared memory when a cluster of ``C`` CTAs holds
-    a problem of ``K`` slots (K3's cluster tier): the mirror of
-    ``cluster_layout`` in csrc/riccati_cluster.cuh.  Each rank owns at most
-    ``ms`` slots: its rows of P and A^T P (together, the elimination's
-    multipliers, ``nuf`` x ``chain_ldm``), of Q_xx, a staging buffer (rows
-    of Q_ux and Q_uu K), its rows of Q_ux, Q_uu K, Q_uu, Q_uu's columns of
-    its rows, its rows of the right-hand sides [Q_ux | Q_u], K whole (in
-    the elimination, the chain rank's copy of Q_uu and the rank's share of
-    the right-hand columns), two steps' A and B blocks, the cost blocks,
-    its rows of the proximity blocks and gradient terms, and the
-    vectors."""
-    ms, k = -(-K // C), min(3, nx)
-    nxf, nuf = K * nx, K * nu
-    mx, mu = ms * nx, ms * nu
-    ldb = _pad4(nxf + 1)  # [Q_ux | Q_u] in chunks of four columns
-    mult = nuf * _pad32(nuf)
-    elim = _pad4(nuf * (nuf + 1)) + nuf * 4 * -(-(ldb // 4) // C)
-    return (2 * _pad4(mx * nxf) + _pad4(max(mx * nxf, mult - _pad4(mx * nxf)))
-            + 2 * _pad4(mu * nxf) + 2 * _pad4(mu * nxf)
-            + _pad4(mu * nuf) + _pad4(nuf * _pad4(mu)) + _pad4(mu * ldb)
-            + _pad4(max(nuf * nxf, elim))
-            + 2 * (_pad4(K * nx * nx) + _pad4(K * nx * nu)) + 2 * _pad4(K * nx * nx)
-            + 2 * _pad4(K * nu * nu) + _pad4(ms * K * k * k) + _pad4(ms * K * 3)
-            + 3 * _pad4(mx) + 2 * _pad4(mu) + 2 * _pad4(nuf))
-
-
-def sweep_smem_bytes(n: int, nx: int, nu: int, itemsize: int,
-                     max_cluster: int = 1) -> RiccatiPlan:
-    """Where a backward kernel (K1, K3, K5) places one problem of ``n``
-    slots: ``(tier, shared-memory bytes of a CTA, workspace values, CTAs a
-    problem)``, the mirror of ``dpilqr_riccati_plan`` (``riccati_smem_bytes``
-    with the input source's buffers).  With ``max_cluster`` > 1 (K3, which
-    passes ``CLUSTER_MAX``) a problem that would need tier 2 with a tableau
-    past ``GJ_REGISTER_COLS`` columns takes tier 3 instead wherever a
-    cluster of at most that many CTAs holds it whole: the smallest such
-    cluster whose ranks own at most ``CLUSTER_MU`` control rows each.
-    Raises where no tier fits."""
-    plan = riccati_smem_bytes(n, nx, nu, itemsize, extra=sweep_extra_values(n, nx, nu))
-    if plan.tier != 2 or n * (nx + nu) + 1 <= GJ_REGISTER_COLS:
-        return plan
-    for C in range(2, min(max_cluster, n) + 1):
-        nbytes = cluster_layout_values(n, nx, nu, C) * itemsize
-        if -(-n // C) * nu <= CLUSTER_MU and nbytes <= SMEM_LIMIT:
-            return RiccatiPlan(3, nbytes, 0, C)
-    return plan
-
-
-class ForwardPlan(NamedTuple):
-    """Where the forward kernels (K2, K4) place one problem's columns:
-    ``chunks`` CTAs of ``warps`` warps (alphas) each; with gains ``buffers``
-    (2 or 1) buffers of a tile of ``rows`` gain rows and of a step's rows;
-    ``nbytes`` of dynamic shared memory a CTA."""
-
-    chunks: int
-    warps: int
-    buffers: int
-    rows: int
-    nbytes: int
-
-    def placement(self, nuf: int) -> str:
-        """"stages" (a step's whole gain block a buffer), "tiles" or
-        "columns" (no gains)."""
-        return "columns" if not self.rows else "stages" if self.rows >= nuf else "tiles"
-
-
-def forward_smem_bytes(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
-                       gains: bool = True, limit: int = SMEM_LIMIT,
-                       max_rows: int = 0) -> ForwardPlan:
-    """The forward kernels' plan: the mirror of ``column_launch`` in
-    csrc/rollout.cuh.  A CTA holds x, dx and u of each of its alphas and,
-    with gains, buffers of one step's gain block, d row and nominal X and U
-    rows; in order of preference two whole blocks, one, tiles of as many
-    rows as fit (a multiple of 4, evened out over the block) in two buffers,
-    then in one; the same with fewer warps a CTA where the columns of all
-    its alphas leave no room for a 4-row tile.  ``max_rows`` > 0 forces
-    tiles of at most that many rows where it is below nuf.  Raises a
-    ``ValueError`` where not even one warp's column beside a 4-row tile
-    fits ``limit`` bytes."""
-    nxf, nuf = K * nx, K * nu
-    if n_alpha < 1:
-        return ForwardPlan(0, 0, 0, 0, 0)
-    room = limit // itemsize
-    col = 2 * _pad4(nxf) + _pad4(nuf)
-    rowv = 2 * _pad4(nuf) + _pad4(nxf)
-    whole = max_rows <= 0 or max_rows >= nuf
-    cap_rows = nuf if whole else max(4, max_rows // 4 * 4)
-    for cap in range(FORWARD_WARPS_PER_CTA, 0, -1):
-        chunks = -(-n_alpha // cap)
-        warps = -(-n_alpha // chunks)
-        cols = warps * col
-        if cols > room:
-            continue
-        if not gains:
-            return ForwardPlan(chunks, warps, 1, 0, cols * itemsize)
-        for nb in (2, 1) if whole else ():
-            v = cols + nb * (_pad4(nuf * nxf) + rowv)
-            if v <= room:
-                return ForwardPlan(chunks, warps, nb, nuf, v * itemsize)
-        for nb in (2, 1):
-            if cols + nb * (_pad4(4 * nxf) + rowv) > room:
-                continue
-            per = ((room - cols) // nb - rowv) // 4 * 4
-            rmax = min(per // nxf, cap_rows) // 4 * 4
-            n_tiles = -(-nuf // rmax)
-            rows = _pad4(-(-nuf // n_tiles))
-            return ForwardPlan(chunks, warps, nb, rows,
-                               (cols + nb * (_pad4(rows * nxf) + rowv)) * itemsize)
-    need = (col + (_pad4(4 * nxf) + rowv if gains else 0)) * itemsize
-    raise ValueError(
-        f"forward kernels: their plan (column_launch) places no CTA for a problem with "
-        f"K*nx={nxf}, K*nu={nuf}: one warp's column"
-        + (" beside a 4-row tile of its gain block" if gains else "")
-        + f" takes {need} bytes of shared memory, over the {limit} a block may use")
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +242,7 @@ def _check_width(name: str, K: int, nx_p: int, nu_p: int, itemsize: int,
     """Raise unless backward kernel ``name`` takes subproblems of ``K``
     slots: the narrow kernel up to ``MAX_NXF`` flat states and controls, its
     working set all in shared memory, the wide one whatever
-    ``sweep_smem_bytes`` places (it raises, naming the plan, where no tier
+    ``riccati_plan`` places (it raises, naming the plan, where no tier
     fits)."""
     nxf, nuf = K * nx_p, K * nu_p
     if narrow and max(nxf, nuf) > MAX_NXF:
@@ -437,7 +250,7 @@ def _check_width(name: str, K: int, nx_p: int, nu_p: int, itemsize: int,
             f"{name} takes K*nx_p, K*nu_p <= {MAX_NXF}, got {nxf}, {nuf}: "
             "wider subproblems take backward_pass_batched_wide_cuda"
         )
-    tier = sweep_smem_bytes(K, nx_p, nu_p, itemsize)[0]
+    tier = riccati_plan(K, nx_p, nu_p, itemsize).tier
     if narrow and tier != 0:
         raise ValueError(f"{name}: a subproblem of K={K} does not fit shared memory")
 
@@ -496,7 +309,7 @@ def _backward_plan(kernel: str, K: int, nx_p: int, nu_p: int, itemsize: int) -> 
     """The library's plan for backward kernel ``kernel`` (K1 or K3): K3's
     may put a subproblem on a cluster of CTAs."""
     return riccati_plan(K, nx_p, nu_p, itemsize,
-                        CLUSTER_MAX if kernel == "backward_batched_wide" else 1)
+                        cluster_max() if kernel == "backward_batched_wide" else 1)
 
 
 def _launch_backward(kernel, narrow, fleet: Fleet, cost_b: GameCost, mids_s, X, U,
@@ -540,9 +353,9 @@ def backward_pass_batched_wide_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U
                                     mu):
     """Launch ``csrc/backward_batched_wide.cu`` (any width the card places):
     the same contract as ``backward_pass_batched_cuda``.  Each subproblem's
-    working set lies in shared memory where it fits (``sweep_smem_bytes``
-    with ``CLUSTER_MAX``), else its three nxf^2 matrices in a device-memory
-    workspace, else where a cluster of at most ``CLUSTER_MAX`` CTAs holds
+    working set lies in shared memory where it fits (``riccati_plan`` with
+    ``cluster_max()``), else its three nxf^2 matrices in a device-memory
+    workspace, else where a cluster of at most ``cluster_max()`` CTAs holds
     it all in their shared memory on such a cluster (Quad6D at K=32 in
     float32), else its gain blocks and input buffers in the workspace too;
     it raises where not even the vectors fit, or where the card cannot
@@ -724,7 +537,7 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     that do not lie in the kernel's memory order (``GAIN_ORDER``,
     ``D_ORDER``: what the backward wrappers and twins return) are copied
     into it once.  ``max_rows`` > 0 forces the gain block into tiles of at
-    most that many rows (``forward_smem_bytes``), which must give the bits
+    most that many rows (``forward_plan``), which must give the bits
     of the whole block: for the tests and the smoke.  ``out``: the
     ``(X5, U5, J)`` buffers to write, contiguous ``(n_alpha, S, N, K,
     nx_p)``, ``(n_alpha, S, N, K, nu_p)`` and ``(n_alpha, S)``; ``tail``:
@@ -736,8 +549,8 @@ def forward_pass_batched_cuda(fleet: Fleet, cost_b: GameCost, mids_s, X, U,
     nu_p = U.shape[-1]
     n_alpha = alphas.shape[0]
     library = require_kernel_models(fleet)
-    forward_smem_bytes(K, nx_p, nu_p, n_alpha, X.element_size(),
-                       gains=Kg is not None)  # raises where nothing fits
+    forward_plan(K, nx_p, nu_p, n_alpha, X.element_size(),
+                 gains=Kg is not None)  # raises where nothing fits
     require_cuda("forward_batched", X)
     if fleet.nx_p != nx_p or fleet.nu_p != nu_p:
         raise ValueError("X/U widths do not match the fleet's nx_p/nu_p")
@@ -1254,8 +1067,8 @@ def solve_subproblems_batched(
     ``x0_s (S, K, nx_p)``, ``U0_s (S, N, K, nu_p)``, ``mids_s (S, K)`` branch
     indices, ``enabled (S,)`` bool; ``backend`` defaults to
     ``cfg.sweep_backend``.  On the kernels a width that K1's or K3's plan
-    (``sweep_smem_bytes``) or K2's (``forward_smem_bytes``) does not place
-    raises that plan's ``ValueError`` before any launch.
+    (``riccati_plan``) or K2's (``forward_plan``) does not place raises
+    that plan's ``ValueError`` before any launch.
 
     ``t_kill`` (seconds) is the wall-clock deadline of the whole batch,
     counted from ``t0`` (a ``perf_counter`` reading; default: entry).  The
@@ -1273,8 +1086,8 @@ def solve_subproblems_batched(
             # A width the backward kernels' plan (K1, K3) or K2's does not place
             # raises its ValueError here, before any launch.
             K, item = x0_s.shape[1], x0_s.element_size()
-            sweep_smem_bytes(K, fleet.nx_p, fleet.nu_p, item)
-            forward_smem_bytes(K, fleet.nx_p, fleet.nu_p, cfg.n_ls_iter, item)
+            riccati_plan(K, fleet.nx_p, fleet.nu_p, item)
+            forward_plan(K, fleet.nx_p, fleet.nu_p, cfg.n_ls_iter, item)
         stage = _graph_stage if backend == "cuda" else _eager_stage
         sub_cost = cast_cost(sub_cost, dtype)
         S = x0_s.shape[0]

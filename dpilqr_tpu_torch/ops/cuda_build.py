@@ -14,6 +14,14 @@ include path, into ``_build/custom/<hash of sources, flags and header>/``.
 ``require_kernel_models`` routes a fleet to its library (or refuses it);
 the probes hold no model and always come from the default one.
 
+Where a kernel places its working set (its shared-memory plan) is defined
+once, in ``csrc/plan.h``: the kernels plan every launch with it, and
+``host_build`` compiles the same header with g++ into a small library,
+``csrc/plan.cpp``'s, from which ``riccati_plan`` and ``forward_plan``
+read every plan the wrappers size a workspace or refuse a width with, on
+the card and on the CPU alike.  ``host_build`` also builds the CPU tests'
+host libraries of ``csrc/``.
+
 ``launch`` is the one way a wrapper calls a kernel: it raises on a failed
 launch and counts the launch in ``launch_counts`` (and, from a custom
 library, in ``custom_launch_counts``; the plain-torch twins never count).
@@ -51,6 +59,9 @@ LIB_NAME = "libdpilqr_kernels.so"
 # name csrc/dynamics.cuh includes).
 HEADER_NAME = "dpilqr_custom_models.cuh"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# Dynamic shared memory a block may use on the card the kernels compile for
+# (sm_90a's opt-in: 227 KB): the limit every plan is made under.
+SMEM_LIMIT = 232_448
 # DPILQR_NVCC_FLAGS adds compiler flags (and so keys another build), e.g.
 # -DDPILQR_PHASE_CLOCKS for scripts/riccati_phase_clocks.py.
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -140,7 +151,8 @@ def launch_ms(record, kernel: str) -> list[float]:
 
 
 def sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    return (sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+            + sorted(CSRC_DIR.glob("*.h")))
 
 
 def find_nvcc() -> str:
@@ -256,12 +268,56 @@ def load_library(header: str | None = None) -> ctypes.CDLL:
             fn = getattr(lib, f"dpilqr_{base}_{suffix}")
             fn.argtypes = _SIGNATURES[base]
             fn.restype = ctypes.c_int
-    if header is None:  # the plans: the default library's alone are called
-        lib.dpilqr_riccati_plan.argtypes = ([_I] * 5 + [ctypes.POINTER(_L)] * 2
-                                            + [ctypes.POINTER(_I)])
-        lib.dpilqr_riccati_plan.restype = ctypes.c_int
-        lib.dpilqr_forward_smem_bytes.argtypes = [_I] * 7 + [_L, ctypes.POINTER(_I)]
-        lib.dpilqr_forward_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def host_build(source: Path, flags, name: str, header: str | None = None) -> Path:
+    """Compile ``source`` with g++ and ``flags`` into the shared library
+    ``name`` in ``_build/host/<hash>/``, unless it is there; returns its
+    path.  The hash covers the source, the flags, ``header`` (a header
+    ``ops.codegen`` generated, written as ``HEADER_NAME`` on the include
+    path before ``csrc/``) and every file in ``csrc/``, so that an edit of
+    any header the source includes rebuilds it; the library is replaced
+    whole or not at all."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in (source, *sorted(p for p in CSRC_DIR.iterdir() if p.is_file())):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    if header is not None:
+        h.update(b"\0custom\0" + header.encode())
+    out = BUILD_DIR / "host" / h.hexdigest()[:16] / name
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found: {source.name} needs a host C++ compiler")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        include = ["-I", str(CSRC_DIR)]
+        if header is not None:
+            (Path(tmp) / HEADER_NAME).write_text(header)
+            include = ["-I", tmp, *include]
+        so = Path(tmp) / name
+        proc = subprocess.run([cxx, *flags, "-shared", "-fPIC", *include, "-o", str(so),
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {source.name} ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(so, out)
+    return out
+
+
+@cache
+def plan_library() -> ctypes.CDLL:
+    """``csrc/plan.cpp``'s library (the plan of ``csrc/plan.h``), built on
+    first call."""
+    lib = ctypes.CDLL(str(host_build(CSRC_DIR / "plan.cpp", ("-std=c++17", "-O2"),
+                                     "libdpilqr_plan.so")))
+    lib.dpilqr_riccati_plan.argtypes = ([_I] * 5 + [_L] + [ctypes.POINTER(_L)] * 2
+                                        + [ctypes.POINTER(_I)])
+    lib.dpilqr_riccati_plan.restype = ctypes.c_int
+    lib.dpilqr_forward_plan.argtypes = [_I] * 7 + [_L, ctypes.POINTER(_I)]
+    lib.dpilqr_forward_plan.restype = ctypes.c_longlong
     return lib
 
 
@@ -341,38 +397,71 @@ class RiccatiPlan(NamedTuple):
 
 
 @cache
-def riccati_plan(K: int, nx: int, nu: int, itemsize: int,
-                 max_cluster: int = 1) -> RiccatiPlan:
-    """Where the library places one problem's working set of a backward
-    kernel (K1, K3, K5) on the current device (``computed_plan`` in
-    csrc/computed_inputs.cuh: ``riccati_plan`` of csrc/riccati.cuh with the
-    input source's buffers; with ``max_cluster`` > 1 K3's ``wide_plan`` of
-    csrc/riccati_cluster.cuh, which puts a problem that would need tier 2
-    on a cluster of at most that many CTAs where one holds it; exported by
-    csrc/backward_batched_wide.cu).  A working set whose vectors alone
-    exceed shared memory raises."""
+def cluster_max() -> int:
+    """K3's largest cluster of CTAs (``CLUSTER_MAX`` in csrc/plan.h), the
+    ``max_cluster`` of its ``riccati_plan``."""
+    return _I.in_dll(plan_library(), "dpilqr_cluster_max").value
+
+
+@cache
+def riccati_plan(K: int, nx: int, nu: int, itemsize: int, max_cluster: int = 1,
+                 limit: int = SMEM_LIMIT) -> RiccatiPlan:
+    """Where a backward kernel (K1, K3, K5) places one problem of ``K``
+    slots under ``limit`` bytes of shared memory a block: csrc/plan.h's
+    ``computed_plan``, or with ``max_cluster`` > 1 K3's ``wide_plan``, which
+    may put it on a cluster of CTAs.  Raises a ``ValueError`` where not even
+    the vectors fit."""
     smem, work, cluster = _L(), _L(), _I()
-    lib = load_library()
-    tier = lib.dpilqr_riccati_plan(K, nx, nu, itemsize, max_cluster, ctypes.byref(smem),
-                                   ctypes.byref(work), ctypes.byref(cluster))
+    tier = plan_library().dpilqr_riccati_plan(
+        K, nx, nu, itemsize, max_cluster, limit, ctypes.byref(smem), ctypes.byref(work),
+        ctypes.byref(cluster))
     if tier < 0:
-        raise ValueError(f"a Riccati problem of K={K}, nx={nx}, nu={nu} does "
-                         "not fit the device's shared memory")
+        raise ValueError(
+            f"backward kernels: riccati_plan finds no tier for a problem with "
+            f"K*nx={K * nx}, K*nu={K * nu}: its vectors alone take "
+            f"{smem.value} bytes of shared memory, over the {limit} a block "
+            "may use")
     return RiccatiPlan(tier, smem.value, work.value, cluster.value)
 
 
+class ForwardPlan(NamedTuple):
+    """Where the forward kernels (K2, K4) place one problem's columns:
+    ``chunks`` CTAs of ``warps`` warps (alphas) each; with gains ``buffers``
+    (2 or 1) buffers of a tile of ``rows`` gain rows and of a step's rows;
+    ``nbytes`` of dynamic shared memory a CTA."""
+
+    chunks: int
+    warps: int
+    buffers: int
+    rows: int
+    nbytes: int
+
+    def placement(self, nuf: int) -> str:
+        """"stages" (a step's whole gain block a buffer), "tiles" or
+        "columns" (no gains)."""
+        return "columns" if not self.rows else "stages" if self.rows >= nuf else "tiles"
+
+
+@cache
 def forward_plan(K: int, nx: int, nu: int, n_alpha: int, itemsize: int,
                  gains: bool = True, max_rows: int = 0,
-                 limit: int = -1) -> tuple[int, int, int, int, int] | None:
-    """The library's plan for the forward kernels (K2, K4: ``column_launch``
-    in csrc/rollout.cuh, exported by csrc/forward_batched.cu): ``(chunks,
-    warps, buffers, rows, bytes)`` as ``batched.forward_smem_bytes`` gives
-    it, or None where nothing fits ``limit`` bytes (-1: the current
-    device's opt-in maximum)."""
-    plan = (ctypes.c_int * 4)()
-    nbytes = load_library().dpilqr_forward_smem_bytes(
-        K, nx, nu, n_alpha, int(gains), itemsize, max_rows, limit, plan)
-    return None if nbytes < 0 else (*plan, nbytes)
+                 limit: int = SMEM_LIMIT) -> ForwardPlan:
+    """Where the forward kernels (K2, K4) place one problem of ``K`` slots
+    under ``limit`` bytes of shared memory a block: csrc/plan.h's
+    ``column_launch``; ``max_rows`` > 0 forces tiles of at most that many
+    gain rows.  Raises a ``ValueError`` where not even one warp's column
+    (beside a 4-row tile of gains) fits."""
+    plan = (_I * 4)()
+    nbytes = plan_library().dpilqr_forward_plan(K, nx, nu, n_alpha, int(gains), itemsize,
+                                                max_rows, limit, plan)
+    if nbytes < 0:
+        raise ValueError(
+            f"forward kernels: their plan (column_launch) places no CTA for a problem "
+            f"with K*nx={K * nx}, K*nu={K * nu}: one warp's column"
+            + (" beside a 4-row tile of its gain block" if gains else "")
+            + f" takes {-nbytes} bytes of shared memory, over the {limit} a block "
+            "may use")
+    return ForwardPlan(*plan, nbytes)
 
 
 def ptr(t):

@@ -254,16 +254,16 @@ def resolve_sweep_backend(cfg: SolverConfig, x, fleet: Fleet) -> str:
     device and dtype: ``DPILQR_SWEEP_BACKEND`` if set, else
     ``cfg.sweep_backend``.  "auto" is the plain PyTorch sweeps for CPU
     tensors and the kernels for CUDA tensors -- unless K5 finds no tier for
-    the problem (``batched.sweep_smem_bytes``: its vectors alone exceed a
+    the problem (``cuda_build.riccati_plan``: its vectors alone exceed a
     block's shared memory), and then "pscan": the JAX package's rule (the
     fused kernel where it fits, the scan where it does not) without its TPU
     crossover at N >= 100, since on the card K5 beats the scan at every
     horizon.  An explicit "cuda" raises there; "pscan" stays "pscan".
     Wherever the forward sweep is to run on K4, K4's plan must place the
-    problem too (``batched.forward_smem_bytes``: one warp's column beside a
+    problem too (``cuda_build.forward_plan``: one warp's column beside a
     4-row tile of gains), or this raises its ``ValueError`` before any
     launch: no backend solves such a fleet on the card."""
-    from .batched import forward_smem_bytes, sweep_smem_bytes
+    from .cuda_build import forward_plan, riccati_plan
 
     requested = env_sweep_backend() or cfg.sweep_backend
     item = x.element_size()
@@ -273,14 +273,13 @@ def resolve_sweep_backend(cfg: SolverConfig, x, fleet: Fleet) -> str:
         backend = resolve_backend(requested, x)
         if backend == "cuda":
             try:
-                sweep_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p, item)
+                riccati_plan(fleet.n_agents, fleet.nx_p, fleet.nu_p, item)
             except ValueError:
                 if requested != "auto":
                     raise
                 backend = "pscan"
     if backend == "cuda" or (backend == "pscan" and x.is_cuda):
-        forward_smem_bytes(fleet.n_agents, fleet.nx_p, fleet.nu_p, cfg.n_ls_iter,
-                           item)
+        forward_plan(fleet.n_agents, fleet.nx_p, fleet.nu_p, cfg.n_ls_iter, item)
     return backend
 
 

@@ -26,9 +26,9 @@ from functools import lru_cache
 import torch
 
 from ..models.fleet import Fleet
-from .batched import _dt_tensor, _slot_tables, forward_smem_bytes
+from .batched import _dt_tensor, _slot_tables
 from .costs import GameCost, cast_cost
-from .cuda_build import (check_tensors, launch, require_cuda,
+from .cuda_build import (check_tensors, forward_plan, launch, require_cuda,
                          require_kernel_models, riccati_plan)
 
 
@@ -140,15 +140,15 @@ def forward_pass_cuda(fleet: Fleet, cost: GameCost, X, U, K, d, alphas,
     ``u = U + K (x - X) + alpha d`` for all ``alphas (n_alpha,)`` in one
     launch, a warp per alpha.  Returns ``X_c (n_alpha, N+1, n, nx_p)``,
     ``U_c (n_alpha, N, n, nu_p)``, ``J_c (n_alpha,)``.  A step's gain block
-    comes whole or in tiles of rows (``forward_smem_bytes`` with K = n, which
-    raises past one warp's column beside a 4-row tile); ``max_rows`` > 0
-    forces tiles of at most that many rows, as in
+    comes whole or in tiles of rows (``cuda_build.forward_plan`` with K =
+    n, which raises past one warp's column beside a 4-row tile);
+    ``max_rows`` > 0 forces tiles of at most that many rows, as in
     ``batched.forward_pass_batched_cuda``."""
     if K is None or d is None:
         raise ValueError("forward_pass_cuda takes gains K and d; the plain "
                          "rollout of U is rollout_cuda")
     N, n, nu_p = U.shape
-    forward_smem_bytes(n, X.shape[-1], nu_p, alphas.shape[0], X.element_size())
+    forward_plan(n, X.shape[-1], nu_p, alphas.shape[0], X.element_size())
     return _launch_forward_sweep(fleet, cost, X, U, K, d, alphas, max_rows)
 
 

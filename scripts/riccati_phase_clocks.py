@@ -142,8 +142,8 @@ def main():
         ms = cs.timed(lambda: launch(*args), 20)
         if not narrow:  # K3's placement: its tier and the CTAs of a subproblem
             X, U = args[3], args[4]
-            plan = bt.sweep_smem_bytes(X.shape[2], X.shape[3], U.shape[3],
-                                       X.element_size(), bt.CLUSTER_MAX)
+            plan = cuda_build.riccati_plan(X.shape[2], X.shape[3], U.shape[3],
+                                           X.element_size(), cuda_build.cluster_max())
             tag += f" (tier {plan.tier}, {plan.cluster} CTA{'s' if plan.cluster > 1 else ''})"
         report(read, buf, lambda: launch(*args), f"{tag} S={cs.batch_width(args)}", ms,
                cs.HORIZON)

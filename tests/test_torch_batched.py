@@ -23,6 +23,7 @@ import torch
 import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops.costs import game_cost_from_numpy
+from dpilqr_tpu_torch.ops.cuda_build import forward_plan, riccati_plan
 from dpilqr_tpu_torch.ops.ilqr import line_search_alphas
 
 torch.set_num_threads(1)
@@ -231,14 +232,14 @@ def test_cuda_wrappers_reject_what_they_cannot_take():
             bt.backward_pass_batched_wide_cuda(fleet_t, cost_t, mids_t,
                                                *trajectory(K_), mut)
     for itemsize, dtype in ((4, torch.float32), (8, torch.float64)):
-        assert bt.sweep_smem_bytes(32, 6, 3, itemsize)[0] == 2
+        assert riccati_plan(32, 6, 3, itemsize).tier == 2
         with pytest.raises(ValueError, match="CUDA"):
             bt.backward_pass_batched_wide_cuda(fleet_t, cost_t, mids_t,
                                                *trajectory(32, 6, 3, dtype), mut)
 
     def placed(K_):
         try:
-            bt.sweep_smem_bytes(K_, 4, 2, 8)
+            riccati_plan(K_, 4, 2, 8)
         except ValueError:
             return False
         return True
@@ -261,14 +262,14 @@ def test_cuda_wrappers_reject_what_they_cannot_take():
 
     def staged(K_):
         try:
-            bt.forward_smem_bytes(K_, 12, 4, 2, 8)
+            forward_plan(K_, 12, 4, 2, 8)
         except ValueError:
             return False
         return True
 
     first = next(K_ for K_ in range(1, 1000) if not staged(K_))
     assert first > 300 and staged(first - 1)
-    assert bt.forward_smem_bytes(first - 1, 12, 4, 2, 8).placement(
+    assert forward_plan(first - 1, 12, 4, 2, 8).placement(
         4 * (first - 1)) == "tiles"
     one = torch.zeros((1,), dtype=torch.float64)
     with pytest.raises(ValueError, match="column_launch"):
@@ -279,10 +280,10 @@ def test_cuda_wrappers_reject_what_they_cannot_take():
     # Past the routing limit the kernels' own guard is the shared memory a
     # block may use: the sizing the wrappers consult answers any width and
     # raises only where nothing fits.
-    assert bt.forward_smem_bytes(32, 6, 3, 10, 4).buffers == 2
-    assert bt.forward_smem_bytes(64, 6, 3, 10, 8).placement(192) == "tiles"
+    assert forward_plan(32, 6, 3, 10, 4).buffers == 2
+    assert forward_plan(64, 6, 3, 10, 8).placement(192) == "tiles"
     with pytest.raises(ValueError, match="shared memory"):
-        bt.riccati_smem_bytes(4000, 6, 3, 8)
+        riccati_plan(4000, 6, 3, 8)
     # Gains must lie in the kernels' memory order (or be copied into it).
     from dpilqr_tpu_torch.ops.cuda_build import check_tensors
 

@@ -6,8 +6,8 @@ Euler-discretized Jacobians, cost gradients and Hessian blocks inside the
 kernel, subproblem by subproblem, through ``slot_problem`` (a subproblem's
 view of the batch: its rows of the trajectory, its per-slot cost, its slots'
 branch indices mapped to model ids) and the work items of
-``sweep_prep_items_inline``.  A host C++ compiler builds
-``csrc/derivatives_host.cpp``, whose ``dpilqr_host_batched_prep`` runs those
+``sweep_prep_items_inline``.  g++ builds ``csrc/derivatives_host.cpp``
+(``cuda_build.host_build``), whose ``dpilqr_host_batched_prep`` runs those
 functions on one thread and assembles the dense Hessians from their blocks
 as the kernels read them.  On subproblems gathered from real decompositions
 (``parallel.subproblems``: an interaction graph of a rolled-out trajectory,
@@ -17,15 +17,10 @@ port's ``_quadraticize_batch`` / ``_linearize_batch`` and the JAX package's
 (``dpilqr_tpu.ops.pallas_batched``, its flat-lanes layout transposed back)
 to 1e-12 relative to max(|.|, 1): Unicycle4D at K=8, a mixed DoubleInt4D +
 Car3D + Bike5D fleet at K=4 with padded slots, Quad6D at K=16 and Quad12D at
-K=1.  Skips where no host compiler is found.
+K=1.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import pytest
@@ -34,7 +29,7 @@ import torch
 import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops.codegen import library_ids
-from dpilqr_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC_DIR
+from dpilqr_tpu_torch.ops.cuda_build import CSRC_DIR, host_build
 from dpilqr_tpu_torch.parallel.graph import interaction_graph
 from dpilqr_tpu_torch.parallel.subproblems import (gather_controls, gather_cost,
                                                    gather_subproblems)
@@ -44,29 +39,13 @@ torch.set_num_threads(1)
 RTOL = 1e-12
 DT, N = 0.1, 6
 _SRC = CSRC_DIR / "derivatives_host.cpp"
-_HEADERS = (CSRC_DIR / "computed_inputs.cuh", CSRC_DIR / "derivatives.cuh",
-            CSRC_DIR / "dynamics.cuh")
-_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
+_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off")
 G = 9.80665
 
 
 @pytest.fixture(scope="module")
 def lib():
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for p in (_SRC, *_HEADERS):
-        h.update(p.read_bytes())
-    out = BUILD_DIR / "host" / h.hexdigest()[:16] / "libderivatives.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-            so = os.path.join(tmp, out.name)
-            subprocess.run([cxx, *_FLAGS, "-I", str(CSRC_DIR), "-o", so, str(_SRC)],
-                           check=True, capture_output=True, text=True)
-            os.replace(so, out)
-    L = ctypes.CDLL(str(out))
+    L = ctypes.CDLL(str(host_build(_SRC, _FLAGS, "libderivatives.so")))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     L.dpilqr_host_batched_prep.argtypes = [I] * 5 + [P] * 13 + [D] + [P] * 8
     L.dpilqr_host_batched_prep.restype = I

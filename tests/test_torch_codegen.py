@@ -19,15 +19,10 @@ seeded points to 1e-12 relative against four references: its torch
 case of the same build, and the JAX package's ``SymbolicModel``.  A second
 field, ``ALL_FUNCTIONS`` (4 states, 2 controls), uses every function the
 printer supports and is held against its torch ``f`` and ``jacfwd``, at
-points away from its singularities.  Skips without g++ or sympy.
+points away from its singularities.  Skips without sympy.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import pytest
@@ -40,7 +35,7 @@ from dpilqr_tpu_torch.models.specs import ModelSpec, SymbolicRHS
 from dpilqr_tpu_torch.models.vectorized import padded_jacobians
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops import codegen, cuda_build
-from dpilqr_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC_DIR, require_kernel_models
+from dpilqr_tpu_torch.ops.cuda_build import CSRC_DIR, host_build, require_kernel_models
 
 sym = pytest.importorskip("sympy")
 torch.set_num_threads(1)
@@ -48,10 +43,7 @@ torch.set_num_threads(1)
 RTOL = 1e-12
 DT = 0.1
 _SRC = CSRC_DIR / "derivatives_host.cpp"
-_HEADERS = (CSRC_DIR / "computed_inputs.cuh", CSRC_DIR / "derivatives.cuh",
-            CSRC_DIR / "dynamics.cuh")
-_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-          "-DDPILQR_CUSTOM_MODELS"]
+_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-DDPILQR_CUSTOM_MODELS")
 
 
 def _bike_field(names="p_x p_y v theta phi", controls="a rho"):
@@ -170,25 +162,9 @@ def test_mixed_fleet_maps_to_library_local_ids():
 def host():
     """The host build of derivatives_host.cpp with the header of the
     bicycle (id 1000) and ALL_FUNCTIONS (id 1001)."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("no g++")
     bike, zoo = UserBike(DT), AllFunctions(DT)
     header = codegen.generate_header((bike.spec, zoo.spec))
-    h = hashlib.sha256(" ".join(_FLAGS).encode() + header.encode())
-    for p in (_SRC, *_HEADERS):
-        h.update(p.read_bytes())
-    out = BUILD_DIR / "host" / h.hexdigest()[:16] / "libderivatives_custom.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-            with open(os.path.join(tmp, "dpilqr_custom_models.cuh"), "w") as f:
-                f.write(header)
-            so = os.path.join(tmp, out.name)
-            subprocess.run([cxx, *_FLAGS, "-I", tmp, "-I", str(CSRC_DIR), "-o", so,
-                            str(_SRC)], check=True, capture_output=True, text=True)
-            os.replace(so, out)
-    L = ctypes.CDLL(str(out))
+    L = ctypes.CDLL(str(host_build(_SRC, _FLAGS, "libderivatives_custom.so", header)))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     L.dpilqr_host_rhs.argtypes = [I, P, P, I, I, P]
     L.dpilqr_host_jacobians.argtypes = [I, P, P, I, I, D, D, P, P]

@@ -1,23 +1,18 @@
 """The derivative routines K5 computes its inputs with (csrc/derivatives.cuh),
 compiled for the host and held against the port's torch prep, float64.
 
-A host C++ compiler builds ``csrc/derivatives_host.cpp`` (which includes the
-header) into a small shared library in the port's build directory, loaded
-with ctypes.  Its Jacobians must match ``models/vectorized.py``
+g++ builds ``csrc/derivatives_host.cpp`` (which includes the header) into a
+small shared library in the port's build directory
+(``cuda_build.host_build``), loaded with ctypes.  Its Jacobians must match ``models/vectorized.py``
 ``padded_jacobians`` (Euler-discretized, the input map scaled by the mask)
 for all nine models at seeded points to 1e-12, and its cost terms -- the
 gradient, the control gradient and the dense Hessians assembled from blocks
 as the kernel assembles them -- must match ``quadraticize_stage_compact`` /
 ``quadraticize_terminal_compact`` with ``diag_embed`` and
-``assemble_pair_hessian`` to 1e-12.  Skips where no host compiler is found.
+``assemble_pair_hessian`` to 1e-12.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import pytest
@@ -28,34 +23,18 @@ from dpilqr_tpu_torch.models.integrate import euler_discretize
 from dpilqr_tpu_torch.models.specs import MODEL_REGISTRY
 from dpilqr_tpu_torch.models.vectorized import padded_jacobians
 from dpilqr_tpu_torch.ops import costs as C
-from dpilqr_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC_DIR
+from dpilqr_tpu_torch.ops.cuda_build import CSRC_DIR, host_build
 
 torch.set_num_threads(1)
 
 RTOL = 1e-12
 _SRC = CSRC_DIR / "derivatives_host.cpp"
-_HEADERS = (CSRC_DIR / "computed_inputs.cuh", CSRC_DIR / "derivatives.cuh",
-            CSRC_DIR / "dynamics.cuh")
-_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
+_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off")
 
 
 @pytest.fixture(scope="module")
 def lib():
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for p in (_SRC, *_HEADERS):
-        h.update(p.read_bytes())
-    out = BUILD_DIR / "host" / h.hexdigest()[:16] / "libderivatives.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-            so = os.path.join(tmp, out.name)
-            subprocess.run([cxx, *_FLAGS, "-I", str(CSRC_DIR), "-o", so, str(_SRC)],
-                           check=True, capture_output=True, text=True)
-            os.replace(so, out)
-    L = ctypes.CDLL(str(out))
+    L = ctypes.CDLL(str(host_build(_SRC, _FLAGS, "libderivatives.so")))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     L.dpilqr_host_jacobians.argtypes = [I, P, P, I, I, D, D, P, P]
     L.dpilqr_host_cost_terms.argtypes = [I, I, I, P, P, P, P, P, P, P, D, D, D,

@@ -1,11 +1,11 @@
 """The forward kernels (K2 ``csrc/forward_batched.cu``, K4
 ``csrc/forward_sweep.cu``) at every width the backward kernels place: a
 step's gain block whole where it fits, else in tiles of rows
-(``column_launch`` in ``csrc/rollout.cuh``, mirrored by
-``batched.forward_smem_bytes``), and the resolvers that refuse a width no
+(``column_launch`` in ``csrc/plan.h``, read through
+``cuda_build.forward_plan``), and the resolvers that refuse a width no
 kernel places before any launch.
 
-On the CPU: the mirror's placement at the widths that once raised (the
+On the CPU: the plan's placement at the widths that once raised (the
 centralized solve of 100 and 500 Unicycle4D and of 64 Quad6D, the decomposed
 Quad12D at K=32, Quad6D at K=64, Unicycle4D at K=64 and 128), its raise past
 one warp's column beside a 4-row tile, and ``ops.ilqr.resolve_sweep_backend``
@@ -23,25 +23,26 @@ import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops import ilqr as It
 from dpilqr_tpu_torch.ops import sweeps
+from dpilqr_tpu_torch.ops.cuda_build import SMEM_LIMIT, forward_plan, riccati_plan
 
 UNI, Q6, Q12 = (4, 2), (6, 3), (12, 4)
 
-# (K, (nx, nu), itemsize, n_alpha) -> (chunks, warps, buffers, rows): the
-# placements of the widths that raised before the tiles, 10 alphas (5 warps
-# a CTA on 2 CTAs) unless noted.
+# (K, (nx, nu), itemsize, n_alpha) -> (chunks, warps, buffers, rows, bytes):
+# the placements of the widths that raised before the tiles, 10 alphas (5
+# warps a CTA on 2 CTAs) unless noted.
 PLACED = {
-    (100, UNI, 4, 10): (2, 5, 2, 52),  # centralized, 100 Unicycle4D
-    (100, UNI, 8, 10): (2, 5, 2, 28),
-    (100, UNI, 8, 2): (1, 2, 2, 28),
-    (500, UNI, 4, 10): (2, 5, 2, 4),
-    (500, UNI, 8, 10): (4, 3, 1, 4),  # fewer warps, one buffer
-    (64, Q6, 4, 10): (2, 5, 2, 64),  # centralized, 64 Quad6D
-    (64, Q6, 8, 10): (2, 5, 2, 28),  # also the decomposed Quad6D at K=64
-    (32, Q12, 8, 10): (2, 5, 2, 28),  # decomposed
-    (32, Q12, 8, 2): (1, 2, 2, 32),
-    (64, UNI, 8, 10): (2, 5, 2, 44),
-    (128, UNI, 4, 10): (2, 5, 2, 44),
-    (128, UNI, 4, 2): (1, 2, 2, 52),
+    (100, UNI, 4, 10): (2, 5, 2, 52, 192800),  # centralized, 100 Unicycle4D
+    (100, UNI, 8, 10): (2, 5, 2, 28, 232000),
+    (100, UNI, 8, 2): (1, 2, 2, 28, 208000),
+    (500, UNI, 4, 10): (2, 5, 2, 4, 196000),
+    (500, UNI, 8, 10): (4, 3, 1, 4, 216000),  # fewer warps, one buffer
+    (64, Q6, 4, 10): (2, 5, 2, 64, 221952),  # centralized, 64 Quad6D
+    (64, Q6, 8, 10): (2, 5, 2, 28, 222720),  # also the decomposed Quad6D at K=64
+    (32, Q12, 8, 10): (2, 5, 2, 28, 218112),  # decomposed
+    (32, Q12, 8, 2): (1, 2, 2, 32, 221184),
+    (64, UNI, 8, 10): (2, 5, 2, 44, 214016),
+    (128, UNI, 4, 10): (2, 5, 2, 44, 214016),
+    (128, UNI, 4, 2): (1, 2, 2, 52, 231424),
 }
 
 
@@ -49,40 +50,40 @@ PLACED = {
     c[0], c[1][0], c[2], c[3]))
 def test_mirror_places_the_widths_that_raised(case):
     K, (nx, nu), itemsize, n_alpha = case
-    plan = bt.forward_smem_bytes(K, nx, nu, n_alpha, itemsize)
+    plan = forward_plan(K, nx, nu, n_alpha, itemsize)
     assert plan.placement(K * nu) == "tiles"
-    assert (plan.chunks, plan.warps, plan.buffers, plan.rows) == PLACED[case]
+    assert tuple(plan) == PLACED[case]
     assert plan.rows % 4 == 0 and plan.rows < K * nu
-    assert plan.chunks * plan.warps >= n_alpha
-    col, rowv = 2 * bt._pad4(K * nx) + bt._pad4(K * nu), 2 * bt._pad4(K * nu) + bt._pad4(K * nx)
-    assert plan.nbytes == (plan.warps * col + plan.buffers * (
-        bt._pad4(plan.rows * K * nx) + rowv)) * itemsize <= bt.SMEM_LIMIT
+    assert plan.chunks * plan.warps >= n_alpha and plan.nbytes <= SMEM_LIMIT
+    # With room for it, the same problem takes its whole gain block.
+    assert forward_plan(K, nx, nu, n_alpha, itemsize, limit=1 << 40).placement(
+        K * nu) == "stages"
 
 
 def test_whole_blocks_stay_and_tiles_can_be_forced():
     # Where a whole block fits the placement is the one before tiles...
-    plan = bt.forward_smem_bytes(8, 4, 2, 10, 4)
+    plan = forward_plan(8, 4, 2, 10, 4)
     assert plan.placement(16) == "stages" and (plan.buffers, plan.rows) == (2, 16)
-    assert bt.forward_smem_bytes(32, 12, 4, 10, 4)[2:4] == (1, 128)
+    assert forward_plan(32, 12, 4, 10, 4)[2:4] == (1, 128)
     # ... and max_rows forces tiles of at most that many rows (a multiple of
     # 4), evened out over the block: the smoke's and the cuda tests' check.
-    assert bt.forward_smem_bytes(8, 4, 2, 10, 4, max_rows=4)[2:4] == (2, 4)
-    assert bt.forward_smem_bytes(16, 6, 3, 10, 8, max_rows=8)[2:4] == (2, 8)
-    assert bt.forward_smem_bytes(16, 6, 3, 10, 8, max_rows=20)[2:4] == (2, 16)
-    assert bt.forward_smem_bytes(8, 4, 2, 10, 4, max_rows=16).placement(16) == "stages"
+    assert forward_plan(8, 4, 2, 10, 4, max_rows=4)[2:4] == (2, 4)
+    assert forward_plan(16, 6, 3, 10, 8, max_rows=8)[2:4] == (2, 8)
+    assert forward_plan(16, 6, 3, 10, 8, max_rows=20)[2:4] == (2, 16)
+    assert forward_plan(8, 4, 2, 10, 4, max_rows=16).placement(16) == "stages"
     # Without gains a CTA holds its columns only.
-    assert bt.forward_smem_bytes(500, 4, 2, 1, 8, gains=False)[:4] == (1, 1, 1, 0)
-    assert bt.forward_smem_bytes(8, 4, 2, 0, 4) == (0, 0, 0, 0, 0)
+    assert forward_plan(500, 4, 2, 1, 8, gains=False)[:4] == (1, 1, 1, 0)
+    assert forward_plan(8, 4, 2, 0, 4) == (0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("itemsize,last", [(4, 1709), (8, 854)], ids=["f32", "f64"])
 def test_mirror_raises_past_one_column_beside_a_four_row_tile(itemsize, last):
-    plan = bt.forward_smem_bytes(last, 4, 2, 10, itemsize)
+    plan = forward_plan(last, 4, 2, 10, itemsize)
     assert (plan.warps, plan.buffers, plan.rows) == (1, 1, 4)
     with pytest.raises(ValueError, match="column_launch"):
-        bt.forward_smem_bytes(last + 1, 4, 2, 10, itemsize)
+        forward_plan(last + 1, 4, 2, 10, itemsize)
     with pytest.raises(ValueError, match="column_launch"):
-        bt.forward_smem_bytes(last + 1, 4, 2, 1, itemsize)
+        forward_plan(last + 1, 4, 2, 1, itemsize)
 
 
 class _OnCard:
@@ -137,9 +138,9 @@ DECOMPOSED = {torch.float32: (606, 632), torch.float64: (303, 316)}
 def test_batched_solve_checks_both_plans_before_any_launch(dtype):
     past_k2, past_k3 = DECOMPOSED[dtype]
     item = torch.empty((), dtype=dtype).element_size()
-    bt.sweep_smem_bytes(past_k2, 12, 4, item)
+    riccati_plan(past_k2, 12, 4, item)
     with pytest.raises(ValueError, match="riccati_plan"):
-        bt.sweep_smem_bytes(past_k3, 12, 4, item)
+        riccati_plan(past_k3, 12, 4, item)
     cuda = dtt.SolverConfig(sweep_backend="cuda", n_lqr_iter=2)
 
     def solve(K, cfg=cuda):
@@ -207,7 +208,7 @@ def test_cuda_tiled_forward_kernels_match_twins_and_staged_bits(cuda_device, dty
                                torch.tensor(1.0, dtype=dtype, device=dev))
     alphas = It.line_search_alphas(10, dtype, dev)
     fw = (cost, X, U, Kb, db, alphas)
-    assert bt.forward_smem_bytes(n, 4, 2, 10, X.element_size()).placement(2 * n) == "tiles"
+    assert forward_plan(n, 4, 2, 10, X.element_size()).placement(2 * n) == "tiles"
     _close(sweeps.forward_pass_cuda(fleet, *fw), It._forward_pass(fleet.step, *fw), dtype)
     # K2 and K4 at widths where a whole block fits: forced tiles give its bits.
     fleet10 = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, 10, 0.1)

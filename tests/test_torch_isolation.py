@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it never imports JAX or the JAX package,
 and importing it (kernel wrappers, facade and host utilities included)
 builds nothing, needs no CUDA toolchain and pulls in neither sympy nor the
-plotting libraries -- the kernels and the native host library compile on
-first use, sympy and matplotlib load where they are used."""
+plotting libraries -- the kernels, the plan library and the native host
+library compile on first use, sympy and matplotlib load where they are
+used."""
 
 import os
 import re
@@ -42,6 +43,7 @@ leaked = sorted(m for m in sys.modules
                                        "networkx"))
 assert not leaked, leaked
 assert cb.load_library.cache_info().currsize == 0
+assert cb.plan_library.cache_info().currsize == 0
 assert host._lib is None and host._build_error is None  # no g++ run
 print("ok")
 """
@@ -102,6 +104,10 @@ KERNEL_HEADERS = {
     "derivatives.cuh": ("computed_inputs.cuh",),
     "dynamics.cuh": ("rollout.cuh", "derivatives.cuh"),
     "launch.cuh": ("riccati.cuh", "rollout.cuh", "accept_batched.cu"),
+    # The shared-memory plan: the kernels' headers, and plan.cpp, its host
+    # build's exports.
+    "plan.h": ("launch.cuh", "riccati.cuh", "computed_inputs.cuh", "riccati_cluster.cuh",
+               "rollout.cuh", "plan.cpp"),
     "riccati.cuh": ("backward_batched.cu", "backward_batched_wide.cu", "backward_sweep.cu"),
     "riccati_cluster.cuh": ("backward_batched_wide.cu",),
     "rollout.cuh": ("forward_batched.cu", "forward_sweep.cu"),
@@ -117,11 +123,11 @@ def test_kernel_headers_are_listed_hashed_and_included(header):
     import dpilqr_tpu_torch.ops.cuda_build as cb
 
     csrc = PKG / "csrc"
-    assert {p.name for p in csrc.glob("*.cuh")} == set(KERNEL_HEADERS)
+    assert {p.name for p in (*csrc.glob("*.cuh"), *csrc.glob("*.h"))} == set(KERNEL_HEADERS)
     assert csrc / header in cb.sources()
     for user in KERNEL_HEADERS[header]:
         assert f'#include "{header}"' in (csrc / user).read_text(), (user, header)
-    for src in cb.sources():
+    for src in (*cb.sources(), *csrc.glob("*.cpp")):
         for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
             assert (csrc / inc).exists() or inc == cb.HEADER_NAME, (src.name, inc)
 

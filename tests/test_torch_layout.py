@@ -5,13 +5,13 @@ N, nuf, nxf)``, line-search candidates column-major as ``(n_alpha, S, N, K,
 nx_p)``) and hand the tensors out as permuted views in the JAX package's
 shapes.  On the CPU the twins produce the same views, so these tests hold
 the shapes, the values behind either layout, ``select_alpha`` against the
-gather it replaces, the per-fleet slot tables, and the pure-Python mirrors
-of the kernels' shared-memory sizing (``riccati_smem_bytes``,
-``forward_smem_bytes``).
+gather it replaces, the per-fleet slot tables, and the kernels'
+shared-memory plans (``csrc/plan.h``, read through ``cuda_build.riccati_plan``
+and ``forward_plan`` from its host build).
 
-The ``cuda`` cases hold the mirrors against the library's own sizing and
-the kernels against their twins at the compacted batch widths, on a card;
-they skip without one.
+The ``cuda`` cases hold the card's opt-in limit to the one the plans are
+made under and the kernels against their twins at the compacted batch
+widths, on a card; they skip without one.
 """
 
 import numpy as np
@@ -21,6 +21,8 @@ import torch
 import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops import cuda_build
+from dpilqr_tpu_torch.ops.cuda_build import (SMEM_LIMIT, cluster_max, forward_plan,
+                                              riccati_plan)
 from dpilqr_tpu_torch.ops.costs import game_cost_from_numpy
 from dpilqr_tpu_torch.ops.ilqr import line_search_alphas
 
@@ -218,56 +220,56 @@ def test_slot_tables_are_built_once_per_fleet(names):
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "K{}nx{}nu{}".format(*s))
 def test_every_routed_shape_fits_shared_memory(shape, itemsize):
     K, nx, nu = shape
-    # The backward kernels' plan: their input buffers join the gain group.
-    tier, smem, work, cluster = bt.sweep_smem_bytes(K, nx, nu, itemsize)
-    assert cluster == 1
-    value, gain, vec = bt.riccati_sizes(K, nx, nu)
-    gain += bt.sweep_extra_values(K, nx, nu)
-    assert tier in (0, 1, 2) and 0 < smem <= bt.SMEM_LIMIT
-    assert (smem // itemsize, work) == {
-        0: (value + gain + vec, 0), 1: (gain + vec, value), 2: (vec, value + gain)}[tier]
+    # The backward kernels' plan: what it moves out of shared memory lies in
+    # the workspace, so the two together are the working set that an
+    # unbounded block holds whole (tier 0).
+    tier, smem, work, cluster = riccati_plan(K, nx, nu, itemsize)
+    whole = riccati_plan(K, nx, nu, itemsize, limit=1 << 40)
+    assert cluster == 1 and whole.tier == 0 and whole.work == 0
+    assert tier in (0, 1, 2) and 0 < smem <= SMEM_LIMIT
+    assert smem // itemsize + work == whole.smem // itemsize
+    assert (work == 0) == (tier == 0)
     if K * nx <= bt.MAX_NXF:  # the narrow kernel keeps everything in shared memory
         assert tier == 0
     for n_alpha in (1, 2, 10):
         for gains in (True, False):
-            plan = bt.forward_smem_bytes(K, nx, nu, n_alpha, itemsize, gains)
+            plan = forward_plan(K, nx, nu, n_alpha, itemsize, gains)
             # A step's whole gain block a buffer (no tiles at a routed
             # width); only nxf 192 in float64 is down to one such stage.
             one = gains and (K * nx, itemsize) == (192, 8)
             assert plan.rows == (K * nu if gains else 0)
             assert plan.buffers == (1 if one or not gains else 2)
             assert plan.chunks * plan.warps >= n_alpha and plan.warps <= 8
-            assert 0 < plan.nbytes <= bt.SMEM_LIMIT
+            assert 0 < plan.nbytes <= SMEM_LIMIT
 
 
 def test_working_set_placement_follows_type_and_width():
-    # Quad6D at K=16 (nxf 96, nuf 48): all of it in shared memory in float32,
-    # gains and matrices in the workspace in float64; Quad12D at K=8 in
-    # float64 keeps its gain blocks in shared memory.
-    assert bt.riccati_smem_bytes(16, 6, 3, 4)[0] == 0
-    assert bt.riccati_smem_bytes(16, 6, 3, 8)[0] == 2
-    assert bt.riccati_smem_bytes(8, 12, 4, 8)[0] == 1
-    # The backward kernels add their input buffers (per-slot blocks, a
-    # step's pair blocks) to the gain group: that moves Quad6D at K=16 in
-    # float32 to the workspace tier, and nothing narrow out of tier 0.
-    assert bt.sweep_smem_bytes(16, 6, 3, 4)[0] == 1
-    assert bt.sweep_smem_bytes(8, 12, 4, 8)[0] == 1
-    assert bt.sweep_smem_bytes(8, 4, 2, 8)[0] == 0
+    # Quad6D at K=16 (nxf 96, nuf 48) with the backward kernels' input
+    # buffers (per-slot blocks, a step's pair blocks) in the gain group: the
+    # matrices in the workspace in float32, the gains too in float64;
+    # Quad12D at K=8 in float64 keeps its gain blocks in shared memory, and
+    # nothing narrow leaves tier 0.
+    assert riccati_plan(16, 6, 3, 4).tier == 1
+    assert riccati_plan(16, 6, 3, 8).tier == 2
+    assert riccati_plan(8, 12, 4, 8).tier == 1
+    assert riccati_plan(8, 4, 2, 8).tier == 0
     # Twice the widest routed width (nxf 192, nuf 96) is answered, not
-    # refused: the matrices move to the workspace, the forward kernel keeps
-    # two stages in float32 and one in float64.
-    tier, smem, work, _ = bt.riccati_smem_bytes(32, 6, 3, 4)
-    assert tier == 2 and smem <= bt.SMEM_LIMIT and work == sum(bt.riccati_sizes(32, 6, 3)[:2])
-    assert bt.forward_smem_bytes(32, 6, 3, 10, 4).buffers == 2
-    assert bt.forward_smem_bytes(32, 6, 3, 10, 8).buffers == 1
+    # refused: matrices and gains move to the workspace, only the vectors
+    # stay; the forward kernel keeps two stages in float32 and one in
+    # float64.
+    tier, smem, work, _ = riccati_plan(32, 6, 3, 4)
+    assert tier == 2 and smem <= SMEM_LIMIT and smem < work
+    assert smem + 4 * work == riccati_plan(32, 6, 3, 4, limit=1 << 40).smem
+    assert forward_plan(32, 6, 3, 10, 4).buffers == 2
+    assert forward_plan(32, 6, 3, 10, 8).buffers == 1
     # Twice that again, the forward kernel takes the gain block in tiles of
     # rows; the only limit is the memory itself.
-    assert bt.forward_smem_bytes(64, 6, 3, 10, 8).placement(192) == "tiles"
+    assert forward_plan(64, 6, 3, 10, 8).placement(192) == "tiles"
     with pytest.raises(ValueError, match="shared memory"):
-        bt.forward_smem_bytes(4000, 6, 3, 10, 8)
+        forward_plan(4000, 6, 3, 10, 8)
     with pytest.raises(ValueError, match="shared memory"):
-        bt.riccati_smem_bytes(4000, 6, 3, 8)
-    plan = bt.forward_smem_bytes(64, 6, 3, 10, 8, limit=8 * bt.SMEM_LIMIT)
+        riccati_plan(4000, 6, 3, 8)
+    plan = forward_plan(64, 6, 3, 10, 8, limit=8 * SMEM_LIMIT)
     assert plan.buffers == 2 and plan.placement(192) == "stages"
 
 
@@ -284,29 +286,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_library_sizes_equal_the_python_mirrors(cuda_device):
-    for K, nx, nu in SHAPES:
-        for itemsize in (4, 8):
-            # The plan of all three backward kernels: the input source's
-            # buffers join the gain group.
-            assert cuda_build.riccati_plan(K, nx, nu, itemsize) == bt.sweep_smem_bytes(
-                K, nx, nu, itemsize)
-            # K3's, which may put a subproblem on a cluster of CTAs.
-            assert cuda_build.riccati_plan(
-                K, nx, nu, itemsize, bt.CLUSTER_MAX) == bt.sweep_smem_bytes(
-                    K, nx, nu, itemsize, bt.CLUSTER_MAX)
-            for n_alpha in (1, 2, 10):
-                for gains in (True, False):
-                    for limit in (bt.SMEM_LIMIT, 1 << 40):
-                        for max_rows in (0, 4):
-                            assert cuda_build.forward_plan(
-                                K, nx, nu, n_alpha, itemsize, gains, max_rows,
-                                limit) == tuple(bt.forward_smem_bytes(
-                                    K, nx, nu, n_alpha, itemsize, gains, limit,
-                                    max_rows))
-    # The card's own limit is the mirror's.
-    assert cuda_build.forward_plan(100, 4, 2, 10, 8) == cuda_build.forward_plan(
-        100, 4, 2, 10, 8, limit=bt.SMEM_LIMIT)
+def test_cuda_opt_in_is_the_plans_limit(cuda_device):
+    # The kernels plan each launch under the card's opt-in, the wrappers
+    # under SMEM_LIMIT: one limit, so that both make the same plan.
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert props.shared_memory_per_block_optin == SMEM_LIMIT
 
 
 # The widths the retirement schedule compacts a batch to, a mixed fleet with
@@ -421,8 +405,8 @@ def test_cuda_kernels_match_twins_at_nxf_192(cuda_device, dtype):
     fleet, fields, mids, X, U, mu = _batch(["Quad6D"], 6, 32, N=5, seed=13)
     cost, mids_t, Xt, Ut, mut = _tensors(fields, mids, X, U, mu, dtype, cuda_device)
     item = Xt.element_size()
-    assert bt.riccati_smem_bytes(32, 6, 3, item)[0] == 2
-    tier = bt.sweep_smem_bytes(32, 6, 3, item, bt.CLUSTER_MAX).tier
+    assert riccati_plan(32, 6, 3, item).tier == 2
+    tier = riccati_plan(32, 6, 3, item, cluster_max()).tier
     assert tier == (3 if dtype == torch.float32 else 2)
     Kg_t, d_t = bt.backward_pass_batched(fleet, cost, mids_t, Xt, Ut, mut, "torch")
     before = cuda_build.tier_counts.get(("backward_batched_wide", tier), 0)

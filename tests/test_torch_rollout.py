@@ -10,8 +10,8 @@ step by step (as the kernel does), ``_rollout_batched_cost`` sums it
 time-batched (as ``dpilqr_tpu.ops.ilqr._rollout_batched_cost`` does): on a
 seeded fleet of 12 agents over N = 10 steps, homogeneous and mixed, X agrees
 to 1e-12 and J to 1e-12 relative in float64, 1e-5 in float32: the stated
-tolerance of the two summation orders.  The shared-memory mirror
-``forward_smem_bytes`` is held at K4's shapes (K = n agents).
+tolerance of the two summation orders.  The forward kernels' shared-memory
+plan (``cuda_build.forward_plan``) is held at K4's shapes (K = n agents).
 
 The ``cuda`` cases run K4 with gains (n = 3, 10, 24; 1, 2, 10 alphas) and
 without (n = 1 to 500; Unicycle4D, Quad6D, Quad12D, a mixed fleet with
@@ -31,6 +31,7 @@ import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops import ilqr as It
 from dpilqr_tpu_torch.ops import sweeps
+from dpilqr_tpu_torch.ops.cuda_build import SMEM_LIMIT, forward_plan
 
 torch.set_num_threads(1)
 
@@ -177,16 +178,16 @@ def test_forward_sweep_shapes_fit_the_shared_memory_mirror():
     for n in (3, 10, 24):
         for n_alpha in (1, 2, 10):
             for itemsize in (4, 8):
-                plan = bt.forward_smem_bytes(n, 4, 2, n_alpha, itemsize)
+                plan = forward_plan(n, 4, 2, n_alpha, itemsize)
                 assert plan.buffers == 2 and plan.placement(2 * n) == "stages"
-                assert 0 < plan.nbytes <= bt.SMEM_LIMIT
+                assert 0 < plan.nbytes <= SMEM_LIMIT
     # A step's gain block of 100 unicycles (200 x 400 values) fits no block:
     # it comes in tiles of rows; past one warp's column beside a 4-row tile
     # the wrapper says so before it asks for a card.  The plain rollout of
     # the same fleet has no gains and no such limit.
-    assert bt.forward_smem_bytes(100, 4, 2, 10, 4).placement(200) == "tiles"
+    assert forward_plan(100, 4, 2, 10, 4).placement(200) == "tiles"
     with pytest.raises(ValueError, match="column_launch"):
-        bt.forward_smem_bytes(2000, 4, 2, 10, 4)
+        forward_plan(2000, 4, 2, 10, 4)
     fleet, _, cost, x0, U = _fleet_problem("unicycles", 100, 2, torch.float32)
     X = x0[None].expand(3, -1, -1).contiguous()
     with pytest.raises(ValueError, match="CUDA"):

@@ -22,6 +22,7 @@ from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops import ilqr as It
 from dpilqr_tpu_torch.ops import sweeps
 from dpilqr_tpu_torch.ops.costs import cast_cost
+from dpilqr_tpu_torch.ops.cuda_build import forward_plan, riccati_plan
 
 torch.set_num_threads(1)
 
@@ -150,9 +151,9 @@ def test_auto_routes_to_pscan_only_past_k5s_widest_tier(dtype):
     huge = dtt.homogeneous_fleet(dtt.UNICYCLE_4D, n_huge, 0.1)
     card, cpu = _OnCard(dtype), torch.empty((), dtype=dtype)
     with pytest.raises(ValueError, match="no tier"):
-        bt.sweep_smem_bytes(n_huge, 4, 2, card.element_size())
-    assert bt.forward_smem_bytes(n_huge, 4, 2, 10, card.element_size()).warps >= 1
-    assert bt.sweep_smem_bytes(10, 4, 2, card.element_size())[0] == 0
+        riccati_plan(n_huge, 4, 2, card.element_size())
+    assert forward_plan(n_huge, 4, 2, 10, card.element_size()).warps >= 1
+    assert riccati_plan(10, 4, 2, card.element_size()).tier == 0
     assert It.resolve_sweep_backend(auto, card, small) == "cuda"
     assert It.resolve_sweep_backend(auto, card, huge) == "pscan"
     assert It.resolve_sweep_backend(auto, cpu, small) == "torch"

@@ -22,6 +22,7 @@ import torch
 import dpilqr_tpu_torch as dtt
 from dpilqr_tpu_torch.ops import batched as bt
 from dpilqr_tpu_torch.ops.costs import game_cost_from_numpy
+from dpilqr_tpu_torch.ops.cuda_build import SMEM_LIMIT, cluster_max, riccati_plan
 from dpilqr_tpu_torch.ops.ilqr import line_search_alphas
 
 torch.set_num_threads(1)
@@ -195,9 +196,9 @@ def test_solve_distributed_wide_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-# K3's plan with its cluster tier (``sweep_smem_bytes`` with
-# ``max_cluster``, the mirror of ``wide_plan`` in csrc/riccati_cluster.cuh):
-# the narrow widths, the routed Quad6D/Quad12D/mixed widths and past them.
+# K3's plan with its cluster tier (``riccati_plan`` with ``max_cluster``,
+# ``wide_plan`` in csrc/plan.h): the narrow widths, the routed
+# Quad6D/Quad12D/mixed widths and past them.
 PLAN_SHAPES = [(1, 4, 2), (4, 4, 2), (8, 4, 2), (8, 5, 2), (8, 6, 3), (16, 6, 3),
                (20, 6, 3), (24, 6, 3), (32, 6, 3), (4, 12, 4), (8, 12, 4), (16, 12, 4),
                (32, 12, 4), (24, 4, 2), (32, 3, 2), (32, 4, 2), (64, 4, 2), (32, 5, 2)]
@@ -207,33 +208,27 @@ PLAN_SHAPES = [(1, 4, 2), (4, 4, 2), (8, 4, 2), (8, 5, 2), (8, 6, 3), (16, 6, 3)
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "K{}nx{}nu{}".format(*s))
 def test_cluster_tier_replaces_only_the_workspace_tier(shape, itemsize):
     K, nx, nu = shape
-    base = bt.sweep_smem_bytes(K, nx, nu, itemsize)
-    plan = bt.sweep_smem_bytes(K, nx, nu, itemsize, bt.CLUSTER_MAX)
-    assert base.cluster == 1
+    base = riccati_plan(K, nx, nu, itemsize)
+    plan = riccati_plan(K, nx, nu, itemsize, cluster_max())
+    assert base.cluster == 1 and cluster_max() == 8
     if (K * nx <= bt.MAX_NXF or base.tier in (0, 1)
-            or K * (nx + nu) + 1 <= bt.GJ_REGISTER_COLS):
+            or K * (nx + nu) + 1 <= 160):
         # Every narrow shape, every shape one CTA holds (tier 0), every
         # tier-1 shape and every tier-2 shape whose tableau the register
-        # path eliminates keeps its plan.
+        # path eliminates (up to 160 columns) keeps its plan.
         assert plan == base
         return
-
-    def fits(C):
-        return (-(-K // C) * nu <= bt.CLUSTER_MU
-                and bt.cluster_layout_values(K, nx, nu, C) * itemsize <= bt.SMEM_LIMIT)
-
     assert base.tier == 2
     if plan.tier == 3:
         # The smallest cluster of at most eight CTAs that holds the whole
-        # working set, nothing of it in the workspace.
+        # working set, nothing of it in the workspace: one CTA fewer leaves
+        # the problem in the workspace.
         C = plan.cluster
-        assert 2 <= C <= min(bt.CLUSTER_MAX, K) and fits(C)
-        assert not any(fits(c) for c in range(2, C))
-        assert plan.smem == bt.cluster_layout_values(K, nx, nu, C) * itemsize
-        assert 0 < plan.smem <= bt.SMEM_LIMIT and plan.work == 0
+        assert 2 <= C <= min(cluster_max(), K)
+        assert 0 < plan.smem <= SMEM_LIMIT and plan.work == 0
+        assert riccati_plan(K, nx, nu, itemsize, C - 1) == base
     else:
         assert plan == base
-        assert not any(fits(c) for c in range(2, min(bt.CLUSTER_MAX, K) + 1))
     if shape == (32, 6, 3):
         # The quad6d_64 loop's widest steps: a cluster of eight in float32;
         # float64 (1.9 MB) stays in the workspace.
